@@ -1,0 +1,142 @@
+"""Serve a Poisson request stream through the paged EliteKV scheduler.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \\
+        --elitekv --stream --requests 16 --rate 0.5 --max-slots 4 \\
+        --block-size 16 --num-blocks 128
+
+Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
+versions of the kernels instead (``--reduced`` shrinks the model for that).
+Weights are random, from ``--seed``.  ``--stream`` draws arrivals
+(``--rate`` requests per decode step, exponential inter-arrivals), prompt
+lengths and generation budgets from a seeded generator — the same stream
+the JAX driver draws — and the ``Scheduler`` admits, prefills (whole, or
+``--prefill-chunk`` tokens for up to ``--prefill-lanes`` lanes per forward),
+decodes greedily and retires them.  The run ends with the scheduler metrics
+line (throughput, TTFT, step latency, pool reuse, preemptions), the pool
+accounting and the per-phase wall breakdown.
+
+The reference's batch mode and its sampling, speculative, prefix-cache,
+swap, int8, sparse, tracing and multi-device options are not ported yet
+(ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.convert import pick_dims
+from repro_torch.models import lm
+from repro_torch.runtime import serve_loop
+
+
+def make_stream(cfg, n_requests: int, rate: float, prompt_len: int,
+                new_tokens: int, seed: int, prompt_min: int = 4,
+                new_min: int = 4):
+    """Seeded Poisson stream of greedy requests: prompt lengths uniform in
+    [prompt_min, prompt_len], budgets uniform in [new_min, new_tokens]."""
+    rng = np.random.default_rng(seed)
+    p_lo, n_lo = min(prompt_min, prompt_len), min(new_min, new_tokens)
+    t, reqs = 0.0, []
+    for i in range(n_requests):
+        t += rng.exponential(1.0 / rate)
+        prompt = rng.integers(0, cfg.vocab_size,
+                              int(rng.integers(p_lo, prompt_len + 1))).astype(np.int32)
+        reqs.append(serve_loop.Request(
+            uid=i, prompt=prompt,
+            max_new_tokens=int(rng.integers(n_lo, new_tokens + 1)), arrival=t))
+    return reqs
+
+
+def serve_stream(params, buffers, cfg, args):
+    scfg = serve_loop.SchedulerConfig(
+        max_slots=args.max_slots, block_size=args.block_size,
+        num_blocks=args.num_blocks, eos_id=args.eos_id,
+        max_new_tokens=args.new_tokens,
+        max_len=args.prompt_len + args.new_tokens + 1,
+        prefill_chunk_tokens=args.prefill_chunk,
+        prefill_batch_lanes=args.prefill_lanes, admission=args.admission)
+    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=args.device)
+    reqs = make_stream(cfg, args.requests, args.rate, args.prompt_len,
+                       args.new_tokens, args.seed)
+    report = sched.run(reqs)
+    stats = sched.pool.stats()
+    print(f"arch={cfg.name} stream [{args.device}]: {report.summary()}")
+    if scfg.prefill_chunk_tokens:
+        print(f"chunked prefill: {report.prefill_chunks} forwards of "
+              f"<= {scfg.prefill_chunk_tokens} tokens x {scfg.chunk_lanes} "
+              f"lanes (mean {report.mean_prefill_batch:.2f} live) "
+              f"interleaved with decode")
+    if report.preemptions:
+        print(f"preemption [recompute]: {report.preemptions} evictions across "
+              f"{report.preempted_requests} requests; mean occupancy "
+              f"{report.mean_occupancy:.2f}")
+    print(f"pool: block_size={stats.block_size} blocks={stats.num_blocks} "
+          f"high_water={report.pool_high_water_blocks} "
+          f"free_after_drain={stats.blocks_free} dtype={report.pool_dtype} "
+          f"bytes_per_token={report.pool_bytes_per_token} "
+          f"allocated_bytes_peak={report.pool_allocated_bytes_peak / 2**20:.2f}MiB")
+    if report.block_reuse_ratio > 1.0:
+        print(f"block reuse: peak {report.pool_high_water_blocks} blocks served "
+              f"a workload whose naive footprint is {report.naive_blocks} "
+              f"({report.block_reuse_ratio:.2f}x)")
+    print(f"phases: {report.phase_table()} "
+          f"(step wall {report.step_wall_ms_total:.0f}ms)")
+    return report
+
+
+def build_config(arch: str, reduced: bool, cache_ratio: float):
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    return dataclasses.replace(cfg, elitekv=pick_dims(cfg, cache_ratio, align=16))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama_1_1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--elitekv", action="store_true")
+    ap.add_argument("--cache-ratio", type=float, default=0.25)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (cpu runs the kernels' "
+                         "plain PyTorch versions)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stream", action="store_true",
+                    help="Poisson request stream through the paged scheduler")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--rate", type=float, default=0.5,
+                    help="mean arrivals per decode step")
+    ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--num-blocks", type=int, default=128)
+    ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="per-lane per-step chunked-prefill token budget "
+                         "(0 = whole prompt at admission)")
+    ap.add_argument("--prefill-lanes", type=int, default=0,
+                    help="mid-prefill sequences packed per chunked-prefill "
+                         "forward (0 = max-slots)")
+    ap.add_argument("--admission", choices=("preempt", "watermark"),
+                    default="preempt")
+    args = ap.parse_args(argv)
+    if not (args.stream and args.elitekv):
+        ap.error("the port serves the paged EliteKV stream only: pass "
+                 "--elitekv --stream (batch mode is ROADMAP Queue 1 item 3)")
+    if args.rate <= 0:
+        ap.error("--rate must be > 0 (mean arrivals per decode step)")
+    # the reference is f32 end to end: keep matmuls out of TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = build_config(args.arch, args.reduced, args.cache_ratio)
+    params, buffers = lm.init(cfg, seed=args.seed, device=args.device)
+    return serve_stream(params, buffers, cfg, args)
+
+
+if __name__ == "__main__":
+    main()

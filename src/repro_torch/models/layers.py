@@ -1,0 +1,48 @@
+"""Shared layers: RMSNorm, SwiGLU MLP, embeddings, init helpers."""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(shape: Sequence[int], generator: torch.Generator, device,
+               scale: Optional[float] = None, in_axis: int = 0) -> torch.Tensor:
+    """Truncated-normal (±3σ) fan-in init (LLaMA-style), drawn from
+    ``generator`` on ``device``."""
+    fan_in = shape[in_axis]
+    if scale is None:
+        scale = fan_in ** -0.5
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=generator)
+    return t.mul_(scale)
+
+
+def rmsnorm_init(d: int, device) -> dict:
+    return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * params["scale"]).to(dt)
+
+
+def mlp_init(d_model: int, d_ff: int, generator: torch.Generator, device) -> dict:
+    return {
+        "w_gate": dense_init((d_model, d_ff), generator, device),
+        "w_up": dense_init((d_model, d_ff), generator, device),
+        "w_down": dense_init((d_ff, d_model), generator, device),
+    }
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU feed-forward."""
+    h = F.silu(x @ params["w_gate"].to(x.dtype)) * (x @ params["w_up"].to(x.dtype))
+    return h @ params["w_down"].to(x.dtype)
+
+
+def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return params["table"].to(dtype)[tokens]

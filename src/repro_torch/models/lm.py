@@ -1,0 +1,140 @@
+"""Decoder-only LM (attention + SwiGLU MLP, EliteKV attention) for paged
+serving.
+
+Counterpart of the JAX package's ``models/lm.py`` for attention-only
+stacks.  Parameters are nested dicts of tensors; the JAX package's stacked
+``n_super`` layer axis becomes a list of per-layer dicts, driven by a Python
+loop where JAX uses ``lax.scan``:
+
+    params  = {"embed": {"table"}, "lm_head": {"w"}, "final_norm": {"scale"},
+               "layers": [{"attn_norm", "attn", "ffn_norm", "ffn"}, ...]}
+    buffers = {"layers": [{"elite_freqs"}, ...]}
+
+Entry points:
+  * ``apply_prefill_paged`` — prefill prompts (or per-lane chunks) into the pool.
+  * ``apply_decode_paged``  — one token per serving lane against the pool.
+Both return f32 logits over the padded vocab (padding columns = -1e30) and
+write the pool pages in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core import elite_attention
+from repro_torch.models.layers import (dense_init, embed, mlp, mlp_init, rmsnorm,
+                                       rmsnorm_init)
+
+
+def init(cfg, seed: int = 0, device="cuda") -> Tuple[Dict, Dict]:
+    """Random (params, buffers) from a seeded ``torch.Generator`` on ``device``."""
+    if not cfg.elitekv.enabled:
+        raise NotImplementedError("the port serves EliteKV attention only; "
+                                  "baseline GQA is ROADMAP Queue 1 item 13")
+    device = torch.device(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    d, Vp = cfg.d_model, cfg.padded_vocab
+    params = {"embed": {"table": dense_init((Vp, d), g, device, scale=0.02)},
+              "lm_head": {"w": dense_init((d, Vp), g, device, scale=0.02)},
+              "final_norm": rmsnorm_init(d, device), "layers": []}
+    buffers = {"layers": []}
+    for _ in range(cfg.num_layers):
+        attn, buf = elite_attention.init(cfg, g, device)
+        params["layers"].append({
+            "attn_norm": rmsnorm_init(d, device), "attn": attn,
+            "ffn_norm": rmsnorm_init(d, device),
+            "ffn": mlp_init(d, cfg.d_ff, g, device)})
+        buffers["layers"].append(buf)
+    return params, buffers
+
+
+def _logits(params, cfg, h):
+    out = h.float() @ params["lm_head"]["w"].float()
+    if cfg.padded_vocab != cfg.vocab_size:   # mask the vocab padding
+        pad = torch.arange(out.shape[-1], device=out.device) >= cfg.vocab_size
+        out = out.masked_fill(pad, -1e30)
+    return out
+
+
+def _layer_pages(pages, i: int):
+    """Layer ``i``'s views ``{name: [n_slots, ...]}`` of the pool pages."""
+    return {name: arr[i] for name, arr in pages["p0"].items()}
+
+
+def _n_slots(pages) -> int:
+    return pages["p0"]["k_e"].shape[1]
+
+
+def _run_layer(p, cfg, h, attend):
+    """One pre-norm attention + SwiGLU layer; ``attend(attn_params, hn)`` is
+    the mode's paged EliteKV attention."""
+    h = h + attend(p["attn"], rmsnorm(p["attn_norm"], h, cfg.norm_eps))
+    return h + mlp(p["ffn"], rmsnorm(p["ffn_norm"], h, cfg.norm_eps))
+
+
+def apply_prefill_paged(params, buffers, cfg, tokens, pages, slot_mapping,
+                        chunk_start=None, block_tables=None, prefix_lens=None,
+                        block_size: int = 0):
+    """Prefill sequences (or chunks of them) into the paged pool.
+
+    ``tokens`` [B,S]; ``pages`` the pool's page dict (``PagedKVPool.pages``);
+    ``slot_mapping`` [B,S] flat pool slots per token, with trailing padding
+    mapped to the pool's out-of-range sentinel (never written).
+
+    One-shot mode (``chunk_start is None``): prompts start at position 0 and
+    attend causally to themselves.
+
+    Chunked mode: ``chunk_start`` [B] per-lane start positions; lane ``b``'s
+    tokens sit at ``chunk_start[b] + i`` and attend to the lane's own cached
+    prefix, located by ``block_tables`` [B,mb] / ``prefix_lens`` [B] /
+    ``block_size``, plus the chunk causally.  A lane with no valid token (all
+    sentinel) gets ``kv_lens = 0`` and a zero attention output; padding rows
+    are never read.
+    → logits [B,S,Vp] f32; ``pages`` written in place.
+    """
+    device = params["embed"]["table"].device
+    n_slots = _n_slots(pages)
+    h = embed(params["embed"], tokens, cfg.dtype)
+    B, S = tokens.shape
+    writes = elite_attention.write_index(slot_mapping, n_slots, device)
+    positions = torch.arange(S, device=device)
+    kw = {}
+    if chunk_start is not None:
+        i32 = dict(dtype=torch.int32, device=device)
+        starts = torch.as_tensor(chunk_start, **i32)
+        positions = positions[None, :] + starts[:, None]
+        n_valid = (torch.as_tensor(slot_mapping) < n_slots).sum(dim=1)
+        kw = dict(block_tables=torch.as_tensor(block_tables, **i32),
+                  prefix_lens=torch.as_tensor(prefix_lens, **i32),
+                  kv_lens=torch.as_tensor(prefix_lens, **i32) + n_valid.to(**i32),
+                  block_size=block_size)
+    for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
+        h = _run_layer(p, cfg, h, lambda pa, hn: elite_attention.apply_prefill_paged(
+            pa, cfg, b, hn, positions, _layer_pages(pages, i), writes, **kw))
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return _logits(params, cfg, h)
+
+
+def apply_decode_paged(params, buffers, cfg, tokens, pages, slot_mapping,
+                       block_tables, lengths, block_size: int):
+    """One decode step for every serving lane, reading and writing the pool.
+
+    ``tokens`` [B,1]; ``lengths`` [B] int32, the live length *including*
+    this token (0 = idle lane); ``slot_mapping`` [B] the write slot of the
+    new token (sentinel for idle lanes); ``block_tables`` [B,mb].
+    → logits [B,1,Vp] f32; ``pages`` written in place.
+    """
+    device = params["embed"]["table"].device
+    i32 = dict(dtype=torch.int32, device=device)
+    h = embed(params["embed"], tokens, cfg.dtype)
+    writes = elite_attention.write_index(slot_mapping, _n_slots(pages), device)
+    block_tables = torch.as_tensor(block_tables, **i32)
+    lengths = torch.as_tensor(lengths, **i32)
+    for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
+        h = _run_layer(p, cfg, h, lambda pa, hn: elite_attention.apply_decode_paged(
+            pa, cfg, b, hn, _layer_pages(pages, i), writes, block_tables, lengths,
+            block_size))
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return _logits(params, cfg, h)

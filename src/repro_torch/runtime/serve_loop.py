@@ -1,0 +1,586 @@
+"""Continuous-batching greedy serving over the paged compressed cache.
+
+Counterpart of the JAX package's ``runtime/serve_loop.py`` (``Scheduler``
+core).  Requests queue with arrival times (in scheduler steps), are admitted
+into free *slots* mid-flight, prefill their prompts — whole at admission
+(``prefill_chunk_tokens=0``) or in fixed-size chunks, up to
+``prefill_batch_lanes`` lanes' chunks packed into one forward — interleaved
+with one decode step over all ``max_slots`` lanes (idle lanes masked by
+length 0), and retire on EOS or token budget, recycling their pool blocks
+at once.  With ``admission="preempt"`` (default) a pool that runs dry
+mid-flight preempts the youngest resident, which is requeued at the head of
+the line and recomputes its prefix (prompt + generated) on re-admission, so
+its token stream is unchanged.
+
+Decoding is greedy.  Not ported yet, and rejected with
+``NotImplementedError`` rather than ignored: sampling (``temperature > 0``),
+speculative decode, the prefix cache, host-swap eviction, the int8 pool and
+sparse decode — ROADMAP Queue 1 items 6 to 11.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.cache import BlockManager, OutOfBlocks, PagedKVPool
+from repro_torch.models import lm
+
+#: Host-observable phases of one scheduler step (``ServeReport.phase_ms``
+#: keys); ``other`` is the residual, so the phases sum to the step wall time.
+PHASES = ("prefill", "decode", "sample", "other")
+
+
+def _unsupported(what: str, item: int, name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item {item}: {name})")
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request.  ``arrival`` is in scheduler steps.
+    ``temperature`` must be 0 (greedy); sampling is not ported yet."""
+    uid: int
+    prompt: np.ndarray                    # [Sp] int32
+    max_new_tokens: int
+    arrival: float = 0.0
+    temperature: float = 0.0
+    # filled in by the scheduler:
+    generated: List[int] = dataclasses.field(default_factory=list)
+    prefill_pos: int = 0                  # prefill-source tokens already cached
+    prefill_src: Optional[np.ndarray] = None   # recompute source (None → prompt)
+    preempted_at: List[int] = dataclasses.field(default_factory=list)
+    #   ^ len(generated) at each preemption (0 = preempted mid-prefill)
+    submit_wall: float = 0.0
+    first_token_wall: float = 0.0
+    first_token_step: int = -1
+    finish_step: int = -1
+    finish_reason: str = ""               # "eos" | "budget"
+
+    def prefill_source(self) -> np.ndarray:
+        """Tokens that must be cached before decode (re)starts: the prompt,
+        or — after a recompute preemption — prompt + generated prefix."""
+        return self.prompt if self.prefill_src is None else self.prefill_src
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    max_slots: int = 4                    # concurrent sequences per decode step
+    block_size: int = 16                  # tokens per pool block
+    num_blocks: int = 128                 # pool capacity
+    max_new_tokens: int = 64              # hard per-request generation cap
+    max_len: int = 256                    # per-sequence token cap (table width)
+    eos_id: Optional[int] = None
+    prefill_bucket: int = 16              # one-shot prompts pad to a multiple
+    prefill_chunk_tokens: int = 0         # per-lane chunk (0 → whole prompt)
+    prefill_batch_lanes: int = 0          # lanes per chunked forward (0 → max_slots)
+    admission: str = "preempt"            # "preempt" | "watermark"
+    # options of the reference that are not ported yet; any other value raises
+    eviction: str = "recompute"
+    speculate_k: int = 0
+    prefix_cache: bool = False
+    cache_dtype: str = "float32"
+    sparse_topk_blocks: int = 0
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        return -(-self.max_len // self.block_size)
+
+    @property
+    def chunk_lanes(self) -> int:
+        return self.prefill_batch_lanes or self.max_slots
+
+
+def _prompt_buckets(finished: List[Request], edges: Tuple[int, ...]):
+    """Partition finished requests by prompt length → (label, requests)."""
+    lo = 0
+    for hi in tuple(edges) + (None,):
+        label = f"{lo + 1}-{hi}" if hi is not None else f">{lo}"
+        yield label, [r for r in finished if lo < len(r.prompt)
+                      and (hi is None or len(r.prompt) <= hi)]
+        lo = hi if hi is not None else lo
+
+
+def ttft_by_prompt_bucket(finished: List[Request],
+                          edges: Tuple[int, ...] = (16, 64)) -> Dict[str, float]:
+    """Mean TTFT (scheduler steps from arrival to first token) per
+    prompt-length bucket."""
+    out: Dict[str, float] = {}
+    for label, rs in _prompt_buckets(finished, edges):
+        if rs:
+            out[label] = float(np.mean([r.first_token_step - r.arrival for r in rs]))
+    return out
+
+
+@dataclasses.dataclass
+class ServeReport:
+    """End-of-run scheduler metrics.  TTFT = arrival → first token;
+    ``_steps`` is in scheduler steps, ``_wall``/``_ms`` in wall time."""
+    completed: int = 0
+    decode_steps: int = 0                 # decode forwards issued
+    prefill_tokens: int = 0
+    prefill_chunks: int = 0               # prefill forwards issued
+    decoded_tokens: int = 0
+    wall_s: float = 0.0
+    tok_per_s: float = 0.0
+    ttft_steps_mean: float = 0.0
+    ttft_steps_by_bucket: Dict[str, float] = dataclasses.field(default_factory=dict)
+    ttft_wall_p50_ms: float = 0.0
+    ttft_wall_p95_ms: float = 0.0
+    step_ms_p50: float = 0.0
+    step_ms_p95: float = 0.0
+    peak_slots: int = 0
+    pool_high_water_blocks: int = 0
+    pool_block_size: int = 0
+    pool_dtype: str = "float32"
+    pool_bytes_per_token: int = 0
+    pool_allocated_bytes_peak: int = 0
+    naive_blocks: int = 0                 # Σ per-request worst-case blocks
+    block_reuse_ratio: float = 0.0        # naive / high-water
+    admission: str = "preempt"
+    preemptions: int = 0
+    preempted_requests: int = 0
+    mean_occupancy: float = 0.0
+    mean_prefill_batch: float = 0.0       # mean lanes per prefill forward
+    phase_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
+    step_wall_ms_total: float = 0.0
+
+    def phase_table(self) -> str:
+        total = max(self.step_wall_ms_total, 1e-9)
+        parts = [f"{k}={v:.1f}ms({100 * v / total:.0f}%)"
+                 for k, v in self.phase_ms.items() if v > 0]
+        return " ".join(parts) if parts else "(no phases recorded)"
+
+    def summary(self) -> str:
+        bucket = "".join(f" ttft[{k}]={v:.1f}" for k, v in
+                         self.ttft_steps_by_bucket.items())
+        return (f"completed={self.completed} steps={self.decode_steps} "
+                f"decoded={self.decoded_tokens} tok/s={self.tok_per_s:.1f} "
+                f"ttft_steps={self.ttft_steps_mean:.1f}{bucket} "
+                f"ttft_ms p50/p95={self.ttft_wall_p50_ms:.0f}/{self.ttft_wall_p95_ms:.0f} "
+                f"step_ms p50/p95={self.step_ms_p50:.1f}/{self.step_ms_p95:.1f} "
+                f"peak_slots={self.peak_slots} "
+                f"blocks high-water/naive={self.pool_high_water_blocks}/"
+                f"{self.naive_blocks} reuse×{self.block_reuse_ratio:.2f} "
+                f"occ={self.mean_occupancy:.2f} [{self.admission}] "
+                f"preempt={self.preemptions} "
+                f"prefill_batch={self.mean_prefill_batch:.1f}")
+
+
+class Scheduler:
+    """Continuous-batching serving loop over the paged compressed cache.
+
+    ``params``/``buffers`` must already live on ``device``.
+    """
+
+    def __init__(self, params, buffers, cfg: ModelConfig, scfg: SchedulerConfig,
+                 device="cuda"):
+        if not cfg.elitekv.enabled:
+            raise ValueError("paged serving requires an EliteKV config")
+        if scfg.speculate_k:
+            raise _unsupported("speculative decode", 8, "speculative decode")
+        if scfg.prefix_cache:
+            raise _unsupported("the prefix cache", 9, "prefix caching and copy-on-write")
+        if scfg.eviction != "recompute":
+            raise _unsupported(f"eviction={scfg.eviction!r}", 10, "host swap")
+        if scfg.cache_dtype != "float32":
+            raise _unsupported(f"cache_dtype={scfg.cache_dtype!r}", 7, "int8 pool")
+        if scfg.sparse_topk_blocks:
+            raise _unsupported("sparse decode", 11, "sparse decode")
+        self.device = torch.empty(0, device=device).device   # "cuda" → "cuda:0"
+        if params["embed"]["table"].device != self.device:
+            raise ValueError(f"params live on {params['embed']['table'].device}, "
+                             f"scheduler device is {self.device}")
+        self.params, self.buffers, self.cfg, self.scfg = params, buffers, cfg, scfg
+        self.pool = PagedKVPool(cfg, scfg.num_blocks, scfg.block_size,
+                                device=self.device)
+        self.bm = BlockManager(self.pool, policy=scfg.admission)
+        self.slots: List[Optional[Request]] = [None] * scfg.max_slots
+        self.waiting: collections.deque = collections.deque()
+        self.finished: List[Request] = []
+        self.t = 0                          # simulated clock (scheduler steps)
+        self._step_wall_ms: List[float] = []
+        self._occupancy: List[float] = []
+        self.peak_slots = 0
+        self.naive_blocks = 0
+        self.prefill_chunks = 0
+        self._prefill_lanes_total = 0
+        self._phase_ms = {p: 0.0 for p in PHASES}
+        self._step_wall_ms_total = 0.0
+
+    # -- helpers ------------------------------------------------------------
+    def _sync(self) -> None:
+        """Wait for the device, so a phase's wall time covers its work."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._phase_ms[name] += (time.perf_counter() - t0) * 1e3
+
+    def _measured_phase_ms(self) -> float:
+        return sum(v for k, v in self._phase_ms.items() if k != "other")
+
+    def _stuck_report(self, max_steps: int) -> str:
+        lines = [f"scheduler did not drain in {max_steps} steps",
+                 f"pool: {self.pool.allocator.num_used}/{self.pool.num_blocks} "
+                 f"blocks used, block_size={self.pool.block_size}"]
+        for i, r in enumerate(self.slots):
+            lines.append(f"slot{i}: empty" if r is None else
+                         f"slot{i}: uid={r.uid} prefill={r.prefill_pos}/"
+                         f"{len(r.prefill_source())} generated="
+                         f"{len(r.generated)}/{r.max_new_tokens}")
+        lines += [f"waiting: uid={r.uid} arrival={r.arrival:.1f}"
+                  for r in list(self.waiting)[:8]]
+        return "\n".join(lines)
+
+    # -- request intake -----------------------------------------------------
+    def submit(self, req: Request) -> None:
+        if req.temperature > 0:
+            raise _unsupported(f"temperature={req.temperature}", 6, "sampling")
+        req.max_new_tokens = min(req.max_new_tokens, self.scfg.max_new_tokens)
+        if len(req.prompt) + req.max_new_tokens > self.scfg.max_len:
+            raise ValueError(f"request {req.uid}: prompt {len(req.prompt)} + "
+                             f"{req.max_new_tokens} new > max_len {self.scfg.max_len}")
+        if self._worst_case_blocks(req) > self.scfg.num_blocks:
+            raise OutOfBlocks(
+                f"request {req.uid} needs {self._worst_case_blocks(req)} blocks "
+                f"worst-case but the pool only has {self.scfg.num_blocks} — "
+                f"it could never be admitted")
+        req.submit_wall = time.perf_counter()
+        self.waiting.append(req)
+        self.naive_blocks += self._worst_case_blocks(req)
+
+    def _worst_case_blocks(self, req: Request) -> int:
+        return -(-(len(req.prompt) + req.max_new_tokens) // self.scfg.block_size)
+
+    def _first_alloc_tokens(self, req: Request) -> int:
+        """Pool tokens the request needs at admission: its first prefill
+        chunk, or (one-shot mode) its whole prefill source."""
+        src = len(req.prefill_source())
+        chunk = self.scfg.prefill_chunk_tokens
+        return min(chunk, src) if chunk > 0 else src
+
+    # -- admission ----------------------------------------------------------
+    def _try_admit(self) -> int:
+        admitted = 0
+        while self.waiting and self.waiting[0].arrival <= self.t:
+            slot = next((i for i, s in enumerate(self.slots) if s is None), None)
+            if slot is None:
+                break
+            req = self.waiting[0]
+            if not self.bm.can_admit(self._first_alloc_tokens(req),
+                                     self._worst_case_blocks(req)):
+                break                       # head-of-line waits for blocks
+            self.waiting.popleft()
+            self._admit(slot, req)
+            admitted += 1
+        return admitted
+
+    def _admit(self, slot: int, req: Request) -> None:
+        """Claim a slot; blocks are allocated on demand by the prefill."""
+        self.bm.register(req.uid, self._worst_case_blocks(req))
+        self.slots[slot] = req
+
+    # -- preemption ---------------------------------------------------------
+    def _decode_ready(self, req: Request) -> bool:
+        """Prefill source fully cached and the next input token sampled."""
+        return bool(req.generated) and req.prefill_pos >= len(req.prefill_source())
+
+    def _youngest_slot(self) -> Optional[int]:
+        occ = [(s.arrival, s.uid, i) for i, s in enumerate(self.slots) if s is not None]
+        return max(occ)[2] if occ else None
+
+    def _preempt(self, slot: int) -> None:
+        """Evict the resident in ``slot`` (recompute eviction) and requeue it
+        at the head of the waiting line: its blocks are freed and its prefill
+        source becomes prompt + generated-so-far, whose final logits
+        reproduce the token the interrupted decode step would have drawn."""
+        req = self.slots[slot]
+        req.preempted_at.append(len(req.generated))
+        if req.generated:
+            req.prefill_src = np.concatenate(
+                [req.prompt, np.asarray(req.generated, np.int32)])
+        req.prefill_pos = 0
+        self.bm.preempt_recompute(req.uid)
+        self.slots[slot] = None
+        self.waiting.appendleft(req)
+
+    def _grow_or_preempt(self, req: Request, length: int) -> bool:
+        """Grow ``req``'s chain to ``length`` tokens, preempting the youngest
+        resident until the allocation fits.  Returns False iff ``req`` itself
+        was the youngest and got evicted.  Terminates: every retry removes one
+        resident, and a lone resident's worst case fits (checked at submit)."""
+        while True:
+            try:
+                self.bm.grow(req.uid, length)
+                return True
+            except OutOfBlocks:
+                slot = self._youngest_slot()
+                if slot is None:
+                    raise
+                victim = self.slots[slot]
+                self._preempt(slot)
+                if victim is req:
+                    return False
+
+    # -- prefill --------------------------------------------------------------
+    def _sample_prefill_token(self, req: Request, last_row: torch.Tensor) -> None:
+        """Greedy token after a completed (re)prefill, from its final logits
+        row.  After a recompute this re-draws exactly the token the
+        interrupted decode step would have produced."""
+        req.generated.append(int(torch.argmax(last_row)))
+        if req.first_token_step < 0:        # TTFT survives preemption
+            req.first_token_wall = time.perf_counter()
+            req.first_token_step = self.t
+
+    def _run_oneshot(self, slot: int, req: Request) -> None:
+        """Whole-source causal prefill in one call, padded to the bucket."""
+        src = req.prefill_source()
+        n = len(src)
+        if not self._grow_or_preempt(req, n):
+            return                          # req evicted itself — retry later
+        pad = -(-n // self.scfg.prefill_bucket) * self.scfg.prefill_bucket
+        tokens = np.zeros((1, pad), np.int32)
+        tokens[0, :n] = src
+        sm = self.pool.prefill_slot_mapping(req.uid, 0, n, pad)[None]
+        with self._phase("prefill"):
+            logits = lm.apply_prefill_paged(
+                self.params, self.buffers, self.cfg, self._tensor(tokens),
+                self.pool.pages, torch.from_numpy(sm))
+            self._sync()
+        req.prefill_pos = n
+        self.prefill_chunks += 1
+        self._prefill_lanes_total += 1
+        with self._phase("sample"):
+            self._sample_prefill_token(req, logits[0, n - 1])
+        self._maybe_finish(slot, req.generated[-1])
+
+    def _prefill_work(self) -> None:
+        """Advance mid-prefill residents.  One-shot mode: each pending source
+        prefills whole, FCFS.  Chunked mode: the next chunk of up to
+        ``chunk_lanes`` lanes (FCFS) in ONE forward, each lane attending to
+        its own paged prefix at its own offset."""
+        scfg = self.scfg
+        chunk = scfg.prefill_chunk_tokens
+        if chunk <= 0:
+            while True:
+                cand = [(s.arrival, s.uid, i) for i, s in enumerate(self.slots)
+                        if s is not None and s.prefill_pos < len(s.prefill_source())]
+                if not cand:
+                    return
+                _, _, slot = min(cand)
+                self._run_oneshot(slot, self.slots[slot])
+        cand = sorted((s.arrival, s.uid, i) for i, s in enumerate(self.slots)
+                      if s is not None and s.prefill_pos < len(s.prefill_source()))
+        selected: List[Tuple[int, Request, int, int]] = []
+        for _, _, slot in cand:
+            if len(selected) >= scfg.chunk_lanes:
+                break
+            req = self.slots[slot]
+            if req is None:                 # evicted by an earlier growth
+                continue
+            n = min(chunk, len(req.prefill_source()) - req.prefill_pos)
+            if self._grow_or_preempt(req, req.prefill_pos + n):
+                selected.append((slot, req, req.prefill_pos, n))
+        selected = [(s, r, st, n) for s, r, st, n in selected
+                    if self.slots[s] is r]  # drop lanes evicted after selection
+        if not selected:
+            return
+        lanes = scfg.chunk_lanes
+        tokens = np.zeros((lanes, chunk), np.int32)
+        sms = np.full((lanes, chunk), self.pool.oob_slot, np.int32)
+        starts = np.zeros((lanes,), np.int32)
+        seq_ids: List[Optional[int]] = [None] * lanes
+        for lane, (slot, req, start, n) in enumerate(selected):
+            tokens[lane, :n] = req.prefill_source()[start:start + n]
+            sms[lane] = self.pool.prefill_slot_mapping(req.uid, start, n, chunk)
+            starts[lane] = start            # chunk offset == cached prefix length
+            seq_ids[lane] = req.uid
+        # the table only needs to be as wide as the longest chain in the call
+        width = max(len(self.pool.block_table(r.uid)) for _, r, _, _ in selected)
+        bt = self.pool.block_table_array(seq_ids, width)
+        with self._phase("prefill"):
+            logits = lm.apply_prefill_paged(
+                self.params, self.buffers, self.cfg, self._tensor(tokens),
+                self.pool.pages, torch.from_numpy(sms), chunk_start=starts,
+                block_tables=bt, prefix_lens=starts,
+                block_size=scfg.block_size)
+            self._sync()
+        self.prefill_chunks += 1
+        self._prefill_lanes_total += len(selected)
+        for lane, (slot, req, start, n) in enumerate(selected):
+            req.prefill_pos = start + n
+            if req.prefill_pos >= len(req.prefill_source()):
+                with self._phase("sample"):
+                    self._sample_prefill_token(req, logits[lane, n - 1])
+                self._maybe_finish(slot, req.generated[-1])
+
+    # -- retirement -----------------------------------------------------------
+    def _maybe_finish(self, slot: int, token: int) -> None:
+        req = self.slots[slot]
+        if self.scfg.eos_id is not None and token == self.scfg.eos_id:
+            req.finish_reason = "eos"
+        elif len(req.generated) >= req.max_new_tokens:
+            req.finish_reason = "budget"
+        else:
+            return
+        req.finish_step = self.t
+        self.bm.release(req.uid)            # blocks recycle immediately
+        self.finished.append(req)
+        self.slots[slot] = None
+
+    # -- one scheduler iteration ---------------------------------------------
+    def step(self) -> bool:
+        """Admit + prefill + decode once.  Returns False when drained."""
+        self._try_admit()
+        self._prefill_work()
+        occupied = [i for i, s in enumerate(self.slots) if s is not None]
+        self.peak_slots = max(self.peak_slots, len(occupied))
+        # decode lanes: decode-ready slots, oldest first — chain growth may
+        # preempt the youngest residents (who then sit out this step)
+        order = sorted((self.slots[i].arrival, self.slots[i].uid, i)
+                       for i in occupied if self._decode_ready(self.slots[i]))
+        progressed = self._decode_step(order)
+        if not progressed:
+            if all(s is None for s in self.slots) and not self.waiting:
+                return False
+            self.t += 1                     # waiting on arrivals or prefill
+            return True
+        self.t += 1
+        return bool(self.waiting) or any(s is not None for s in self.slots)
+
+    def _decode_step(self, order) -> bool:
+        """One-token greedy decode over every decode-ready lane (one forward).
+        Returns False when no lane was live."""
+        grown: Dict[int, int] = {}          # slot → position of the new token
+        for _, _, i in order:
+            req = self.slots[i]
+            if req is None:
+                continue                    # evicted by an older lane's growth
+            cur = self.pool.length(req.uid)
+            if self._grow_or_preempt(req, cur + 1):
+                grown[i] = cur
+        active = [i for i in grown if self.slots[i] is not None]
+        self._occupancy.append(self.pool.allocator.num_used / self.pool.num_blocks)
+        if not active:
+            return False
+
+        B = self.scfg.max_slots
+        tokens = np.zeros((B, 1), np.int32)
+        lengths = np.zeros((B,), np.int32)
+        seq_ids: List[Optional[int]] = [None] * B
+        positions = [0] * B
+        for i in active:
+            req = self.slots[i]
+            cur = grown[i]                  # chain already grown above
+            tokens[i, 0] = req.generated[-1]
+            lengths[i] = cur + 1
+            seq_ids[i] = req.uid
+            positions[i] = cur
+        sm = self.pool.slot_mapping(seq_ids, positions)
+        width = max(len(self.pool.block_table(self.slots[i].uid)) for i in active)
+        bt = self.pool.block_table_array(seq_ids, width)
+
+        t0 = time.perf_counter()
+        with self._phase("decode"):
+            logits = lm.apply_decode_paged(
+                self.params, self.buffers, self.cfg, self._tensor(tokens),
+                self.pool.pages, torch.from_numpy(sm), self._tensor(bt),
+                self._tensor(lengths), self.scfg.block_size)
+            self._sync()
+        with self._phase("sample"):
+            nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+        self._step_wall_ms.append((time.perf_counter() - t0) * 1e3)
+        for i in active:
+            tok = int(nxt[i])
+            self.slots[i].generated.append(tok)
+            self._maybe_finish(i, tok)
+        return True
+
+    # -- drive to completion --------------------------------------------------
+    def run(self, requests: Optional[List[Request]] = None,
+            max_steps: int = 100_000) -> ServeReport:
+        for r in requests or []:
+            self.submit(r)
+        t0 = time.perf_counter()
+        steps = 0
+        while True:
+            s0 = time.perf_counter()
+            before = self._measured_phase_ms()
+            alive = self.step()
+            dt_ms = (time.perf_counter() - s0) * 1e3
+            self._step_wall_ms_total += dt_ms
+            self._phase_ms["other"] += max(0.0, dt_ms - (self._measured_phase_ms() - before))
+            if not alive:
+                break
+            steps += 1
+            if steps > max_steps:
+                raise RuntimeError(self._stuck_report(max_steps))
+        return self.report(time.perf_counter() - t0)
+
+    def report(self, wall_s: float) -> ServeReport:
+        fin = self.finished
+        decoded = sum(len(r.generated) for r in fin)
+        ttft_steps = [r.first_token_step - r.arrival for r in fin]
+        ttft_ms = [(r.first_token_wall - r.submit_wall) * 1e3 for r in fin]
+        pct = lambda xs, q: float(np.percentile(xs, q)) if xs else 0.0
+        hw = self.pool.allocator.high_water
+        bpt = self.pool.bytes_per_token()
+        return ServeReport(
+            completed=len(fin), decode_steps=len(self._step_wall_ms),
+            prefill_tokens=sum(len(r.prompt) for r in fin),
+            prefill_chunks=self.prefill_chunks, decoded_tokens=decoded,
+            wall_s=wall_s, tok_per_s=decoded / max(wall_s, 1e-9),
+            ttft_steps_mean=float(np.mean(ttft_steps)) if ttft_steps else 0.0,
+            ttft_steps_by_bucket=ttft_by_prompt_bucket(fin),
+            ttft_wall_p50_ms=pct(ttft_ms, 50), ttft_wall_p95_ms=pct(ttft_ms, 95),
+            step_ms_p50=pct(self._step_wall_ms, 50),
+            step_ms_p95=pct(self._step_wall_ms, 95),
+            peak_slots=self.peak_slots, pool_high_water_blocks=hw,
+            pool_block_size=self.scfg.block_size,
+            pool_bytes_per_token=bpt,
+            pool_allocated_bytes_peak=hw * self.scfg.block_size * bpt,
+            naive_blocks=self.naive_blocks,
+            block_reuse_ratio=self.naive_blocks / max(hw, 1),
+            admission=self.scfg.admission,
+            preemptions=self.bm.preemptions,
+            preempted_requests=sum(1 for r in fin if r.preempted_at),
+            mean_occupancy=float(np.mean(self._occupancy)) if self._occupancy else 0.0,
+            mean_prefill_batch=self._prefill_lanes_total / max(self.prefill_chunks, 1),
+            phase_ms=dict(self._phase_ms),
+            step_wall_ms_total=self._step_wall_ms_total)
+
+
+def generate_paged(params, buffers, cfg: ModelConfig, prompts: np.ndarray,
+                   max_new_tokens: int, scfg: Optional[SchedulerConfig] = None,
+                   device="cuda") -> Tuple[np.ndarray, ServeReport]:
+    """Greedy generation for a batch of equal-length prompts through the
+    paged scheduler.  prompts [B, Sp] → tokens [B, max_new_tokens]."""
+    prompts = np.asarray(prompts, np.int32)
+    B, Sp = prompts.shape
+    scfg = scfg or SchedulerConfig(
+        max_slots=B, max_new_tokens=max_new_tokens,
+        max_len=Sp + max_new_tokens + 1,
+        num_blocks=2 * B * (-(-(Sp + max_new_tokens) // 16)), block_size=16)
+    sched = Scheduler(params, buffers, cfg, scfg, device=device)
+    reqs = [Request(uid=i, prompt=prompts[i], max_new_tokens=max_new_tokens)
+            for i in range(B)]
+    report = sched.run(reqs)
+    out = np.zeros((B, max_new_tokens), np.int32)
+    for r in sched.finished:
+        out[r.uid, :len(r.generated)] = r.generated
+    return out, report

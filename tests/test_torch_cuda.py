@@ -1,0 +1,110 @@
+"""The port's CUDA kernels on the card, held to their plain versions.
+
+Marked ``cuda``; each test asks the ``cuda`` fixture for the card and skips
+without one.  On the card (no JAX there, so without the JAX conftest):
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerance 5e-5 (absolute and relative) in f32: kernel and plain version do
+the same math in another summation order (online softmax over blocks or
+tiles against one softmax over the row; dot products of up to 1056 terms).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops, ref
+from repro_torch.models import lm
+from repro_torch.runtime import serve_loop
+
+pytestmark = pytest.mark.cuda
+
+TOL = dict(atol=5e-5, rtol=5e-5)
+# (nh, nkv, 2r, d_c, d_h): TinyLlama-1.1B and LLaMA2-7B under EliteKV at 25%
+WIDTHS = {"tinyllama_1_1b": (32, 4, 16, 64, 64), "llama2_7b": (32, 32, 32, 1024, 128)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _decode_inputs(dev, nh, nkv, r2, dc, separate, bs=16, mb=20, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = [0, 1, 15, 16, 100, 257, mb * bs, 33]     # empty, partial, full
+    B, n_blocks = len(lengths), len(lengths) * mb + 1
+    f = lambda *s: torch.randn(s, generator=g, device=dev)
+    c_k = f(n_blocks * bs, dc)
+    x = dict(q_e=f(B, nh, r2), q_lat=f(B, nh, dc), k_e=f(n_blocks * bs, nkv, r2),
+             c_k=c_k, c_v=f(n_blocks * bs, dc) if separate else c_k)
+    perm = torch.randperm(n_blocks, generator=g, device=dev).int()
+    bt = torch.zeros((B, mb), dtype=torch.int32, device=dev)
+    used = 0
+    for b, L in enumerate(lengths):
+        n = -(-L // bs)
+        bt[b, :n] = perm[used:used + n]
+        used += n
+    x["bt"], x["lengths"] = bt, torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return x, nh // nkv, bs
+
+
+@pytest.mark.parametrize("separate", [False, True], ids=["jlrd", "slrd"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_decode_kernel_matches_plain(width, separate, cuda):
+    nh, nkv, r2, dc, dh = WIDTHS[width]
+    x, G, bs = _decode_inputs(cuda, nh, nkv, r2, dc, separate)
+    args = (x["q_e"], x["q_lat"], x["k_e"], x["c_k"], x["c_v"], x["bt"], x["lengths"],
+            G, dh ** -0.5, bs)
+    before = ops.launches()["elite_decode_paged"]
+    got = ops.elite_decode_paged(*args)
+    want = ref.elite_decode_paged_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.launches()["elite_decode_paged"] == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_flash_kernel_matches_plain(width, cuda):
+    nh, nkv, _, _, dh = WIDTHS[width]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    B, Sq, Sk = 3, 100, 301                 # neither a multiple of the tiles
+    q = torch.randn(B, Sq, nh, dh, generator=g, device=cuda)
+    k = torch.randn(B, Sk, nkv, dh, generator=g, device=cuda)
+    v = torch.randn(B, Sk, nkv, dh, generator=g, device=cuda)
+    offs = torch.tensor([0, 137, 0], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([Sq, 137 + 90, 0], dtype=torch.int32, device=cuda)
+    before = ops.launches()["flash_prefill"]
+    got = ops.flash_prefill(q, k, v, nh // nkv, dh ** -0.5, offs, lens)
+    want = ref.flash_prefill_ref(q, k, v, nh // nkv, dh ** -0.5, offs, lens)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_prefill"] == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+    assert float(got[2].abs().max()) == 0.0
+
+
+def test_scheduler_on_card_matches_cpu(cuda):
+    """A short chunked-prefill stream on the card, through both kernels,
+    gives the CPU run's greedy tokens."""
+    cfg = get_config("tinyllama_1_1b").reduced(vocab_size=128).with_elitekv(
+        elite_r=4, d_ckv=64)
+    params, buffers = lm.init(cfg, seed=0, device="cpu")
+    move = lambda t: {k: move(v) for k, v in t.items()} if isinstance(t, dict) else \
+        [move(v) for v in t] if isinstance(t, list) else t.to(cuda)
+    scfg = serve_loop.SchedulerConfig(max_slots=2, block_size=4, num_blocks=64,
+                                      max_len=40, prefill_chunk_tokens=8)
+    rng = np.random.default_rng(4)
+    prompts = rng.integers(0, 128, (2, 20)).astype(np.int32)
+    want, _ = serve_loop.generate_paged(params, buffers, cfg, prompts, 8, scfg, device="cpu")
+    ops.reset_launches()
+    got, rep = serve_loop.generate_paged(move(params), move(buffers), cfg, prompts, 8,
+                                         scfg, device="cuda")
+    n = ops.launches()
+    np.testing.assert_array_equal(got, want)
+    assert n["elite_decode_paged"] == rep.decode_steps * cfg.num_layers > 0
+    assert n["flash_prefill"] == rep.prefill_chunks * cfg.num_layers > 0
