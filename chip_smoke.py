@@ -7,24 +7,40 @@ Needs one CUDA card (the numbers in PERF.md come from an H100) and the CUDA
 toolkit's nvcc; imports nothing of JAX.  Phases, any failure of which exits
 non-zero:
 
-1. Build both CUDA kernels from ``src/repro_torch/kernels/csrc`` and print
-   what ``-Xptxas -v`` reports (registers, shared memory, spills).
+1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
+   per source, all at once) and print what ``-Xptxas -v`` reports
+   (registers, shared memory, spills) and each decode entry's shared memory
+   per CTA at both model widths.
 2. Hold each kernel against its plain PyTorch version on the card at
-   TinyLlama-1.1B widths and at LLaMA2-7B widths, with empty lanes, partial
-   blocks and ragged per-lane offsets and lengths.
+   TinyLlama-1.1B widths and at LLaMA2-7B widths, J-LRD and S-LRD, with
+   empty lanes, partial blocks and ragged per-lane offsets and lengths; the
+   selection kernels also with count-0 entries and a block selected twice.
+   A full-width selection must give the dense kernels' bits, f32 and int8.
 3. Serve TinyLlama-1.1B at full width (22 layers, d 2048, EliteKV r=8,
    d_ckv=64) with random weights from a seeded ``torch.Generator`` — not
-   the reference's weights, since the card has no JAX: a Poisson stream of
-   24 greedy requests through chunked prefill, then a small one-shot run on
-   a pool tight enough to preempt.  The main run must launch the decode
-   kernel 22 times per decode forward and the prefill kernel 22 times per
-   prefill forward; both kernels are re-run on inputs recorded from that
-   run and held against their plain versions; a small run on the card must
-   give the CPU's tokens.  A torch.profiler window over 10 steady decode
-   steps of 8 lanes gives the card's busy share and its time by kernel.
-4. Time each kernel at the main path's shapes (CUDA events, warm-up, L2
-   flushed before every launch), its plain version, its bound, and the
-   PyTorch call that computes the same function where one exists.
+   the reference's weights, since the card has no JAX.  Each run sets the
+   launch counts to 0 before it and reads them after, and must launch its
+   decode kernel 22 times per decode forward, ``flash_prefill`` 22 times per
+   prefill forward and no other kernel:
+   a. the f32 pool: a Poisson stream of 24 greedy requests through chunked
+      prefill (``elite_decode_paged``), then a small one-shot run on a pool
+      tight enough to preempt;
+   b. the int8 pool with block-top-k sparse decode (k=4 plus the 2 newest
+      blocks, watermark admission): 16 requests of 512–768 prompt tokens
+      (``elite_decode_sparse_paged_q8``);
+   c. 6 requests on the int8 pool, dense (``elite_decode_paged_q8``), and
+      6 with f32 sparse decode (``elite_decode_sparse_paged``).
+   Every kernel is re-run on the busiest inputs recorded from its run and
+   held against its plain version; a torch.profiler window over 10 steady
+   decode steps of 8 lanes, on the f32 pool and on the int8 pool with
+   sparse decode, gives the card's busy share and its time by kernel; a
+   narrow model on the card must give
+   the CPU's tokens on the f32 pool and on the int8 pool with sparse decode.
+4. Time each kernel at its recorded main-path inputs (CUDA events, warm-up,
+   L2 flushed before every launch), its plain version, its bound, and the
+   PyTorch call that computes the same function where one exists; and, on
+   the int8 sparse run's busiest step, the dense kernels over the same
+   lanes beside the pool's bytes per token, f32 against int8.
 
 Output ends with the card's name and power limit, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -46,6 +62,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 TOL = 5e-5                   # f32, same math in another summation order
 NUM_LAYERS = 22
+DECODES = ("elite_decode_paged", "elite_decode_paged_q8", "elite_decode_sparse_paged",
+           "elite_decode_sparse_paged_q8")
+TPU_LINES = {"elite_decode_paged": "src/repro/kernels/elite_decode.py:193",
+             "elite_decode_paged_q8": "src/repro/kernels/elite_decode.py:314",
+             "elite_decode_sparse_paged": "src/repro/kernels/elite_decode.py:443",
+             "elite_decode_sparse_paged_q8": "src/repro/kernels/elite_decode.py:559"}
 
 
 def card_line() -> str:
@@ -56,8 +78,9 @@ def card_line() -> str:
 
 
 def decode_smem_bytes(G, r2, dc, bs, separate) -> int:
-    """csrc/elite_decode_paged.cu: q [G, W+1], kc [bs, W+1], cv [bs, dc] if
-    separate, s [G, bs], acc [G, dc], m/l/alpha [G] (W = r2 + dc) floats."""
+    """csrc/elite_decode_paged.cu, every entry (int8 pages are staged as
+    f32): q [G, W+1], kc [bs, W+1], cv [bs, dc] if separate, s [G, bs],
+    acc [G, dc], m/l/alpha [G] (W = r2 + dc) floats."""
     wp = r2 + dc + 1
     return 4 * (G * wp + bs * wp + separate * bs * dc + G * bs + G * dc + 3 * G)
 
@@ -67,9 +90,15 @@ def flash_smem_bytes(dh: int) -> int:
     return 4 * (64 * (dh + 1) + 32 * (dh + 1) + 32 * dh + 64 * 33)
 
 
-def time_ms(fn, iters: int = 30, warmup: int = 3, flush=None) -> float:
+def time_ms(fn, iters: int = 30, warmup: int = 3, flush=None, ahead: bool = True) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each timed by its
-    own CUDA events after ``flush`` evicts the L2."""
+    own CUDA events after ``flush`` evicts the L2.  A 0.2 ms device sleep
+    sits between the flush and the start event, so the host has queued
+    ``fn``'s launches before the card reaches the event: a wrapper's Python
+    checks (~50 µs) are not counted as device time, unless ``fn`` takes the
+    host longer than the sleep to queue, as a plain version of many small
+    ops may.  ``ahead=False`` leaves the sleep out, to show how much host
+    time a measurement without it counts."""
     import torch
     for _ in range(warmup):
         fn()
@@ -77,6 +106,8 @@ def time_ms(fn, iters: int = 30, warmup: int = 3, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush()
+        if ahead:
+            torch.cuda._sleep(400_000)       # ~0.2 ms at the H100's ~1.98 GHz
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -86,17 +117,40 @@ def time_ms(fn, iters: int = 30, warmup: int = 3, flush=None) -> float:
     return total / iters
 
 
-def decode_cost(x, G: int):
-    """(bytes, flops) the paged decode needs on these inputs: every input
-    read once — only the live tokens' k_e and latent rows — and the output
-    written once."""
-    B, nh, r2 = x["q_e"].shape
-    dc = x["c_k"].shape[-1]
+# A decode call is the argument tuple ``ops.<name>`` takes:
+# (q_e, q_lat, k_e, c_k, c_v, [k_e_scale, c_k_scale, c_v_scale,] table, rows,
+#  q_group, scale, block_size) — table/rows are block_tables/lengths for the
+# chain entries and sel_tables/sel_counts for the sparse ones.
+
+def split_decode(name: str, a):
+    """→ (q_e, q_lat, pages, scales, table, rows, G, bs)."""
+    n = 8 if name.endswith("q8") else 5
+    return a[0], a[1], a[2:5], a[5:n], a[n], a[n + 1], a[n + 2], a[n + 4]
+
+
+def visited_rows(name: str, a) -> int:
+    """Pool rows the call's walk visits: live lengths (chain) or the sum of
+    the selected blocks' counts (selection)."""
+    *_, table, rows, _, bs = split_decode(name, a)
+    if "sparse" in name:
+        return int(rows.clamp(0, bs).sum())
+    return int(rows.clamp(max=table.shape[1] * bs).sum())
+
+
+def decode_cost(name: str, a):
+    """(bytes, flops) the call needs on these inputs: every input read once —
+    only the visited rows of the pages, plus their per-slot scales — and the
+    output written once."""
+    q_e, q_lat, (k_e, c_k, c_v), scales, table, rows, G, bs = split_decode(name, a)
+    B, nh, r2 = q_e.shape
+    dc = c_k.shape[-1]
     nkv = nh // G
-    live = int(x["lengths"].clamp(max=x["bt"].shape[1] * x["bs"]).sum())
-    lat = dc if x["c_v"] is x["c_k"] else 2 * dc
-    nbytes = 4 * (x["q_e"].numel() + x["q_lat"].numel() + x["bt"].numel() + B
-                  + live * (nkv * r2 + lat) + B * nh * dc)
+    live = visited_rows(name, a)
+    lat = 1 if c_v is c_k else 2
+    per_row = k_e.element_size() * (nkv * r2 + lat * dc) + 4 * len(set(
+        s.data_ptr() for s in scales))
+    nbytes = (4 * (q_e.numel() + q_lat.numel() + table.numel() + rows.numel()
+                   + B * nh * dc) + live * per_row)
     flops = live * nh * (2 * (r2 + dc) + 2 * dc)
     return nbytes, flops
 
@@ -142,6 +196,41 @@ def random_decode(dev, nh, nkv, r2, dc, separate, seed, bs=16, mb=64):
     return x
 
 
+def random_selection(x, W: int, seed: int):
+    """Sorted random picks of up to W of each lane's blocks with their row
+    counts, count-0 padding at block 0, and lane 5 picking one physical block
+    twice → (sel_tables, sel_counts) [B, W] int32."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bt, bs = x["bt"].cpu(), x["bs"]
+    st = torch.zeros((bt.shape[0], W), dtype=torch.int32)
+    ct = torch.zeros_like(st)
+    for b, L in enumerate(x["lengths"].tolist()):
+        n = -(-L // bs)
+        pick = torch.sort(torch.randperm(n, generator=g)[:W])[0]
+        st[b, :len(pick)] = bt[b, pick]
+        ct[b, :len(pick)] = (L - pick * bs).clamp(0, bs).int()
+    st[5, 1], ct[5, 1] = st[5, 0], ct[5, 0]
+    dev = x["bt"].device
+    return st.to(dev), ct.to(dev)
+
+
+def quantized_pages(x):
+    """x's pages as int8 plus per-slot scales (J-LRD: one latent, one scale)."""
+    from repro_torch.core import quant
+    (k, ks), (ck, cks) = quant.quantize_rows(x["k_e"]), quant.quantize_rows(x["c_k"])
+    cv, cvs = (ck, cks) if x["c_v"] is x["c_k"] else quant.quantize_rows(x["c_v"])
+    return (k, ck, cv, ks, cks, cvs)
+
+
+def decode_call(name: str, x, dh: int, sel=None):
+    """The argument tuple of ``name`` on the random case ``x``."""
+    pages = quantized_pages(x) if name.endswith("q8") else (x["k_e"], x["c_k"], x["c_v"])
+    walk = sel if "sparse" in name else (x["bt"], x["lengths"])
+    G = x["q_e"].shape[1] // x["k_e"].shape[1]
+    return (x["q_e"], x["q_lat"], *pages, *walk, G, dh ** -0.5, x["bs"])
+
+
 def random_prefill(dev, nh, nkv, dh, seed):
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -154,12 +243,10 @@ def random_prefill(dev, nh, nkv, dh, seed):
                 G=nh // nkv, scale=dh ** -0.5)
 
 
-def run_decode(x, G, plain=False):
+def run_decode(name: str, a, plain=False):
     from repro_torch.kernels import elite_decode, ref
-    fn = ref.elite_decode_paged_ref if plain else elite_decode.elite_decode_paged
-    head_dim = x.get("dh", 64)
-    return fn(x["q_e"], x["q_lat"], x["k_e"], x["c_k"], x["c_v"], x["bt"], x["lengths"],
-              G, head_dim ** -0.5, x["bs"])
+    fn = getattr(ref, name + "_ref") if plain else getattr(elite_decode, name)
+    return fn(*a)
 
 
 def run_prefill(x, plain=False):
@@ -181,9 +268,11 @@ def check(name: str, err: float, card: str) -> float:
     return err
 
 
-def profile_decode(params, buffers, cfg, dev, card: str, steps: int = 10) -> None:
+def profile_decode(params, buffers, cfg, dev, card: str, label: str, steps: int = 10,
+                   **pool) -> None:
     """Device time by kernel and the card's busy share over ``steps`` steady
-    decode steps of 8 lanes (prompts of 512 tokens, prefilled first)."""
+    decode steps of 8 lanes (prompts of 512 tokens, prefilled first) on a
+    pool configured by ``pool`` (SchedulerConfig fields)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -191,7 +280,7 @@ def profile_decode(params, buffers, cfg, dev, card: str, steps: int = 10) -> Non
     from repro_torch.runtime import serve_loop
     scfg = serve_loop.SchedulerConfig(
         max_slots=8, block_size=16, num_blocks=512, max_new_tokens=64,
-        max_len=1024, prefill_chunk_tokens=256, prefill_batch_lanes=8)
+        max_len=1024, prefill_chunk_tokens=256, prefill_batch_lanes=8, **pool)
     rng = np.random.default_rng(2)
     sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=dev)
     for i in range(8):
@@ -213,39 +302,83 @@ def profile_decode(params, buffers, cfg, dev, card: str, steps: int = 10) -> Non
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in rows)
-    print(f"[{card}] profile: {steps} decode steps x 8 lanes: wall {wall_ms:.2f} ms, "
+    print(f"[{card}] profile {label}: {steps} decode steps x 8 lanes: wall {wall_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-          f"idle {100 * (1 - busy_ms / wall_ms):.1f}%")
+          f"idle {100 * (1 - busy_ms / wall_ms):.1f}%, "
+          f"{sum(c for *_, c in rows) / steps:.0f} device events per step")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"[{card}]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:<6d} {key[:90]}")
 
 
 class Recorder:
-    """Wraps the attention dispatch in ``core.elite_attention`` to keep the
-    inputs of every layer-0 kernel call of a run (call ``i`` is layer
-    ``i % n_layers``), so the kernels can be re-run on real main-path inputs."""
+    """Wraps the dispatch functions in ``core.elite_attention``'s ``ops`` to
+    keep the arguments of every layer-0 call of a run (call ``i`` of a name
+    is layer ``i % n_layers``), so the kernels can be re-run on real
+    main-path inputs.  ``select_topk_blocks`` is recorded too: its tables
+    and lengths are those of the sparse call of the same step."""
+
+    NAMES = DECODES + ("flash_prefill", "select_topk_blocks")
 
     def __init__(self, n_layers: int):
         from repro_torch.core import elite_attention
         self.ops, self.n = elite_attention.ops, n_layers
-        self.orig = (self.ops.elite_decode_paged, self.ops.flash_prefill)
-        self.decode, self.prefill, self._calls = [], [], [0, 0]
-        self.ops.elite_decode_paged, self.ops.flash_prefill = self._dec, self._pre
+        self.orig = {k: getattr(self.ops, k) for k in self.NAMES}
+        self.calls = {k: [] for k in self.NAMES}
+        counts = dict.fromkeys(self.NAMES, 0)
 
-    def _dec(self, *a):
-        if self._calls[0] % self.n == 0:
-            self.decode.append(a)
-        self._calls[0] += 1
-        return self.orig[0](*a)
+        def wrap(name):
+            def fn(*a):
+                if counts[name] % self.n == 0:
+                    self.calls[name].append(a)
+                counts[name] += 1
+                return self.orig[name](*a)
+            return fn
 
-    def _pre(self, *a):
-        if self._calls[1] % self.n == 0:
-            self.prefill.append(a)
-        self._calls[1] += 1
-        return self.orig[1](*a)
+        for k in self.NAMES:
+            setattr(self.ops, k, wrap(k))
 
     def close(self):
-        self.ops.elite_decode_paged, self.ops.flash_prefill = self.orig
+        for k, fn in self.orig.items():
+            setattr(self.ops, k, fn)
+
+
+def serve_run(label, params, buffers, cfg, scfg, reqs, decode: str, card: str):
+    """Serve ``reqs`` with the counts set to 0 just before and read just
+    after; check outputs and that ``decode`` and ``flash_prefill`` ran 22
+    times per forward and nothing else launched.
+    → (report, launches, recorder, scheduler)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import serve_loop
+    rec = Recorder(cfg.num_layers)
+    sched = serve_loop.Scheduler(params, buffers, cfg, scfg,
+                                 device=params["embed"]["table"].device)
+    ops.reset_launches()
+    try:
+        rep = sched.run(reqs)
+        torch.cuda.synchronize()
+        launches = ops.launches()
+    finally:
+        rec.close()
+    print(f"[{card}] {label}: {rep.summary()}", flush=True)
+    print(f"[{card}] {label} phases: {rep.phase_table()}")
+    print(f"{label} launches: {launches} over {rep.decode_steps} decode and "
+          f"{rep.prefill_chunks} prefill forwards x {cfg.num_layers} layers")
+    if rep.completed != len(reqs):
+        raise AssertionError(f"{label}: {rep.completed}/{len(reqs)} requests finished")
+    for r in sched.finished:
+        toks = np.asarray(r.generated)
+        if len(toks) != r.max_new_tokens or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{label} request {r.uid}: bad output {toks[:8]}...")
+    if not launches[decode] == rep.decode_steps * cfg.num_layers > 0:
+        raise AssertionError(f"{label}: {decode} launches != decode forwards x layers")
+    if not launches["flash_prefill"] == rep.prefill_chunks * cfg.num_layers > 0:
+        raise AssertionError(f"{label}: prefill kernel launches != prefill forwards x layers")
+    others = {k: v for k, v in launches.items() if k not in (decode, "flash_prefill") and v}
+    if others:
+        raise AssertionError(f"{label}: other kernels launched: {others}")
+    return rep, launches, rec, sched
 
 
 def main() -> int:
@@ -255,7 +388,7 @@ def main() -> int:
         return 2
     import numpy as np
     import torch.nn.functional as F
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, ref
     from repro_torch.launch.serve import build_config, make_stream
     from repro_torch.models import lm
     from repro_torch.runtime import serve_loop
@@ -281,25 +414,44 @@ def main() -> int:
     for wname, (G, r2, dc) in {"tinyllama_1_1b": (8, 16, 64),
                                "llama2_7b": (1, 32, 1024)}.items():
         for sep in (0, 1):
-            print(f"  elite_decode_paged smem/CTA {wname} {'S' if sep else 'J'}-LRD: "
-                  f"{decode_smem_bytes(G, r2, dc, 16, sep)} B")
+            for name in DECODES:
+                print(f"  {name} smem/CTA {wname} {'S' if sep else 'J'}-LRD: "
+                      f"{decode_smem_bytes(G, r2, dc, 16, sep)} B")
     for dh in (64, 128):
         print(f"  flash_prefill smem/CTA dh={dh}: {flash_smem_bytes(dh)} B")
 
     # -- 2. kernel parity at both model widths ------------------------------
-    errs = {"elite_decode_paged": 0.0, "flash_prefill": 0.0}
+    errs = dict.fromkeys(DECODES + ("flash_prefill",), 0.0)
     widths = {"tinyllama_1_1b": (32, 4, 16, 64, 64), "llama2_7b": (32, 32, 32, 1024, 128)}
     for i, (wname, (nh, nkv, r2, dc, dh)) in enumerate(widths.items()):
         for separate in (False, True):
             x = random_decode(dev, nh, nkv, r2, dc, separate, seed=i)
-            x["dh"] = dh
-            G = nh // nkv
-            got, want = run_decode(x, G), run_decode(x, G, plain=True)
-            e = check(f"elite_decode_paged {wname} {'S-LRD' if separate else 'J-LRD'}",
-                      max_err(got, want), card)
-            if float(got[0].abs().max()) != 0.0 or float(got[-1].abs().max()) != 0.0:
-                raise AssertionError("a length-0 lane did not give exact zeros")
-            errs["elite_decode_paged"] = max(errs["elite_decode_paged"], e)
+            sel = random_selection(x, W=24, seed=i)
+            for name in DECODES:
+                a = decode_call(name, x, dh, sel)
+                got = run_decode(name, a)
+                e = check(f"{name} {wname} {'S-LRD' if separate else 'J-LRD'}",
+                          max_err(got, run_decode(name, a, plain=True)), card)
+                if float(got[0].abs().max()) != 0.0 or float(got[-1].abs().max()) != 0.0:
+                    raise AssertionError(f"{name}: an empty lane did not give exact zeros")
+                errs[name] = max(errs[name], e)
+            # a full-width selection is the whole chain: the dense bits
+            mb = x["bt"].shape[1]
+            summ = torch.randn(x["k_e"].shape[0] // x["bs"], dc, device=dev)
+            full = ref.select_topk_blocks(x["q_lat"], summ, summ.abs(), x["bt"],
+                                          x["lengths"], x["bs"], mb, 2)
+            if not torch.equal(full[0], x["bt"]):
+                raise AssertionError("a full-width selection is not the block table")
+            for sfx in ("", "_q8"):
+                dense = run_decode("elite_decode_paged" + sfx,
+                                   decode_call("elite_decode_paged" + sfx, x, dh))
+                sparse = run_decode("elite_decode_sparse_paged" + sfx,
+                                    decode_call("elite_decode_sparse_paged" + sfx, x, dh, full))
+                torch.cuda.synchronize()
+                if not torch.equal(sparse, dense):
+                    raise AssertionError(f"full-width sparse{sfx} != dense{sfx} ({wname})")
+            print(f"[{card}] full-width sparse == dense bitwise, f32 and int8, {wname} "
+                  f"{'S-LRD' if separate else 'J-LRD'}", flush=True)
         x = random_prefill(dev, nh, nkv, dh, seed=10 + i)
         got = run_prefill(x)
         e = check(f"flash_prefill {wname}", max_err(got, run_prefill(x, plain=True)), card)
@@ -307,47 +459,50 @@ def main() -> int:
             raise AssertionError("a kv_len = 0 lane did not give exact zeros")
         errs["flash_prefill"] = max(errs["flash_prefill"], e)
 
-    # -- 3. the main path at full width -------------------------------------
+    # -- 3. the main paths at full width ------------------------------------
     cfg = build_config("tinyllama_1_1b", reduced=False, cache_ratio=0.25)
     e = cfg.elitekv
     assert (cfg.num_layers, cfg.d_model, e.elite_r, e.d_ckv) == (NUM_LAYERS, 2048, 8, 64), cfg
     params, buffers = lm.init(cfg, seed=0, device=dev)
-    scfg = serve_loop.SchedulerConfig(
-        max_slots=8, block_size=16, num_blocks=8 * 64, max_new_tokens=128,
-        max_len=1024, prefill_chunk_tokens=256, prefill_batch_lanes=8)
+    base = dict(max_slots=8, block_size=16, num_blocks=8 * 64, max_new_tokens=128,
+                max_len=1024, prefill_chunk_tokens=256, prefill_batch_lanes=8)
+    runs, recs = {}, {}
+    # a. the f32 pool, dense decode
     reqs = make_stream(cfg, 24, rate=0.5, prompt_len=768, new_tokens=128, seed=0,
                        prompt_min=64, new_min=32)
-    rec = Recorder(cfg.num_layers)
-    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=dev)
-    ops.reset_launches()
-    rep = sched.run(reqs)
-    torch.cuda.synchronize()
-    launches = ops.launches()
-    rec.close()
-    print(f"[{card}] main path {cfg.name} 24 requests: {rep.summary()}", flush=True)
-    print(f"[{card}] phases: {rep.phase_table()}")
-    print(f"launches: {launches} over {rep.decode_steps} decode and "
-          f"{rep.prefill_chunks} prefill forwards x {cfg.num_layers} layers")
-    if rep.completed != len(reqs):
-        raise AssertionError(f"{rep.completed}/{len(reqs)} requests finished")
-    for r in sched.finished:
-        toks = np.asarray(r.generated)
-        if len(toks) != r.max_new_tokens or toks.min() < 0 or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"request {r.uid}: bad output {toks[:8]}...")
-    if launches["elite_decode_paged"] != rep.decode_steps * cfg.num_layers:
-        raise AssertionError("decode kernel launches != decode forwards x layers")
-    if not launches["flash_prefill"] == rep.prefill_chunks * cfg.num_layers > 0:
-        raise AssertionError("prefill kernel launches != prefill forwards x layers")
+    rep, launches, rec, _ = serve_run(
+        "main path f32 24 requests", params, buffers, cfg,
+        serve_loop.SchedulerConfig(**base), reqs, "elite_decode_paged", card)
+    runs["elite_decode_paged"] = rep, launches
+    recs["elite_decode_paged"] = rec
+    # b. the int8 pool with sparse decode; c. int8 dense and f32 sparse
+    sparse = dict(sparse_topk_blocks=4, sparse_recent_blocks=2, admission="watermark")
+    for decode, label, n, seed, kw in (
+            ("elite_decode_sparse_paged_q8", "int8 + sparse k=4+2", 16, 4,
+             dict(cache_dtype="int8", **sparse)),
+            ("elite_decode_paged_q8", "int8 dense", 6, 5, dict(cache_dtype="int8")),
+            ("elite_decode_sparse_paged", "f32 + sparse k=4+2", 6, 6, sparse)):
+        reqs = make_stream(cfg, n, rate=0.5, prompt_len=768, new_tokens=128, seed=seed,
+                           prompt_min=512, new_min=64)
+        rep, launches, rec, sched = serve_run(
+            f"{label} {n} requests", params, buffers, cfg,
+            serve_loop.SchedulerConfig(**base, **kw), reqs, decode, card)
+        runs[decode], recs[decode] = (rep, launches), rec
+        if "sparse" in decode and not rep.mean_selected_blocks < rep.mean_candidate_blocks:
+            raise AssertionError(f"{label}: the selection was never partial")
+        if decode.endswith("q8") and rep.pool_dtype != "int8":
+            raise AssertionError(f"{label}: pool dtype {rep.pool_dtype}")
 
-    # the kernels again, on the busiest recorded main-path inputs
-    dec = max(rec.decode, key=lambda a: int(a[6].sum()))
-    xd = dict(q_e=dec[0], q_lat=dec[1], k_e=dec[2], c_k=dec[3], c_v=dec[4], bt=dec[5],
-              lengths=dec[6], bs=dec[9], dh=cfg.head_dim)
-    G = cfg.q_group
-    errs["elite_decode_paged"] = max(errs["elite_decode_paged"], check(
-        "elite_decode_paged on main-path pages",
-        max_err(run_decode(xd, G), run_decode(xd, G, plain=True)), card))
-    pre = max(rec.prefill, key=lambda a: int(a[6].sum()))
+    # each decode kernel again, on the busiest recorded main-path inputs
+    busiest = {}
+    for name in DECODES:
+        calls = recs[name].calls[name]
+        i = max(range(len(calls)), key=lambda k: visited_rows(name, calls[k]))
+        busiest[name] = calls[i], i
+        errs[name] = max(errs[name], check(
+            f"{name} on main-path pages",
+            max_err(run_decode(name, calls[i]), run_decode(name, calls[i], plain=True)), card))
+    pre = max(recs["elite_decode_paged"].calls["flash_prefill"], key=lambda a: int(a[6].sum()))
     xp = dict(q=pre[0], k=pre[1], v=pre[2], G=pre[3], scale=pre[4], offs=pre[5], lens=pre[6])
     errs["flash_prefill"] = max(errs["flash_prefill"], check(
         "flash_prefill on a main-path chunk",
@@ -362,37 +517,59 @@ def main() -> int:
     print(f"[{card}] tight pool one-shot: {srep.summary()}", flush=True)
     if srep.completed != len(small) or srep.preemptions < 1:
         raise AssertionError("the tight-pool run must finish all requests and preempt")
-    profile_decode(params, buffers, cfg, dev, card)
-    del params, buffers, sched
+    profile_decode(params, buffers, cfg, dev, card, "f32 dense")
+    profile_decode(params, buffers, cfg, dev, card, "int8 + sparse k=4+2", cache_dtype="int8",
+                   sparse_topk_blocks=4, sparse_recent_blocks=2, admission="watermark")
+    del params, buffers
 
-    # a narrow model on the card gives the CPU's tokens (plain versions there)
+    # a narrow model on the card gives the CPU's tokens (plain versions
+    # there), on the f32 pool and on the int8 pool with sparse decode
     ncfg = build_config("tinyllama_1_1b", reduced=True, cache_ratio=0.25)
     cp, cb = lm.init(ncfg, seed=3, device="cpu")
     to = lambda t: {k: to(v) for k, v in t.items()} if isinstance(t, dict) else \
         [to(v) for v in t] if isinstance(t, list) else t.to(dev)
-    nscfg = serve_loop.SchedulerConfig(max_slots=3, block_size=8, num_blocks=64,
-                                       max_len=64, prefill_chunk_tokens=16)
     prompts = np.random.default_rng(3).integers(0, ncfg.vocab_size, (3, 24))
-    want, _ = serve_loop.generate_paged(cp, cb, ncfg, prompts, 12, nscfg, device="cpu")
-    got, _ = serve_loop.generate_paged(to(cp), to(cb), ncfg, prompts, 12, nscfg, device=dev)
-    if not np.array_equal(got, want):
-        raise AssertionError(f"card tokens {got.tolist()} != CPU tokens {want.tolist()}")
-    print("narrow model: card tokens == CPU tokens", flush=True)
+    for label, kw in (("f32", {}), ("int8 + sparse k=1+1",
+                                    dict(cache_dtype="int8", sparse_topk_blocks=1,
+                                         sparse_recent_blocks=1, admission="watermark"))):
+        nscfg = serve_loop.SchedulerConfig(max_slots=3, block_size=8, num_blocks=64,
+                                           max_len=64, prefill_chunk_tokens=16, **kw)
+        want, _ = serve_loop.generate_paged(cp, cb, ncfg, prompts, 12, nscfg, device="cpu")
+        got, nrep = serve_loop.generate_paged(to(cp), to(cb), ncfg, prompts, 12, nscfg,
+                                              device=dev)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"narrow model {label}: card tokens {got.tolist()} "
+                                 f"!= CPU tokens {want.tolist()}")
+        print(f"narrow model {label}: card tokens == CPU tokens", flush=True)
 
-    # -- 4. times at the main path's shapes ----------------------------------
+    # -- 4. times at the main paths' shapes ----------------------------------
     scratch = torch.empty(64 * 2**20 // 4, device=dev)      # > the 50 MB L2
     flush = scratch.zero_
     rows = []
-    d_bytes, d_flops = decode_cost(xd, G)
-    d_bound, d_by = bound(d_bytes, d_flops)
-    rows.append(dict(
-        name="elite_decode_paged", route="cuda",
-        source="src/repro_torch/kernels/csrc/elite_decode_paged.cu",
-        replaces="src/repro/kernels/elite_decode.py:193",
-        launches=launches["elite_decode_paged"], max_abs_err=errs["elite_decode_paged"],
-        ms=time_ms(lambda: run_decode(xd, G), flush=flush),
-        plain_ms=time_ms(lambda: run_decode(xd, G, plain=True), flush=flush),
-        bound_ms=d_bound, bound_by=d_by, library_ms=None))
+    for name in DECODES:
+        a = busiest[name][0]
+        d_bytes, d_flops = decode_cost(name, a)
+        d_bound, d_by = bound(d_bytes, d_flops)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/elite_decode_paged.cu",
+            replaces=TPU_LINES[name], launches=runs[name][1][name],
+            max_abs_err=errs[name],
+            ms=time_ms(lambda: run_decode(name, a), flush=flush),
+            plain_ms=time_ms(lambda: run_decode(name, a, plain=True), flush=flush),
+            bound_ms=d_bound, bound_by=d_by, library_ms=None))
+        q_e, _, (k_e, c_k, _), _, table, cnt, G, bs = split_decode(name, a)
+        print(f"[{card}] {name} shapes: B={q_e.shape[0]} "
+              f"{'counts' if 'sparse' in name else 'lengths'}="
+              f"{cnt.sum(-1).tolist() if 'sparse' in name else cnt.tolist()} "
+              f"visited rows {visited_rows(name, a)}, nh={q_e.shape[1]} nkv={k_e.shape[1]} "
+              f"2r={k_e.shape[2]} d_c={c_k.shape[-1]} {k_e.dtype}; bound: {d_bytes} B / "
+              f"3.35 TB/s vs {d_flops} flop / 67 TFLOP/s", flush=True)
+    for r in rows:
+        a = busiest[r["name"]][0]
+        print(f"[{card}] {r['name']}: {r['ms']:.4f} ms with the launch queued ahead, "
+              f"{time_ms(lambda: run_decode(r['name'], a), flush=flush, ahead=False):.4f} ms "
+              f"counting the wrapper's host time", flush=True)
     p_bytes, p_flops = prefill_cost(xp)
     p_bound, p_by = bound(p_bytes, p_flops)
     B, Sq, nh, dh = xp["q"].shape
@@ -403,30 +580,52 @@ def main() -> int:
     qt, kt, vt = (xp[n].transpose(1, 2) for n in ("q", "k", "v"))
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   scale=xp["scale"], enable_gqa=True)
-    rows.append(dict(
+    rows.insert(1, dict(
         name="flash_prefill", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_prefill.cu",
         replaces="src/repro/kernels/flash_prefill.py:97",
-        launches=launches["flash_prefill"], max_abs_err=errs["flash_prefill"],
+        launches=runs["elite_decode_paged"][1]["flash_prefill"],
+        max_abs_err=errs["flash_prefill"],
         ms=time_ms(lambda: run_prefill(xp), flush=flush),
         plain_ms=time_ms(lambda: run_prefill(xp, plain=True), flush=flush),
         bound_ms=p_bound, bound_by=p_by, library_ms=time_ms(sdpa, flush=flush)))
-    live = xd["lengths"].tolist()
-    print(f"[{card}] shapes: decode B={len(live)} lengths={live} nh={cfg.n_heads} "
-          f"nkv={cfg.n_kv_heads} 2r={2 * e.elite_r} d_c={e.d_ckv}; prefill "
-          f"q={tuple(xp['q'].shape)} k={tuple(xp['k'].shape)} "
-          f"q_offsets={xp['offs'].tolist()} kv_lens={xp['lens'].tolist()}")
-    print(f"[{card}] decode bound: {d_bytes} B / 3.35 TB/s vs {d_flops} flop / 67 TFLOP/s; "
-          f"prefill bound: {p_bytes} B vs {p_flops} flop")
+    print(f"[{card}] prefill shapes: q={tuple(xp['q'].shape)} k={tuple(xp['k'].shape)} "
+          f"q_offsets={xp['offs'].tolist()} kv_lens={xp['lens'].tolist()}; bound: "
+          f"{p_bytes} B vs {p_flops} flop")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms (SDPA)"
         print(f"[{card}] {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}, "
               f"launches {r['launches']}")
-    print(f"[{card}] serving: decode tok/s={rep.tok_per_s:.1f} "
-          f"ttft_ms p50={rep.ttft_wall_p50_ms:.1f} "
-          f"step_ms p50/p95={rep.step_ms_p50:.2f}/{rep.step_ms_p95:.2f} "
-          f"wall_s={rep.wall_s:.2f}", flush=True)
+
+    # the int8 sparse run's busiest step against dense decode over the same
+    # lanes: what --pool-dtype int8 and --sparse-topk buy the decode kernel
+    name = "elite_decode_sparse_paged_q8"
+    a, i = busiest[name]
+    q_e, q_lat, pages, scales, _, _, G, bs = split_decode(name, a)
+    sel_args = recs[name].calls["select_topk_blocks"][i]
+    chain = (sel_args[3], sel_args[4])                       # block_tables, lengths
+    k32, c32, _ = ref.dequantize_pages(*pages, *scales)
+    variants = {
+        "dense f32": ("elite_decode_paged", (q_e, q_lat, k32, c32, c32, *chain, G, a[-2], bs)),
+        "dense int8": ("elite_decode_paged_q8", (q_e, q_lat, *pages, *scales, *chain,
+                                                 G, a[-2], bs)),
+        "sparse int8": (name, a)}
+    ms = {k: time_ms(lambda: run_decode(n, v), flush=flush) for k, (n, v) in variants.items()}
+    rows_f32 = int(chain[1].sum())
+    bpt_f32 = runs["elite_decode_paged"][0].pool_bytes_per_token
+    bpt_q8 = runs[name][0].pool_bytes_per_token
+    print(f"[{card}] decode step, int8 + sparse k=4+2 busiest step ({q_e.shape[0]} lanes, "
+          f"{rows_f32} live rows, {visited_rows(name, a)} selected): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + f"; pool bytes/token f32 {bpt_f32} vs int8 + summaries {bpt_q8}"
+          f" (int8 dense run: {runs['elite_decode_paged_q8'][0].pool_bytes_per_token})",
+          flush=True)
+    for decode, (rep, _) in runs.items():
+        print(f"[{card}] serving {decode}: decode tok/s={rep.tok_per_s:.1f} "
+              f"ttft_ms p50={rep.ttft_wall_p50_ms:.1f} "
+              f"step_ms p50/p95={rep.step_ms_p50:.2f}/{rep.step_ms_p95:.2f} "
+              f"wall_s={rep.wall_s:.2f}", flush=True)
 
     # -- 5. result lines -----------------------------------------------------
     print(card)

@@ -1,6 +1,6 @@
 """The block-paged compressed-KV pool and its admission/eviction policy.
 
-Counterpart of the JAX package's ``core/cache.py``, for an f32 pool on one
+Counterpart of the JAX package's ``core/cache.py``, for a pool on one
 device.  ``PagedKVPool`` stores the compressed ``(k_e, c)`` streams of every
 attention layer in fixed-size token blocks shared across sequences;
 sequences own ragged chains of blocks through per-sequence block tables,
@@ -10,12 +10,19 @@ layout (``k_e``, and ``c`` or ``c_k``/``c_v``), so contents compare leaf for
 leaf; the forward passes write them in place.  All bookkeeping (free list,
 tables, lengths) is host-side Python.
 
+``dtype="int8"`` stores every stream as symmetric-absmax int8 rows with a
+per-slot f32 scale leaf ``<name>_scale`` ``[n_super, n_slots]`` beside it
+(``core/quant.py``).  ``block_summaries=True`` (sparse decode) adds the
+latent key stream's per-block masked mean and absmax, ``<key>_blkmean`` and
+``<key>_blkmax`` ``[n_super, num_blocks, d_c]`` f32 (``key`` is ``c``, or
+``c_k`` under S-LRD), which the page scatter keeps current.
+
 ``BlockManager`` adds the scheduler's policy: ``"preempt"`` admission (no
 reservation; growth may raise ``OutOfBlocks`` and the scheduler evicts) or
 the ``"watermark"`` reservation, and recompute eviction.
 
-Not ported yet: the prefix cache and copy-on-write, host swap, truncate, the
-int8 pool, block summaries and tensor-parallel page placement.
+Not ported yet: the prefix cache and copy-on-write, host swap, truncate and
+tensor-parallel page placement.
 """
 from __future__ import annotations
 
@@ -26,6 +33,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant
+
+#: per-block latent summary leaves of a ``block_summaries=True`` pool
+BLOCK_SUMMARY_SUFFIXES = ("_blkmean", "_blkmax")
 
 
 class OutOfBlocks(RuntimeError):
@@ -83,13 +94,18 @@ class PagedKVPool:
 
     ``pages["p0"][name]`` is ``[n_layers, n_slots, ...]`` with
     ``n_slots = num_blocks · block_size``; token ``t`` of block ``b`` lives at
-    flat slot ``b · block_size + t``.
+    flat slot ``b · block_size + t``.  ``dtype`` is ``"float32"`` or
+    ``"int8"`` (or the torch dtype).
     """
 
     def __init__(self, cfg: ModelConfig, num_blocks: int, block_size: int,
-                 device="cuda"):
+                 device="cuda", dtype="float32", block_summaries: bool = False):
         if not cfg.elitekv.enabled:
             raise ValueError("the paged pool stores EliteKV compressed streams only")
+        quantized = quant.is_int8(dtype)
+        if not quantized and dtype not in ("float32", torch.float32):
+            raise ValueError(f"pool dtype {dtype!r}: expected 'float32' or 'int8'")
+        self.dtype = torch.int8 if quantized else torch.float32
         self.cfg = cfg
         self.block_size = block_size
         self.num_blocks = num_blocks
@@ -105,10 +121,17 @@ class PagedKVPool:
         else:
             tails["c_k"] = (e.d_ck,)
             tails["c_v"] = (e.d_cv,)
-        self.pages = {"p0": {
-            name: torch.zeros((cfg.num_layers, n_slots) + tail,
-                              dtype=torch.float32, device=self.device)
-            for name, tail in tails.items()}}
+        L, dev = cfg.num_layers, self.device
+        leaves = {}
+        for name, tail in tails.items():
+            leaves[name] = torch.zeros((L, n_slots) + tail, dtype=self.dtype, device=dev)
+            if quantized:
+                leaves[name + "_scale"] = torch.zeros((L, n_slots), device=dev)
+        if block_summaries:
+            key = "c" if e.lrd == "joint" else "c_k"
+            for sfx in BLOCK_SUMMARY_SUFFIXES:
+                leaves[key + sfx] = torch.zeros((L, num_blocks) + tails[key], device=dev)
+        self.pages = {"p0": leaves}
 
     # -- sequence lifecycle -------------------------------------------------
     def ensure_capacity(self, seq_id: int, length: int) -> None:
@@ -184,7 +207,9 @@ class PagedKVPool:
 
     # -- accounting ---------------------------------------------------------
     def bytes_per_token(self) -> int:
-        """Pool bytes per token slot, summed over every page leaf."""
+        """Pool bytes per token slot, summed over every page leaf: int8 rows
+        and their f32 scales in a quantized pool, and the block summaries
+        spread over their blocks' slots."""
         n_slots = self.num_blocks * self.block_size
         return sum(a.numel() * a.element_size() // n_slots
                    for layer in self.pages.values() for a in layer.values())
@@ -201,7 +226,7 @@ class PagedKVPool:
             total_allocs=self.allocator.total_allocs,
             live_tokens=live, allocated_tokens=alloc_tok,
             live_bytes=live * bpt, allocated_bytes=alloc_tok * bpt,
-            bytes_per_token=bpt)
+            dtype=str(self.dtype).removeprefix("torch."), bytes_per_token=bpt)
 
 
 class BlockManager:

@@ -17,8 +17,23 @@ latent ``c`` (``c_k``/``c_v`` under S-LRD).  Page tensors are the pool's
 per-layer views ``[n_slots, ...]`` and are written **in place**.
 
 Decode absorbs ``bk`` into the query and ``bv`` into the output, so its
-attention (the ``elite_decode_paged`` kernel) reads only the compressed
-cache.
+attention reads only the compressed cache.  Its kernel is one of a family
+of four, picked by the pool's dtype and by ``sparse_topk``:
+``elite_decode_paged`` (f32 pages, the whole chain), ``elite_decode_paged_q8``
+(int8 pages plus per-slot scales), and their sparse variants
+``elite_decode_sparse_paged[_q8]``, which walk a block-top-k selection
+scored against per-block latent summaries (``kernels/ref.py::
+select_topk_blocks``).  A selection at least as wide as the table is the
+whole chain, and the sparse kernels then give the dense kernels' bits.
+
+An int8 pool (``"k_e_scale" in pages``) quantizes every row when the
+scatter writes it and dequantizes wherever a stream is read back.  A fresh
+one-shot prefill attends over ``quant.roundtrip_rows`` of its own streams,
+as the reference does, so it sees exactly what later reads of the pool
+will.  A resumed chunk needs no round-trip here: unlike the reference, which
+concatenates the chunk's round-tripped K/V to the gathered prefix, the port
+gathers the whole chain, chunk included, from the pool *after* the scatter,
+so the chunk comes back dequantized already.
 
 Prefill routing differs from the reference, which attends through XLA
 (``_attend`` for fresh chunks, ``_attend_resumed`` over a gathered prefix):
@@ -38,7 +53,9 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core import quant
 from repro_torch.core import rope as rope_lib
+from repro_torch.core.cache import BLOCK_SUMMARY_SUFFIXES
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_pages
 from repro_torch.models.layers import dense_init
@@ -97,18 +114,24 @@ def _latents(params, cfg, x):
     return x @ params["a_k"].to(dt), x @ params["a_v"].to(dt)
 
 
-def _materialized(params, cfg, buffers, x, positions):
+def _streams(params, cfg, buffers, x, positions):
+    """Rotated queries q [B,S,nh,dh] and the compressed streams the pool
+    stores: k_e [B,S,nkv,2r], c_k, c_v [B,S,dc] (one tensor under J-LRD)."""
     dt = x.dtype
     q_e, q_ne = _project_q(params, cfg, x)
     q_e = _rot_q(cfg, buffers, q_e, positions)
     k_e = torch.einsum("bsd,dhe->bshe", x, params["wk_e"].to(dt))
     k_e = rope_lib.apply_elite_rope(k_e, positions, buffers["elite_freqs"])
     c_k, c_v = _latents(params, cfg, x)
+    return torch.cat([q_e, q_ne], dim=-1), k_e, c_k, c_v
+
+
+def _up_project(params, k_e, c_k, c_v, dt):
+    """Keys and values from the compressed streams: K = [k_e | c_k·bk],
+    V = c_v·bv, each [B,S,nkv,dh]."""
     k_ne = torch.einsum("bsc,che->bshe", c_k, params["bk"].to(dt))
     v = torch.einsum("bsc,che->bshe", c_v, params["bv"].to(dt))
-    q = torch.cat([q_e, q_ne], dim=-1)
-    k = torch.cat([k_e, k_ne], dim=-1)
-    return q, k, v.contiguous(), k_e, c_k, c_v
+    return torch.cat([k_e, k_ne], dim=-1), v.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -135,12 +158,19 @@ def write_index(slot_mapping: torch.Tensor, n_slots: int, device) -> Writes:
 
 def _scatter_pages(pages, k_e_new, c_k_new, c_v_new, writes: Writes) -> None:
     """Write per-token compressed streams into pool pages, in place.
-    k_e_new [N,nkv,2r], c_*_new [N,dc]."""
+    k_e_new [N,nkv,2r], c_*_new [N,dc].  An int8 pool gets each row
+    quantized here, with its scale written to the same slot of
+    ``<name>_scale``; a pool with block summaries gets the touched blocks'
+    summaries recomputed after the write."""
     rows, slots = writes
+    quantized = "k_e_scale" in pages
 
     def put(name, val):
-        buf = pages[name]
-        buf.index_copy_(0, slots, val[rows].to(buf.dtype))
+        val = val[rows]
+        if quantized:
+            val, s = quant.quantize_rows(val)
+            pages[name + "_scale"].index_copy_(0, slots, s)
+        pages[name].index_copy_(0, slots, val.to(pages[name].dtype))
 
     put("k_e", k_e_new)
     if "c" in pages:
@@ -148,6 +178,41 @@ def _scatter_pages(pages, k_e_new, c_k_new, c_v_new, writes: Writes) -> None:
     else:
         put("c_k", c_k_new)
         put("c_v", c_v_new)
+    key = _latent_key(pages)
+    if key + BLOCK_SUMMARY_SUFFIXES[0] in pages and slots.numel():
+        _update_block_summaries(pages, key, slots)
+
+
+def _latent_key(pages) -> str:
+    """The latent key stream, the one block summaries describe."""
+    return "c" if "c" in pages else "c_k"
+
+
+def _update_block_summaries(pages, key: str, slots: torch.Tensor) -> None:
+    """Recompute the summaries of every block a scatter touched: the masked
+    mean and absmax over the block's valid rows of the just-written (and,
+    in an int8 pool, dequantized) ``key`` stream.  A block's valid height is
+    its largest offset written in this call plus one, since writes within a
+    block are sequential.  Each touched block is written once: on the card
+    ``index_copy_`` with a repeated index has no defined winner."""
+    mean_buf, max_buf = (pages[key + sfx] for sfx in BLOCK_SUMMARY_SUFFIXES)
+    n_blocks = mean_buf.shape[0]
+    bs = pages[key].shape[0] // n_blocks
+    blk = slots // bs
+    height = torch.zeros(n_blocks, dtype=slots.dtype, device=slots.device)
+    height.scatter_reduce_(0, blk, slots % bs + 1, "amax")
+    blocks = torch.unique(blk)
+    counts = height[blocks]
+    idx = blocks[:, None] * bs + torch.arange(bs, device=slots.device)[None, :]
+    content = pages[key][idx].float()                        # [U, bs, dc]
+    if key + "_scale" in pages:
+        content = content * pages[key + "_scale"][idx][..., None]
+    mask = (torch.arange(bs, device=slots.device)[None, :] < counts[:, None])[..., None]
+    zero = torch.zeros((), device=content.device)
+    mean = torch.where(mask, content, zero).sum(1) / counts.clamp(min=1)[:, None].float()
+    amax = torch.where(mask, content.abs(), zero).amax(1)
+    mean_buf.index_copy_(0, blocks, mean)
+    max_buf.index_copy_(0, blocks, amax)
 
 
 def _page_latents(pages):
@@ -156,19 +221,33 @@ def _page_latents(pages):
     return pages["c_k"], pages["c_v"]
 
 
+def _page_scales(pages):
+    """Per-slot scales ``(k_e, c_k, c_v)`` of an int8 pool, None for an f32
+    one.  J-LRD's single latent serves both roles with one scale."""
+    if "k_e_scale" not in pages:
+        return None
+    if "c" in pages:
+        return pages["k_e_scale"], pages["c_scale"], pages["c_scale"]
+    return pages["k_e_scale"], pages["c_k_scale"], pages["c_v_scale"]
+
+
 def _gather_chain(pages, params, block_tables, block_size: int, dt):
     """Contiguous K/V of each lane's cached chain: block_tables [B, mb] →
     K [B, mb·bs, nkv, dh], V [B, mb·bs, nkv, dh].  Positions past a lane's
     live length land on blocks of other sequences (or the pad block 0); the
     caller masks them by ``kv_lens``."""
-    k_e = gather_pages(pages["k_e"], block_tables, block_size).to(dt)
+    gather = lambda a: gather_pages(a, block_tables, block_size)
+    k_e = gather(pages["k_e"]).to(dt)
     c_k_pages, c_v_pages = _page_latents(pages)
-    c_k = gather_pages(c_k_pages, block_tables, block_size).to(dt)
-    c_v = c_k if c_v_pages is c_k_pages else \
-        gather_pages(c_v_pages, block_tables, block_size).to(dt)
-    k_ne = torch.einsum("bsc,che->bshe", c_k, params["bk"].to(dt))
-    v = torch.einsum("bsc,che->bshe", c_v, params["bv"].to(dt))
-    return torch.cat([k_e, k_ne], dim=-1), v.contiguous()
+    c_k = gather(c_k_pages).to(dt)
+    c_v = c_k if c_v_pages is c_k_pages else gather(c_v_pages).to(dt)
+    scales = _page_scales(pages)
+    if scales is not None:                # int8 pool: dequantize the chain
+        ks, cks, cvs = (gather(a).to(dt) for a in scales)
+        shared = c_v is c_k
+        k_e, c_k = k_e * ks[..., None, None], c_k * cks[..., None]
+        c_v = c_k if shared else c_v * cvs[..., None]
+    return _up_project(params, k_e, c_k, c_v, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -193,11 +272,18 @@ def apply_prefill_paged(params, cfg, buffers, x, positions, pages, writes: Write
     """
     dt = x.dtype
     B, S = x.shape[:2]
-    q, k, v, k_e, c_k, c_v = _materialized(params, cfg, buffers, x, positions)
+    q, k_e, c_k, c_v = _streams(params, cfg, buffers, x, positions)
     _scatter_pages(pages, k_e.reshape(B * S, *k_e.shape[2:]),
                    c_k.reshape(B * S, -1), c_v.reshape(B * S, -1), writes)
     scale = cfg.head_dim ** -0.5
     if block_tables is None:
+        if "k_e_scale" in pages:
+            # int8 pool: attend over what later pool reads will dequantize
+            rt = lambda a: quant.roundtrip_rows(a, batch_dims=2)
+            shared = c_v is c_k
+            k_e, c_k = rt(k_e), rt(c_k)
+            c_v = c_k if shared else rt(c_v)
+        k, v = _up_project(params, k_e, c_k, c_v, dt)
         offs = torch.zeros(B, dtype=torch.int32, device=x.device)
         lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
         o = ops.flash_prefill(q, k, v, cfg.q_group, scale, offs, lens)
@@ -209,12 +295,17 @@ def apply_prefill_paged(params, cfg, buffers, x, positions, pages, writes: Write
 
 
 def apply_decode_paged(params, cfg, buffers, x, pages, writes: Writes,
-                       block_tables, lengths, block_size: int):
+                       block_tables, lengths, block_size: int,
+                       sparse_topk: int = 0, sparse_recent: int = 0):
     """Absorbed decode over the block pool — one token per serving lane.
 
     x [B,1,d]; lengths [B] int32, the live length *including* the new token
     (0 for idle lanes, whose writes hit the sentinel and whose attention
-    output is zero); block_tables [B,mb] int32.
+    output is zero); block_tables [B,mb] int32.  ``sparse_topk > 0`` attends
+    only the ``min(sparse_topk + sparse_recent, mb)`` blocks that
+    ``select_topk_blocks`` picks from the pool's block summaries (written by
+    the scatter below, so the new token's block is current); it needs a
+    ``block_summaries=True`` pool.
     → out [B,1,d]; ``pages`` updated in place.
     """
     dt = x.dtype
@@ -233,9 +324,20 @@ def apply_decode_paged(params, cfg, buffers, x, pages, writes: Writes,
     _scatter_pages(pages, k_e_new[:, 0], c_k_new[:, 0], c_v_new[:, 0], writes)
 
     C_k, C_v = _page_latents(pages)
-    o = ops.elite_decode_paged(
-        q_e.reshape(B, nh, -1).contiguous(), q_lat.reshape(B, nh, -1).contiguous(),
-        pages["k_e"], C_k, C_v, block_tables, lengths, G, dh ** -0.5, block_size)
+    scales = _page_scales(pages) or ()
+    q_e = q_e.reshape(B, nh, -1).contiguous()
+    q_lat = q_lat.reshape(B, nh, -1).contiguous()
+    if sparse_topk > 0:
+        key = _latent_key(pages)
+        num_sel = min(sparse_topk + sparse_recent, block_tables.shape[1])
+        walk = ops.select_topk_blocks(
+            q_lat, *(pages[key + sfx] for sfx in BLOCK_SUMMARY_SUFFIXES),
+            block_tables, lengths, block_size, num_sel, sparse_recent)
+        fn = ops.elite_decode_sparse_paged_q8 if scales else ops.elite_decode_sparse_paged
+    else:
+        walk = (block_tables, lengths)
+        fn = ops.elite_decode_paged_q8 if scales else ops.elite_decode_paged
+    o = fn(q_e, q_lat, pages["k_e"], C_k, C_v, *scales, *walk, G, dh ** -0.5, block_size)
     o = o.reshape(B, 1, nh, C_v.shape[-1]).to(dt)
 
     bv_q = rope_lib.expand_kv_to_q(params["bv"].permute(1, 0, 2), G)  # [nh,dc,dh]

@@ -1,7 +1,7 @@
 """Build the CUDA C++ kernels under ``csrc/`` with nvcc, at first use.
 
-Each source has a plain ``extern "C"`` interface and compiles on its own into
-a shared library that ``ctypes`` loads (no PyTorch headers, so a build takes
+Each source has a plain ``extern "C"`` interface (one or more entries) and
+compiles on its own into a shared library that ``ctypes`` loads (no PyTorch headers, so a build takes
 seconds).  Libraries go to ``build/kernels/`` at the repository root, named
 by a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one is reused.  ``build()`` starts one nvcc per source, all at
@@ -68,14 +68,16 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     return reports
 
 
-def load(name: str, argtypes, restype=ctypes.c_int):
-    """The C function ``name`` from its source's library (built if needed),
-    with its ``argtypes``/``restype`` declared."""
-    lib = _LIBS.get(name)
+def load(symbol: str, argtypes, restype=ctypes.c_int, source: str = ""):
+    """The C function ``symbol`` from the library of ``csrc/<source>.cu``
+    (``source`` defaults to ``symbol``; built if needed), with its
+    ``argtypes``/``restype`` declared."""
+    source = source or symbol
+    lib = _LIBS.get(source)
     if lib is None:
-        build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
-    fn = getattr(lib, name)
+        build([source])
+        lib = _LIBS[source] = ctypes.CDLL(str(library_path(source)))
+    fn = getattr(lib, symbol)
     fn.argtypes, fn.restype = argtypes, restype
     return fn
 

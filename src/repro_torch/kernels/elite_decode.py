@@ -1,16 +1,26 @@
-"""Absorbed EliteKV decode attention over the paged pool: the CUDA kernel.
+"""Absorbed EliteKV decode attention over the paged pool: the CUDA kernels.
 
-Port of the JAX package's ``kernels/elite_decode.py::elite_decode_paged``.
+Ports of the JAX package's ``kernels/elite_decode.py`` paged decode family.
 Per (lane, kv head) one pass over the lane's compressed cache computes
 
-    s = (q_e · K_eᵀ + q_lat · C_kᵀ) · scale      masked at pos >= lengths[b]
+    s = (q_e · K_eᵀ + q_lat · C_kᵀ) · scale      over the visited rows
     o = softmax(s) · C_v
 
-walking the block table, so the sequence is never gathered contiguously.
-The kernel source, with what bounds it and its design, is
-``csrc/elite_decode_paged.cu``; the plain version is
-``ref.elite_decode_paged_ref``.  ``kernels.ops`` picks between them by the
-device of the inputs.
+walking the pool in place, so nothing is gathered contiguously:
+
+* ``elite_decode_paged``           f32 pages, the chain ``block_tables``
+  up to ``lengths``;
+* ``elite_decode_paged_q8``        int8 pages dequantized by their per-slot
+  f32 scales as they are staged;
+* ``elite_decode_sparse_paged``    f32 pages, a ``[B, W]`` selection
+  ``sel_tables`` with per-block row counts ``sel_counts`` (0 skips);
+* ``elite_decode_sparse_paged_q8`` the selection over int8 pages.
+
+All four are entries of one templated kernel, ``csrc/elite_decode_paged.cu``,
+whose header says what bounds it and how it is built; the plain versions
+are ``ref.elite_decode_[sparse_]paged[_q8]_ref``.  ``kernels.ops`` picks
+between kernel and plain version by the device of the inputs.  Each
+launcher counts its launches in its ``launches`` attribute.
 """
 from __future__ import annotations
 
@@ -20,48 +30,101 @@ import torch
 
 from repro_torch.kernels import build
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                           ctypes.c_void_p]
+_SOURCE = "elite_decode_paged"
+
+
+def _launch(symbol: str, q_e, q_lat, pages, scales, table, rows, q_group: int,
+            scale: float, block_size: int) -> torch.Tensor:
+    """Check every argument and launch entry ``symbol``.  ``pages`` is
+    (k_e, c_k, c_v); ``scales`` () for f32 pages or the three [n_slots] f32
+    scales of int8 pages; ``table`` [B, W] int32 and ``rows`` either
+    ``lengths`` [B] (chain walk) or ``sel_counts`` [B, W] (selection)."""
+    dev = q_e.device
+    if dev.type != "cuda":
+        raise ValueError(f"{symbol} kernel needs CUDA tensors, got {dev}")
+    k_e, c_k, c_v = pages
+    B, nh, r2 = q_e.shape
+    n_slots, nkv = k_e.shape[0], k_e.shape[1]
+    dc = c_k.shape[-1]
+    width = table.shape[-1]
+    if B < 1 or nh != nkv * q_group or n_slots % block_size:
+        raise ValueError(f"bad geometry: B={B} nh={nh} nkv={nkv} G={q_group} "
+                         f"n_slots={n_slots} block_size={block_size}")
+    f32, i32 = torch.float32, torch.int32
+    page_dtype = torch.int8 if scales else f32
+    build.check(q_e, "q_e", (B, nh, r2), f32, dev)
+    build.check(q_lat, "q_lat", (B, nh, dc), f32, dev)
+    build.check(k_e, "k_e_pages", (n_slots, nkv, r2), page_dtype, dev)
+    build.check(c_k, "c_k_pages", (n_slots, dc), page_dtype, dev)
+    build.check(c_v, "c_v_pages", (n_slots, dc), page_dtype, dev)
+    for name, s in zip(("k_e_scale", "c_k_scale", "c_v_scale"), scales):
+        build.check(s, name, (n_slots,), f32, dev)
+    sparse = "sparse" in symbol
+    build.check(table, "sel_tables" if sparse else "block_tables", (B, width), i32, dev)
+    build.check(rows, "sel_counts" if sparse else "lengths",
+                (B, width) if sparse else (B,), i32, dev)
+    out = torch.empty((B, nh, dc), dtype=f32, device=dev)
+    ptrs = (q_e, q_lat, k_e, c_k, c_v, *scales, table, rows, out)
+    argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn = build.load(symbol, argtypes, source=_SOURCE)
+    err = fn(*(t.data_ptr() for t in ptrs), B, nkv, q_group, r2, dc, block_size,
+             width, scale, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+    return out
 
 
 def elite_decode_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                        block_tables, lengths, q_group: int, scale: float,
                        block_size: int) -> torch.Tensor:
-    """Launch the CUDA kernel.
-
-    q_e [B,nh,2r], q_lat [B,nh,dc], k_e_pages [n_slots,nkv,2r],
+    """q_e [B,nh,2r], q_lat [B,nh,dc], k_e_pages [n_slots,nkv,2r],
     c_k/c_v_pages [n_slots,dc] (the same tensor under J-LRD), all f32;
     block_tables [B,mb] and lengths [B] int32; every tensor contiguous on
-    one CUDA device.  → o [B,nh,dc] f32; length-0 lanes give zeros.
-    """
-    dev = q_e.device
-    if dev.type != "cuda":
-        raise ValueError(f"elite_decode_paged kernel needs CUDA tensors, got {dev}")
-    B, nh, r2 = q_e.shape
-    n_slots, nkv = k_e_pages.shape[0], k_e_pages.shape[1]
-    dc = c_k_pages.shape[-1]
-    mb = block_tables.shape[-1]
-    if B < 1 or nh != nkv * q_group or n_slots % block_size:
-        raise ValueError(f"bad geometry: B={B} nh={nh} nkv={nkv} G={q_group} "
-                         f"n_slots={n_slots} block_size={block_size}")
-    f32, i32 = torch.float32, torch.int32
-    build.check(q_e, "q_e", (B, nh, r2), f32, dev)
-    build.check(q_lat, "q_lat", (B, nh, dc), f32, dev)
-    build.check(k_e_pages, "k_e_pages", (n_slots, nkv, r2), f32, dev)
-    build.check(c_k_pages, "c_k_pages", (n_slots, dc), f32, dev)
-    build.check(c_v_pages, "c_v_pages", (n_slots, dc), f32, dev)
-    build.check(block_tables, "block_tables", (B, mb), i32, dev)
-    build.check(lengths, "lengths", (B,), i32, dev)
-    out = torch.empty((B, nh, dc), dtype=f32, device=dev)
-    fn = build.load("elite_decode_paged", _ARGTYPES)
-    err = fn(q_e.data_ptr(), q_lat.data_ptr(), k_e_pages.data_ptr(),
-             c_k_pages.data_ptr(), c_v_pages.data_ptr(), block_tables.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), B, nkv, q_group, r2, dc,
-             block_size, mb, scale, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"elite_decode_paged launch failed: CUDA error {err}")
+    one CUDA device.  → o [B,nh,dc] f32; length-0 lanes give zeros."""
+    out = _launch("elite_decode_paged", q_e, q_lat, (k_e_pages, c_k_pages, c_v_pages),
+                  (), block_tables, lengths, q_group, scale, block_size)
     elite_decode_paged.launches += 1
     return out
 
 
-elite_decode_paged.launches = 0
+def elite_decode_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                          k_e_scale, c_k_scale, c_v_scale, block_tables, lengths,
+                          q_group: int, scale: float, block_size: int) -> torch.Tensor:
+    """``elite_decode_paged`` over int8 pages and their f32 scales
+    [n_slots] (J-LRD: the same latent tensor and scale twice) → f32."""
+    out = _launch("elite_decode_paged_q8", q_e, q_lat, (k_e_pages, c_k_pages, c_v_pages),
+                  (k_e_scale, c_k_scale, c_v_scale), block_tables, lengths,
+                  q_group, scale, block_size)
+    elite_decode_paged_q8.launches += 1
+    return out
+
+
+def elite_decode_sparse_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                              sel_tables, sel_counts, q_group: int, scale: float,
+                              block_size: int) -> torch.Tensor:
+    """``elite_decode_paged`` over the selection sel_tables/sel_counts
+    [B,W] int32 (physical block ids, rows per block) → o [B,nh,dc] f32;
+    all-zero lanes give zeros."""
+    out = _launch("elite_decode_sparse_paged", q_e, q_lat,
+                  (k_e_pages, c_k_pages, c_v_pages), (), sel_tables, sel_counts,
+                  q_group, scale, block_size)
+    elite_decode_sparse_paged.launches += 1
+    return out
+
+
+def elite_decode_sparse_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                                 k_e_scale, c_k_scale, c_v_scale, sel_tables,
+                                 sel_counts, q_group: int, scale: float,
+                                 block_size: int) -> torch.Tensor:
+    """``elite_decode_sparse_paged`` over int8 pages and their scales → f32."""
+    out = _launch("elite_decode_sparse_paged_q8", q_e, q_lat,
+                  (k_e_pages, c_k_pages, c_v_pages), (k_e_scale, c_k_scale, c_v_scale),
+                  sel_tables, sel_counts, q_group, scale, block_size)
+    elite_decode_sparse_paged_q8.launches += 1
+    return out
+
+
+for _fn in (elite_decode_paged, elite_decode_paged_q8, elite_decode_sparse_paged,
+            elite_decode_sparse_paged_q8):
+    _fn.launches = 0

@@ -4,8 +4,9 @@ A call whose query lies on a CUDA device launches the hand-written kernel
 (which raises on anything it does not take); a call on the CPU runs the
 plain PyTorch version.  Nothing falls back from one to the other.  Each
 launcher counts its launches in a plain integer attribute
-(``elite_decode.elite_decode_paged.launches``,
-``flash_prefill.flash_prefill.launches``), which ``launches()`` reads.
+(``elite_decode.elite_decode_paged.launches``, ...), which ``launches()``
+reads.  ``select_topk_blocks`` is no kernel: it runs the plain torch
+selection on either device, as the reference runs it in plain jnp.
 """
 from __future__ import annotations
 
@@ -18,7 +19,12 @@ from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import ref
 
 LAUNCHERS = {"elite_decode_paged": _ed.elite_decode_paged,
+             "elite_decode_paged_q8": _ed.elite_decode_paged_q8,
+             "elite_decode_sparse_paged": _ed.elite_decode_sparse_paged,
+             "elite_decode_sparse_paged_q8": _ed.elite_decode_sparse_paged_q8,
              "flash_prefill": _fp.flash_prefill}
+
+select_topk_blocks = ref.select_topk_blocks
 
 
 def launches() -> Dict[str, int]:
@@ -37,6 +43,36 @@ def elite_decode_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     fn = _ed.elite_decode_paged if q_e.is_cuda else ref.elite_decode_paged_ref
     return fn(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, block_tables,
               lengths, q_group, scale, block_size)
+
+
+def elite_decode_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                          k_e_scale, c_k_scale, c_v_scale, block_tables, lengths,
+                          q_group: int, scale: float, block_size: int) -> torch.Tensor:
+    """Decode over an int8 pool; see ``ref.elite_decode_paged_q8_ref``."""
+    fn = _ed.elite_decode_paged_q8 if q_e.is_cuda else ref.elite_decode_paged_q8_ref
+    return fn(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
+              c_v_scale, block_tables, lengths, q_group, scale, block_size)
+
+
+def elite_decode_sparse_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                              sel_tables, sel_counts, q_group: int, scale: float,
+                              block_size: int) -> torch.Tensor:
+    """Decode over a block selection; see ``ref.elite_decode_sparse_paged_ref``."""
+    fn = _ed.elite_decode_sparse_paged if q_e.is_cuda else ref.elite_decode_sparse_paged_ref
+    return fn(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, sel_tables, sel_counts,
+              q_group, scale, block_size)
+
+
+def elite_decode_sparse_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                                 k_e_scale, c_k_scale, c_v_scale, sel_tables,
+                                 sel_counts, q_group: int, scale: float,
+                                 block_size: int) -> torch.Tensor:
+    """Selection decode over an int8 pool; see
+    ``ref.elite_decode_sparse_paged_q8_ref``."""
+    fn = (_ed.elite_decode_sparse_paged_q8 if q_e.is_cuda
+          else ref.elite_decode_sparse_paged_q8_ref)
+    return fn(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
+              c_v_scale, sel_tables, sel_counts, q_group, scale, block_size)
 
 
 def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,

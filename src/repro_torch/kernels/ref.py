@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quant import dequantize
+
 NEG_INF = -1e30
 
 
@@ -66,6 +68,95 @@ def elite_decode_paged_ref(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                             gather_pages(c_k_pages, block_tables, block_size),
                             gather_pages(c_v_pages, block_tables, block_size),
                             lengths, q_group, scale)
+
+
+def select_topk_blocks(q_lat, blk_mean, blk_max, block_tables, lengths,
+                       block_size: int, num_sel: int, recent: int):
+    """Score each lane's resident blocks in latent space and pick the top
+    ``num_sel`` (the ``recent`` newest forced in).  Plain torch ops on either
+    device: the reference runs this selection as plain jnp, not as a kernel.
+
+    q_lat [B,nh,dc] (all heads); blk_mean/blk_max [n_blocks,dc] f32 block
+    summaries; block_tables [B,mb] int32; lengths [B] int32.
+    score_j = Σ_h q_lat·mean_j + |q_lat|·absmax_j; resident blocks outside the
+    tail keep it, the tail scores 1e30 and non-resident entries -1e30.  Ties
+    go to the lower logical index, as ``jax.lax.top_k`` breaks them: a
+    stable descending sort, then the winners sorted ascending so the kernels
+    walk them in chain order.  Each block's score is its own row reduction,
+    so blocks with equal summaries score exactly equal.
+    → (sel_tables [B,W] int32 physical block ids, sel_counts [B,W] int32
+    valid rows per block), W = min(num_sel, mb).  With W >= the chain the
+    selection is the whole table and the count mask the dense length mask.
+    """
+    B, mb = block_tables.shape
+    bs = block_size
+    bt = block_tables.long()
+    n_chain = (lengths.long() + bs - 1) // bs                 # [B]
+    j = torch.arange(mb, device=bt.device)[None, :]           # logical index
+    q = q_lat.float()
+    score = ((blk_mean[bt] * q.sum(1)[:, None, :]).sum(-1)
+             + (blk_max[bt] * q.abs().sum(1)[:, None, :]).sum(-1))   # [B, mb]
+    resident = j < n_chain[:, None]
+    tail = resident & (j >= n_chain[:, None] - recent)
+    score = torch.where(resident, score, torch.full_like(score, NEG_INF))
+    score = torch.where(tail, torch.full_like(score, -NEG_INF), score)
+    order = torch.sort(score, dim=-1, descending=True, stable=True)[1]
+    sel = torch.sort(order[:, :min(num_sel, mb)], dim=-1)[0]
+    sel_tables = torch.gather(bt, 1, sel).to(torch.int32)
+    sel_counts = (lengths.long()[:, None] - sel * bs).clamp(0, bs).to(torch.int32)
+    return sel_tables, sel_counts
+
+
+def _sparse_valid(sel_counts, block_size: int):
+    """[B, W] per-block counts → [B, 1, W·bs] row-validity mask; for the full
+    chain it equals the dense ``pos < length`` mask elementwise."""
+    offs = torch.arange(block_size, device=sel_counts.device).repeat(sel_counts.shape[1])
+    counts = sel_counts.repeat_interleave(block_size, dim=1)     # [B, W·bs]
+    return (offs[None, :] < counts)[:, None, :]
+
+
+def elite_decode_sparse_paged_ref(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                                  sel_tables, sel_counts, q_group: int,
+                                  scale: float, block_size: int) -> torch.Tensor:
+    """Sparse paged decode: gather only the selected blocks, then the masked
+    core.  sel_tables/sel_counts [B,W] from ``select_topk_blocks``; a count
+    of 0 contributes nothing.  A full-width selection gathers the same arrays
+    under the same mask as ``elite_decode_paged_ref``: the same bits."""
+    return _decode_masked(q_e, q_lat,
+                          gather_pages(k_e_pages, sel_tables, block_size),
+                          gather_pages(c_k_pages, sel_tables, block_size),
+                          gather_pages(c_v_pages, sel_tables, block_size),
+                          _sparse_valid(sel_counts, block_size), q_group, scale)
+
+
+def dequantize_pages(k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
+                     c_v_scale):
+    """An int8 pool's streams as f32: each row times its slot's scale."""
+    return (dequantize(k_e_pages, k_e_scale), dequantize(c_k_pages, c_k_scale),
+            dequantize(c_v_pages, c_v_scale))
+
+
+def elite_decode_paged_q8_ref(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                              k_e_scale, c_k_scale, c_v_scale, block_tables,
+                              lengths, q_group: int, scale: float,
+                              block_size: int) -> torch.Tensor:
+    """Int8-pool decode: dequantize every slot, then the f32 paged version.
+    Pages int8, scales [n_slots] f32; the output is f32."""
+    return elite_decode_paged_ref(
+        q_e, q_lat, *dequantize_pages(k_e_pages, c_k_pages, c_v_pages, k_e_scale,
+                                      c_k_scale, c_v_scale),
+        block_tables, lengths, q_group, scale, block_size)
+
+
+def elite_decode_sparse_paged_q8_ref(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                                     k_e_scale, c_k_scale, c_v_scale, sel_tables,
+                                     sel_counts, q_group: int, scale: float,
+                                     block_size: int) -> torch.Tensor:
+    """Int8-pool sparse decode: dequantize, then the f32 sparse version."""
+    return elite_decode_sparse_paged_ref(
+        q_e, q_lat, *dequantize_pages(k_e_pages, c_k_pages, c_v_pages, k_e_scale,
+                                      c_k_scale, c_v_scale),
+        sel_tables, sel_counts, q_group, scale, block_size)
 
 
 def flash_prefill_ref(q, k, v, q_group: int, scale: float, q_offsets,

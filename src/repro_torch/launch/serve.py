@@ -15,9 +15,19 @@ decodes greedily and retires them.  The run ends with the scheduler metrics
 line (throughput, TTFT, step latency, pool reuse, preemptions), the pool
 accounting and the per-phase wall breakdown.
 
+``--pool-dtype int8`` stores the pool as int8 rows with per-slot f32 scales;
+``--sparse-topk K`` decodes over the K best-scoring blocks plus the
+``--sparse-recent`` newest ones.  Below full width, sparse decode needs
+``--admission watermark`` (a recompute after preemption would re-prefill
+densely and fork the stream; host swap is not ported):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --elitekv \
+        --stream --device cpu --pool-dtype int8 --sparse-topk 2 \
+        --admission watermark
+
 The reference's batch mode and its sampling, speculative, prefix-cache,
-swap, int8, sparse, tracing and multi-device options are not ported yet
-(ROADMAP Queue 1).
+swap, tracing and multi-device options are not ported yet (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -58,7 +68,9 @@ def serve_stream(params, buffers, cfg, args):
         max_new_tokens=args.new_tokens,
         max_len=args.prompt_len + args.new_tokens + 1,
         prefill_chunk_tokens=args.prefill_chunk,
-        prefill_batch_lanes=args.prefill_lanes, admission=args.admission)
+        prefill_batch_lanes=args.prefill_lanes, admission=args.admission,
+        cache_dtype="int8" if args.pool_dtype == "int8" else "float32",
+        sparse_topk_blocks=args.sparse_topk, sparse_recent_blocks=args.sparse_recent)
     sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=args.device)
     reqs = make_stream(cfg, args.requests, args.rate, args.prompt_len,
                        args.new_tokens, args.seed)
@@ -70,6 +82,12 @@ def serve_stream(params, buffers, cfg, args):
               f"<= {scfg.prefill_chunk_tokens} tokens x {scfg.chunk_lanes} "
               f"lanes (mean {report.mean_prefill_batch:.2f} live) "
               f"interleaved with decode")
+    if scfg.sparse_topk_blocks:
+        print(f"sparse decode [topk={report.sparse_topk} "
+              f"recent={report.sparse_recent}]: "
+              f"mean {report.mean_selected_blocks:.1f}/"
+              f"{report.mean_candidate_blocks:.1f} blocks attended per lane "
+              f"over {report.sparse_steps} decode forwards")
     if report.preemptions:
         print(f"preemption [recompute]: {report.preemptions} evictions across "
               f"{report.preempted_requests} requests; mean occupancy "
@@ -124,12 +142,25 @@ def main(argv=None):
                          "forward (0 = max-slots)")
     ap.add_argument("--admission", choices=("preempt", "watermark"),
                     default="preempt")
+    ap.add_argument("--pool-dtype", choices=("f32", "int8"), default="f32",
+                    help="pool page type: int8 rows with per-slot f32 scales")
+    ap.add_argument("--sparse-topk", type=int, default=0,
+                    help="decode over the K best-scoring blocks per lane plus "
+                         "--sparse-recent newest blocks (0 = dense)")
+    ap.add_argument("--sparse-recent", type=int, default=2,
+                    help="newest blocks always attended under --sparse-topk")
     args = ap.parse_args(argv)
     if not (args.stream and args.elitekv):
         ap.error("the port serves the paged EliteKV stream only: pass "
                  "--elitekv --stream (batch mode is ROADMAP Queue 1 item 3)")
     if args.rate <= 0:
         ap.error("--rate must be > 0 (mean arrivals per decode step)")
+    if args.sparse_topk < 0 or args.sparse_recent < 0:
+        ap.error("--sparse-topk and --sparse-recent must be >= 0")
+    if args.sparse_topk > 0 and args.admission == "preempt":
+        ap.error("--sparse-topk with preempt admission needs --admission "
+                 "watermark (a recompute prefill cannot reproduce "
+                 "sparse-generated streams; host swap is not ported)")
     # the reference is f32 end to end: keep matmuls out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -118,12 +118,16 @@ def apply_prefill_paged(params, buffers, cfg, tokens, pages, slot_mapping,
 
 
 def apply_decode_paged(params, buffers, cfg, tokens, pages, slot_mapping,
-                       block_tables, lengths, block_size: int):
+                       block_tables, lengths, block_size: int,
+                       sparse_topk: int = 0, sparse_recent: int = 0):
     """One decode step for every serving lane, reading and writing the pool.
 
     ``tokens`` [B,1]; ``lengths`` [B] int32, the live length *including*
     this token (0 = idle lane); ``slot_mapping`` [B] the write slot of the
     new token (sentinel for idle lanes); ``block_tables`` [B,mb].
+    ``sparse_topk > 0`` attends only the block-top-k selection plus the
+    ``sparse_recent`` newest blocks in every layer (the pool needs block
+    summaries).
     → logits [B,1,Vp] f32; ``pages`` written in place.
     """
     device = params["embed"]["table"].device
@@ -135,6 +139,6 @@ def apply_decode_paged(params, buffers, cfg, tokens, pages, slot_mapping,
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
         h = _run_layer(p, cfg, h, lambda pa, hn: elite_attention.apply_decode_paged(
             pa, cfg, b, hn, _layer_pages(pages, i), writes, block_tables, lengths,
-            block_size))
+            block_size, sparse_topk, sparse_recent))
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h)

@@ -12,10 +12,18 @@ mid-flight preempts the youngest resident, which is requeued at the head of
 the line and recomputes its prefix (prompt + generated) on re-admission, so
 its token stream is unchanged.
 
+``cache_dtype="int8"`` serves from an int8 pool (per-slot scales, fused
+dequantization in the decode kernels); ``sparse_topk_blocks > 0`` decodes
+over the block-top-k selection plus ``sparse_recent_blocks`` newest blocks.
+Partial-width sparse decode with ``admission="preempt"`` is rejected: a
+recompute re-prefills densely and cannot reproduce streams that lower
+layers attended sparsely, so ``admission="watermark"`` (which never
+preempts) is the sound setting.
+
 Decoding is greedy.  Not ported yet, and rejected with
 ``NotImplementedError`` rather than ignored: sampling (``temperature > 0``),
-speculative decode, the prefix cache, host-swap eviction, the int8 pool and
-sparse decode — ROADMAP Queue 1 items 6 to 11.
+speculative decode, the prefix cache and host-swap eviction — ROADMAP
+Queue 1 items 6, 8, 9 and 10.
 """
 from __future__ import annotations
 
@@ -81,12 +89,13 @@ class SchedulerConfig:
     prefill_chunk_tokens: int = 0         # per-lane chunk (0 → whole prompt)
     prefill_batch_lanes: int = 0          # lanes per chunked forward (0 → max_slots)
     admission: str = "preempt"            # "preempt" | "watermark"
+    cache_dtype: str = "float32"          # pool pages: "float32" | "int8"
+    sparse_topk_blocks: int = 0           # block top-k per decode (0 = dense)
+    sparse_recent_blocks: int = 2         # newest blocks always attended
     # options of the reference that are not ported yet; any other value raises
     eviction: str = "recompute"
     speculate_k: int = 0
     prefix_cache: bool = False
-    cache_dtype: str = "float32"
-    sparse_topk_blocks: int = 0
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -148,6 +157,11 @@ class ServeReport:
     preempted_requests: int = 0
     mean_occupancy: float = 0.0
     mean_prefill_batch: float = 0.0       # mean lanes per prefill forward
+    sparse_topk: int = 0                  # block top-k the run decoded with
+    sparse_recent: int = 0                # forced newest-block tail width
+    sparse_steps: int = 0                 # decode forwards that ran sparse
+    mean_selected_blocks: float = 0.0     # blocks attended per lane-step
+    mean_candidate_blocks: float = 0.0    # resident blocks per lane-step
     phase_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
     step_wall_ms_total: float = 0.0
 
@@ -160,6 +174,14 @@ class ServeReport:
     def summary(self) -> str:
         bucket = "".join(f" ttft[{k}]={v:.1f}" for k, v in
                          self.ttft_steps_by_bucket.items())
+        q8 = ""
+        if self.pool_dtype not in ("float32", ""):
+            q8 = f" pool[{self.pool_dtype} {self.pool_bytes_per_token}B/tok]"
+        sp = ""
+        if self.sparse_topk:
+            sp = (f" sparse[k={self.sparse_topk}+{self.sparse_recent} "
+                  f"sel={self.mean_selected_blocks:.1f}/"
+                  f"{self.mean_candidate_blocks:.1f}]")
         return (f"completed={self.completed} steps={self.decode_steps} "
                 f"decoded={self.decoded_tokens} tok/s={self.tok_per_s:.1f} "
                 f"ttft_steps={self.ttft_steps_mean:.1f}{bucket} "
@@ -170,7 +192,7 @@ class ServeReport:
                 f"{self.naive_blocks} reuse×{self.block_reuse_ratio:.2f} "
                 f"occ={self.mean_occupancy:.2f} [{self.admission}] "
                 f"preempt={self.preemptions} "
-                f"prefill_batch={self.mean_prefill_batch:.1f}")
+                f"prefill_batch={self.mean_prefill_batch:.1f}{q8}{sp}")
 
 
 class Scheduler:
@@ -183,23 +205,33 @@ class Scheduler:
                  device="cuda"):
         if not cfg.elitekv.enabled:
             raise ValueError("paged serving requires an EliteKV config")
+        if scfg.sparse_topk_blocks < 0 or scfg.sparse_recent_blocks < 0:
+            raise ValueError("sparse_topk_blocks and sparse_recent_blocks must be >= 0")
+        if scfg.sparse_topk_blocks and scfg.speculate_k:
+            raise ValueError("sparse_topk_blocks and speculate_k are mutually "
+                             "exclusive: a verify window has no single selection query")
+        sparse_partial = (0 < scfg.sparse_topk_blocks and
+                          scfg.sparse_topk_blocks + scfg.sparse_recent_blocks
+                          < scfg.max_blocks_per_seq)
+        if sparse_partial and scfg.admission == "preempt" and scfg.eviction == "recompute":
+            raise ValueError(
+                "partial-width sparse decode needs admission='watermark': a "
+                "recompute re-prefills densely and cannot reproduce streams "
+                "generated with sparse attention (host swap is not ported)")
         if scfg.speculate_k:
             raise _unsupported("speculative decode", 8, "speculative decode")
         if scfg.prefix_cache:
             raise _unsupported("the prefix cache", 9, "prefix caching and copy-on-write")
         if scfg.eviction != "recompute":
             raise _unsupported(f"eviction={scfg.eviction!r}", 10, "host swap")
-        if scfg.cache_dtype != "float32":
-            raise _unsupported(f"cache_dtype={scfg.cache_dtype!r}", 7, "int8 pool")
-        if scfg.sparse_topk_blocks:
-            raise _unsupported("sparse decode", 11, "sparse decode")
         self.device = torch.empty(0, device=device).device   # "cuda" → "cuda:0"
         if params["embed"]["table"].device != self.device:
             raise ValueError(f"params live on {params['embed']['table'].device}, "
                              f"scheduler device is {self.device}")
         self.params, self.buffers, self.cfg, self.scfg = params, buffers, cfg, scfg
         self.pool = PagedKVPool(cfg, scfg.num_blocks, scfg.block_size,
-                                device=self.device)
+                                device=self.device, dtype=scfg.cache_dtype,
+                                block_summaries=scfg.sparse_topk_blocks > 0)
         self.bm = BlockManager(self.pool, policy=scfg.admission)
         self.slots: List[Optional[Request]] = [None] * scfg.max_slots
         self.waiting: collections.deque = collections.deque()
@@ -213,6 +245,8 @@ class Scheduler:
         self._prefill_lanes_total = 0
         self._phase_ms = {p: 0.0 for p in PHASES}
         self._step_wall_ms_total = 0.0
+        self._sparse_steps = self._sparse_lanes = 0
+        self._sparse_selected = self._sparse_candidate = 0
 
     # -- helpers ------------------------------------------------------------
     def _sync(self) -> None:
@@ -500,16 +534,33 @@ class Scheduler:
             logits = lm.apply_decode_paged(
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
                 self.pool.pages, torch.from_numpy(sm), self._tensor(bt),
-                self._tensor(lengths), self.scfg.block_size)
+                self._tensor(lengths), self.scfg.block_size,
+                self.scfg.sparse_topk_blocks, self.scfg.sparse_recent_blocks)
             self._sync()
         with self._phase("sample"):
             nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
         self._step_wall_ms.append((time.perf_counter() - t0) * 1e3)
+        if self.scfg.sparse_topk_blocks > 0:
+            self._count_sparse(lengths[active])
         for i in active:
             tok = int(nxt[i])
             self.slots[i].generated.append(tok)
             self._maybe_finish(i, tok)
         return True
+
+    def _count_sparse(self, lengths: np.ndarray) -> None:
+        """Blocks attended and resident per live lane of a sparse step, from
+        the same arithmetic as the selection (its full width is
+        ``min(topk + recent, max_blocks_per_seq)``), so nothing is read
+        back from the card."""
+        scfg = self.scfg
+        width = min(scfg.sparse_topk_blocks + scfg.sparse_recent_blocks,
+                    scfg.max_blocks_per_seq)
+        n_chain = -(-lengths.astype(np.int64) // scfg.block_size)
+        self._sparse_steps += 1
+        self._sparse_lanes += len(lengths)
+        self._sparse_selected += int(np.minimum(n_chain, width).sum())
+        self._sparse_candidate += int(n_chain.sum())
 
     # -- drive to completion --------------------------------------------------
     def run(self, requests: Optional[List[Request]] = None,
@@ -552,7 +603,7 @@ class Scheduler:
             step_ms_p95=pct(self._step_wall_ms, 95),
             peak_slots=self.peak_slots, pool_high_water_blocks=hw,
             pool_block_size=self.scfg.block_size,
-            pool_bytes_per_token=bpt,
+            pool_dtype=self.pool.stats().dtype, pool_bytes_per_token=bpt,
             pool_allocated_bytes_peak=hw * self.scfg.block_size * bpt,
             naive_blocks=self.naive_blocks,
             block_reuse_ratio=self.naive_blocks / max(hw, 1),
@@ -561,6 +612,11 @@ class Scheduler:
             preempted_requests=sum(1 for r in fin if r.preempted_at),
             mean_occupancy=float(np.mean(self._occupancy)) if self._occupancy else 0.0,
             mean_prefill_batch=self._prefill_lanes_total / max(self.prefill_chunks, 1),
+            sparse_topk=self.scfg.sparse_topk_blocks,
+            sparse_recent=self.scfg.sparse_recent_blocks,
+            sparse_steps=self._sparse_steps,
+            mean_selected_blocks=self._sparse_selected / max(self._sparse_lanes, 1),
+            mean_candidate_blocks=self._sparse_candidate / max(self._sparse_lanes, 1),
             phase_ms=dict(self._phase_ms),
             step_wall_ms_total=self._step_wall_ms_total)
 

@@ -8,12 +8,16 @@ without one.  On the card (no JAX there, so without the JAX conftest):
 Tolerance 5e-5 (absolute and relative) in f32: kernel and plain version do
 the same math in another summation order (online softmax over blocks or
 tiles against one softmax over the row; dot products of up to 1056 terms).
+The int8 kernels dequantize with the plain version's one multiply, so the
+same tolerance holds; a full-width selection must give the dense kernel's
+bits exactly.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import quant
 from repro_torch.kernels import ops, ref
 from repro_torch.models import lm
 from repro_torch.runtime import serve_loop
@@ -69,6 +73,71 @@ def test_decode_kernel_matches_plain(width, separate, cuda):
     assert float(got[0].abs().max()) == 0.0
 
 
+def _quantize(x):
+    """The case's pages as int8 with per-slot scales (J-LRD: one latent)."""
+    (k, ks), (ck, cks) = quant.quantize_rows(x["k_e"]), quant.quantize_rows(x["c_k"])
+    cv, cvs = (ck, cks) if x["c_v"] is x["c_k"] else quant.quantize_rows(x["c_v"])
+    return [k, ck, cv, ks, cks, cvs]
+
+
+def _selection(x, bs, W, seed):
+    """Sorted random picks of each lane's blocks with their counts, count-0
+    padding, and lane 4 picking one physical block twice → [B, W] int32."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bt, lengths = x["bt"].cpu(), x["lengths"].cpu()
+    st = torch.zeros((len(lengths), W), dtype=torch.int32)
+    ct = torch.zeros_like(st)
+    for b, L in enumerate(lengths.tolist()):
+        n = -(-L // bs)
+        pick = torch.sort(torch.randperm(n, generator=g)[:W])[0]
+        st[b, :len(pick)] = bt[b, pick]
+        ct[b, :len(pick)] = (L - pick * bs).clamp(0, bs).int()
+    st[4, 1], ct[4, 1] = st[4, 0], ct[4, 0]
+    return st.to(x["bt"].device), ct.to(x["bt"].device)
+
+
+VARIANTS = ["paged_q8", "sparse_paged", "sparse_paged_q8"]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("separate", [False, True], ids=["jlrd", "slrd"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_decode_variant_matches_plain(width, separate, variant, cuda):
+    nh, nkv, r2, dc, dh = WIDTHS[width]
+    x, G, bs = _decode_inputs(cuda, nh, nkv, r2, dc, separate, seed=2)
+    pages = _quantize(x) if variant.endswith("q8") else [x["k_e"], x["c_k"], x["c_v"]]
+    walk = _selection(x, bs, 6, 3) if "sparse" in variant else (x["bt"], x["lengths"])
+    args = (x["q_e"], x["q_lat"], *pages, *walk, G, dh ** -0.5, bs)
+    name = "elite_decode_" + variant
+    before = ops.launches()[name]
+    got = getattr(ops, name)(*args)
+    want = getattr(ref, name + "_ref")(*args)
+    torch.cuda.synchronize()
+    assert ops.launches()[name] == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_full_width_sparse_kernel_is_dense(width, q8, cuda):
+    nh, nkv, r2, dc, dh = WIDTHS[width]
+    x, G, bs = _decode_inputs(cuda, nh, nkv, r2, dc, False, seed=4)
+    pages = _quantize(x) if q8 else [x["k_e"], x["c_k"], x["c_v"]]
+    n_blocks = x["k_e"].shape[0] // bs
+    mean = torch.randn(n_blocks, dc, device=cuda)
+    sel = ops.select_topk_blocks(x["q_lat"], mean, mean.abs(), x["bt"], x["lengths"],
+                                 bs, x["bt"].shape[1], 2)
+    assert torch.equal(sel[0], x["bt"])
+    sfx = "_q8" if q8 else ""
+    dense = getattr(ops, "elite_decode_paged" + sfx)(
+        x["q_e"], x["q_lat"], *pages, x["bt"], x["lengths"], G, dh ** -0.5, bs)
+    sparse = getattr(ops, "elite_decode_sparse_paged" + sfx)(
+        x["q_e"], x["q_lat"], *pages, *sel, G, dh ** -0.5, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(sparse, dense)
+
+
 @pytest.mark.parametrize("width", list(WIDTHS))
 def test_flash_kernel_matches_plain(width, cuda):
     nh, nkv, _, _, dh = WIDTHS[width]
@@ -88,16 +157,22 @@ def test_flash_kernel_matches_plain(width, cuda):
     assert float(got[2].abs().max()) == 0.0
 
 
-def test_scheduler_on_card_matches_cpu(cuda):
-    """A short chunked-prefill stream on the card, through both kernels,
-    gives the CPU run's greedy tokens."""
+@pytest.mark.parametrize("pool", [
+    dict(), dict(cache_dtype="int8"),
+    dict(sparse_topk_blocks=2, sparse_recent_blocks=1, admission="watermark"),
+    dict(cache_dtype="int8", sparse_topk_blocks=2, sparse_recent_blocks=1,
+         admission="watermark"),
+], ids=["f32", "int8", "sparse", "int8_sparse"])
+def test_scheduler_on_card_matches_cpu(pool, cuda):
+    """A short chunked-prefill stream on the card, through the prefill
+    kernel and the pool's decode kernel, gives the CPU run's greedy tokens."""
     cfg = get_config("tinyllama_1_1b").reduced(vocab_size=128).with_elitekv(
         elite_r=4, d_ckv=64)
     params, buffers = lm.init(cfg, seed=0, device="cpu")
     move = lambda t: {k: move(v) for k, v in t.items()} if isinstance(t, dict) else \
         [move(v) for v in t] if isinstance(t, list) else t.to(cuda)
     scfg = serve_loop.SchedulerConfig(max_slots=2, block_size=4, num_blocks=64,
-                                      max_len=40, prefill_chunk_tokens=8)
+                                      max_len=40, prefill_chunk_tokens=8, **pool)
     rng = np.random.default_rng(4)
     prompts = rng.integers(0, 128, (2, 20)).astype(np.int32)
     want, _ = serve_loop.generate_paged(params, buffers, cfg, prompts, 8, scfg, device="cpu")
@@ -106,5 +181,8 @@ def test_scheduler_on_card_matches_cpu(cuda):
                                          scfg, device="cuda")
     n = ops.launches()
     np.testing.assert_array_equal(got, want)
-    assert n["elite_decode_paged"] == rep.decode_steps * cfg.num_layers > 0
+    decode = "elite_decode_" + ("sparse_" if "sparse_topk_blocks" in pool else "") + \
+        "paged" + ("_q8" if "cache_dtype" in pool else "")
+    assert n[decode] == rep.decode_steps * cfg.num_layers > 0
     assert n["flash_prefill"] == rep.prefill_chunks * cfg.num_layers > 0
+    assert sum(n.values()) == n[decode] + n["flash_prefill"]

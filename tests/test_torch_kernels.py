@@ -6,15 +6,18 @@ with numpy from a seed and handed to both as numpy arrays.  Tolerance is
 1e-5 (absolute and relative) in f32: the two compute the same math, but the
 Pallas kernel sums block by block with an online softmax while the plain
 version takes one softmax over the gathered row, so summation order differs.
+The int8 variants take pages quantized by the reference's own quantizer.
 """
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+from repro.core import quant as jax_quant
 from repro.kernels import elite_decode as jax_ed
 from repro.kernels import flash_prefill as jax_fp
 
+from repro_torch.core import quant
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import elite_decode as ed
 from repro_torch.kernels import flash_prefill as fp
@@ -69,6 +72,101 @@ def test_elite_decode_paged_matches_pallas(nkv, G, r2, dc, bs, separate):
     assert float(got[0].abs().max()) == 0.0          # empty lane: exact zeros
 
 
+SHAPES = [
+    (2, 1, 8, 32, 8, False),      # MHA-like
+    (1, 4, 8, 64, 4, False),      # GQA, G = 4
+    (2, 4, 16, 32, 8, True),      # GQA with separate c_k / c_v (S-LRD)
+]
+
+
+def _quantized(c, separate):
+    """The case's pages as int8 plus per-slot scales, by the reference's
+    quantizer → {name: page} and (k_e, c_k, c_v) scales."""
+    q = {}
+    for name in ("k_e", "c_k", "c_v") if separate else ("k_e", "c_k"):
+        page, s = jax_quant.quantize_rows(jnp.asarray(c[name]))
+        q[name], q[name + "_s"] = np.array(page), np.array(s)
+    if not separate:
+        q["c_v"], q["c_v_s"] = q["c_k"], q["c_k_s"]
+    return q
+
+
+def _selection(c, bs, W, seed):
+    """A [B, W] selection over the case's chains: ascending picks of each
+    lane's blocks with their counts, count-0 padding at block 0, and a
+    repeated physical block (lane 1 picks its first block twice)."""
+    rng = np.random.default_rng(seed)
+    B = len(c["lengths"])
+    st, ct = np.zeros((B, W), np.int32), np.zeros((B, W), np.int32)
+    for b, L in enumerate(c["lengths"]):
+        n = -(-int(L) // bs)
+        pick = np.sort(rng.permutation(n)[:W])
+        st[b, :len(pick)] = c["bt"][b, pick]
+        ct[b, :len(pick)] = np.clip(L - pick * bs, 0, bs)
+    st[1, 1], ct[1, 1] = st[1, 0], ct[1, 0]
+    return st, ct
+
+
+def _args(arrays, separate, q8):
+    """Torch inputs; under J-LRD c_v (and its scale) is the c_k tensor."""
+    t = [torch.from_numpy(a) for a in arrays]
+    if not separate:
+        t[4] = t[3]
+        if q8:
+            t[7] = t[6]
+    return t
+
+
+@pytest.mark.parametrize("variant", ["paged_q8", "sparse_paged", "sparse_paged_q8"])
+@pytest.mark.parametrize("nkv,G,r2,dc,bs,separate", SHAPES)
+def test_decode_variants_match_pallas(variant, nkv, G, r2, dc, bs, separate):
+    """The int8 and selection variants of paged decode against their
+    Pallas kernels: empty lane, partial blocks, count-0 selection entries
+    and a block selected twice."""
+    mb, W = 4, 3
+    lengths = [0, 2 * bs + 3, bs - 3, bs, mb * bs, 1]
+    c = _decode_case(4, nkv, G, r2, dc, bs, mb, lengths, separate)
+    scale = 0.3
+    q8 = variant.endswith("q8")
+    if q8:
+        qc = _quantized(c, separate)
+        pages = [qc["k_e"], qc["c_k"], qc["c_v"], qc["k_e_s"], qc["c_k_s"], qc["c_v_s"]]
+    else:
+        pages = [c["k_e"], c["c_k"], c["c_v"]]
+    walk = list(_selection(c, bs, W, 5)) if "sparse" in variant else [c["bt"], c["lengths"]]
+    arrays = [c["q_e"], c["q_lat"]] + pages + walk
+    want = np.asarray(getattr(jax_ed, "elite_decode_" + variant)(
+        *map(jnp.asarray, arrays), G, scale, bs, interpret=True))
+    t = _args(arrays, separate, q8)
+    got = getattr(ops, "elite_decode_" + variant)(*t, G, scale, bs)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert float(got[0].abs().max()) == 0.0          # empty lane: exact zeros
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "int8"])
+def test_full_width_selection_is_dense(q8):
+    """A selection that is the whole table gives the dense plain version's
+    bits (f32 and int8 pages)."""
+    nkv, G, r2, dc, bs, mb = 2, 2, 8, 32, 4, 5
+    c = _decode_case(6, nkv, G, r2, dc, bs, mb, [0, 7, 4, 20, 13], True)
+    t = {k: torch.from_numpy(v) for k, v in c.items()}
+    pages = [t["k_e"], t["c_k"], t["c_v"]]
+    if q8:
+        pairs = [quant.quantize_rows(p) for p in pages]
+        pages = [p for p, _ in pairs] + [s for _, s in pairs]
+    mean = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (c["k_e"].shape[0] // bs, dc)).astype(np.float32))
+    sel = ops.select_topk_blocks(t["q_lat"], mean, mean.abs(), t["bt"], t["lengths"],
+                                 bs, mb, 1)
+    assert torch.equal(sel[0], t["bt"])
+    dense = (ops.elite_decode_paged_q8 if q8 else ops.elite_decode_paged)(
+        t["q_e"], t["q_lat"], *pages, t["bt"], t["lengths"], G, 0.3, bs)
+    sparse = (ops.elite_decode_sparse_paged_q8 if q8 else ops.elite_decode_sparse_paged)(
+        t["q_e"], t["q_lat"], *pages, *sel, G, 0.3, bs)
+    assert torch.equal(sparse, dense)
+
+
 @pytest.mark.parametrize("nkv,G", [(2, 1), (1, 4)])
 def test_flash_prefill_matches_pallas(nkv, G):
     rng = np.random.default_rng(1)
@@ -103,7 +201,7 @@ def test_cpu_tensors_take_the_plain_version():
     kv = torch.zeros(1, 4, 1, 32)
     ops.flash_prefill(q, kv, kv, 2, 0.5, torch.zeros(1, dtype=torch.int32),
                       torch.full((1,), 4, dtype=torch.int32))
-    assert ops.launches() == {"elite_decode_paged": 0, "flash_prefill": 0}
+    assert not any(ops.launches().values())
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -119,7 +217,7 @@ def test_kernel_launchers_refuse_cpu_tensors():
         fp.flash_prefill(q, q[:, :, :1], q[:, :, :1], 2, 0.5,
                          torch.zeros(1, dtype=torch.int32),
                          torch.full((1,), 4, dtype=torch.int32))
-    assert ops.launches() == {"elite_decode_paged": 0, "flash_prefill": 0}
+    assert not any(ops.launches().values())
 
 
 @pytest.mark.parametrize("bad,err", [

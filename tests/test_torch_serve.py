@@ -88,14 +88,16 @@ WORKLOADS = {
 }
 
 
-@pytest.mark.parametrize("name", list(WORKLOADS))
-def test_scheduler_streams_match_reference(name, tiny_elite_cfg, tiny_elite_model, port):
-    scfg_kw, req_kw = WORKLOADS[name]
-    jsched = jax_sl.Scheduler(*tiny_elite_model, tiny_elite_cfg,
-                              jax_sl.SchedulerConfig(**scfg_kw))
+def match_reference(jax_model, port, scfg_kw, req_kw):
+    """Serve the same requests through the JAX ``Scheduler`` and the port's
+    (on the CPU) with the same ``SchedulerConfig`` fields; assert equal
+    greedy streams, each token decided by more than the logits tolerance,
+    and equal step counts.  → (jax report, port report, port scheduler)."""
+    jcfg = jax_model[2]
+    jsched = jax_sl.Scheduler(*jax_model, jax_sl.SchedulerConfig(**scfg_kw))
     margins = []
     _record_margins(jsched, margins)
-    jrep = jsched.run(_requests(jax_sl, tiny_elite_cfg.vocab_size, **req_kw))
+    jrep = jsched.run(_requests(jax_sl, jcfg.vocab_size, **req_kw))
     cfg, tp, tb = port
     tsched = serve_loop.Scheduler(tp, tb, cfg, serve_loop.SchedulerConfig(**scfg_kw),
                                   device="cpu")
@@ -109,10 +111,18 @@ def test_scheduler_streams_match_reference(name, tiny_elite_cfg, tiny_elite_mode
     assert trep.decode_steps == jrep.decode_steps
     assert trep.prefill_chunks == jrep.prefill_chunks
     assert trep.preemptions == jrep.preemptions
+    assert tsched.pool.allocator.num_free == tsched.pool.num_blocks
+    return jrep, trep, tsched
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_scheduler_streams_match_reference(name, tiny_elite_cfg, tiny_elite_model, port):
+    scfg_kw, req_kw = WORKLOADS[name]
+    jrep, trep, tsched = match_reference((*tiny_elite_model, tiny_elite_cfg), port,
+                                         scfg_kw, req_kw)
     if name == "preempt":
         assert jrep.preemptions > 0 and trep.preemptions > 0
         assert any(p > 0 for r in tsched.finished for p in r.preempted_at)
-    assert tsched.pool.allocator.num_free == tsched.pool.num_blocks
 
 
 def test_generate_paged_matches_reference(tiny_elite_cfg, tiny_elite_model, port):
@@ -127,7 +137,6 @@ def test_generate_paged_matches_reference(tiny_elite_cfg, tiny_elite_model, port
 
 @pytest.mark.parametrize("field,value", [
     ("speculate_k", 2), ("prefix_cache", True), ("eviction", "swap"),
-    ("cache_dtype", "int8"), ("sparse_topk_blocks", 4),
 ])
 def test_unported_options_raise(field, value, port):
     cfg, tp, tb = port
