@@ -9,13 +9,16 @@ non-zero:
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, all at once) and print what ``-Xptxas -v`` reports
-   (registers, shared memory, spills) and each decode entry's shared memory
-   per CTA at both model widths.
+   (registers, shared memory, spills) and each decode and verify entry's
+   shared memory per CTA at both model widths (verify at W = 1 and 5).
 2. Hold each kernel against its plain PyTorch version on the card at
    TinyLlama-1.1B widths and at LLaMA2-7B widths, J-LRD and S-LRD, with
    empty lanes, partial blocks and ragged per-lane offsets and lengths; the
-   selection kernels also with count-0 entries and a block selected twice.
-   A full-width selection must give the dense kernels' bits, f32 and int8.
+   selection kernels also with count-0 entries and a block selected twice;
+   the verify kernels at W = 1, 3 and 5 with ragged q_offsets, windows
+   across a block boundary and windows shorter than W.  A full-width
+   selection must give the dense kernels' bits, and so must a verify
+   window of one token at q_offsets = lengths - 1, f32 and int8.
 3. Serve TinyLlama-1.1B at full width (22 layers, d 2048, EliteKV r=8,
    d_ckv=64) with random weights from a seeded ``torch.Generator`` — not
    the reference's weights, since the card has no JAX.  Each run sets the
@@ -29,18 +32,32 @@ non-zero:
       blocks, watermark admission): 16 requests of 512–768 prompt tokens
       (``elite_decode_sparse_paged_q8``);
    c. 6 requests on the int8 pool, dense (``elite_decode_paged_q8``), and
-      6 with f32 sparse decode (``elite_decode_sparse_paged``).
+      6 with f32 sparse decode (``elite_decode_sparse_paged``);
+   e. greedy self-speculative decode: 12 requests on the f32 pool, plain,
+      then k=4 with the full-rank draft, then k=4 with the draft truncated
+      to rank 32; 6 requests on the int8 pool, plain, then k=4 rank 32.
+      A speculative run launches the verify kernel 22 times per verify
+      forward, the pool's decode kernel 22 times per draft forward and
+      ``flash_prefill`` 22 times per prefill forward, nothing else; its
+      streams must equal the plain run's, apart from near-ties (top-2
+      margin of the plain logits under 1e-3, recomputed by a one-shot
+      prefill and printed) that f32 rounding decides; the full-rank draft
+      must accept >= 99% of its proposals.
    Every kernel is re-run on the busiest inputs recorded from its run and
    held against its plain version; a torch.profiler window over 10 steady
-   decode steps of 8 lanes, on the f32 pool and on the int8 pool with
-   sparse decode, gives the card's busy share and its time by kernel; a
+   decode steps of 8 lanes, on the f32 pool, on the int8 pool with sparse
+   decode, and as speculative macro-steps (k=4, full-rank draft) on the f32
+   pool, gives the card's busy share and its time by kernel; a
    narrow model on the card must give
-   the CPU's tokens on the f32 pool and on the int8 pool with sparse decode.
+   the CPU's tokens on the f32 pool and on the int8 pool with sparse decode,
+   and with speculative decode (k=2, rank-16 draft) on both pools.
 4. Time each kernel at its recorded main-path inputs (CUDA events, warm-up,
    L2 flushed before every launch), its plain version, its bound, and the
    PyTorch call that computes the same function where one exists; and, on
    the int8 sparse run's busiest step, the dense kernels over the same
-   lanes beside the pool's bytes per token, f32 against int8.
+   lanes beside the pool's bytes per token, f32 against int8; and a W = 5
+   verify call against the five decode calls that score the same window
+   one token at a time.
 
 Output ends with the card's name and power limit, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -61,13 +78,17 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 TOL = 5e-5                   # f32, same math in another summation order
+NEAR_TIE = 1e-3              # top-2 margin under which f32 rounding may decide
 NUM_LAYERS = 22
 DECODES = ("elite_decode_paged", "elite_decode_paged_q8", "elite_decode_sparse_paged",
            "elite_decode_sparse_paged_q8")
+VERIFIES = ("elite_verify_paged", "elite_verify_paged_q8")
 TPU_LINES = {"elite_decode_paged": "src/repro/kernels/elite_decode.py:193",
              "elite_decode_paged_q8": "src/repro/kernels/elite_decode.py:314",
              "elite_decode_sparse_paged": "src/repro/kernels/elite_decode.py:443",
-             "elite_decode_sparse_paged_q8": "src/repro/kernels/elite_decode.py:559"}
+             "elite_decode_sparse_paged_q8": "src/repro/kernels/elite_decode.py:559",
+             "elite_verify_paged": "src/repro/kernels/elite_decode.py:689",
+             "elite_verify_paged_q8": "src/repro/kernels/elite_decode.py:816"}
 
 
 def card_line() -> str:
@@ -75,14 +96,6 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def decode_smem_bytes(G, r2, dc, bs, separate) -> int:
-    """csrc/elite_decode_paged.cu, every entry (int8 pages are staged as
-    f32): q [G, W+1], kc [bs, W+1], cv [bs, dc] if separate, s [G, bs],
-    acc [G, dc], m/l/alpha [G] (W = r2 + dc) floats."""
-    wp = r2 + dc + 1
-    return 4 * (G * wp + bs * wp + separate * bs * dc + G * bs + G * dc + 3 * G)
 
 
 def flash_smem_bytes(dh: int) -> int:
@@ -117,41 +130,59 @@ def time_ms(fn, iters: int = 30, warmup: int = 3, flush=None, ahead: bool = True
     return total / iters
 
 
-# A decode call is the argument tuple ``ops.<name>`` takes:
-# (q_e, q_lat, k_e, c_k, c_v, [k_e_scale, c_k_scale, c_v_scale,] table, rows,
-#  q_group, scale, block_size) — table/rows are block_tables/lengths for the
-# chain entries and sel_tables/sel_counts for the sparse ones.
+# A decode or verify call is the argument tuple ``ops.<name>`` takes:
+# (q_e, q_lat, k_e, c_k, c_v, [k_e_scale, c_k_scale, c_v_scale,] table,
+#  [q_offsets,] rows, q_group, scale, block_size) — table/rows are
+# block_tables/lengths for the chain and verify entries and
+# sel_tables/sel_counts for the sparse ones; q_offsets only for verify.
 
 def split_decode(name: str, a):
-    """→ (q_e, q_lat, pages, scales, table, rows, G, bs)."""
+    """→ (q_e, q_lat, pages, scales, table, q_offsets or None, rows, G, bs)."""
     n = 8 if name.endswith("q8") else 5
-    return a[0], a[1], a[2:5], a[5:n], a[n], a[n + 1], a[n + 2], a[n + 4]
+    if "verify" in name:
+        return a[0], a[1], a[2:5], a[5:n], a[n], a[n + 1], a[n + 2], a[n + 3], a[n + 5]
+    return a[0], a[1], a[2:5], a[5:n], a[n], None, a[n + 1], a[n + 2], a[n + 4]
 
 
 def visited_rows(name: str, a) -> int:
-    """Pool rows the call's walk visits: live lengths (chain) or the sum of
-    the selected blocks' counts (selection)."""
-    *_, table, rows, _, bs = split_decode(name, a)
+    """Pool rows the call's walk visits: live lengths (chain, verify) or the
+    sum of the selected blocks' counts (selection)."""
+    *_, table, _, rows, _, bs = split_decode(name, a)
     if "sparse" in name:
         return int(rows.clamp(0, bs).sum())
     return int(rows.clamp(max=table.shape[1] * bs).sum())
 
 
+def scored_pairs(name: str, a) -> int:
+    """(query position, pool row) pairs the call scores: one per visited row
+    for decode; for verify, row w of a lane sees min(q_offset + w + 1,
+    length) rows (a padding row past the lane's window sees them all)."""
+    if "verify" not in name:
+        return visited_rows(name, a)
+    q_e, *_, table, offs, rows, _, bs = split_decode(name, a)
+    lens = rows.clamp(max=table.shape[1] * bs).tolist()
+    W = q_e.shape[1]
+    return sum(min(o + w + 1, n) for o, n in zip(offs.tolist(), lens) if n
+               for w in range(W))
+
+
 def decode_cost(name: str, a):
     """(bytes, flops) the call needs on these inputs: every input read once —
     only the visited rows of the pages, plus their per-slot scales — and the
-    output written once."""
-    q_e, q_lat, (k_e, c_k, c_v), scales, table, rows, G, bs = split_decode(name, a)
-    B, nh, r2 = q_e.shape
+    output written once; the flops of every scored (query, row) pair."""
+    q_e, q_lat, (k_e, c_k, c_v), scales, table, offs, rows, G, bs = split_decode(name, a)
+    nh, r2 = q_e.shape[-2:]
     dc = c_k.shape[-1]
     nkv = nh // G
     live = visited_rows(name, a)
     lat = 1 if c_v is c_k else 2
     per_row = k_e.element_size() * (nkv * r2 + lat * dc) + 4 * len(set(
         s.data_ptr() for s in scales))
-    nbytes = (4 * (q_e.numel() + q_lat.numel() + table.numel() + rows.numel()
-                   + B * nh * dc) + live * per_row)
-    flops = live * nh * (2 * (r2 + dc) + 2 * dc)
+    extra = 0 if offs is None else offs.numel()
+    # q_e, q_lat and the output (q_lat's shape), the walk's int32 arrays
+    nbytes = (4 * (q_e.numel() + 2 * q_lat.numel() + table.numel() + rows.numel()
+                   + extra) + live * per_row)
+    flops = scored_pairs(name, a) * nh * (2 * (r2 + dc) + 2 * dc)
     return nbytes, flops
 
 
@@ -215,6 +246,33 @@ def random_selection(x, W: int, seed: int):
     return st.to(dev), ct.to(dev)
 
 
+def random_verify(dev, nh, nkv, r2, dc, separate, W, seed, bs=16, mb=64):
+    """Lanes with windows (q_offset, n tokens, n <= W): two dead lanes, a
+    window at position 0, windows across a block boundary, a short one (pad
+    rows), ragged ones, and one that ends the table."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    windows = [(0, 0), (0, W), (bs - 2, W), (bs * 5 - 1, max(1, W - 2)), (300, W),
+               (777, W), (mb * bs - W, W), (0, 0)]
+    B, n_blocks = len(windows), len(windows) * mb
+    f = lambda *s: torch.randn(s, generator=g, device=dev)
+    c_k = f(n_blocks * bs, dc)
+    x = dict(q_e=f(B, W, nh, r2), q_lat=f(B, W, nh, dc), k_e=f(n_blocks * bs, nkv, r2),
+             c_k=c_k, c_v=f(n_blocks * bs, dc) if separate else c_k, bs=bs)
+    perm = torch.randperm(n_blocks, generator=g, device=dev).int()
+    bt = torch.zeros((B, mb), dtype=torch.int32, device=dev)
+    used = 0
+    for b, (off, n) in enumerate(windows):
+        k = -(-(off + n) // bs) if n else 0
+        bt[b, :k] = perm[used:used + k]
+        used += k
+    i32 = dict(dtype=torch.int32, device=dev)
+    x["bt"] = bt
+    x["offs"] = torch.tensor([o for o, _ in windows], **i32)
+    x["lengths"] = torch.tensor([o + n if n else 0 for o, n in windows], **i32)
+    return x
+
+
 def quantized_pages(x):
     """x's pages as int8 plus per-slot scales (J-LRD: one latent, one scale)."""
     from repro_torch.core import quant
@@ -227,7 +285,9 @@ def decode_call(name: str, x, dh: int, sel=None):
     """The argument tuple of ``name`` on the random case ``x``."""
     pages = quantized_pages(x) if name.endswith("q8") else (x["k_e"], x["c_k"], x["c_v"])
     walk = sel if "sparse" in name else (x["bt"], x["lengths"])
-    G = x["q_e"].shape[1] // x["k_e"].shape[1]
+    if "verify" in name:
+        walk = (x["bt"], x["offs"], x["lengths"])
+    G = x["q_e"].shape[-2] // x["k_e"].shape[1]
     return (x["q_e"], x["q_lat"], *pages, *walk, G, dh ** -0.5, x["bs"])
 
 
@@ -272,7 +332,8 @@ def profile_decode(params, buffers, cfg, dev, card: str, label: str, steps: int 
                    **pool) -> None:
     """Device time by kernel and the card's busy share over ``steps`` steady
     decode steps of 8 lanes (prompts of 512 tokens, prefilled first) on a
-    pool configured by ``pool`` (SchedulerConfig fields)."""
+    pool configured by ``pool`` (SchedulerConfig fields); a speculative
+    config's step is one draft/verify macro-step."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -302,7 +363,8 @@ def profile_decode(params, buffers, cfg, dev, card: str, label: str, steps: int 
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in rows)
-    print(f"[{card}] profile {label}: {steps} decode steps x 8 lanes: wall {wall_ms:.2f} ms, "
+    kind = "macro-steps" if pool.get("speculate_k") else "decode steps"
+    print(f"[{card}] profile {label}: {steps} {kind} x 8 lanes: wall {wall_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"idle {100 * (1 - busy_ms / wall_ms):.1f}%, "
           f"{sum(c for *_, c in rows) / steps:.0f} device events per step")
@@ -317,7 +379,7 @@ class Recorder:
     main-path inputs.  ``select_topk_blocks`` is recorded too: its tables
     and lengths are those of the sparse call of the same step."""
 
-    NAMES = DECODES + ("flash_prefill", "select_topk_blocks")
+    NAMES = DECODES + VERIFIES + ("flash_prefill", "select_topk_blocks")
 
     def __init__(self, n_layers: int):
         from repro_torch.core import elite_attention
@@ -342,10 +404,26 @@ class Recorder:
             setattr(self.ops, k, fn)
 
 
-def serve_run(label, params, buffers, cfg, scfg, reqs, decode: str, card: str):
+def path_kernels(scfg, rep, n_layers: int):
+    """{kernel: launches} a run with this config must have made: its decode
+    kernel once per layer and decode forward (per draft forward, and the
+    verify kernel per verify forward, when speculating), ``flash_prefill``
+    once per layer and prefill forward."""
+    q8 = "_q8" if scfg.cache_dtype == "int8" else ""
+    sparse = "sparse_" if scfg.sparse_topk_blocks else ""
+    want = {"flash_prefill": rep.prefill_chunks}
+    if scfg.speculate_k:
+        want["elite_verify_paged" + q8] = rep.decode_steps
+        want["elite_decode_paged" + q8] = rep.draft_forwards
+    else:
+        want[f"elite_decode_{sparse}paged{q8}"] = rep.decode_steps
+    return {k: v * n_layers for k, v in want.items()}
+
+
+def serve_run(label, params, buffers, cfg, scfg, reqs, card: str):
     """Serve ``reqs`` with the counts set to 0 just before and read just
-    after; check outputs and that ``decode`` and ``flash_prefill`` ran 22
-    times per forward and nothing else launched.
+    after; check outputs and that the path's kernels (``path_kernels``) ran
+    22 times per forward and nothing else launched.
     → (report, launches, recorder, scheduler)."""
     import numpy as np
     import torch
@@ -363,7 +441,9 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, decode: str, card: str):
         rec.close()
     print(f"[{card}] {label}: {rep.summary()}", flush=True)
     print(f"[{card}] {label} phases: {rep.phase_table()}")
-    print(f"{label} launches: {launches} over {rep.decode_steps} decode and "
+    fwd = (f"{rep.draft_forwards} draft + {rep.decode_steps} verify" if scfg.speculate_k
+           else f"{rep.decode_steps} decode")
+    print(f"{label} launches: {launches} over {fwd} and "
           f"{rep.prefill_chunks} prefill forwards x {cfg.num_layers} layers")
     if rep.completed != len(reqs):
         raise AssertionError(f"{label}: {rep.completed}/{len(reqs)} requests finished")
@@ -371,14 +451,62 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, decode: str, card: str):
         toks = np.asarray(r.generated)
         if len(toks) != r.max_new_tokens or toks.min() < 0 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"{label} request {r.uid}: bad output {toks[:8]}...")
-    if not launches[decode] == rep.decode_steps * cfg.num_layers > 0:
-        raise AssertionError(f"{label}: {decode} launches != decode forwards x layers")
-    if not launches["flash_prefill"] == rep.prefill_chunks * cfg.num_layers > 0:
-        raise AssertionError(f"{label}: prefill kernel launches != prefill forwards x layers")
-    others = {k: v for k, v in launches.items() if k not in (decode, "flash_prefill") and v}
+    want = path_kernels(scfg, rep, cfg.num_layers)
+    for name, n in want.items():
+        if not launches[name] == n > 0:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
+                                 f"expected {n} (forwards x layers)")
+    others = {k: v for k, v in launches.items() if k not in want and v}
     if others:
         raise AssertionError(f"{label}: other kernels launched: {others}")
     return rep, launches, rec, sched
+
+
+def near_tie_margin(params, buffers, cfg, tokens, dev) -> float:
+    """Top-1/top-2 margin of the full model's next-token logits after
+    ``tokens``, from a one-shot prefill into a fresh pool."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cache import PagedKVPool
+    from repro_torch.models import lm
+    n = len(tokens)
+    pool = PagedKVPool(cfg, -(-n // 16), 16, device=dev)
+    pool.ensure_capacity(0, n)
+    sm = pool.prefill_slot_mapping(0, 0, n, n)[None]
+    logits = lm.apply_prefill_paged(
+        params, buffers, cfg, torch.from_numpy(np.asarray(tokens, np.int32)[None]).to(dev),
+        pool.pages, torch.from_numpy(sm))
+    top = torch.topk(logits[0, n - 1].double(), 2).values
+    return float(top[0] - top[1])
+
+
+def compare_streams(label, plain_sched, spec_sched, params, buffers, cfg, dev, card) -> int:
+    """Speculative streams against the plain run's on the same requests.
+    A stream may part from the plain one only where the plain logits' top-2
+    margin, recomputed by a one-shot prefill of prompt + plain stream up to
+    that token, is under NEAR_TIE; it is then compared no further.  Any other
+    difference raises.  → the number of such near-tie tokens."""
+    import numpy as np
+    plain = {r.uid: r for r in plain_sched.finished}
+    ties = 0
+    for r in spec_sched.finished:
+        want = plain[r.uid].generated
+        diff = [t for t, (a, b) in enumerate(zip(r.generated, want)) if a != b]
+        if not diff and len(r.generated) == len(want):
+            continue
+        if not diff:
+            raise AssertionError(f"{label} request {r.uid}: stream length differs")
+        t = diff[0]
+        ctx = np.concatenate([r.prompt, np.asarray(want[:t], np.int32)])
+        margin = near_tie_margin(params, buffers, cfg, ctx, dev)
+        print(f"[{card}] {label} request {r.uid}: token {t} is {r.generated[t]} against "
+              f"plain {want[t]}; plain top-2 margin {margin:.3e}", flush=True)
+        if not margin < NEAR_TIE:
+            raise AssertionError(f"{label} request {r.uid}: stream differs from plain at "
+                                 f"token {t} with top-2 margin {margin} >= {NEAR_TIE}")
+        ties += 1
+    print(f"[{card}] {label}: streams == plain run's ({ties} near-tie tokens)", flush=True)
+    return ties
 
 
 def main() -> int:
@@ -389,6 +517,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import elite_decode as ed
     from repro_torch.launch.serve import build_config, make_stream
     from repro_torch.models import lm
     from repro_torch.runtime import serve_loop
@@ -411,17 +540,20 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     # all shared memory is dynamic (ptxas reports none): the bytes per CTA
     # from the kernels' layouts, at the widths below
+    print(f"  shared memory opt-in limit per block: {ed.smem_optin_limit(dev)} B")
     for wname, (G, r2, dc) in {"tinyllama_1_1b": (8, 16, 64),
                                "llama2_7b": (1, 32, 1024)}.items():
         for sep in (0, 1):
-            for name in DECODES:
-                print(f"  {name} smem/CTA {wname} {'S' if sep else 'J'}-LRD: "
-                      f"{decode_smem_bytes(G, r2, dc, 16, sep)} B")
+            lrd = "S" if sep else "J"
+            print(f"  decode entries smem/CTA {wname} {lrd}-LRD: "
+                  f"{ed.smem_bytes(1, G, 16, r2, dc, not sep)} B; verify entries "
+                  + ", ".join(f"W={w}: {ed.smem_bytes(w, G, 16, r2, dc, not sep)} B"
+                              for w in (1, 5)))
     for dh in (64, 128):
         print(f"  flash_prefill smem/CTA dh={dh}: {flash_smem_bytes(dh)} B")
 
     # -- 2. kernel parity at both model widths ------------------------------
-    errs = dict.fromkeys(DECODES + ("flash_prefill",), 0.0)
+    errs = dict.fromkeys(DECODES + VERIFIES + ("flash_prefill",), 0.0)
     widths = {"tinyllama_1_1b": (32, 4, 16, 64, 64), "llama2_7b": (32, 32, 32, 1024, 128)}
     for i, (wname, (nh, nkv, r2, dc, dh)) in enumerate(widths.items()):
         for separate in (False, True):
@@ -452,6 +584,31 @@ def main() -> int:
                     raise AssertionError(f"full-width sparse{sfx} != dense{sfx} ({wname})")
             print(f"[{card}] full-width sparse == dense bitwise, f32 and int8, {wname} "
                   f"{'S-LRD' if separate else 'J-LRD'}", flush=True)
+            # verify windows of 1, 3 and 5 tokens
+            for W in (1, 3, 5):
+                xv = random_verify(dev, nh, nkv, r2, dc, separate, W, seed=20 + W + i)
+                for name in VERIFIES:
+                    a = decode_call(name, xv, dh)
+                    got = run_decode(name, a)
+                    e = check(f"{name} W={W} {wname} {'S-LRD' if separate else 'J-LRD'}",
+                              max_err(got, run_decode(name, a, plain=True)), card)
+                    if float(got[0].abs().max()) != 0.0 or float(got[-1].abs().max()) != 0.0:
+                        raise AssertionError(f"{name}: a dead lane did not give exact zeros")
+                    errs[name] = max(errs[name], e)
+            # a window of one token at q_offsets = lengths - 1 is decode, bit for bit
+            offs = (x["lengths"] - 1).clamp(min=0)
+            for sfx in ("", "_q8"):
+                a = decode_call("elite_decode_paged" + sfx, x, dh)
+                n = len(a) - 5                        # index of block_tables
+                va = (a[0][:, None].contiguous(), a[1][:, None].contiguous(), *a[2:n + 1],
+                      offs, *a[n + 1:])
+                dense = run_decode("elite_decode_paged" + sfx, a)
+                one = run_decode("elite_verify_paged" + sfx, va)
+                torch.cuda.synchronize()
+                if not torch.equal(one[:, 0], dense):
+                    raise AssertionError(f"verify W=1{sfx} != decode{sfx} ({wname})")
+            print(f"[{card}] verify W=1 == decode bitwise, f32 and int8, {wname} "
+                  f"{'S-LRD' if separate else 'J-LRD'}", flush=True)
         x = random_prefill(dev, nh, nkv, dh, seed=10 + i)
         got = run_prefill(x)
         e = check(f"flash_prefill {wname}", max_err(got, run_prefill(x, plain=True)), card)
@@ -472,7 +629,7 @@ def main() -> int:
                        prompt_min=64, new_min=32)
     rep, launches, rec, _ = serve_run(
         "main path f32 24 requests", params, buffers, cfg,
-        serve_loop.SchedulerConfig(**base), reqs, "elite_decode_paged", card)
+        serve_loop.SchedulerConfig(**base), reqs, card)
     runs["elite_decode_paged"] = rep, launches
     recs["elite_decode_paged"] = rec
     # b. the int8 pool with sparse decode; c. int8 dense and f32 sparse
@@ -486,16 +643,43 @@ def main() -> int:
                            prompt_min=512, new_min=64)
         rep, launches, rec, sched = serve_run(
             f"{label} {n} requests", params, buffers, cfg,
-            serve_loop.SchedulerConfig(**base, **kw), reqs, decode, card)
+            serve_loop.SchedulerConfig(**base, **kw), reqs, card)
         runs[decode], recs[decode] = (rep, launches), rec
         if "sparse" in decode and not rep.mean_selected_blocks < rep.mean_candidate_blocks:
             raise AssertionError(f"{label}: the selection was never partial")
         if decode.endswith("q8") and rep.pool_dtype != "int8":
             raise AssertionError(f"{label}: pool dtype {rep.pool_dtype}")
 
-    # each decode kernel again, on the busiest recorded main-path inputs
+    # e. greedy self-speculative decode against plain decode on the same
+    # requests: f32 pool with the full-rank and a rank-32 draft, int8 pool
+    # with the rank-32 draft
+    spec_runs = {}
+    for pool, n, seed, kw in (("f32", 12, 7, {}), ("int8", 6, 8, dict(cache_dtype="int8"))):
+        stream = lambda: make_stream(cfg, n, rate=0.5, prompt_len=512, new_tokens=128,
+                                     seed=seed, prompt_min=64, new_min=64)
+        prep, _, _, psched = serve_run(f"{pool} plain {n} requests", params, buffers, cfg,
+                                       serve_loop.SchedulerConfig(**base, **kw), stream(),
+                                       card)
+        spec_runs[f"{pool} plain"] = prep
+        verify = "elite_verify_paged" + ("_q8" if kw else "")
+        for rank in ((0, 32) if pool == "f32" else (32,)):
+            label = f"{pool} spec k=4 r={rank or 'full'}"
+            srep, launches, rec, ssched = serve_run(
+                f"{label} {n} requests", params, buffers, cfg,
+                serve_loop.SchedulerConfig(**base, **kw, speculate_k=4, draft_rank=rank),
+                stream(), card)
+            spec_runs[label] = srep
+            compare_streams(label, psched, ssched, params, buffers, cfg, dev, card)
+            if rank == 0 and not (srep.acceptance_rate >= 0.99
+                                  and srep.tokens_per_forward > 2):
+                raise AssertionError(f"{label}: acceptance {srep.acceptance_rate} and "
+                                     f"{srep.tokens_per_forward} tokens per forward")
+            if rank:                     # the verify kernel's row: the rank-32 run
+                runs[verify], recs[verify] = (srep, launches), rec
+
+    # each decode and verify kernel again, on the busiest recorded main-path inputs
     busiest = {}
-    for name in DECODES:
+    for name in DECODES + VERIFIES:
         calls = recs[name].calls[name]
         i = max(range(len(calls)), key=lambda k: visited_rows(name, calls[k]))
         busiest[name] = calls[i], i
@@ -520,6 +704,8 @@ def main() -> int:
     profile_decode(params, buffers, cfg, dev, card, "f32 dense")
     profile_decode(params, buffers, cfg, dev, card, "int8 + sparse k=4+2", cache_dtype="int8",
                    sparse_topk_blocks=4, sparse_recent_blocks=2, admission="watermark")
+    profile_decode(params, buffers, cfg, dev, card, "f32 spec k=4 full-rank draft",
+                   speculate_k=4)
     del params, buffers
 
     # a narrow model on the card gives the CPU's tokens (plain versions
@@ -529,9 +715,12 @@ def main() -> int:
     to = lambda t: {k: to(v) for k, v in t.items()} if isinstance(t, dict) else \
         [to(v) for v in t] if isinstance(t, list) else t.to(dev)
     prompts = np.random.default_rng(3).integers(0, ncfg.vocab_size, (3, 24))
+    spec = dict(speculate_k=2, draft_rank=16)
     for label, kw in (("f32", {}), ("int8 + sparse k=1+1",
                                     dict(cache_dtype="int8", sparse_topk_blocks=1,
-                                         sparse_recent_blocks=1, admission="watermark"))):
+                                         sparse_recent_blocks=1, admission="watermark")),
+                      ("f32 + spec k=2 r=16", spec),
+                      ("int8 + spec k=2 r=16", dict(cache_dtype="int8", **spec))):
         nscfg = serve_loop.SchedulerConfig(max_slots=3, block_size=8, num_blocks=64,
                                            max_len=64, prefill_chunk_tokens=16, **kw)
         want, _ = serve_loop.generate_paged(cp, cb, ncfg, prompts, 12, nscfg, device="cpu")
@@ -546,7 +735,7 @@ def main() -> int:
     scratch = torch.empty(64 * 2**20 // 4, device=dev)      # > the 50 MB L2
     flush = scratch.zero_
     rows = []
-    for name in DECODES:
+    for name in DECODES + VERIFIES:
         a = busiest[name][0]
         d_bytes, d_flops = decode_cost(name, a)
         d_bound, d_by = bound(d_bytes, d_flops)
@@ -558,11 +747,13 @@ def main() -> int:
             ms=time_ms(lambda: run_decode(name, a), flush=flush),
             plain_ms=time_ms(lambda: run_decode(name, a, plain=True), flush=flush),
             bound_ms=d_bound, bound_by=d_by, library_ms=None))
-        q_e, _, (k_e, c_k, _), _, table, cnt, G, bs = split_decode(name, a)
-        print(f"[{card}] {name} shapes: B={q_e.shape[0]} "
+        q_e, _, (k_e, c_k, _), _, table, offs, cnt, G, bs = split_decode(name, a)
+        window = "" if offs is None else f"W={q_e.shape[1]} q_offsets={offs.tolist()} "
+        print(f"[{card}] {name} shapes: B={q_e.shape[0]} {window}"
               f"{'counts' if 'sparse' in name else 'lengths'}="
               f"{cnt.sum(-1).tolist() if 'sparse' in name else cnt.tolist()} "
-              f"visited rows {visited_rows(name, a)}, nh={q_e.shape[1]} nkv={k_e.shape[1]} "
+              f"visited rows {visited_rows(name, a)}, scored pairs {scored_pairs(name, a)}, "
+              f"nh={q_e.shape[-2]} nkv={k_e.shape[1]} "
               f"2r={k_e.shape[2]} d_c={c_k.shape[-1]} {k_e.dtype}; bound: {d_bytes} B / "
               f"3.35 TB/s vs {d_flops} flop / 67 TFLOP/s", flush=True)
     for r in rows:
@@ -602,7 +793,7 @@ def main() -> int:
     # lanes: what --pool-dtype int8 and --sparse-topk buy the decode kernel
     name = "elite_decode_sparse_paged_q8"
     a, i = busiest[name]
-    q_e, q_lat, pages, scales, _, _, G, bs = split_decode(name, a)
+    q_e, q_lat, pages, scales, _, _, _, G, bs = split_decode(name, a)
     sel_args = recs[name].calls["select_topk_blocks"][i]
     chain = (sel_args[3], sel_args[4])                       # block_tables, lengths
     k32, c32, _ = ref.dequantize_pages(*pages, *scales)
@@ -621,11 +812,34 @@ def main() -> int:
           + f"; pool bytes/token f32 {bpt_f32} vs int8 + summaries {bpt_q8}"
           f" (int8 dense run: {runs['elite_decode_paged_q8'][0].pool_bytes_per_token})",
           flush=True)
+    # the busiest verify step against scoring its window one token at a
+    # time: five decode calls at lengths q_offsets + 1 ... + 5, same lanes
+    name = "elite_verify_paged"
+    a = busiest[name][0]
+    q_e, q_lat, pages, _, table, offs, lens, G, bs = split_decode(name, a)
+    W = q_e.shape[1]
+    live = lens > 0
+    steps = [(q_e[:, w].contiguous(), q_lat[:, w].contiguous(), *pages, table,
+              torch.where(live, torch.minimum(offs + w + 1, lens), 0).int(), G, a[-2], bs)
+             for w in range(W)]
+    t_verify = time_ms(lambda: run_decode(name, a), flush=flush)
+    t_decodes = time_ms(lambda: [run_decode("elite_decode_paged", d) for d in steps],
+                        flush=flush)
+    print(f"[{card}] verify W={W} over {int(live.sum())} lanes ({visited_rows(name, a)} "
+          f"rows): {t_verify:.4f} ms in one call against {t_decodes:.4f} ms for {W} decode "
+          f"calls at lengths q_offsets+1..+{W} ({t_decodes / t_verify:.2f}x)", flush=True)
     for decode, (rep, _) in runs.items():
         print(f"[{card}] serving {decode}: decode tok/s={rep.tok_per_s:.1f} "
               f"ttft_ms p50={rep.ttft_wall_p50_ms:.1f} "
               f"step_ms p50/p95={rep.step_ms_p50:.2f}/{rep.step_ms_p95:.2f} "
               f"wall_s={rep.wall_s:.2f}", flush=True)
+    for label, rep in spec_runs.items():
+        print(f"[{card}] serving {label}: tok/s={rep.tok_per_s:.1f} "
+              f"step_ms p50={rep.step_ms_p50:.2f} acceptance={rep.acceptance_rate:.3f} "
+              f"tokens/forward={rep.tokens_per_forward:.2f} "
+              f"forwards={rep.draft_forwards} draft + {rep.decode_steps} "
+              f"{'verify' if rep.speculate_k else 'decode'} wall_s={rep.wall_s:.2f}",
+              flush=True)
 
     # -- 5. result lines -----------------------------------------------------
     print(card)

@@ -19,9 +19,10 @@ latent key stream's per-block masked mean and absmax, ``<key>_blkmean`` and
 
 ``BlockManager`` adds the scheduler's policy: ``"preempt"`` admission (no
 reservation; growth may raise ``OutOfBlocks`` and the scheduler evicts) or
-the ``"watermark"`` reservation, and recompute eviction.
+the ``"watermark"`` reservation, recompute eviction, and the rollback of a
+speculative window (``truncate``).
 
-Not ported yet: the prefix cache and copy-on-write, host swap, truncate and
+Not ported yet: the prefix cache and copy-on-write, host swap and
 tensor-parallel page placement.
 """
 from __future__ import annotations
@@ -145,6 +146,28 @@ class PagedKVPool:
 
     def can_fit(self, extra_tokens: int) -> bool:
         return self.allocator.num_free * self.block_size >= extra_tokens
+
+    def truncate(self, seq_id: int, length: int) -> None:
+        """Shrink ``seq_id`` to ``length`` tokens and return the tail blocks
+        the shorter chain no longer covers to the allocator (speculative
+        decode rolls a rejected window tail back here).  Pages are never
+        rewritten: later growth writes over the stale slots.  Every block
+        has one owner (there is no prefix cache in the port yet, hence no
+        refcount and no shared block to merely un-link).  An unknown
+        sequence accepts only ``length == 0`` and stays unknown; growing
+        through ``truncate`` is an assertion; 0 keeps the empty chain
+        registered."""
+        assert length >= 0, length
+        if seq_id not in self._lengths:
+            assert length == 0, (seq_id, length)
+            return
+        assert length <= self._lengths[seq_id], (seq_id, length, self._lengths[seq_id])
+        table = self._tables.get(seq_id, [])
+        keep = -(-length // self.block_size)
+        if keep < len(table):
+            self.allocator.free(table[keep:])
+            del table[keep:]
+        self._lengths[seq_id] = length
 
     def free_seq(self, seq_id: int) -> None:
         blocks = self._tables.pop(seq_id, [])
@@ -273,6 +296,13 @@ class BlockManager:
         """Retire or evict: free the chain and drop residency."""
         self.pool.free_seq(seq_id)
         self._resident_worst.pop(seq_id, None)
+
+    def truncate(self, seq_id: int, length: int) -> None:
+        """Roll ``seq_id`` back to ``length`` tokens (a rejected speculative
+        window tail): its tail blocks return to the free list at once and
+        residency is kept, so the watermark reservation grows back by
+        exactly the released blocks."""
+        self.pool.truncate(seq_id, length)
 
     def preempt_recompute(self, seq_id: int) -> None:
         self.release(seq_id)

@@ -26,6 +26,12 @@ scored against per-block latent summaries (``kernels/ref.py::
 select_topk_blocks``).  A selection at least as wide as the table is the
 whole chain, and the sparse kernels then give the dense kernels' bits.
 
+Speculative verify (``apply_verify_paged``) is decode with a window: the
+``W = k+1`` tokens of each lane's window are scattered into the pool first,
+then scored in one walk of the block table by ``elite_verify_paged`` (or
+``_q8``), row ``w`` masked offset-causally at ``q_offsets + w``.  It stays
+in the absorbed latent space, like decode.
+
 An int8 pool (``"k_e_scale" in pages``) quantizes every row when the
 scatter writes it and dequantizes wherever a stream is read back.  A fresh
 one-shot prefill attends over ``quant.roundtrip_rows`` of its own streams,
@@ -294,6 +300,34 @@ def apply_prefill_paged(params, cfg, buffers, x, positions, pages, writes: Write
     return torch.einsum("bshe,hed->bsd", o, params["wo"].to(dt))
 
 
+def _absorbed_query(params, cfg, buffers, x, pos):
+    """Rotated elite queries q_e [B,S,nh,2r] and the bk-absorbed latent
+    queries q_lat [B,S,nh,dc] of x [B,S,d] at positions ``pos`` [B,S]."""
+    dt = x.dtype
+    q_e, q_ne = _project_q(params, cfg, x)
+    q_e = _rot_q(cfg, buffers, q_e, pos)
+    bk_q = rope_lib.expand_kv_to_q(params["bk"].permute(1, 0, 2), cfg.q_group)  # [nh,dc,dn]
+    return q_e, torch.einsum("bshn,hcn->bshc", q_ne, bk_q.to(dt))
+
+
+def _scatter_new(params, cfg, buffers, x, pos, pages, writes: Writes) -> None:
+    """Write the compressed streams of x [B,S,d] at positions ``pos``
+    [B,S] into the pool, row ``b·S + s`` to its slot in ``writes``."""
+    B, S = x.shape[:2]
+    k_e = torch.einsum("bsd,dhe->bshe", x, params["wk_e"].to(x.dtype))
+    k_e = rope_lib.apply_elite_rope(k_e, pos, buffers["elite_freqs"])
+    c_k, c_v = _latents(params, cfg, x)
+    _scatter_pages(pages, k_e.reshape(B * S, *k_e.shape[2:]),
+                   c_k.reshape(B * S, -1), c_v.reshape(B * S, -1), writes)
+
+
+def _absorbed_out(params, cfg, o, dt):
+    """Latent attention output o [B,S,nh,dc] → o·bv·wo [B,S,d]."""
+    bv_q = rope_lib.expand_kv_to_q(params["bv"].permute(1, 0, 2), cfg.q_group)  # [nh,dc,dh]
+    o_heads = torch.einsum("bqhc,hcd->bqhd", o.to(dt), bv_q.to(dt))
+    return torch.einsum("bshe,hed->bsd", o_heads, params["wo"].to(dt))
+
+
 def apply_decode_paged(params, cfg, buffers, x, pages, writes: Writes,
                        block_tables, lengths, block_size: int,
                        sparse_topk: int = 0, sparse_recent: int = 0):
@@ -312,16 +346,8 @@ def apply_decode_paged(params, cfg, buffers, x, pages, writes: Writes,
     B = x.shape[0]
     nh, dh, G = cfg.n_heads, cfg.head_dim, cfg.q_group
     pos = (lengths - 1)[:, None]                             # [B,1] per lane
-
-    q_e, q_ne = _project_q(params, cfg, x)
-    q_e = _rot_q(cfg, buffers, q_e, pos)
-    bk_q = rope_lib.expand_kv_to_q(params["bk"].permute(1, 0, 2), G)  # [nh,dc,dn]
-    q_lat = torch.einsum("bshn,hcn->bshc", q_ne, bk_q.to(dt))
-
-    k_e_new = torch.einsum("bsd,dhe->bshe", x, params["wk_e"].to(dt))
-    k_e_new = rope_lib.apply_elite_rope(k_e_new, pos, buffers["elite_freqs"])
-    c_k_new, c_v_new = _latents(params, cfg, x)
-    _scatter_pages(pages, k_e_new[:, 0], c_k_new[:, 0], c_v_new[:, 0], writes)
+    q_e, q_lat = _absorbed_query(params, cfg, buffers, x, pos)
+    _scatter_new(params, cfg, buffers, x, pos, pages, writes)
 
     C_k, C_v = _page_latents(pages)
     scales = _page_scales(pages) or ()
@@ -338,8 +364,40 @@ def apply_decode_paged(params, cfg, buffers, x, pages, writes: Writes,
         walk = (block_tables, lengths)
         fn = ops.elite_decode_paged_q8 if scales else ops.elite_decode_paged
     o = fn(q_e, q_lat, pages["k_e"], C_k, C_v, *scales, *walk, G, dh ** -0.5, block_size)
-    o = o.reshape(B, 1, nh, C_v.shape[-1]).to(dt)
+    return _absorbed_out(params, cfg, o.reshape(B, 1, nh, C_v.shape[-1]), dt)
 
-    bv_q = rope_lib.expand_kv_to_q(params["bv"].permute(1, 0, 2), G)  # [nh,dc,dh]
-    o_heads = torch.einsum("bqhc,hcd->bqhd", o, bv_q.to(dt))
-    return torch.einsum("bshe,hed->bsd", o_heads, params["wo"].to(dt))
+
+def apply_verify_paged(params, cfg, buffers, x, pages, writes: Writes,
+                       block_tables, q_offsets, lengths, block_size: int):
+    """Absorbed multi-query verify for speculative decode: one forward
+    scores each lane's window of ``W = k+1`` tokens (the pending token and
+    ``k`` draft proposals) against its paged prefix and the window itself.
+
+    x [B,W,d]; lane ``b``'s window starts at position ``q_offsets[b]`` (its
+    cached prefix length) and ``lengths[b]`` is its live length including
+    the window's valid tokens (0 for an idle lane, whose output is zero);
+    ``writes`` maps the window rows to their slots (padding and idle lanes
+    to the sentinel); block_tables [B,mb] int32.  The window's compressed
+    streams are scattered into the pool first, as decode does (an int8 pool
+    quantizes them there), so row ``w`` attends to the stored window tokens
+    up to its own position.  Rejected tokens are later rolled back by
+    truncating the chain, never by rewriting pages.  A pool with block
+    summaries is refused: sparse decode and speculation are exclusive.
+    → out [B,W,d]; ``pages`` updated in place.
+    """
+    if _latent_key(pages) + BLOCK_SUMMARY_SUFFIXES[0] in pages:
+        raise ValueError("speculative verify over a pool with block summaries: "
+                         "sparse decode and speculative decode are exclusive")
+    dt = x.dtype
+    B, W = x.shape[:2]
+    nh, dh, G = cfg.n_heads, cfg.head_dim, cfg.q_group
+    pos = q_offsets[:, None] + torch.arange(W, device=x.device)[None, :]   # [B,W]
+    q_e, q_lat = _absorbed_query(params, cfg, buffers, x, pos)
+    _scatter_new(params, cfg, buffers, x, pos, pages, writes)
+
+    C_k, C_v = _page_latents(pages)
+    scales = _page_scales(pages) or ()
+    fn = ops.elite_verify_paged_q8 if scales else ops.elite_verify_paged
+    o = fn(q_e.contiguous(), q_lat.contiguous(), pages["k_e"], C_k, C_v, *scales,
+           block_tables, q_offsets, lengths, G, dh ** -0.5, block_size)
+    return _absorbed_out(params, cfg, o, dt)

@@ -22,6 +22,8 @@ LAUNCHERS = {"elite_decode_paged": _ed.elite_decode_paged,
              "elite_decode_paged_q8": _ed.elite_decode_paged_q8,
              "elite_decode_sparse_paged": _ed.elite_decode_sparse_paged,
              "elite_decode_sparse_paged_q8": _ed.elite_decode_sparse_paged_q8,
+             "elite_verify_paged": _ed.elite_verify_paged,
+             "elite_verify_paged_q8": _ed.elite_verify_paged_q8,
              "flash_prefill": _fp.flash_prefill}
 
 select_topk_blocks = ref.select_topk_blocks
@@ -73,6 +75,25 @@ def elite_decode_sparse_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
           else ref.elite_decode_sparse_paged_q8_ref)
     return fn(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
               c_v_scale, sel_tables, sel_counts, q_group, scale, block_size)
+
+
+def elite_verify_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                       block_tables, q_offsets, lengths, q_group: int, scale: float,
+                       block_size: int) -> torch.Tensor:
+    """Speculative verify over the pool; see ``ref.elite_verify_paged_ref``."""
+    fn = _ed.elite_verify_paged if q_e.is_cuda else ref.elite_verify_paged_ref
+    return fn(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, block_tables, q_offsets,
+              lengths, q_group, scale, block_size)
+
+
+def elite_verify_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                          k_e_scale, c_k_scale, c_v_scale, block_tables, q_offsets,
+                          lengths, q_group: int, scale: float,
+                          block_size: int) -> torch.Tensor:
+    """Verify over an int8 pool; see ``ref.elite_verify_paged_q8_ref``."""
+    fn = _ed.elite_verify_paged_q8 if q_e.is_cuda else ref.elite_verify_paged_q8_ref
+    return fn(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
+              c_v_scale, block_tables, q_offsets, lengths, q_group, scale, block_size)
 
 
 def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,

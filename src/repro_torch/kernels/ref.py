@@ -159,6 +159,60 @@ def elite_decode_sparse_paged_q8_ref(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages
         sel_tables, sel_counts, q_group, scale, block_size)
 
 
+def elite_verify_ref(q_e, q_lat, k_e, c_k, c_v, q_offsets, lengths,
+                     q_group: int, scale: float) -> torch.Tensor:
+    """Multi-query absorbed verify attention (speculative decode) over a
+    contiguous cache.
+
+    Query row ``w`` of lane ``b`` sits at position ``q_offsets[b] + w`` and
+    sees key ``j`` iff ``j <= q_offsets[b] + w`` and ``j < lengths[b]``.
+    q_e [B,W,nh,2r], q_lat [B,W,nh,dc], k_e [B,S,nkv,2r], c_k/c_v [B,S,dc],
+    q_offsets/lengths [B] int32 → [B,W,nh,dc].  ``W == 1`` with
+    ``q_offsets == lengths - 1`` is ``elite_decode_ref``; rows with no
+    visible key (``lengths == 0`` lanes) give exact zeros.
+    """
+    B, W, nh, r2 = q_e.shape
+    S, nkv = k_e.shape[1], k_e.shape[2]
+    qe_g = q_e.reshape(B, W, nkv, q_group, r2)
+    ql_g = q_lat.reshape(B, W, nkv, q_group, -1)
+    s_e = torch.einsum("bwhge,bkhe->bhgwk", qe_g, k_e)
+    s_lat = torch.einsum("bwhgc,bkc->bhgwk", ql_g, c_k)
+    s = (s_e + s_lat) * scale                                # [B,nkv,G,W,S]
+    kpos = torch.arange(S, device=k_e.device)[None, None, :]
+    wpos = torch.arange(W, device=k_e.device)[None, :, None]
+    mask = ((kpos <= wpos + q_offsets[:, None, None])
+            & (kpos < lengths[:, None, None]))[:, None, None]   # [B,1,1,W,S]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
+    o = torch.einsum("bhgwk,bkc->bwhgc", p.to(c_v.dtype), c_v)
+    return o.reshape(B, W, nh, -1)
+
+
+def elite_verify_paged_ref(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                           block_tables, q_offsets, lengths, q_group: int,
+                           scale: float, block_size: int) -> torch.Tensor:
+    """Paged verify attention: gather each lane's chain, then the contiguous
+    version.  Pages as in ``elite_decode_paged_ref``; q_e/q_lat
+    [B,W,nh,*], q_offsets/lengths [B] int32 → [B,W,nh,dc]."""
+    return elite_verify_ref(q_e, q_lat,
+                            gather_pages(k_e_pages, block_tables, block_size),
+                            gather_pages(c_k_pages, block_tables, block_size),
+                            gather_pages(c_v_pages, block_tables, block_size),
+                            q_offsets, lengths, q_group, scale)
+
+
+def elite_verify_paged_q8_ref(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
+                              k_e_scale, c_k_scale, c_v_scale, block_tables,
+                              q_offsets, lengths, q_group: int, scale: float,
+                              block_size: int) -> torch.Tensor:
+    """Int8-pool verify: dequantize every slot, then the f32 paged verify."""
+    return elite_verify_paged_ref(
+        q_e, q_lat, *dequantize_pages(k_e_pages, c_k_pages, c_v_pages, k_e_scale,
+                                      c_k_scale, c_v_scale),
+        block_tables, q_offsets, lengths, q_group, scale, block_size)
+
+
 def flash_prefill_ref(q, k, v, q_group: int, scale: float, q_offsets,
                       kv_lens) -> torch.Tensor:
     """Causal GQA attention.  q [B,Sq,nh,dh], k/v [B,Sk,nkv,dh],

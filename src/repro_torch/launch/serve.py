@@ -25,9 +25,16 @@ densely and fork the stream; host swap is not ported):
         --stream --device cpu --pool-dtype int8 --sparse-topk 2 \
         --admission watermark
 
-The reference's batch mode and its sampling, speculative, prefix-cache,
-swap, tracing and multi-device options are not ported yet (ROADMAP
-Queue 1).
+``--speculate K`` decodes by greedy self-speculative macro-steps: ``K``
+draft forwards (``--draft-rank R`` truncates the draft's joint factors to
+rank R; 0 = the full model) and one verify forward per step.  It cannot be
+combined with ``--sparse-topk``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --elitekv \
+        --stream --device cpu --speculate 2 --draft-rank 16
+
+The reference's batch mode and its sampling, prefix-cache, swap, tracing
+and multi-device options are not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -70,7 +77,8 @@ def serve_stream(params, buffers, cfg, args):
         prefill_chunk_tokens=args.prefill_chunk,
         prefill_batch_lanes=args.prefill_lanes, admission=args.admission,
         cache_dtype="int8" if args.pool_dtype == "int8" else "float32",
-        sparse_topk_blocks=args.sparse_topk, sparse_recent_blocks=args.sparse_recent)
+        sparse_topk_blocks=args.sparse_topk, sparse_recent_blocks=args.sparse_recent,
+        speculate_k=args.speculate, draft_rank=args.draft_rank)
     sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=args.device)
     reqs = make_stream(cfg, args.requests, args.rate, args.prompt_len,
                        args.new_tokens, args.seed)
@@ -82,6 +90,14 @@ def serve_stream(params, buffers, cfg, args):
               f"<= {scfg.prefill_chunk_tokens} tokens x {scfg.chunk_lanes} "
               f"lanes (mean {report.mean_prefill_batch:.2f} live) "
               f"interleaved with decode")
+    if scfg.speculate_k:
+        print(f"speculative decode [k={scfg.speculate_k} "
+              f"rank={scfg.draft_rank or 'full'}]: "
+              f"accepted {report.draft_accepted}/{report.draft_proposed} "
+              f"draft tokens (rate {report.acceptance_rate:.2f}, "
+              f"mean {report.mean_accepted:.2f}/window) over "
+              f"{report.draft_forwards} draft + {report.decode_steps} verify "
+              f"forwards -> {report.tokens_per_forward:.2f} tokens/forward")
     if scfg.sparse_topk_blocks:
         print(f"sparse decode [topk={report.sparse_topk} "
               f"recent={report.sparse_recent}]: "
@@ -149,6 +165,12 @@ def main(argv=None):
                          "--sparse-recent newest blocks (0 = dense)")
     ap.add_argument("--sparse-recent", type=int, default=2,
                     help="newest blocks always attended under --sparse-topk")
+    ap.add_argument("--speculate", type=int, default=0,
+                    help="self-speculative decode: draft tokens per lane per "
+                         "step (0 = plain one-token decode)")
+    ap.add_argument("--draft-rank", type=int, default=0,
+                    help="joint-factor rank of the draft model (0 or >= "
+                         "d_ckv = the full model, acceptance 1)")
     args = ap.parse_args(argv)
     if not (args.stream and args.elitekv):
         ap.error("the port serves the paged EliteKV stream only: pass "
@@ -157,6 +179,12 @@ def main(argv=None):
         ap.error("--rate must be > 0 (mean arrivals per decode step)")
     if args.sparse_topk < 0 or args.sparse_recent < 0:
         ap.error("--sparse-topk and --sparse-recent must be >= 0")
+    if args.speculate < 0 or args.draft_rank < 0:
+        ap.error("--speculate and --draft-rank must be >= 0")
+    if args.sparse_topk > 0 and args.speculate > 0:
+        ap.error("--sparse-topk and --speculate are mutually exclusive "
+                 "(the multi-query verify window has no single selection "
+                 "query)")
     if args.sparse_topk > 0 and args.admission == "preempt":
         ap.error("--sparse-topk with preempt admission needs --admission "
                  "watermark (a recompute prefill cannot reproduce "

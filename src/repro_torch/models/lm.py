@@ -13,8 +13,11 @@ loop where JAX uses ``lax.scan``:
 Entry points:
   * ``apply_prefill_paged`` — prefill prompts (or per-lane chunks) into the pool.
   * ``apply_decode_paged``  — one token per serving lane against the pool.
-Both return f32 logits over the padded vocab (padding columns = -1e30) and
-write the pool pages in place.
+  * ``apply_verify_paged``  — a speculative window of ``W`` tokens per lane
+    against the pool, in one forward.
+All return f32 logits over the padded vocab (padding columns = -1e30) and
+write the pool pages in place.  ``make_draft_params`` derives the
+rank-truncated draft model of self-speculative decode.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.core import elite_attention
+from repro_torch.core import elite_attention, lrd
 from repro_torch.models.layers import (dense_init, embed, mlp, mlp_init, rmsnorm,
                                        rmsnorm_init)
 
@@ -142,3 +145,58 @@ def apply_decode_paged(params, buffers, cfg, tokens, pages, slot_mapping,
             block_size, sparse_topk, sparse_recent))
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h)
+
+
+def apply_verify_paged(params, buffers, cfg, tokens, pages, slot_mapping,
+                       block_tables, q_offsets, lengths, block_size: int):
+    """Speculative-verify forward: score a window of ``W = k+1`` tokens per
+    lane (the pending token and ``k`` draft proposals) against its paged
+    prefix in one call, writing the window's full-model streams to the pool.
+
+    ``tokens`` [B,W]; ``q_offsets`` [B] the position of each lane's window
+    row 0 (its cached prefix length); ``lengths`` [B] its live length
+    including the window's valid tokens (0 = idle lane); ``slot_mapping``
+    [B,W] flat write slots (padding → the pool's sentinel);
+    ``block_tables`` [B,mb].  Logits row ``w`` is the full model's
+    next-token distribution after window token ``w``: rows ``0..k-1`` judge
+    the proposals, row ``k`` gives the bonus token.
+    → logits [B,W,Vp] f32; ``pages`` written in place.
+    """
+    device = params["embed"]["table"].device
+    i32 = dict(dtype=torch.int32, device=device)
+    h = embed(params["embed"], tokens, cfg.dtype)
+    writes = elite_attention.write_index(slot_mapping, _n_slots(pages), device)
+    block_tables = torch.as_tensor(block_tables, **i32)
+    q_offsets = torch.as_tensor(q_offsets, **i32)
+    lengths = torch.as_tensor(lengths, **i32)
+    for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
+        h = _run_layer(p, cfg, h, lambda pa, hn: elite_attention.apply_verify_paged(
+            pa, cfg, b, hn, _layer_pages(pages, i), writes, block_tables, q_offsets,
+            lengths, block_size))
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return _logits(params, cfg, h)
+
+
+def make_draft_params(params, cfg, draft_rank: int):
+    """Draft weights for self-speculative decode: every layer's joint
+    up-projections ``bk``/``bv`` projected onto their top ``draft_rank``
+    singular directions (``lrd.truncate_joint_rank``), in their full shapes,
+    so the draft runs the same decode path over the same pool.
+    ``draft_rank <= 0`` or ``>= d_ckv`` returns ``params`` itself (the
+    full-rank draft).  Otherwise a shallow copy in which only each layer's
+    ``attn.bk``/``attn.bv`` are new tensors on the params' device; every
+    other tensor is shared."""
+    assert cfg.elitekv.enabled, "speculative decode requires an EliteKV cache"
+    if draft_rank <= 0 or draft_rank >= cfg.elitekv.d_ckv:
+        return params
+    assert cfg.elitekv.lrd == "joint", \
+        "draft truncation targets the joint low-rank factors"
+    layers = []
+    for layer in params["layers"]:
+        attn = dict(layer["attn"])
+        bk, bv = lrd.truncate_joint_rank(attn["bk"].cpu().numpy(),
+                                         attn["bv"].cpu().numpy(), draft_rank)
+        attn["bk"] = torch.from_numpy(bk).to(layer["attn"]["bk"].device)
+        attn["bv"] = torch.from_numpy(bv).to(layer["attn"]["bv"].device)
+        layers.append({**layer, "attn": attn})
+    return {**params, "layers": layers}

@@ -20,10 +20,20 @@ recompute re-prefills densely and cannot reproduce streams that lower
 layers attended sparsely, so ``admission="watermark"`` (which never
 preempts) is the sound setting.
 
+``speculate_k > 0`` replaces the one-token decode step with a greedy
+self-speculative macro-step: ``k`` batched decode forwards of a draft model
+(``lm.make_draft_params``: the joint factors truncated to ``draft_rank``,
+0 = the full model) propose tokens, one verify forward of the full model
+(``lm.apply_verify_paged``) scores all ``k+1`` window positions per lane,
+the argmax-matching prefix plus one corrected or bonus token is kept, and
+the chain is truncated back over the rest.  The stream equals plain
+decode's; only the number of forwards changes.  Speculation with sparse
+decode is a ``ValueError`` (a verify window has no single selection query).
+
 Decoding is greedy.  Not ported yet, and rejected with
-``NotImplementedError`` rather than ignored: sampling (``temperature > 0``),
-speculative decode, the prefix cache and host-swap eviction — ROADMAP
-Queue 1 items 6, 8, 9 and 10.
+``NotImplementedError`` rather than ignored: sampling (``temperature > 0``,
+speculative or not), the prefix cache and host-swap eviction — ROADMAP
+Queue 1 items 6, 9 and 10.
 """
 from __future__ import annotations
 
@@ -42,7 +52,8 @@ from repro_torch.models import lm
 
 #: Host-observable phases of one scheduler step (``ServeReport.phase_ms``
 #: keys); ``other`` is the residual, so the phases sum to the step wall time.
-PHASES = ("prefill", "decode", "sample", "other")
+#: ``draft``/``verify``/``accept`` are the speculative macro-step's.
+PHASES = ("prefill", "decode", "draft", "verify", "sample", "accept", "other")
 
 
 def _unsupported(what: str, item: int, name: str) -> NotImplementedError:
@@ -70,6 +81,8 @@ class Request:
     first_token_step: int = -1
     finish_step: int = -1
     finish_reason: str = ""               # "eos" | "budget"
+    spec_proposed: int = 0                # draft tokens proposed for this request
+    spec_accepted: int = 0                # draft tokens that survived verify
 
     def prefill_source(self) -> np.ndarray:
         """Tokens that must be cached before decode (re)starts: the prompt,
@@ -92,9 +105,10 @@ class SchedulerConfig:
     cache_dtype: str = "float32"          # pool pages: "float32" | "int8"
     sparse_topk_blocks: int = 0           # block top-k per decode (0 = dense)
     sparse_recent_blocks: int = 2         # newest blocks always attended
+    speculate_k: int = 0                  # draft tokens per lane per step (0 = plain)
+    draft_rank: int = 0                   # draft joint-factor rank (0 = full)
     # options of the reference that are not ported yet; any other value raises
     eviction: str = "recompute"
-    speculate_k: int = 0
     prefix_cache: bool = False
 
     @property
@@ -124,6 +138,19 @@ def ttft_by_prompt_bucket(finished: List[Request],
     for label, rs in _prompt_buckets(finished, edges):
         if rs:
             out[label] = float(np.mean([r.first_token_step - r.arrival for r in rs]))
+    return out
+
+
+def acceptance_by_prompt_bucket(finished: List[Request],
+                                edges: Tuple[int, ...] = (16, 64)) -> Dict[str, float]:
+    """Draft acceptance rate (accepted / proposed) per prompt-length bucket,
+    over the requests that proposed any draft token."""
+    out: Dict[str, float] = {}
+    for label, rs in _prompt_buckets(finished, edges):
+        rs = [r for r in rs if r.spec_proposed]
+        if rs:
+            out[label] = float(sum(r.spec_accepted for r in rs)
+                               / sum(r.spec_proposed for r in rs))
     return out
 
 
@@ -162,6 +189,16 @@ class ServeReport:
     sparse_steps: int = 0                 # decode forwards that ran sparse
     mean_selected_blocks: float = 0.0     # blocks attended per lane-step
     mean_candidate_blocks: float = 0.0    # resident blocks per lane-step
+    speculate_k: int = 0                  # draft window the run used
+    draft_rank: int = 0                   # draft joint-factor rank (0 = full)
+    draft_forwards: int = 0               # draft decode forwards run
+    draft_proposed: int = 0               # draft tokens proposed across lanes
+    draft_accepted: int = 0               # draft tokens kept after verify
+    acceptance_rate: float = 0.0          # accepted / proposed
+    mean_accepted: float = 0.0            # accepted draft tokens per window
+    tokens_per_forward: float = 0.0       # tokens per lane per decode/verify
+                                          # forward (speculative: ~1 + mean_accepted)
+    acceptance_by_bucket: Dict[str, float] = dataclasses.field(default_factory=dict)
     phase_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
     step_wall_ms_total: float = 0.0
 
@@ -182,6 +219,11 @@ class ServeReport:
             sp = (f" sparse[k={self.sparse_topk}+{self.sparse_recent} "
                   f"sel={self.mean_selected_blocks:.1f}/"
                   f"{self.mean_candidate_blocks:.1f}]")
+        spec = ""
+        if self.speculate_k:
+            spec = (f" spec[k={self.speculate_k},r={self.draft_rank}] "
+                    f"acc={self.acceptance_rate:.2f} "
+                    f"tok/fwd={self.tokens_per_forward:.2f}")
         return (f"completed={self.completed} steps={self.decode_steps} "
                 f"decoded={self.decoded_tokens} tok/s={self.tok_per_s:.1f} "
                 f"ttft_steps={self.ttft_steps_mean:.1f}{bucket} "
@@ -192,7 +234,7 @@ class ServeReport:
                 f"{self.naive_blocks} reuse×{self.block_reuse_ratio:.2f} "
                 f"occ={self.mean_occupancy:.2f} [{self.admission}] "
                 f"preempt={self.preemptions} "
-                f"prefill_batch={self.mean_prefill_batch:.1f}{q8}{sp}")
+                f"prefill_batch={self.mean_prefill_batch:.1f}{q8}{sp}{spec}")
 
 
 class Scheduler:
@@ -207,6 +249,8 @@ class Scheduler:
             raise ValueError("paged serving requires an EliteKV config")
         if scfg.sparse_topk_blocks < 0 or scfg.sparse_recent_blocks < 0:
             raise ValueError("sparse_topk_blocks and sparse_recent_blocks must be >= 0")
+        if scfg.speculate_k < 0 or scfg.draft_rank < 0:
+            raise ValueError("speculate_k and draft_rank must be >= 0")
         if scfg.sparse_topk_blocks and scfg.speculate_k:
             raise ValueError("sparse_topk_blocks and speculate_k are mutually "
                              "exclusive: a verify window has no single selection query")
@@ -218,8 +262,6 @@ class Scheduler:
                 "partial-width sparse decode needs admission='watermark': a "
                 "recompute re-prefills densely and cannot reproduce streams "
                 "generated with sparse attention (host swap is not ported)")
-        if scfg.speculate_k:
-            raise _unsupported("speculative decode", 8, "speculative decode")
         if scfg.prefix_cache:
             raise _unsupported("the prefix cache", 9, "prefix caching and copy-on-write")
         if scfg.eviction != "recompute":
@@ -245,8 +287,15 @@ class Scheduler:
         self._prefill_lanes_total = 0
         self._phase_ms = {p: 0.0 for p in PHASES}
         self._step_wall_ms_total = 0.0
-        self._sparse_steps = self._sparse_lanes = 0
+        self._sparse_steps = 0
         self._sparse_selected = self._sparse_candidate = 0
+        self._decode_appended = 0           # tokens appended by decode/verify
+        self._lane_steps = 0                # Σ live lanes over decode/verify forwards
+        self.draft_forwards = self.draft_proposed = self.draft_accepted = 0
+        self._spec_windows = 0              # (lane, step) verify windows run
+        # the draft shares the params unless a rank truncation is asked for
+        self.draft_params = (lm.make_draft_params(params, cfg, scfg.draft_rank)
+                             if scfg.speculate_k > 0 else None)
 
     # -- helpers ------------------------------------------------------------
     def _sync(self) -> None:
@@ -488,7 +537,10 @@ class Scheduler:
         # preempt the youngest residents (who then sit out this step)
         order = sorted((self.slots[i].arrival, self.slots[i].uid, i)
                        for i in occupied if self._decode_ready(self.slots[i]))
-        progressed = self._decode_step(order)
+        if self.scfg.speculate_k > 0:
+            progressed = self._speculative_step(order)
+        else:
+            progressed = self._decode_step(order)
         if not progressed:
             if all(s is None for s in self.slots) and not self.waiting:
                 return False
@@ -540,13 +592,146 @@ class Scheduler:
         with self._phase("sample"):
             nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
         self._step_wall_ms.append((time.perf_counter() - t0) * 1e3)
+        self._lane_steps += len(active)
         if self.scfg.sparse_topk_blocks > 0:
             self._count_sparse(lengths[active])
         for i in active:
             tok = int(nxt[i])
             self.slots[i].generated.append(tok)
+            self._decode_appended += 1
             self._maybe_finish(i, tok)
         return True
+
+    # -- speculative decode: draft / verify macro-step -------------------------
+    def _speculative_step(self, order) -> bool:
+        """Greedy draft + verify for every decode-ready lane:
+
+        1. grow each lane's chain to ``cur + w + 1`` up front (``w = min(k,
+           budget left)`` draft slots plus the pending token's), preempting
+           as plain decode's growth does;
+        2. build the block table once for the macro-step;
+        3. ``k`` batched decode forwards of the draft propose tokens (their
+           streams go into the pool, so later proposals attend to earlier
+           ones; a lane whose window is shorter sits out as an idle lane);
+        4. one verify forward of the full model scores all ``k+1`` window
+           positions, overwriting the window's slots with full-model streams;
+        5. per lane, keep the argmax-matching prefix plus one corrected or
+           bonus token, and truncate the chain to what was kept.
+
+        Between steps the request/pool invariant is plain decode's (cache =
+        prompt + generated[:-1], the last token pending), so preemption and
+        recompute work unchanged.  Returns False when no lane was live."""
+        scfg = self.scfg
+        k, B = scfg.speculate_k, scfg.max_slots
+        W = k + 1
+        windows: Dict[int, Tuple[int, int]] = {}   # slot → (cur, w)
+        for _, _, i in order:
+            req = self.slots[i]
+            if req is None:
+                continue                    # evicted by an older lane's growth
+            cur = self.pool.length(req.uid)
+            w = min(k, req.max_new_tokens - len(req.generated))
+            if self._grow_or_preempt(req, cur + w + 1):
+                windows[i] = (cur, w)
+        active = [i for i in windows if self.slots[i] is not None]
+        self._occupancy.append(self.pool.allocator.num_used / self.pool.num_blocks)
+        if not active:
+            return False
+
+        t0 = time.perf_counter()
+        seq_ids: List[Optional[int]] = [None] * B
+        for i in active:
+            seq_ids[i] = self.slots[i].uid
+        width = max(len(self.pool.block_table(self.slots[i].uid)) for i in active)
+        bt = self._tensor(self.pool.block_table_array(seq_ids, width))
+        drafts: Dict[int, List[int]] = {i: [] for i in active}
+        for j in range(k):
+            live = [i for i in active if windows[i][1] > j]
+            if not live:
+                break
+            tokens = np.zeros((B, 1), np.int32)
+            lengths = np.zeros((B,), np.int32)
+            ids: List[Optional[int]] = [None] * B
+            positions = [0] * B
+            for i in live:
+                cur = windows[i][0]
+                tokens[i, 0] = drafts[i][-1] if j else self.slots[i].generated[-1]
+                lengths[i] = cur + j + 1
+                ids[i] = seq_ids[i]
+                positions[i] = cur + j
+            sm = self.pool.slot_mapping(ids, positions)
+            with self._phase("draft"):
+                logits = lm.apply_decode_paged(
+                    self.draft_params, self.buffers, self.cfg, self._tensor(tokens),
+                    self.pool.pages, torch.from_numpy(sm), bt, self._tensor(lengths),
+                    scfg.block_size)
+                nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+            self.draft_forwards += 1
+            for i in live:
+                drafts[i].append(int(nxt[i]))
+
+        tokens = np.zeros((B, W), np.int32)
+        sms = np.full((B, W), self.pool.oob_slot, np.int32)
+        offs = np.zeros((B,), np.int32)
+        lengths = np.zeros((B,), np.int32)
+        for i in active:
+            req = self.slots[i]
+            cur, w = windows[i]
+            tokens[i, 0] = req.generated[-1]
+            tokens[i, 1:1 + w] = drafts[i]
+            sms[i] = self.pool.prefill_slot_mapping(req.uid, cur, w + 1, W)
+            offs[i] = cur
+            lengths[i] = cur + w + 1
+        with self._phase("verify"):
+            logits = lm.apply_verify_paged(
+                self.params, self.buffers, self.cfg, self._tensor(tokens),
+                self.pool.pages, torch.from_numpy(sms), bt, self._tensor(offs),
+                self._tensor(lengths), scfg.block_size)
+            self._sync()
+        with self._phase("sample"):
+            targets = torch.argmax(logits, dim=-1).cpu().numpy()       # [B, W]
+        self._step_wall_ms.append((time.perf_counter() - t0) * 1e3)
+        self._lane_steps += len(active)
+
+        with self._phase("accept"):
+            for i in active:
+                req = self.slots[i]
+                cur, w = windows[i]
+                out = self._accept_window(drafts[i], targets[i])
+                n_acc = len(out) - 1
+                self.bm.truncate(req.uid, cur + n_acc + 1)
+                appended = 0
+                for tok in out:
+                    req.generated.append(tok)
+                    appended += 1
+                    self._maybe_finish(i, tok)
+                    if self.slots[i] is None:
+                        break               # EOS or budget mid-window: the rest drops
+                self._decode_appended += appended
+                # accepted drafts that an EOS cut off do not count as kept
+                kept = min(n_acc, appended)
+                req.spec_proposed += w
+                req.spec_accepted += kept
+                self.draft_proposed += w
+                self.draft_accepted += kept
+                self._spec_windows += 1
+        return True
+
+    @staticmethod
+    def _accept_window(drafts: List[int], targets: np.ndarray) -> List[int]:
+        """Greedy accept of one lane's window: the drafts that equal the full
+        model's argmax ``targets[j]`` (its choice after window token ``j``),
+        up to the first that does not, plus one more token — the correction
+        there, or the bonus ``targets[len(drafts)]`` when all survived.
+        Each appended token is the one plain decode would have produced."""
+        out: List[int] = []
+        for j, x in enumerate(drafts):
+            tgt = int(targets[j])
+            out.append(tgt)
+            if x != tgt:
+                return out
+        out.append(int(targets[len(drafts)]))
+        return out
 
     def _count_sparse(self, lengths: np.ndarray) -> None:
         """Blocks attended and resident per live lane of a sparse step, from
@@ -558,7 +743,6 @@ class Scheduler:
                     scfg.max_blocks_per_seq)
         n_chain = -(-lengths.astype(np.int64) // scfg.block_size)
         self._sparse_steps += 1
-        self._sparse_lanes += len(lengths)
         self._sparse_selected += int(np.minimum(n_chain, width).sum())
         self._sparse_candidate += int(n_chain.sum())
 
@@ -615,8 +799,15 @@ class Scheduler:
             sparse_topk=self.scfg.sparse_topk_blocks,
             sparse_recent=self.scfg.sparse_recent_blocks,
             sparse_steps=self._sparse_steps,
-            mean_selected_blocks=self._sparse_selected / max(self._sparse_lanes, 1),
-            mean_candidate_blocks=self._sparse_candidate / max(self._sparse_lanes, 1),
+            mean_selected_blocks=self._sparse_selected / max(self._lane_steps, 1),
+            mean_candidate_blocks=self._sparse_candidate / max(self._lane_steps, 1),
+            speculate_k=self.scfg.speculate_k, draft_rank=self.scfg.draft_rank,
+            draft_forwards=self.draft_forwards, draft_proposed=self.draft_proposed,
+            draft_accepted=self.draft_accepted,
+            acceptance_rate=self.draft_accepted / max(self.draft_proposed, 1),
+            mean_accepted=self.draft_accepted / max(self._spec_windows, 1),
+            tokens_per_forward=self._decode_appended / max(self._lane_steps, 1),
+            acceptance_by_bucket=acceptance_by_prompt_bucket(fin),
             phase_ms=dict(self._phase_ms),
             step_wall_ms_total=self._step_wall_ms_total)
 

@@ -10,7 +10,8 @@ the same math in another summation order (online softmax over blocks or
 tiles against one softmax over the row; dot products of up to 1056 terms).
 The int8 kernels dequantize with the plain version's one multiply, so the
 same tolerance holds; a full-width selection must give the dense kernel's
-bits exactly.
+bits exactly, and so must a verify window of one token at
+``q_offsets = lengths - 1``.
 """
 import numpy as np
 import pytest
@@ -186,3 +187,113 @@ def test_scheduler_on_card_matches_cpu(pool, cuda):
     assert n[decode] == rep.decode_steps * cfg.num_layers > 0
     assert n["flash_prefill"] == rep.prefill_chunks * cfg.num_layers > 0
     assert sum(n.values()) == n[decode] + n["flash_prefill"]
+
+
+def _verify_inputs(dev, nh, nkv, r2, dc, separate, W, bs=16, mb=20, seed=0):
+    """Lanes with windows (q_offset, n tokens, n <= W): a dead lane, a
+    window at position 0, one crossing a block boundary, a short one (pad
+    rows), a ragged one, one ending the table, and a single token."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    windows = [(0, 0), (0, W), (bs - 2, W), (100, max(1, W - 2)), (257, W),
+               (mb * bs - W, W), (33, 1)]
+    B, n_blocks = len(windows), len(windows) * mb + 1
+    f = lambda *s: torch.randn(s, generator=g, device=dev)
+    c_k = f(n_blocks * bs, dc)
+    x = dict(q_e=f(B, W, nh, r2), q_lat=f(B, W, nh, dc), k_e=f(n_blocks * bs, nkv, r2),
+             c_k=c_k, c_v=f(n_blocks * bs, dc) if separate else c_k)
+    perm = torch.randperm(n_blocks, generator=g, device=dev).int()
+    bt = torch.zeros((B, mb), dtype=torch.int32, device=dev)
+    used = 0
+    for b, (off, n) in enumerate(windows):
+        k = -(-(off + n) // bs) if n else 0
+        bt[b, :k] = perm[used:used + k]
+        used += k
+    x["bt"] = bt
+    x["offs"] = torch.tensor([o for o, _ in windows], dtype=torch.int32, device=dev)
+    x["lengths"] = torch.tensor([o + n if n else 0 for o, n in windows],
+                                dtype=torch.int32, device=dev)
+    return x, nh // nkv, bs
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("W", [1, 3, 5])
+@pytest.mark.parametrize("separate", [False, True], ids=["jlrd", "slrd"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_verify_kernel_matches_plain(width, separate, W, q8, cuda):
+    nh, nkv, r2, dc, dh = WIDTHS[width]
+    x, G, bs = _verify_inputs(cuda, nh, nkv, r2, dc, separate, W, seed=W)
+    pages = _quantize(x) if q8 else [x["k_e"], x["c_k"], x["c_v"]]
+    args = (x["q_e"], x["q_lat"], *pages, x["bt"], x["offs"], x["lengths"], G,
+            dh ** -0.5, bs)
+    name = "elite_verify_paged" + ("_q8" if q8 else "")
+    before = ops.launches()[name]
+    got = getattr(ops, name)(*args)
+    want = getattr(ref, name + "_ref")(*args)
+    torch.cuda.synchronize()
+    assert ops.launches()[name] == before + 1
+    assert got.shape == (7, W, nh, dc)
+    torch.testing.assert_close(got, want, **TOL)
+    assert float(got[0].abs().max()) == 0.0          # dead lane: exact zeros
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_verify_window_of_one_is_decode_bitwise(width, q8, cuda):
+    """W = 1 with q_offsets = lengths - 1 gives the decode kernel's bits."""
+    nh, nkv, r2, dc, dh = WIDTHS[width]
+    x, G, bs = _decode_inputs(cuda, nh, nkv, r2, dc, True, seed=5)
+    pages = _quantize(x) if q8 else [x["k_e"], x["c_k"], x["c_v"]]
+    sfx = "_q8" if q8 else ""
+    dense = getattr(ops, "elite_decode_paged" + sfx)(
+        x["q_e"], x["q_lat"], *pages, x["bt"], x["lengths"], G, dh ** -0.5, bs)
+    offs = (x["lengths"] - 1).clamp(min=0)
+    verify = getattr(ops, "elite_verify_paged" + sfx)(
+        x["q_e"][:, None].contiguous(), x["q_lat"][:, None].contiguous(), *pages,
+        x["bt"], offs, x["lengths"], G, dh ** -0.5, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(verify[:, 0], dense)
+
+
+def test_verify_window_beyond_shared_memory_raises(cuda):
+    """A window whose query rows do not fit the card's shared memory is
+    refused with the limit named, never clamped or sent elsewhere."""
+    B, W, nh, nkv, r2, dc, bs = 1, 5, 4, 1, 32, 4096, 16
+    q_e = torch.zeros(B, W, nh, r2, device=cuda)
+    q_lat = torch.zeros(B, W, nh, dc, device=cuda)
+    k_e = torch.zeros(bs, nkv, r2, device=cuda)
+    c = torch.zeros(bs, dc, device=cuda)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    before = ops.launches()["elite_verify_paged"]
+    with pytest.raises(ValueError, match="opt-in limit"):
+        ops.elite_verify_paged(q_e, q_lat, k_e, c, c, torch.zeros(B, 1, **i32),
+                               torch.zeros(B, **i32), torch.full((B,), W, **i32),
+                               nh // nkv, 0.1, bs)
+    assert ops.launches()["elite_verify_paged"] == before
+
+
+@pytest.mark.parametrize("pool", [dict(), dict(cache_dtype="int8")], ids=["f32", "int8"])
+def test_speculative_scheduler_on_card_matches_cpu(pool, cuda):
+    """Greedy speculative decode with a truncated draft on the card gives
+    the CPU run's tokens, through the verify and decode kernels."""
+    cfg = get_config("tinyllama_1_1b").reduced(vocab_size=128).with_elitekv(
+        elite_r=4, d_ckv=64)
+    params, buffers = lm.init(cfg, seed=0, device="cpu")
+    move = lambda t: {k: move(v) for k, v in t.items()} if isinstance(t, dict) else \
+        [move(v) for v in t] if isinstance(t, list) else t.to(cuda)
+    scfg = serve_loop.SchedulerConfig(max_slots=2, block_size=4, num_blocks=64,
+                                      max_len=40, prefill_chunk_tokens=8,
+                                      speculate_k=2, draft_rank=16, **pool)
+    rng = np.random.default_rng(4)
+    prompts = rng.integers(0, 128, (2, 20)).astype(np.int32)
+    want, _ = serve_loop.generate_paged(params, buffers, cfg, prompts, 8, scfg, device="cpu")
+    ops.reset_launches()
+    got, rep = serve_loop.generate_paged(move(params), move(buffers), cfg, prompts, 8,
+                                         scfg, device="cuda")
+    n = ops.launches()
+    np.testing.assert_array_equal(got, want)
+    sfx = "_q8" if pool else ""
+    assert n["elite_verify_paged" + sfx] == rep.decode_steps * cfg.num_layers > 0
+    assert n["elite_decode_paged" + sfx] == rep.draft_forwards * cfg.num_layers > 0
+    assert n["flash_prefill"] == rep.prefill_chunks * cfg.num_layers > 0
+    assert sum(n.values()) == (n["elite_verify_paged" + sfx] + n["elite_decode_paged" + sfx]
+                               + n["flash_prefill"])

@@ -136,7 +136,7 @@ def test_generate_paged_matches_reference(tiny_elite_cfg, tiny_elite_model, port
 
 
 @pytest.mark.parametrize("field,value", [
-    ("speculate_k", 2), ("prefix_cache", True), ("eviction", "swap"),
+    ("prefix_cache", True), ("eviction", "swap"),
 ])
 def test_unported_options_raise(field, value, port):
     cfg, tp, tb = port
