@@ -18,7 +18,13 @@ non-zero:
    the verify kernels at W = 1, 3 and 5 with ragged q_offsets, windows
    across a block boundary and windows shorter than W.  A full-width
    selection must give the dense kernels' bits, and so must a verify
-   window of one token at q_offsets = lengths - 1, f32 and int8.
+   window of one token at q_offsets = lengths - 1, f32 and int8.  The
+   contiguous ``elite_decode`` with lengths 0, 1, a partial tile, S and
+   past S (S = 1000, not a multiple of the tile, and 1152) must give the
+   bits of ``elite_decode_paged`` over the same rows as identity-table
+   pages; ``rope_elite`` with positions [S] and [B, S] up to 4096, 32 and 4
+   heads of 2r = 16, a strided q slice, and the full RoPE at dh = 64 and
+   128, to 2e-6 relative (the count of bitwise-equal outputs is printed).
 3. Serve TinyLlama-1.1B at full width (22 layers, d 2048, EliteKV r=8,
    d_ckv=64) with random weights from a seeded ``torch.Generator`` — not
    the reference's weights, since the card has no JAX.  Each run sets the
@@ -33,6 +39,8 @@ non-zero:
       (``elite_decode_sparse_paged_q8``);
    c. 6 requests on the int8 pool, dense (``elite_decode_paged_q8``), and
       6 with f32 sparse decode (``elite_decode_sparse_paged``);
+   Every EliteKV forward also rotates q and k through ``rope_elite``:
+   2 launches per layer and forward (prefill, decode, draft, verify).
    e. greedy self-speculative decode: 12 requests on the f32 pool, plain,
       then k=4 with the full-rank draft, then k=4 with the draft truncated
       to rank 32; 6 requests on the int8 pool, plain, then k=4 rank 32.
@@ -43,6 +51,13 @@ non-zero:
       margin of the plain logits under 1e-3, recomputed by a one-shot
       prefill and printed) that f32 rounding decides; the full-rank draft
       must accept >= 99% of its proposals.
+   f. lockstep ``generate`` over a contiguous cache, 8 prompts of 1024
+      tokens and 128 new tokens each, EliteKV (``elite_decode`` 22 x 127,
+      ``flash_prefill`` 22, ``rope_elite`` 44 x 128, nothing else) and the
+      baseline GQA model (``flash_prefill`` 22 x 128, ``rope_elite``
+      44 x 128): tok/s, step ms and the measured cache, which must equal
+      the per-token formula; the EliteKV tokens must equal
+      ``generate_paged``'s on the same prompts, apart from near-ties.
    Every kernel is re-run on the busiest inputs recorded from its run and
    held against its plain version; a torch.profiler window over 10 steady
    decode steps of 8 lanes, on the f32 pool, on the int8 pool with sparse
@@ -50,14 +65,16 @@ non-zero:
    pool, gives the card's busy share and its time by kernel; a
    narrow model on the card must give
    the CPU's tokens on the f32 pool and on the int8 pool with sparse decode,
-   and with speculative decode (k=2, rank-16 draft) on both pools.
+   with speculative decode (k=2, rank-16 draft) on both pools, and through
+   ``generate``, EliteKV and baseline.
 4. Time each kernel at its recorded main-path inputs (CUDA events, warm-up,
    L2 flushed before every launch), its plain version, its bound, and the
    PyTorch call that computes the same function where one exists; and, on
    the int8 sparse run's busiest step, the dense kernels over the same
    lanes beside the pool's bytes per token, f32 against int8; and a W = 5
    verify call against the five decode calls that score the same window
-   one token at a time.
+   one token at a time; and the baseline's decode attention (one query row
+   per lane through ``flash_prefill``) and its full-RoPE rotation.
 
 Output ends with the card's name and power limit, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -83,7 +100,10 @@ NUM_LAYERS = 22
 DECODES = ("elite_decode_paged", "elite_decode_paged_q8", "elite_decode_sparse_paged",
            "elite_decode_sparse_paged_q8")
 VERIFIES = ("elite_verify_paged", "elite_verify_paged_q8")
-TPU_LINES = {"elite_decode_paged": "src/repro/kernels/elite_decode.py:193",
+ROPE_ATOL, ROPE_RTOL = 1e-6, 2e-6   # one rotation per pair, no reduction
+TPU_LINES = {"elite_decode": "src/repro/kernels/elite_decode.py:89",
+             "rope_elite": "src/repro/kernels/rope_elite.py:35",
+             "elite_decode_paged": "src/repro/kernels/elite_decode.py:193",
              "elite_decode_paged_q8": "src/repro/kernels/elite_decode.py:314",
              "elite_decode_sparse_paged": "src/repro/kernels/elite_decode.py:443",
              "elite_decode_sparse_paged_q8": "src/repro/kernels/elite_decode.py:559",
@@ -184,6 +204,31 @@ def decode_cost(name: str, a):
                    + extra) + live * per_row)
     flops = scored_pairs(name, a) * nh * (2 * (r2 + dc) + 2 * dc)
     return nbytes, flops
+
+
+def contig_decode_cost(a):
+    """(bytes, flops) of ``elite_decode`` on its argument tuple (q_e, q_lat,
+    k_e, c_k, c_v, lengths, G, scale): q_e, q_lat and the output once, each
+    lane's rows below its length once; the flops of every scored row."""
+    q_e, q_lat, k_e, c_k, c_v, lengths = a[:6]
+    B, nh, r2 = q_e.shape
+    S, nkv, dc = k_e.shape[1], k_e.shape[2], c_k.shape[-1]
+    rows = int(lengths.clamp(0, S).sum())
+    lat = 1 if c_v is c_k else 2
+    nbytes = 4 * (q_e.numel() + 2 * q_lat.numel() + B) + rows * 4 * (nkv * r2 + lat * dc)
+    return nbytes, rows * nh * (2 * (r2 + dc) + 2 * dc)
+
+
+def rope_cost(a):
+    """(bytes, flops) of ``rope_elite`` on (x, positions, freqs): x read and
+    the output written once, the positions and the freq rows once; per
+    pair 9 flops (the angle, 4 products, a sum and a difference, one sincos
+    counted as two)."""
+    x, pos, freqs = a
+    pairs = x.numel() // 2
+    f_rows = freqs.shape[0] if freqs.stride(0) else 1
+    return 8 * x.numel() + pos.numel() * pos.element_size() + 4 * f_rows * freqs.shape[1], \
+        9 * pairs
 
 
 def prefill_cost(x):
@@ -291,6 +336,70 @@ def decode_call(name: str, x, dh: int, sel=None):
     return (x["q_e"], x["q_lat"], *pages, *walk, G, dh ** -0.5, x["bs"])
 
 
+def random_contig(dev, nh, nkv, r2, dc, separate, S, seed):
+    """A contiguous cache of S rows per lane; lengths 0, 1, a partial tile,
+    S - 5, S and past S."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = [0, 1, 13, 17, S - 5, S, S + 9, 0]
+    B = len(lengths)
+    f = lambda *s: torch.randn(s, generator=g, device=dev)
+    c_k = f(B, S, dc)
+    return (f(B, nh, r2), f(B, nh, dc), f(B, S, nkv, r2), c_k,
+            f(B, S, dc) if separate else c_k,
+            torch.tensor(lengths, dtype=torch.int32, device=dev), nh // nkv)
+
+
+def as_identity_pages(a, bs: int = 16):
+    """``elite_decode``'s arguments as ``elite_decode_paged``'s: each lane's
+    rows padded to whole blocks, the identity block table, lengths clamped
+    to S."""
+    import torch
+    q_e, q_lat, k_e, c_k, c_v, lengths, G, scale = a
+    B, S = k_e.shape[:2]
+    mb = -(-S // bs)
+    pad = lambda t: torch.cat([t, t.new_zeros((B, mb * bs - S) + t.shape[2:])], 1) \
+        .reshape((B * mb * bs,) + t.shape[2:])
+    ck = pad(c_k)
+    table = torch.arange(B * mb, dtype=torch.int32, device=k_e.device).reshape(B, mb)
+    return (q_e, q_lat, pad(k_e), ck, ck if c_v is c_k else pad(c_v), table,
+            lengths.clamp(max=S), G, scale, bs)
+
+
+def rope_cases(dev, seed):
+    """{label: (x, positions, freqs)}: 32 and 4 heads of 2r = 16 with
+    chunk 0 at frequency 1.0, a 2r slice of a 64-wide q, and the full RoPE
+    at dh = 64 and 128; positions up to 4096, [S] int64 and [B, S] int32."""
+    import torch
+    from repro_torch.core import rope
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, S = 4, 1000
+    out = {}
+    for label, H, width, wide in (("H=32 2r=16", 32, 16, 16), ("H=4 2r=16", 4, 16, 16),
+                                  ("q slice 2r=16 of 64", 32, 16, 64),
+                                  ("full dh=64", 4, 64, 64), ("full dh=128", 32, 128, 128)):
+        if label.startswith("full"):
+            freqs = rope.chunk_freqs(width, 10000.0, device=dev).expand(H, width // 2)
+        else:
+            freqs = torch.exp(-4 * torch.rand(H, width // 2, generator=g, device=dev))
+            freqs[:, 0] = 1.0
+        x = torch.randn(B, S, H, wide, generator=g, device=dev)[..., :width]
+        out[label + " pos [S]"] = (x, torch.randint(0, 4097, (S,), generator=g,
+                                                    device=dev), freqs)
+        out[label + " pos [B,S]"] = (x, torch.randint(0, 4097, (B, S), generator=g,
+                                                      device=dev).int(), freqs)
+    return out
+
+
+def rope_err(got, want):
+    """(max abs error, elements outside atol + rtol·|want|, bitwise-equal share)."""
+    import torch
+    torch.cuda.synchronize()
+    d = (got - want).abs()
+    bad = int((d > ROPE_ATOL + ROPE_RTOL * want.abs()).sum())
+    return float(d.max()), bad, float((got == want).float().mean())
+
+
 def random_prefill(dev, nh, nkv, dh, seed):
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -381,12 +490,12 @@ class Recorder:
 
     NAMES = DECODES + VERIFIES + ("flash_prefill", "select_topk_blocks")
 
-    def __init__(self, n_layers: int):
+    def __init__(self, n_layers: int, names=NAMES):
         from repro_torch.core import elite_attention
         self.ops, self.n = elite_attention.ops, n_layers
-        self.orig = {k: getattr(self.ops, k) for k in self.NAMES}
-        self.calls = {k: [] for k in self.NAMES}
-        counts = dict.fromkeys(self.NAMES, 0)
+        self.orig = {k: getattr(self.ops, k) for k in names}
+        self.calls = {k: [] for k in names}
+        counts = dict.fromkeys(names, 0)
 
         def wrap(name):
             def fn(*a):
@@ -396,7 +505,7 @@ class Recorder:
                 return self.orig[name](*a)
             return fn
 
-        for k in self.NAMES:
+        for k in names:
             setattr(self.ops, k, wrap(k))
 
     def close(self):
@@ -408,10 +517,12 @@ def path_kernels(scfg, rep, n_layers: int):
     """{kernel: launches} a run with this config must have made: its decode
     kernel once per layer and decode forward (per draft forward, and the
     verify kernel per verify forward, when speculating), ``flash_prefill``
-    once per layer and prefill forward."""
+    once per layer and prefill forward, ``rope_elite`` twice per layer and
+    forward of any kind (q and k)."""
     q8 = "_q8" if scfg.cache_dtype == "int8" else ""
     sparse = "sparse_" if scfg.sparse_topk_blocks else ""
-    want = {"flash_prefill": rep.prefill_chunks}
+    want = {"flash_prefill": rep.prefill_chunks,
+            "rope_elite": 2 * (rep.prefill_chunks + rep.decode_steps + rep.draft_forwards)}
     if scfg.speculate_k:
         want["elite_verify_paged" + q8] = rep.decode_steps
         want["elite_decode_paged" + q8] = rep.draft_forwards
@@ -443,8 +554,8 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, card: str):
     print(f"[{card}] {label} phases: {rep.phase_table()}")
     fwd = (f"{rep.draft_forwards} draft + {rep.decode_steps} verify" if scfg.speculate_k
            else f"{rep.decode_steps} decode")
-    print(f"{label} launches: {launches} over {fwd} and "
-          f"{rep.prefill_chunks} prefill forwards x {cfg.num_layers} layers")
+    print(f"{label} launches: { {k: v for k, v in launches.items() if v} } over {fwd} "
+          f"and {rep.prefill_chunks} prefill forwards x {cfg.num_layers} layers")
     if rep.completed != len(reqs):
         raise AssertionError(f"{label}: {rep.completed}/{len(reqs)} requests finished")
     for r in sched.finished:
@@ -480,33 +591,81 @@ def near_tie_margin(params, buffers, cfg, tokens, dev) -> float:
     return float(top[0] - top[1])
 
 
-def compare_streams(label, plain_sched, spec_sched, params, buffers, cfg, dev, card) -> int:
-    """Speculative streams against the plain run's on the same requests.
-    A stream may part from the plain one only where the plain logits' top-2
-    margin, recomputed by a one-shot prefill of prompt + plain stream up to
-    that token, is under NEAR_TIE; it is then compared no further.  Any other
+def compare_streams(label, streams, params, buffers, cfg, dev, card,
+                    against: str = "plain run's") -> int:
+    """Streams against a reference run's on the same requests; ``streams``
+    is [(uid, prompt, tokens, reference tokens)].  A stream may part from
+    the reference only where the reference logits' top-2 margin, recomputed
+    by a one-shot paged prefill of prompt + reference stream up to that
+    token, is under NEAR_TIE; it is then compared no further.  Any other
     difference raises.  → the number of such near-tie tokens."""
     import numpy as np
-    plain = {r.uid: r for r in plain_sched.finished}
     ties = 0
-    for r in spec_sched.finished:
-        want = plain[r.uid].generated
-        diff = [t for t, (a, b) in enumerate(zip(r.generated, want)) if a != b]
-        if not diff and len(r.generated) == len(want):
+    for uid, prompt, got, want in streams:
+        got, want = list(got), list(want)
+        diff = [t for t, (a, b) in enumerate(zip(got, want)) if a != b]
+        if not diff and len(got) == len(want):
             continue
         if not diff:
-            raise AssertionError(f"{label} request {r.uid}: stream length differs")
+            raise AssertionError(f"{label} request {uid}: stream length differs")
         t = diff[0]
-        ctx = np.concatenate([r.prompt, np.asarray(want[:t], np.int32)])
+        ctx = np.concatenate([prompt, np.asarray(want[:t], np.int32)])
         margin = near_tie_margin(params, buffers, cfg, ctx, dev)
-        print(f"[{card}] {label} request {r.uid}: token {t} is {r.generated[t]} against "
-              f"plain {want[t]}; plain top-2 margin {margin:.3e}", flush=True)
+        print(f"[{card}] {label} request {uid}: token {t} is {got[t]} against "
+              f"{want[t]}; reference top-2 margin {margin:.3e}", flush=True)
         if not margin < NEAR_TIE:
-            raise AssertionError(f"{label} request {r.uid}: stream differs from plain at "
-                                 f"token {t} with top-2 margin {margin} >= {NEAR_TIE}")
+            raise AssertionError(f"{label} request {uid}: stream differs at token {t} "
+                                 f"with top-2 margin {margin} >= {NEAR_TIE}")
         ties += 1
-    print(f"[{card}] {label}: streams == plain run's ({ties} near-tie tokens)", flush=True)
+    print(f"[{card}] {label}: streams == {against} ({ties} near-tie tokens)", flush=True)
     return ties
+
+
+def sched_streams(plain_sched, spec_sched):
+    """compare_streams' pairs from two schedulers' finished requests."""
+    plain = {r.uid: r.generated for r in plain_sched.finished}
+    return [(r.uid, r.prompt, r.generated, plain[r.uid]) for r in spec_sched.finished]
+
+
+def generate_run(label, params, buffers, cfg, prompts, new_tokens: int, want, card):
+    """Lockstep ``generate`` with the counts set to 0 just before and read
+    just after; the launches must be exactly ``want``.  Prints tok/s, step
+    ms and the measured cache, which must equal the per-token formula.
+    → (tokens, stats, wall_s, recorder, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cache import model_cache_floats_per_token
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import serve_loop
+    rec = Recorder(cfg.num_layers, names=tuple(want))
+    dev = params["embed"]["table"].device
+    ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        out, stats = serve_loop.generate(params, buffers, cfg, prompts, new_tokens,
+                                         device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launches()
+    finally:
+        rec.close()
+    B, Sp = prompts.shape
+    dec = np.asarray(stats.step_ms[1:])
+    print(f"[{card}] {label}: {B} x ({Sp} prompt + {new_tokens} new) in {wall:.3f} s: "
+          f"decode tok/s={stats.decoded_tokens / wall:.1f}, prefill step "
+          f"{stats.step_ms[0]:.2f} ms, decode step_ms p50/p95="
+          f"{np.percentile(dec, 50):.2f}/{np.percentile(dec, 95):.2f}, measured cache "
+          f"{stats.cache_bytes / 2**20:.2f} MiB ({stats.cache_bytes} B)", flush=True)
+    got = {k: v for k, v in launches.items() if v}
+    print(f"{label} launches: {got}")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    if out.shape != (B, new_tokens) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"{label}: bad output {out.shape} {out[:, :8]}")
+    cache_want = 4 * model_cache_floats_per_token(cfg) * B * (Sp + new_tokens)
+    if stats.cache_bytes != cache_want:
+        raise AssertionError(f"{label}: cache {stats.cache_bytes} B, expected {cache_want}")
+    return out, stats, wall, rec, got
 
 
 def main() -> int:
@@ -518,6 +677,7 @@ def main() -> int:
     import torch.nn.functional as F
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import elite_decode as ed
+    from repro_torch.kernels import rope_elite as re_k
     from repro_torch.launch.serve import build_config, make_stream
     from repro_torch.models import lm
     from repro_torch.runtime import serve_loop
@@ -551,9 +711,12 @@ def main() -> int:
                               for w in (1, 5)))
     for dh in (64, 128):
         print(f"  flash_prefill smem/CTA dh={dh}: {flash_smem_bytes(dh)} B")
+    print(f"  elite_decode (contiguous) reads tiles of {ed.CONTIG_TILE} rows: the decode "
+          f"entries' smem/CTA at block_size {ed.CONTIG_TILE}; rope_elite uses none")
 
     # -- 2. kernel parity at both model widths ------------------------------
-    errs = dict.fromkeys(DECODES + VERIFIES + ("flash_prefill",), 0.0)
+    errs = dict.fromkeys(DECODES + VERIFIES + ("flash_prefill", "elite_decode",
+                                               "rope_elite"), 0.0)
     widths = {"tinyllama_1_1b": (32, 4, 16, 64, 64), "llama2_7b": (32, 32, 32, 1024, 128)}
     for i, (wname, (nh, nkv, r2, dc, dh)) in enumerate(widths.items()):
         for separate in (False, True):
@@ -609,12 +772,38 @@ def main() -> int:
                     raise AssertionError(f"verify W=1{sfx} != decode{sfx} ({wname})")
             print(f"[{card}] verify W=1 == decode bitwise, f32 and int8, {wname} "
                   f"{'S-LRD' if separate else 'J-LRD'}", flush=True)
+            # the contiguous cache: plain version, and the paged bits
+            for S in (1000, 1152):
+                a = random_contig(dev, nh, nkv, r2, dc, separate, S, seed=30 + S + i)
+                a = a + (dh ** -0.5,)
+                got = ed.elite_decode(*a)
+                lrd = "S-LRD" if separate else "J-LRD"
+                errs["elite_decode"] = max(errs["elite_decode"], check(
+                    f"elite_decode S={S} {wname} {lrd}",
+                    max_err(got, ref.elite_decode_ref(*a)), card))
+                if float(got[0].abs().max()) != 0.0 or float(got[-1].abs().max()) != 0.0:
+                    raise AssertionError("elite_decode: a length-0 lane did not give zeros")
+                paged = ed.elite_decode_paged(*as_identity_pages(a))
+                torch.cuda.synchronize()
+                if not torch.equal(got, paged):
+                    raise AssertionError(f"elite_decode != elite_decode_paged over identity "
+                                         f"pages (S={S}, {wname} {lrd})")
+            print(f"[{card}] elite_decode == elite_decode_paged on identity-table pages "
+                  f"bitwise, S=1000 and 1152, {wname} {lrd}", flush=True)
         x = random_prefill(dev, nh, nkv, dh, seed=10 + i)
         got = run_prefill(x)
         e = check(f"flash_prefill {wname}", max_err(got, run_prefill(x, plain=True)), card)
         if float(got[-1].abs().max()) != 0.0:
             raise AssertionError("a kv_len = 0 lane did not give exact zeros")
         errs["flash_prefill"] = max(errs["flash_prefill"], e)
+    for label, a in rope_cases(dev, seed=40).items():
+        e, bad, same = rope_err(re_k.rope_elite(*a), ref.rope_elite_ref(*a))
+        print(f"[{card}] parity rope_elite {label}: max_abs_err={e:.3e}, {bad} outside "
+              f"{ROPE_ATOL:.0e} + {ROPE_RTOL:.0e}·|plain|, bitwise equal {100 * same:.2f}%",
+              flush=True)
+        if bad:
+            raise AssertionError(f"rope_elite {label}: {bad} elements past the tolerance")
+        errs["rope_elite"] = max(errs["rope_elite"], e)
 
     # -- 3. the main paths at full width ------------------------------------
     cfg = build_config("tinyllama_1_1b", reduced=False, cache_ratio=0.25)
@@ -669,13 +858,39 @@ def main() -> int:
                 serve_loop.SchedulerConfig(**base, **kw, speculate_k=4, draft_rank=rank),
                 stream(), card)
             spec_runs[label] = srep
-            compare_streams(label, psched, ssched, params, buffers, cfg, dev, card)
+            compare_streams(label, sched_streams(psched, ssched), params, buffers, cfg,
+                            dev, card)
             if rank == 0 and not (srep.acceptance_rate >= 0.99
                                   and srep.tokens_per_forward > 2):
                 raise AssertionError(f"{label}: acceptance {srep.acceptance_rate} and "
                                      f"{srep.tokens_per_forward} tokens per forward")
             if rank:                     # the verify kernel's row: the rank-32 run
                 runs[verify], recs[verify] = (srep, launches), rec
+
+    # f. lockstep generate over a contiguous cache, EliteKV and baseline
+    L, B_GEN, P_GEN, N_GEN = NUM_LAYERS, 8, 1024, 128
+    prompts = np.random.default_rng(9).integers(0, cfg.vocab_size, (B_GEN, P_GEN))
+    gen = {}
+    out, gstats, gwall, grec, glaunches = generate_run(
+        "generate EliteKV", params, buffers, cfg, prompts, N_GEN,
+        {"elite_decode": L * (N_GEN - 1), "flash_prefill": L, "rope_elite": 2 * L * N_GEN},
+        card)
+    gen["EliteKV"] = gstats, gwall
+    paged, _ = serve_loop.generate_paged(params, buffers, cfg, prompts, N_GEN, device=dev)
+    compare_streams("generate EliteKV vs generate_paged",
+                    [(b, prompts[b], out[b], paged[b]) for b in range(B_GEN)],
+                    params, buffers, cfg, dev, card, against="generate_paged's")
+    bcfg = build_config("tinyllama_1_1b", reduced=False, cache_ratio=0.25, elitekv=False)
+    bparams, bbuffers = lm.init(bcfg, seed=0, device=dev)
+    _, bstats, bwall, brec, _ = generate_run(
+        "generate baseline GQA", bparams, bbuffers, bcfg, prompts, N_GEN,
+        {"flash_prefill": L * N_GEN, "rope_elite": 2 * L * N_GEN}, card)
+    gen["baseline GQA"] = bstats, bwall
+    del bparams, bbuffers
+    print(f"[{card}] measured cache: EliteKV {gstats.cache_bytes} B vs baseline "
+          f"{bstats.cache_bytes} B (ratio {gstats.cache_bytes / bstats.cache_bytes:.4f}); "
+          f"per token {gstats.cache_bytes // (B_GEN * (P_GEN + N_GEN))} vs "
+          f"{bstats.cache_bytes // (B_GEN * (P_GEN + N_GEN))} B", flush=True)
 
     # each decode and verify kernel again, on the busiest recorded main-path inputs
     busiest = {}
@@ -686,6 +901,21 @@ def main() -> int:
         errs[name] = max(errs[name], check(
             f"{name} on main-path pages",
             max_err(run_decode(name, calls[i]), run_decode(name, calls[i], plain=True)), card))
+    calls = grec.calls["elite_decode"]
+    busiest["elite_decode"] = max(calls, key=lambda a: int(a[5].sum())), 0
+    a = busiest["elite_decode"][0]
+    errs["elite_decode"] = max(errs["elite_decode"], check(
+        "elite_decode on the generate run's cache",
+        max_err(ed.elite_decode(*a), ref.elite_decode_ref(*a)), card))
+    busiest["rope_elite"] = max(grec.calls["rope_elite"], key=lambda a: a[0].numel()), 0
+    a = busiest["rope_elite"][0]
+    e, bad, same = rope_err(re_k.rope_elite(*a), ref.rope_elite_ref(*a))
+    print(f"[{card}] parity rope_elite on the generate run's prefill q "
+          f"{tuple(a[0].shape)}: max_abs_err={e:.3e}, {bad} outside the tolerance, "
+          f"bitwise equal {100 * same:.2f}%", flush=True)
+    if bad:
+        raise AssertionError("rope_elite on the generate run's prefill q")
+    errs["rope_elite"] = max(errs["rope_elite"], e)
     pre = max(recs["elite_decode_paged"].calls["flash_prefill"], key=lambda a: int(a[6].sum()))
     xp = dict(q=pre[0], k=pre[1], v=pre[2], G=pre[3], scale=pre[4], offs=pre[5], lens=pre[6])
     errs["flash_prefill"] = max(errs["flash_prefill"], check(
@@ -730,6 +960,16 @@ def main() -> int:
             raise AssertionError(f"narrow model {label}: card tokens {got.tolist()} "
                                  f"!= CPU tokens {want.tolist()}")
         print(f"narrow model {label}: card tokens == CPU tokens", flush=True)
+    for label, elitekv in (("EliteKV", True), ("baseline GQA", False)):
+        gcfg = build_config("tinyllama_1_1b", reduced=True, cache_ratio=0.25,
+                            elitekv=elitekv)
+        gp, gb = lm.init(gcfg, seed=3, device="cpu")
+        want, _ = serve_loop.generate(gp, gb, gcfg, prompts, 12, device="cpu")
+        got, _ = serve_loop.generate(to(gp), to(gb), gcfg, prompts, 12, device=dev)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"narrow model generate {label}: card tokens "
+                                 f"{got.tolist()} != CPU tokens {want.tolist()}")
+        print(f"narrow model generate {label}: card tokens == CPU tokens", flush=True)
 
     # -- 4. times at the main paths' shapes ----------------------------------
     scratch = torch.empty(64 * 2**20 // 4, device=dev)      # > the 50 MB L2
@@ -783,6 +1023,73 @@ def main() -> int:
     print(f"[{card}] prefill shapes: q={tuple(xp['q'].shape)} k={tuple(xp['k'].shape)} "
           f"q_offsets={xp['offs'].tolist()} kv_lens={xp['lens'].tolist()}; bound: "
           f"{p_bytes} B vs {p_flops} flop")
+    # the contiguous decode at the generate run's busiest call, against one
+    # SDPA call over the same scores: prebuilt [q_e | q_lat] and
+    # [K_e | C_k] (the latent broadcast to the kv heads) with values C_v and
+    # a boolean length mask; only the SDPA call is timed, not the builds
+    a = busiest["elite_decode"][0]
+    q_e, q_lat, k_e, c_k, c_v, lens, G, sc = a
+    B, S = k_e.shape[:2]
+    nkv, dc = k_e.shape[2], c_k.shape[-1]
+    qs = torch.cat([q_e, q_lat], -1)[:, :, None]                      # [B,nh,1,2r+dc]
+    ks = torch.cat([k_e.transpose(1, 2),
+                    c_k[:, None].expand(B, nkv, S, dc)], -1).contiguous()
+    vs = c_v[:, None].expand(B, nkv, S, dc).contiguous()
+    lmask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None]
+    sdpa_d = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=lmask, scale=sc,
+                                                    enable_gqa=True)
+    print(f"[{card}] elite_decode vs its SDPA yardstick: max abs difference "
+          f"{max_err(sdpa_d()[:, :, 0], ed.elite_decode(*a)):.3e}", flush=True)
+    e_bytes, e_flops = contig_decode_cost(a)
+    e_bound, e_by = bound(e_bytes, e_flops)
+    rows.insert(2, dict(
+        name="elite_decode", route="cuda",
+        source="src/repro_torch/kernels/csrc/elite_decode_paged.cu",
+        replaces=TPU_LINES["elite_decode"], launches=glaunches["elite_decode"],
+        max_abs_err=errs["elite_decode"],
+        ms=time_ms(lambda: ed.elite_decode(*a), flush=flush),
+        plain_ms=time_ms(lambda: ref.elite_decode_ref(*a), flush=flush),
+        bound_ms=e_bound, bound_by=e_by, library_ms=time_ms(sdpa_d, flush=flush)))
+    print(f"[{card}] elite_decode shapes: B={B} S={S} lengths={lens.tolist()} "
+          f"({int(lens.clamp(max=S).sum())} rows) nh={q_e.shape[1]} nkv={nkv} "
+          f"2r={k_e.shape[-1]} d_c={dc}; bound: {e_bytes} B / 3.35 TB/s vs {e_flops} "
+          f"flop / 67 TFLOP/s", flush=True)
+    a = busiest["rope_elite"][0]
+    r_bytes, r_flops = rope_cost(a)
+    r_bound, r_by = bound(r_bytes, r_flops)
+    rows.append(dict(
+        name="rope_elite", route="cuda", source="src/repro_torch/kernels/csrc/rope_elite.cu",
+        replaces=TPU_LINES["rope_elite"], launches=glaunches["rope_elite"],
+        max_abs_err=errs["rope_elite"],
+        ms=time_ms(lambda: re_k.rope_elite(*a), flush=flush),
+        plain_ms=time_ms(lambda: ref.rope_elite_ref(*a), flush=flush),
+        bound_ms=r_bound, bound_by=r_by, library_ms=None))
+    small_rope = min(grec.calls["rope_elite"], key=lambda a: a[0].numel())
+    print(f"[{card}] rope_elite shapes: x={tuple(a[0].shape)} stride={a[0].stride()} "
+          f"positions {tuple(a[1].shape)} {a[1].dtype}; bound: {r_bytes} B vs {r_flops} "
+          f"flop; at decode x={tuple(small_rope[0].shape)}: "
+          f"{time_ms(lambda: re_k.rope_elite(*small_rope), flush=flush):.4f} ms", flush=True)
+    # the baseline: its full-RoPE rotation of the prefill q, and its decode
+    # attention, one query row per lane through flash_prefill
+    a = max(brec.calls["rope_elite"], key=lambda a: a[0].numel())
+    print(f"[{card}] baseline full RoPE x={tuple(a[0].shape)}: rope_elite "
+          f"{time_ms(lambda: re_k.rope_elite(*a), flush=flush):.4f} ms, plain "
+          f"{time_ms(lambda: ref.rope_elite_ref(*a), flush=flush):.4f} ms, bound "
+          f"{bound(*rope_cost(a))[0]:.4f} ms", flush=True)
+    a = max((c for c in brec.calls["flash_prefill"] if c[0].shape[1] == 1),
+            key=lambda c: int(c[6].sum()))
+    xb = dict(q=a[0], k=a[1], v=a[2], G=a[3], scale=a[4], offs=a[5], lens=a[6])
+    kv = xb["k"].shape[1]
+    bmask = (torch.arange(kv, device=dev)[None, :] < xb["lens"][:, None])[:, None, None]
+    bq, bk, bv = (xb[n].transpose(1, 2) for n in ("q", "k", "v"))
+    sdpa_b = lambda: F.scaled_dot_product_attention(bq, bk, bv, attn_mask=bmask,
+                                                    scale=xb["scale"], enable_gqa=True)
+    print(f"[{card}] baseline decode attention (flash_prefill, Sq=1, kv_lens="
+          f"{xb['lens'].tolist()[0]} x {xb['q'].shape[0]} lanes): kernel "
+          f"{time_ms(lambda: run_prefill(xb), flush=flush):.4f} ms, plain "
+          f"{time_ms(lambda: run_prefill(xb, plain=True), flush=flush):.4f} ms, SDPA "
+          f"{time_ms(sdpa_b, flush=flush):.4f} ms, bound "
+          f"{bound(*prefill_cost(xb))[0]:.5f} ms", flush=True)
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms (SDPA)"
         print(f"[{card}] {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -833,6 +1140,12 @@ def main() -> int:
               f"ttft_ms p50={rep.ttft_wall_p50_ms:.1f} "
               f"step_ms p50/p95={rep.step_ms_p50:.2f}/{rep.step_ms_p95:.2f} "
               f"wall_s={rep.wall_s:.2f}", flush=True)
+    for label, (st, wall) in gen.items():
+        dec = np.asarray(st.step_ms[1:])
+        print(f"[{card}] serving generate {label}: decode tok/s="
+              f"{st.decoded_tokens / wall:.1f} prefill_ms={st.step_ms[0]:.2f} "
+              f"step_ms p50/p95={np.percentile(dec, 50):.2f}/{np.percentile(dec, 95):.2f} "
+              f"cache_MiB={st.cache_bytes / 2**20:.2f} wall_s={wall:.2f}", flush=True)
     for label, rep in spec_runs.items():
         print(f"[{card}] serving {label}: tok/s={rep.tok_per_s:.1f} "
               f"step_ms p50={rep.step_ms_p50:.2f} acceptance={rep.acceptance_rate:.3f} "

@@ -1,8 +1,8 @@
 """Model configuration for the PyTorch port: EliteKV hyper-parameters and the
 decoder-only architecture description, plus the ``--arch`` registry.
 
-Counterpart of ``repro/configs/base.py``, cut to what the paged EliteKV
-serving path reads: untied attention + SwiGLU-MLP stacks (no MoE, SSM,
+Counterpart of ``repro/configs/base.py``, cut to what the port's serving
+paths read: untied attention + SwiGLU-MLP stacks (no MoE, SSM,
 frontend or tied-embedding fields, no shape cells or dry-run input specs).
 """
 from __future__ import annotations
@@ -30,6 +30,15 @@ class EliteKVConfig:
     lrd: str = "joint"
     d_ck: int = 256
     d_cv: int = 256
+
+    def cache_per_token_per_layer(self, n_kv: int, d_head: int) -> int:
+        """Floats of cache per token per attention layer (paper §3.2)."""
+        if not self.enabled:
+            return 2 * n_kv * d_head
+        rot = 2 * self.elite_r * n_kv
+        if self.lrd == "joint":
+            return rot + self.d_ckv
+        return rot + self.d_ck + self.d_cv
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,12 @@
-"""The block-paged compressed-KV pool and its admission/eviction policy.
+"""KV-cache size accounting, the block-paged compressed-KV pool and its
+admission/eviction policy.
 
 Counterpart of the JAX package's ``core/cache.py``, for a pool on one
-device.  ``PagedKVPool`` stores the compressed ``(k_e, c)`` streams of every
-attention layer in fixed-size token blocks shared across sequences;
+device.  Size formulas (paper §3.2), per token per attention layer, in
+floats: ``2 · n_kv · d_h`` for the baseline, ``2 · r · n_kv + d_ckv`` under
+RoPElite + J-LRD (``+ d_ck + d_cv`` under S-LRD).  ``PagedKVPool`` stores
+the compressed ``(k_e, c)`` streams of every attention layer in fixed-size
+token blocks shared across sequences;
 sequences own ragged chains of blocks through per-sequence block tables,
 grown one block at a time and recycled the moment a sequence retires.  Page
 tensors keep the reference's leaf names and ``[n_super, n_slots, ...]``
@@ -38,6 +42,32 @@ from repro_torch.core import quant
 
 #: per-block latent summary leaves of a ``block_summaries=True`` pool
 BLOCK_SUMMARY_SUFFIXES = ("_blkmean", "_blkmax")
+
+
+def attn_cache_floats_per_token(cfg: ModelConfig) -> int:
+    return cfg.elitekv.cache_per_token_per_layer(cfg.n_kv_heads, cfg.head_dim)
+
+
+def model_cache_floats_per_token(cfg: ModelConfig) -> int:
+    """Every layer of the port's stacks is an attention layer."""
+    return cfg.num_layers * attn_cache_floats_per_token(cfg)
+
+
+def cache_ratio(cfg_elite: ModelConfig, cfg_base: ModelConfig) -> float:
+    """Attention-KV compression ratio vs the unmodified model."""
+    a = model_cache_floats_per_token(cfg_elite)
+    b = model_cache_floats_per_token(cfg_base)
+    return a / b if b else 1.0
+
+
+def measured_cache_bytes(cache, batch: int, max_len: int) -> Dict[str, int]:
+    """Bytes held by a live contiguous cache (``lm.init_cache``), split
+    attention vs SSM state as the reference reports them (the port has no
+    SSM layers, so ``ssm_bytes`` is 0)."""
+    attn = sum(t.numel() * t.element_size()
+               for layer in cache["blocks"].values() for t in layer.values())
+    return {"attn_bytes": attn, "ssm_bytes": 0,
+            "attn_bytes_per_token": attn // (batch * max_len)}
 
 
 class OutOfBlocks(RuntimeError):

@@ -1,4 +1,5 @@
-"""EliteKV attention over the block-paged compressed cache (serving path).
+"""EliteKV attention over the block-paged compressed cache (serving path)
+and over a contiguous cache (lockstep batch generation).
 
 Weight layout, as in the JAX package (``core/elite_attention.py``):
 
@@ -41,6 +42,17 @@ concatenates the chunk's round-tripped K/V to the gathered prefix, the port
 gathers the whole chain, chunk included, from the pool *after* the scatter,
 so the chunk comes back dequantized already.
 
+The contiguous half (``apply_full``, ``init_cache``, ``apply_prefill``,
+``apply_decode``) keeps the reference's ``[B, max_len, ...]`` cache leaves,
+f32 only, written in place at rows ``[0, S)`` by prefill and at row
+``index`` by decode.  ``apply_full`` attends through the plain ``_attend``
+(the reference's XLA path) and is the oracle of cache-on == cache-off;
+prefill attends its own K/V through ``flash_prefill`` with offset 0, and
+decode is the absorbed path through the ``elite_decode`` kernel with
+``lengths = index + 1`` (the reference's ``use_kernel=False`` einsum branch
+is that kernel's plain version, ``ref.elite_decode_ref``).  Every rotation,
+on every path, is the ``rope_elite`` kernel (``core/rope.py``).
+
 Prefill routing differs from the reference, which attends through XLA
 (``_attend`` for fresh chunks, ``_attend_resumed`` over a gathered prefix):
 here every prefill attention is the ``flash_prefill`` kernel, whose contract
@@ -64,6 +76,7 @@ from repro_torch.core import rope as rope_lib
 from repro_torch.core.cache import BLOCK_SUMMARY_SUFFIXES
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_pages
+from repro_torch.models.attention import _attend
 from repro_torch.models.layers import dense_init
 
 
@@ -123,13 +136,9 @@ def _latents(params, cfg, x):
 def _streams(params, cfg, buffers, x, positions):
     """Rotated queries q [B,S,nh,dh] and the compressed streams the pool
     stores: k_e [B,S,nkv,2r], c_k, c_v [B,S,dc] (one tensor under J-LRD)."""
-    dt = x.dtype
     q_e, q_ne = _project_q(params, cfg, x)
     q_e = _rot_q(cfg, buffers, q_e, positions)
-    k_e = torch.einsum("bsd,dhe->bshe", x, params["wk_e"].to(dt))
-    k_e = rope_lib.apply_elite_rope(k_e, positions, buffers["elite_freqs"])
-    c_k, c_v = _latents(params, cfg, x)
-    return torch.cat([q_e, q_ne], dim=-1), k_e, c_k, c_v
+    return (torch.cat([q_e, q_ne], dim=-1), *_new_streams(params, cfg, buffers, x, positions))
 
 
 def _up_project(params, k_e, c_k, c_v, dt):
@@ -138,6 +147,94 @@ def _up_project(params, k_e, c_k, c_v, dt):
     k_ne = torch.einsum("bsc,che->bshe", c_k, params["bk"].to(dt))
     v = torch.einsum("bsc,che->bshe", c_v, params["bv"].to(dt))
     return torch.cat([k_e, k_ne], dim=-1), v.contiguous()
+
+
+def _new_streams(params, cfg, buffers, x, pos):
+    """The compressed streams a cache stores for x [B,S,d] at positions
+    ``pos``: rotated k_e [B,S,nkv,2r] and the latents c_k, c_v [B,S,dc]."""
+    k_e = torch.einsum("bsd,dhe->bshe", x, params["wk_e"].to(x.dtype))
+    k_e = rope_lib.apply_elite_rope(k_e, pos, buffers["elite_freqs"])
+    return (k_e, *_latents(params, cfg, x))
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward and the contiguous cache
+# ---------------------------------------------------------------------------
+
+def _materialized(params, cfg, buffers, x, positions):
+    """q [B,S,nh,dh], K/V [B,S,nkv,dh] and the streams k_e, c_k, c_v."""
+    q, k_e, c_k, c_v = _streams(params, cfg, buffers, x, positions)
+    k, v = _up_project(params, k_e, c_k, c_v, x.dtype)
+    return q, k, v, k_e, c_k, c_v
+
+
+def apply_full(params, cfg, buffers, x, positions) -> torch.Tensor:
+    """Whole-sequence causal forward, no cache.  → out [B,S,d]."""
+    q, k, v, *_ = _materialized(params, cfg, buffers, x, positions)
+    o = _attend(q, k, v, cfg.q_group, cfg.head_dim ** -0.5)
+    return torch.einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
+
+
+def init_cache(cfg, batch: int, max_len: int, device) -> Dict[str, torch.Tensor]:
+    """One layer's f32 cache: k_e [batch, max_len, nkv, 2r] and c
+    [batch, max_len, d_ckv] (c_k/c_v under S-LRD)."""
+    e = cfg.elitekv
+    lead = (batch, max_len)
+    cache = {"k_e": torch.zeros(lead + (cfg.n_kv_heads, 2 * e.elite_r), device=device)}
+    if e.lrd == "joint":
+        cache["c"] = torch.zeros(lead + (e.d_ckv,), device=device)
+    else:
+        cache["c_k"] = torch.zeros(lead + (e.d_ck,), device=device)
+        cache["c_v"] = torch.zeros(lead + (e.d_cv,), device=device)
+    return cache
+
+
+def _cache_latents(cache):
+    if "c" in cache:
+        return cache["c"], cache["c"]
+    return cache["c_k"], cache["c_v"]
+
+
+def _write_cache(cache, rows, k_e, c_k, c_v) -> None:
+    """Write the streams of rows ``rows`` (a slice or an index of the
+    position axis) into the cache in place."""
+    cache["k_e"][:, rows] = k_e
+    if "c" in cache:
+        cache["c"][:, rows] = c_k
+    else:
+        cache["c_k"][:, rows] = c_k
+        cache["c_v"][:, rows] = c_v
+
+
+def apply_prefill(params, cfg, buffers, x, positions, cache) -> torch.Tensor:
+    """Prompts x [B,S,d] at ``positions`` [S]: causal attention over the
+    prompt itself; writes cache rows [0, S) in place.  → out [B,S,d]."""
+    B, S = x.shape[:2]
+    q, k, v, k_e, c_k, c_v = _materialized(params, cfg, buffers, x, positions)
+    _write_cache(cache, slice(0, S), k_e, c_k, c_v)
+    offs = torch.zeros(B, dtype=torch.int32, device=x.device)
+    lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    o = ops.flash_prefill(q, k, v, cfg.q_group, cfg.head_dim ** -0.5, offs, lens)
+    return torch.einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
+
+
+def apply_decode(params, cfg, buffers, x, index: int, cache) -> torch.Tensor:
+    """Absorbed decode over the contiguous cache: x [B,1,d], the token at
+    position ``index`` of every lane.  Writes cache row ``index`` in place,
+    then attends rows [0, index] through the compressed cache only.
+    → out [B,1,d]."""
+    dt = x.dtype
+    B = x.shape[0]
+    nh = cfg.n_heads
+    pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
+    q_e, q_lat = _absorbed_query(params, cfg, buffers, x, pos)
+    k_e, c_k, c_v = _new_streams(params, cfg, buffers, x, pos)
+    _write_cache(cache, index, k_e[:, 0], c_k[:, 0], c_v[:, 0])
+    C_k, C_v = _cache_latents(cache)
+    o = ops.elite_decode(q_e.reshape(B, nh, -1).contiguous(),
+                         q_lat.reshape(B, nh, -1).contiguous(), cache["k_e"], C_k, C_v,
+                         pos[:, 0] + 1, cfg.q_group, cfg.head_dim ** -0.5)
+    return _absorbed_out(params, cfg, o.reshape(B, 1, nh, C_v.shape[-1]), dt)
 
 
 # ---------------------------------------------------------------------------
@@ -314,9 +411,7 @@ def _scatter_new(params, cfg, buffers, x, pos, pages, writes: Writes) -> None:
     """Write the compressed streams of x [B,S,d] at positions ``pos``
     [B,S] into the pool, row ``b·S + s`` to its slot in ``writes``."""
     B, S = x.shape[:2]
-    k_e = torch.einsum("bsd,dhe->bshe", x, params["wk_e"].to(x.dtype))
-    k_e = rope_lib.apply_elite_rope(k_e, pos, buffers["elite_freqs"])
-    c_k, c_v = _latents(params, cfg, x)
+    k_e, c_k, c_v = _new_streams(params, cfg, buffers, x, pos)
     _scatter_pages(pages, k_e.reshape(B * S, *k_e.shape[2:]),
                    c_k.reshape(B * S, -1), c_v.reshape(B * S, -1), writes)
 

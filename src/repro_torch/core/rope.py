@@ -9,11 +9,20 @@ Conventions (same as the JAX package):
   (``elite_freqs`` — theta values, not indices; projection columns are
   permuted so elite chunks occupy the first ``2r`` dims).
 
-Angles are computed in f32.
+Angles are computed in f32.  Both rotations are one function, the
+``rope_elite`` kernel's: the full RoPE is the elite rotation with
+``chunk_freqs`` broadcast over the heads.  ``kernels.ops.rope_elite``
+launches the kernel for a CUDA tensor and runs the plain math
+(``kernels/ref.py``: ``cos_sin``, ``rotate``) for a CPU one.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import cos_sin  # noqa: F401  (the plain tables)
 
 
 def chunk_freqs(d_head: int, theta: float = 10000.0, device="cuda") -> torch.Tensor:
@@ -22,37 +31,29 @@ def chunk_freqs(d_head: int, theta: float = 10000.0, device="cuda") -> torch.Ten
     return theta ** (-2.0 * i / d_head)
 
 
-def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotate interleaved pairs of the last axis of x.
+@functools.lru_cache(maxsize=16)
+def _full_freqs(d_head: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``chunk_freqs`` built once per (head dim, theta, device): the full
+    RoPE rotates q and k in every layer with the same table."""
+    return chunk_freqs(d_head, theta, device=device)
 
-    x: [..., 2C]; cos/sin broadcastable to [..., C].
-    """
-    orig_dtype = x.dtype
-    x = x.float()
-    x2 = x.reshape(x.shape[:-1] + (x.shape[-1] // 2, 2))
-    x_even, x_odd = x2[..., 0], x2[..., 1]
-    out_even = x_even * cos - x_odd * sin
-    out_odd = x_even * sin + x_odd * cos
-    out = torch.stack([out_even, out_odd], dim=-1).reshape(x.shape)
-    return out.to(orig_dtype)
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Full RoPE.  x: [B, S, H, D]; positions: [B, S] or [S]."""
+    H, D = x.shape[-2:]
+    f = _full_freqs(D, float(theta), x.device)
+    return ops.rope_elite(x, positions, f.expand(H, D // 2))
 
 
 def apply_elite_rope(x: torch.Tensor, positions: torch.Tensor,
                      elite_freqs: torch.Tensor) -> torch.Tensor:
     """Per-head RoPE over the packed elite dims.
 
-    x: [B, S, H, 2r] — the elite slice; elite_freqs: [H, r] (theta values
-    per head).  positions: [S] or [B, S].
+    x: [B, S, H, 2r] — the elite slice (may be a strided view);
+    elite_freqs: [H, r] (theta values per head).  positions: [S] or [B, S].
+    → a new contiguous [B, S, H, 2r] tensor.
     """
-    B, S, H, r2 = x.shape
-    assert elite_freqs.shape == (H, r2 // 2), (tuple(elite_freqs.shape), (H, r2 // 2))
-    if positions.dim() == 1:
-        ang = positions[:, None, None].float() * elite_freqs[None]         # [S,H,r]
-        cos, sin = torch.cos(ang)[None], torch.sin(ang)[None]              # [1,S,H,r]
-    else:
-        ang = positions[:, :, None, None].float() * elite_freqs[None, None]
-        cos, sin = torch.cos(ang), torch.sin(ang)                          # [B,S,H,r]
-    return rotate(x, cos, sin)
+    return ops.rope_elite(x, positions, elite_freqs)
 
 
 def expand_kv_to_q(per_kv: torch.Tensor, q_group: int) -> torch.Tensor:

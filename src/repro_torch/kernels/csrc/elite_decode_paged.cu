@@ -1,7 +1,9 @@
 // Absorbed EliteKV decode and speculative-verify attention over the
-// block-paged compressed cache: one templated kernel body behind six entries.
+// block-paged compressed cache, and decode over a contiguous cache: one
+// templated kernel body behind seven entries.
 //
 //   entry                          replaces (src/repro/kernels/elite_decode.py)
+//   elite_decode                   elite_decode                  (_kernel)
 //   elite_decode_paged             elite_decode_paged            (_paged_kernel)
 //   elite_decode_paged_q8          elite_decode_paged_q8         (_paged_kernel_q8)
 //   elite_decode_sparse_paged      elite_decode_sparse_paged     (_sparse_kernel)
@@ -28,9 +30,17 @@
 //     stream; each int8 element is multiplied by its slot's scale as it is
 //     staged into the shared f32 rows -- the single multiply of the plain
 //     version's q.float() * scale;
-//   * the walk: ChainWalk visits block_tables[b, j] for j < ceil(len / bs)
-//     with n = min(bs, len - j*bs) rows; SelWalk visits sel_tables[b, j] for
-//     j < W with n = sel_counts[b, j] rows and skips a block with n == 0.
+//   * the walk, which yields the first row and the count n of each tile of
+//     rows it visits: ChainWalk visits block_tables[b, j] for
+//     j < ceil(len / bs) with n = min(bs, len - j*bs) rows; SelWalk visits
+//     sel_tables[b, j] for j < W with n = sel_counts[b, j] rows and skips a
+//     block with n == 0; ContigWalk visits lane b's rows b*S + j*bs of a
+//     contiguous [B, S, ...] cache for j < ceil(len / bs), with a partial
+//     last tile (S need not be a multiple of bs).  A contiguous cache has
+//     the memory layout of pages [B*S, ...] whose table is the identity,
+//     so ContigWalk reads it in place and builds no table; with S a
+//     multiple of bs it visits the rows ChainWalk visits over the identity
+//     table, in the same tiles and order, and gives its bits.
 // The window (nw, q_offsets) is a run-time argument of the same body, not a
 // third instantiation: a decode entry is the window nw = 1 with no mask,
 // whose bits a verify call with nw = 1 and q_offsets = lengths - 1 repeats
@@ -105,9 +115,9 @@ struct ChainWalk {
     len = min(lengths[b], width * bs);  // a length past the table sees it all
     return (len + bs - 1) / bs;
   }
-  __device__ int block(int b, int j, int len, int& n) const {
+  __device__ long rows(int b, int j, int len, int& n) const {
     n = min(bs, len - j * bs);
-    return tables[b * width + j];
+    return (long)tables[b * width + j] * bs;
   }
 };
 
@@ -118,9 +128,25 @@ struct SelWalk {
   int width;  // W
   int bs;
   __device__ int steps(int, int&) const { return width; }
-  __device__ int block(int b, int j, int, int& n) const {
+  __device__ long rows(int b, int j, int, int& n) const {
     n = min(counts[b * width + j], bs);
-    return tables[b * width + j];
+    return (long)tables[b * width + j] * bs;
+  }
+};
+
+// A contiguous cache [B, S, ...]: lane b's first lengths[b] rows, in tiles
+// of bs rows.
+struct ContigWalk {
+  const int* lengths;
+  int S;
+  int bs;
+  __device__ int steps(int b, int& len) const {
+    len = max(0, min(lengths[b], S));    // a length past S sees the whole lane
+    return (len + bs - 1) / bs;
+  }
+  __device__ long rows(int b, int j, int len, int& n) const {
+    n = min(bs, len - j * bs);
+    return (long)b * S + (long)j * bs;
   }
 };
 
@@ -187,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   const int cv_stride = shared_cv ? Wp : dc;
   for (int j = 0; j < n_steps; ++j) {
     int n;                                 // live rows of this block
-    const long base = (long)walk.block(b, j, len, n) * bs;
+    const long base = walk.rows(b, j, len, n);
     if (n <= 0) continue;                  // uniform across the CTA
     __syncthreads();                       // previous block fully consumed
     for (int i = tid; i < n * r2; i += kThreads) {
@@ -297,6 +323,18 @@ extern "C" int elite_decode_smem_optin(void) {
       cudaSuccess)
     return 0;
   return v;
+}
+
+// The contiguous cache: k_e [B, S, nkv, r2], c_k / c_v [B, S, dc], lengths
+// [B]; rows staged in tiles of bs.
+extern "C" int elite_decode(const float* q_e, const float* q_lat,
+                            const float* k_e, const float* c_k,
+                            const float* c_v, const int* lengths, float* out,
+                            int B, int S, int nkv, int G, int r2, int dc,
+                            int bs, float scale, void* stream) {
+  return launch(q_e, q_lat, k_e, c_k, c_v, nullptr, nullptr, nullptr,
+                ContigWalk{lengths, S, bs}, nullptr, out, B, 1, nkv, G, r2, dc,
+                scale, stream);
 }
 
 extern "C" int elite_decode_paged(const float* q_e, const float* q_lat,

@@ -1,7 +1,7 @@
-"""Absorbed EliteKV decode and verify attention over the paged pool: the
-CUDA kernels.
+"""Absorbed EliteKV decode and verify attention over the paged pool and
+over a contiguous cache: the CUDA kernels.
 
-Ports of the JAX package's ``kernels/elite_decode.py`` paged family.  Per
+Ports of the JAX package's ``kernels/elite_decode.py`` family.  Per
 (lane, kv head) one pass over the lane's compressed cache computes
 
     s = (q_e · K_eᵀ + q_lat · C_kᵀ) · scale      over the visited rows
@@ -9,6 +9,9 @@ Ports of the JAX package's ``kernels/elite_decode.py`` paged family.  Per
 
 walking the pool in place, so nothing is gathered contiguously:
 
+* ``elite_decode``                 a contiguous ``[B, S, ...]`` cache up to
+  ``lengths``, read in tiles of ``CONTIG_TILE`` rows, as pages whose table
+  is the identity (no table is built);
 * ``elite_decode_paged``           f32 pages, the chain ``block_tables``
   up to ``lengths``;
 * ``elite_decode_paged_q8``        int8 pages dequantized by their per-slot
@@ -20,9 +23,9 @@ walking the pool in place, so nothing is gathered contiguously:
   per lane, row ``w`` at ``q_offsets + w`` masked offset-causally, f32 pages;
 * ``elite_verify_paged_q8``        verify over int8 pages.
 
-All six are entries of one templated kernel, ``csrc/elite_decode_paged.cu``,
+All seven are entries of one templated kernel, ``csrc/elite_decode_paged.cu``,
 whose header says what bounds it and how it is built; the plain versions
-are ``ref.elite_decode_[sparse_]paged[_q8]_ref`` and
+are ``ref.elite_decode_ref``, ``ref.elite_decode_[sparse_]paged[_q8]_ref`` and
 ``ref.elite_verify_paged[_q8]_ref``.  ``kernels.ops`` picks between kernel
 and plain version by the device of the inputs.  Each launcher counts its
 launches in its ``launches`` attribute.  A call whose shared memory per CTA
@@ -38,6 +41,10 @@ from repro_torch.kernels import build
 
 _SOURCE = "elite_decode_paged"
 _SMEM_OPTIN: dict = {}
+#: rows of a contiguous cache staged per barrier round: the paged pool's
+#: block size, so that a contiguous call walks the rows in the tiles (and
+#: gives the bits) of ``elite_decode_paged`` over the identity table
+CONTIG_TILE = 16
 
 
 def smem_bytes(window: int, q_group: int, block_size: int, r2: int, dc: int,
@@ -102,16 +109,26 @@ def _launch(symbol: str, q_e, q_lat, pages, scales, table, rows, q_group: int,
     # as the kernel decides it: one latent tensor (and scale) staged once
     shared_cv = c_k.data_ptr() == c_v.data_ptr() and (
         not scales or scales[1].data_ptr() == scales[2].data_ptr())
+    out = torch.empty(lead + (nh, dc), dtype=f32, device=dev)
+    ints = (B, window, nkv, q_group, r2, dc, block_size, width) if verify else \
+        (B, nkv, q_group, r2, dc, block_size, width)
+    _call(symbol, (q_e, q_lat, k_e, c_k, c_v, *scales, *walk, out), ints, scale,
+          window, q_group, block_size, r2, dc, shared_cv)
+    return out
+
+
+def _call(symbol: str, ptrs, ints, scale: float, window: int, q_group: int,
+          block_size: int, r2: int, dc: int, shared_cv: bool) -> None:
+    """Refuse a call whose shared memory per CTA exceeds the card's opt-in
+    limit, then launch entry ``symbol`` with the tensors ``ptrs`` and the
+    ints ``ints`` on the current stream."""
+    dev = ptrs[0].device
     need = smem_bytes(window, q_group, block_size, r2, dc, shared_cv)
     limit = smem_optin_limit(dev)
     if need > limit:
         raise ValueError(f"{symbol}: {need} B of shared memory per CTA (window "
                          f"{window}, G={q_group}, 2r={r2}, d_c={dc}, block_size="
                          f"{block_size}) exceeds the card's opt-in limit of {limit} B")
-    out = torch.empty(lead + (nh, dc), dtype=f32, device=dev)
-    ptrs = (q_e, q_lat, k_e, c_k, c_v, *scales, *walk, out)
-    ints = (B, window, nkv, q_group, r2, dc, block_size, width) if verify else \
-        (B, nkv, q_group, r2, dc, block_size, width)
     argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) + [
         ctypes.c_float, ctypes.c_void_p]
     fn = build.load(symbol, argtypes, source=_SOURCE)
@@ -119,6 +136,35 @@ def _launch(symbol: str, q_e, q_lat, pages, scales, table, rows, q_group: int,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+
+
+def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
+                 scale: float) -> torch.Tensor:
+    """q_e [B,nh,2r], q_lat [B,nh,dc], k_e [B,S,nkv,2r], c_k/c_v [B,S,dc]
+    (the same tensor under J-LRD), all f32; lengths [B] int32; every tensor
+    contiguous on one CUDA device.  Lane b attends its rows ``< lengths[b]``
+    (all S for a longer length).  → o [B,nh,dc] f32; length-0 lanes give
+    zeros."""
+    dev = q_e.device
+    if dev.type != "cuda":
+        raise ValueError(f"elite_decode kernel needs CUDA tensors, got {dev}")
+    B, nh, r2 = q_e.shape
+    S, nkv = k_e.shape[1], k_e.shape[2]
+    dc = c_k.shape[-1]
+    if B < 1 or S < 1 or nh != nkv * q_group:
+        raise ValueError(f"bad geometry: B={B} S={S} nh={nh} nkv={nkv} G={q_group}")
+    f32 = torch.float32
+    build.check(q_e, "q_e", (B, nh, r2), f32, dev)
+    build.check(q_lat, "q_lat", (B, nh, dc), f32, dev)
+    build.check(k_e, "k_e", (B, S, nkv, r2), f32, dev)
+    build.check(c_k, "c_k", (B, S, dc), f32, dev)
+    build.check(c_v, "c_v", (B, S, dc), f32, dev)
+    build.check(lengths, "lengths", (B,), torch.int32, dev)
+    out = torch.empty((B, nh, dc), dtype=f32, device=dev)
+    _call("elite_decode", (q_e, q_lat, k_e, c_k, c_v, lengths, out),
+          (B, S, nkv, q_group, r2, dc, CONTIG_TILE), scale, 1, q_group, CONTIG_TILE,
+          r2, dc, c_k.data_ptr() == c_v.data_ptr())
+    elite_decode.launches += 1
     return out
 
 
@@ -198,6 +244,7 @@ def elite_verify_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     return out
 
 
-for _fn in (elite_decode_paged, elite_decode_paged_q8, elite_decode_sparse_paged,
-            elite_decode_sparse_paged_q8, elite_verify_paged, elite_verify_paged_q8):
+for _fn in (elite_decode, elite_decode_paged, elite_decode_paged_q8,
+            elite_decode_sparse_paged, elite_decode_sparse_paged_q8,
+            elite_verify_paged, elite_verify_paged_q8):
     _fn.launches = 0

@@ -1,11 +1,11 @@
-"""Dispatch for the attention kernels, with their launch counts.
+"""Dispatch for the attention and rotary kernels, with their launch counts.
 
-A call whose query lies on a CUDA device launches the hand-written kernel
-(which raises on anything it does not take); a call on the CPU runs the
-plain PyTorch version.  Nothing falls back from one to the other.  Each
-launcher counts its launches in a plain integer attribute
-(``elite_decode.elite_decode_paged.launches``, ...), which ``launches()``
-reads.  ``select_topk_blocks`` is no kernel: it runs the plain torch
+A call whose query (``x`` for ``rope_elite``) lies on a CUDA device
+launches the hand-written kernel (which raises on anything it does not
+take); a call on the CPU runs the plain PyTorch version.  Nothing falls
+back from one to the other.  Each launcher counts its launches in a plain
+integer attribute (``elite_decode.elite_decode_paged.launches``, ...),
+which ``launches()`` reads.  ``select_topk_blocks`` is no kernel: it runs the plain torch
 selection on either device, as the reference runs it in plain jnp.
 """
 from __future__ import annotations
@@ -17,14 +17,17 @@ import torch
 from repro_torch.kernels import elite_decode as _ed
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import ref
+from repro_torch.kernels import rope_elite as _re
 
-LAUNCHERS = {"elite_decode_paged": _ed.elite_decode_paged,
+LAUNCHERS = {"elite_decode": _ed.elite_decode,
+             "elite_decode_paged": _ed.elite_decode_paged,
              "elite_decode_paged_q8": _ed.elite_decode_paged_q8,
              "elite_decode_sparse_paged": _ed.elite_decode_sparse_paged,
              "elite_decode_sparse_paged_q8": _ed.elite_decode_sparse_paged_q8,
              "elite_verify_paged": _ed.elite_verify_paged,
              "elite_verify_paged_q8": _ed.elite_verify_paged_q8,
-             "flash_prefill": _fp.flash_prefill}
+             "flash_prefill": _fp.flash_prefill,
+             "rope_elite": _re.rope_elite}
 
 select_topk_blocks = ref.select_topk_blocks
 
@@ -36,6 +39,13 @@ def launches() -> Dict[str, int]:
 def reset_launches() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
+
+
+def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
+                 scale: float) -> torch.Tensor:
+    """Absorbed decode over a contiguous cache; see ``ref.elite_decode_ref``."""
+    fn = _ed.elite_decode if q_e.is_cuda else ref.elite_decode_ref
+    return fn(q_e, q_lat, k_e, c_k, c_v, lengths, q_group, scale)
 
 
 def elite_decode_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
@@ -101,3 +111,9 @@ def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,
     """Causal GQA attention with per-lane offsets; see ``ref.flash_prefill_ref``."""
     fn = _fp.flash_prefill if q.is_cuda else ref.flash_prefill_ref
     return fn(q, k, v, q_group, scale, q_offsets, kv_lens)
+
+
+def rope_elite(x, positions, freqs) -> torch.Tensor:
+    """Per-head rotary of packed elite dims; see ``ref.rope_elite_ref``."""
+    fn = _re.rope_elite if x.is_cuda else ref.rope_elite_ref
+    return fn(x, positions, freqs)

@@ -235,3 +235,37 @@ def flash_prefill_ref(q, k, v, q_group: int, scale: float, q_offsets,
     p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
     o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     return o.reshape(B, Sq, nh, dh)
+
+
+def cos_sin(positions: torch.Tensor, freqs: torch.Tensor):
+    """cos/sin tables: positions [...P] (int or float), freqs [...F] →
+    cos, sin [...P, ...F] (outer product over the trailing freq axes), the
+    angles taken in f32."""
+    ang = positions.reshape(positions.shape + (1,) * freqs.dim()).float() * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs of the last axis of x.
+
+    x: [..., 2C]; cos/sin broadcastable to [..., C].
+    """
+    orig_dtype = x.dtype
+    x = x.float()
+    x2 = x.reshape(x.shape[:-1] + (x.shape[-1] // 2, 2))
+    x_even, x_odd = x2[..., 0], x2[..., 1]
+    out_even = x_even * cos - x_odd * sin
+    out_odd = x_even * sin + x_odd * cos
+    out = torch.stack([out_even, out_odd], dim=-1).reshape(x.shape)
+    return out.to(orig_dtype)
+
+
+def rope_elite_ref(x, positions, freqs) -> torch.Tensor:
+    """Per-head rotary on packed elite dims.
+
+    x [B,S,H,2r], positions [S] or [B,S], freqs [H,r] → rotated x.
+    """
+    B, S, H, r2 = x.shape
+    assert tuple(freqs.shape) == (H, r2 // 2), (tuple(freqs.shape), (H, r2 // 2))
+    cos, sin = cos_sin(positions, freqs)       # [S,H,r] or [B,S,H,r]
+    return rotate(x, cos, sin)

@@ -1,12 +1,24 @@
-"""Serve a Poisson request stream through the paged EliteKV scheduler.
+"""Serve a batch in lockstep over a contiguous cache, or a Poisson request
+stream through the paged EliteKV scheduler.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \\
+        --elitekv --batch 8 --prompt-len 1024 --new-tokens 128
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama_1_1b \\
         --elitekv --stream --requests 16 --rate 0.5 --max-slots 4 \\
         --block-size 16 --num-blocks 128
 
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels instead (``--reduced`` shrinks the model for that).
-Weights are random, from ``--seed``.  ``--stream`` draws arrivals
+Weights are random, from ``--seed``.
+
+Without ``--stream`` (batch mode) ``generate`` decodes ``--batch`` random
+prompts of ``--prompt-len`` tokens greedily for ``--new-tokens`` steps and
+prints tok/s, step ms, the cache floats per token against the baseline's
+with their ratio, the measured attention cache and the first requests'
+tokens.  With ``--elitekv`` it serves the EliteKV model (``--cache-ratio``
+picks its dims), without it the baseline GQA model.
+
+``--stream`` (EliteKV only) draws arrivals
 (``--rate`` requests per decode step, exponential inter-arrivals), prompt
 lengths and generation budgets from a seeded generator — the same stream
 the JAX driver draws — and the ``Scheduler`` admits, prefills (whole, or
@@ -33,18 +45,20 @@ combined with ``--sparse-topk``:
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --elitekv \
         --stream --device cpu --speculate 2 --draft-rank 16
 
-The reference's batch mode and its sampling, prefix-cache, swap, tracing
-and multi-device options are not ported yet (ROADMAP Queue 1).
+The reference's sampling, prefix-cache, swap, tracing and multi-device
+options are not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.cache import model_cache_floats_per_token
 from repro_torch.core.convert import pick_dims
 from repro_torch.models import lm
 from repro_torch.runtime import serve_loop
@@ -122,10 +136,39 @@ def serve_stream(params, buffers, cfg, args):
     return report
 
 
-def build_config(arch: str, reduced: bool, cache_ratio: float):
+def serve_batch(params, buffers, cfg, base, args):
+    """Lockstep ``generate`` over random prompts; prints the reference
+    driver's lines.  ``base`` is the baseline config of the same arch."""
+    prompts = np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len))
+    t0 = time.perf_counter()
+    out, stats = serve_loop.generate(params, buffers, cfg, prompts, args.new_tokens,
+                                     device=args.device)
+    dt = time.perf_counter() - t0
+    base_floats = model_cache_floats_per_token(base)
+    elite_floats = model_cache_floats_per_token(cfg)
+    decode_ms = np.asarray(stats.step_ms[1:] or [0.0])
+    print(f"arch={cfg.name} elitekv={cfg.elitekv.enabled} [{args.device}]")
+    print(f"generated {out.shape} in {dt:.1f}s "
+          f"({stats.decoded_tokens / max(dt, 1e-9):.1f} tok/s incl. build); "
+          f"prefill {stats.step_ms[0]:.1f} ms, decode step ms p50/p95 "
+          f"{np.percentile(decode_ms, 50):.2f}/{np.percentile(decode_ms, 95):.2f}")
+    print(f"cache floats/token: {elite_floats} vs baseline {base_floats} "
+          f"→ ratio {elite_floats / max(base_floats, 1):.3f}")
+    print(f"measured attention cache: {stats.cache_bytes / 2**20:.2f} MiB")
+    for b in range(min(2, args.batch)):
+        print(f"  req{b}: {out[b, :16].tolist()} ...")
+    return out, stats
+
+
+def build_config(arch: str, reduced: bool, cache_ratio: float, elitekv: bool = True):
+    """The arch's config (``reduced`` for the CPU), with EliteKV dims picked
+    for ``cache_ratio`` unless ``elitekv`` is False (the baseline)."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if not elitekv:
+        return cfg
     return dataclasses.replace(cfg, elitekv=pick_dims(cfg, cache_ratio, align=16))
 
 
@@ -138,6 +181,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cpu runs the kernels' "
                          "plain PyTorch versions)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="batch mode: prompts decoded in lockstep")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
@@ -172,9 +217,11 @@ def main(argv=None):
                     help="joint-factor rank of the draft model (0 or >= "
                          "d_ckv = the full model, acceptance 1)")
     args = ap.parse_args(argv)
-    if not (args.stream and args.elitekv):
-        ap.error("the port serves the paged EliteKV stream only: pass "
-                 "--elitekv --stream (batch mode is ROADMAP Queue 1 item 3)")
+    if args.stream and not args.elitekv:
+        ap.error("--stream requires --elitekv (the paged pool stores the "
+                 "compressed streams)")
+    if not args.stream and min(args.batch, args.prompt_len, args.new_tokens) < 1:
+        ap.error("--batch, --prompt-len and --new-tokens must be >= 1")
     if args.rate <= 0:
         ap.error("--rate must be > 0 (mean arrivals per decode step)")
     if args.sparse_topk < 0 or args.sparse_recent < 0:
@@ -192,8 +239,11 @@ def main(argv=None):
     # the reference is f32 end to end: keep matmuls out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = build_config(args.arch, args.reduced, args.cache_ratio)
+    cfg = build_config(args.arch, args.reduced, args.cache_ratio, args.elitekv)
     params, buffers = lm.init(cfg, seed=args.seed, device=args.device)
+    if not args.stream:
+        base = build_config(args.arch, args.reduced, args.cache_ratio, elitekv=False)
+        return serve_batch(params, buffers, cfg, base, args)
     return serve_stream(params, buffers, cfg, args)
 
 

@@ -1,5 +1,5 @@
-"""Decoder-only LM (attention + SwiGLU MLP, EliteKV attention) for paged
-serving.
+"""Decoder-only LM (attention + SwiGLU MLP; EliteKV or baseline GQA
+attention).
 
 Counterpart of the JAX package's ``models/lm.py`` for attention-only
 stacks.  Parameters are nested dicts of tensors; the JAX package's stacked
@@ -8,16 +8,22 @@ loop where JAX uses ``lax.scan``:
 
     params  = {"embed": {"table"}, "lm_head": {"w"}, "final_norm": {"scale"},
                "layers": [{"attn_norm", "attn", "ffn_norm", "ffn"}, ...]}
-    buffers = {"layers": [{"elite_freqs"}, ...]}
+    buffers = {"layers": [{"elite_freqs"}, ...]}   ({} per layer for GQA)
 
-Entry points:
+Entry points over the block-paged pool (EliteKV only):
   * ``apply_prefill_paged`` — prefill prompts (or per-lane chunks) into the pool.
   * ``apply_decode_paged``  — one token per serving lane against the pool.
   * ``apply_verify_paged``  — a speculative window of ``W`` tokens per lane
     against the pool, in one forward.
+Entry points over a contiguous cache (EliteKV or baseline, lockstep):
+  * ``init_cache``    — the f32 cache ``{"index", "blocks": {"p0": ...}}``.
+  * ``apply_prefill`` — prompts from position 0, filling the cache.
+  * ``apply_decode``  — one token per lane at position ``cache["index"]``.
+  * ``apply_train``   — the whole-sequence forward without a cache (forward
+    only: the oracle of cache-on == cache-off; no loss, no backward).
 All return f32 logits over the padded vocab (padding columns = -1e30) and
-write the pool pages in place.  ``make_draft_params`` derives the
-rank-truncated draft model of self-speculative decode.
+write the pool pages or the cache in place.  ``make_draft_params`` derives
+the rank-truncated draft model of self-speculative decode.
 """
 from __future__ import annotations
 
@@ -26,15 +32,15 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core import elite_attention, lrd
+from repro_torch.models import attention
 from repro_torch.models.layers import (dense_init, embed, mlp, mlp_init, rmsnorm,
                                        rmsnorm_init)
 
 
 def init(cfg, seed: int = 0, device="cuda") -> Tuple[Dict, Dict]:
-    """Random (params, buffers) from a seeded ``torch.Generator`` on ``device``."""
-    if not cfg.elitekv.enabled:
-        raise NotImplementedError("the port serves EliteKV attention only; "
-                                  "baseline GQA is ROADMAP Queue 1 item 13")
+    """Random (params, buffers) from a seeded ``torch.Generator`` on
+    ``device``: EliteKV attention when ``cfg.elitekv.enabled``, else the
+    baseline GQA attention (no buffers)."""
     device = torch.device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -44,7 +50,10 @@ def init(cfg, seed: int = 0, device="cuda") -> Tuple[Dict, Dict]:
               "final_norm": rmsnorm_init(d, device), "layers": []}
     buffers = {"layers": []}
     for _ in range(cfg.num_layers):
-        attn, buf = elite_attention.init(cfg, g, device)
+        if cfg.elitekv.enabled:
+            attn, buf = elite_attention.init(cfg, g, device)
+        else:
+            attn, buf = attention.init(cfg, g, device), {}
         params["layers"].append({
             "attn_norm": rmsnorm_init(d, device), "attn": attn,
             "ffn_norm": rmsnorm_init(d, device),
@@ -62,7 +71,8 @@ def _logits(params, cfg, h):
 
 
 def _layer_pages(pages, i: int):
-    """Layer ``i``'s views ``{name: [n_slots, ...]}`` of the pool pages."""
+    """Layer ``i``'s views ``{name: [...]}`` of the stacked pool pages (or
+    cache leaves)."""
     return {name: arr[i] for name, arr in pages["p0"].items()}
 
 
@@ -72,9 +82,80 @@ def _n_slots(pages) -> int:
 
 def _run_layer(p, cfg, h, attend):
     """One pre-norm attention + SwiGLU layer; ``attend(attn_params, hn)`` is
-    the mode's paged EliteKV attention."""
+    the mode's attention."""
     h = h + attend(p["attn"], rmsnorm(p["attn_norm"], h, cfg.norm_eps))
     return h + mlp(p["ffn"], rmsnorm(p["ffn_norm"], h, cfg.norm_eps))
+
+
+# ---------------------------------------------------------------------------
+# contiguous cache: lockstep batches from position 0
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, device="cuda"):
+    """Contiguous f32 cache: ``{"index": 0, "blocks": {"p0": {name:
+    [n_layers, batch, max_len, ...]}}}`` with the reference's leaf names
+    (``k_e`` and ``c`` or ``c_k``/``c_v`` for EliteKV, ``k``/``v`` for the
+    baseline).  ``index`` is the next position to decode, a Python int."""
+    mod = elite_attention if cfg.elitekv.enabled else attention
+    one = mod.init_cache(cfg, batch, max_len, device="meta")
+    leaves = {name: torch.zeros((cfg.num_layers,) + tuple(t.shape), device=device)
+              for name, t in one.items()}
+    return {"index": 0, "blocks": {"p0": leaves}}
+
+
+def _contiguous_attention(cfg, buffers, mode: str, positions, cache, index):
+    """One layer's ``attend(attn_params, hn)`` in a contiguous mode
+    ("train", "prefill" or "decode"): EliteKV or baseline attention, as the
+    reference's ``_run_layer`` dispatches."""
+    if cfg.elitekv.enabled:
+        if mode == "train":
+            return lambda pa, hn: elite_attention.apply_full(pa, cfg, buffers, hn, positions)
+        if mode == "prefill":
+            return lambda pa, hn: elite_attention.apply_prefill(pa, cfg, buffers, hn,
+                                                                positions, cache)
+        return lambda pa, hn: elite_attention.apply_decode(pa, cfg, buffers, hn, index, cache)
+    if mode == "train":
+        return lambda pa, hn: attention.apply_full(pa, cfg, hn, positions)
+    if mode == "prefill":
+        return lambda pa, hn: attention.apply_prefill(pa, cfg, hn, positions, cache)
+    return lambda pa, hn: attention.apply_decode(pa, cfg, hn, index, cache)
+
+
+def _forward_contiguous(params, buffers, cfg, tokens, mode: str, cache=None):
+    device = params["embed"]["table"].device
+    h = embed(params["embed"], tokens, cfg.dtype)
+    # decode takes its position from the cache index
+    positions = None if mode == "decode" else torch.arange(tokens.shape[1], device=device)
+    index = cache["index"] if cache is not None else 0
+    for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
+        layer_cache = None if cache is None else _layer_pages(cache["blocks"], i)
+        h = _run_layer(p, cfg, h, _contiguous_attention(cfg, b, mode, positions,
+                                                        layer_cache, index))
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return _logits(params, cfg, h)
+
+
+def apply_train(params, buffers, cfg, tokens):
+    """Whole-sequence forward, no cache: tokens [B,S] → logits [B,S,Vp] f32."""
+    return _forward_contiguous(params, buffers, cfg, tokens, "train")
+
+
+def apply_prefill(params, buffers, cfg, tokens, cache):
+    """Prefill prompts tokens [B,S] from position 0: writes cache rows
+    [0, S) of every layer in place and sets ``cache["index"] = S``.
+    → logits [B,S,Vp] f32."""
+    logits = _forward_contiguous(params, buffers, cfg, tokens, "prefill", cache)
+    cache["index"] = tokens.shape[1]
+    return logits
+
+
+def apply_decode(params, buffers, cfg, tokens, cache):
+    """One token per lane, tokens [B,1] at position ``cache["index"]``:
+    writes that cache row of every layer in place and advances the index.
+    → logits [B,1,Vp] f32."""
+    logits = _forward_contiguous(params, buffers, cfg, tokens, "decode", cache)
+    cache["index"] += 1
+    return logits
 
 
 def apply_prefill_paged(params, buffers, cfg, tokens, pages, slot_mapping,

@@ -1,16 +1,22 @@
-"""Continuous-batching greedy serving over the paged compressed cache.
+"""Greedy serving: lockstep batches over a contiguous cache, and continuous
+batching over the paged compressed cache.
 
-Counterpart of the JAX package's ``runtime/serve_loop.py`` (``Scheduler``
-core).  Requests queue with arrival times (in scheduler steps), are admitted
-into free *slots* mid-flight, prefill their prompts — whole at admission
-(``prefill_chunk_tokens=0``) or in fixed-size chunks, up to
-``prefill_batch_lanes`` lanes' chunks packed into one forward — interleaved
-with one decode step over all ``max_slots`` lanes (idle lanes masked by
-length 0), and retire on EOS or token budget, recycling their pool blocks
-at once.  With ``admission="preempt"`` (default) a pool that runs dry
-mid-flight preempts the youngest resident, which is requeued at the head of
-the line and recomputes its prefix (prompt + generated) on re-admission, so
-its token stream is unchanged.
+Counterpart of the JAX package's ``runtime/serve_loop.py``.  Two tiers:
+
+* ``generate`` — lockstep batched greedy decoding of equal-length prompts
+  over a contiguous cache (``lm.init_cache``), EliteKV or baseline GQA; the
+  argmax stays on the device.
+* ``Scheduler`` (EliteKV only) — requests queue with arrival times (in
+  scheduler steps), are admitted into free *slots* mid-flight, prefill
+  their prompts — whole at admission (``prefill_chunk_tokens=0``) or in
+  fixed-size chunks, up to ``prefill_batch_lanes`` lanes' chunks packed
+  into one forward — interleaved with one decode step over all
+  ``max_slots`` lanes (idle lanes masked by length 0), and retire on EOS or
+  token budget, recycling their pool blocks at once.  With
+  ``admission="preempt"`` (default) a pool that runs dry mid-flight
+  preempts the youngest resident, which is requeued at the head of the
+  line and recomputes its prefix (prompt + generated) on re-admission, so
+  its token stream is unchanged.
 
 ``cache_dtype="int8"`` serves from an int8 pool (per-slot scales, fused
 dequantization in the decode kernels); ``sparse_topk_blocks > 0`` decodes
@@ -47,13 +53,84 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.cache import BlockManager, OutOfBlocks, PagedKVPool
+from repro_torch.core.cache import (BlockManager, OutOfBlocks, PagedKVPool,
+                                    measured_cache_bytes)
 from repro_torch.models import lm
 
 #: Host-observable phases of one scheduler step (``ServeReport.phase_ms``
 #: keys); ``other`` is the residual, so the phases sum to the step wall time.
 #: ``draft``/``verify``/``accept`` are the speculative macro-step's.
 PHASES = ("prefill", "decode", "draft", "verify", "sample", "accept", "other")
+
+
+def make_prefill_step(cfg: ModelConfig):
+    def prefill_step(params, buffers, tokens, cache):
+        return lm.apply_prefill(params, buffers, cfg, tokens, cache)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """→ ``decode_step(params, buffers, tokens, cache) -> (next [B] int64,
+    logits)``: the greedy next token stays on the device."""
+    def decode_step(params, buffers, tokens, cache):
+        logits = lm.apply_decode(params, buffers, cfg, tokens, cache)
+        return logits[:, -1].argmax(dim=-1), logits
+
+    return decode_step
+
+
+@dataclasses.dataclass
+class ServeStats:
+    """Counters for the lockstep ``generate`` path.
+
+    ``prefill_tokens``  — prompt tokens pushed through the prefill forward
+                          (batch × prompt length).
+    ``decoded_tokens``  — tokens produced (batch × new tokens).
+    ``cache_bytes``     — measured bytes of the attention KV cache allocated
+                          for the run (the paper's compression shows here).
+    ``step_ms``         — the port's own: host-clock ms of the prefill
+                          step, then of each decode step, each ending in a
+                          device synchronisation.
+    """
+    prefill_tokens: int = 0
+    decoded_tokens: int = 0
+    cache_bytes: int = 0
+    step_ms: List[float] = dataclasses.field(default_factory=list)
+
+
+def generate(params, buffers, cfg: ModelConfig, prompts, max_new_tokens: int,
+             device="cuda") -> Tuple[np.ndarray, ServeStats]:
+    """Greedy generation for a batch of equal-length prompts over a
+    contiguous f32 cache of ``prompt + max_new_tokens`` rows.
+
+    prompts [B, S_prompt] int → generated [B, max_new_tokens] int32.
+    ``params``/``buffers`` must live on ``device``.
+    """
+    prompts = np.asarray(prompts, np.int32)
+    B, Sp = prompts.shape
+    max_len = Sp + max_new_tokens
+    dev = torch.empty(0, device=device).device
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    cache = lm.init_cache(cfg, B, max_len, device=dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    stats = ServeStats(prefill_tokens=B * Sp, decoded_tokens=B * max_new_tokens)
+    t0 = time.perf_counter()
+    logits = prefill(params, buffers, torch.from_numpy(prompts).to(dev), cache)
+    nxt = logits[:, -1].argmax(dim=-1)
+    del logits
+    outs = [nxt]
+    for _ in range(max_new_tokens - 1):
+        sync()
+        t1 = time.perf_counter()
+        stats.step_ms.append((t1 - t0) * 1e3)
+        t0 = t1
+        nxt, _ = decode(params, buffers, nxt[:, None], cache)
+        outs.append(nxt)
+    sync()
+    stats.step_ms.append((time.perf_counter() - t0) * 1e3)
+    stats.cache_bytes = measured_cache_bytes(cache, B, max_len)["attn_bytes"]
+    return torch.stack(outs, dim=1).cpu().numpy().astype(np.int32), stats
 
 
 def _unsupported(what: str, item: int, name: str) -> NotImplementedError:

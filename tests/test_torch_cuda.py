@@ -11,14 +11,16 @@ tiles against one softmax over the row; dot products of up to 1056 terms).
 The int8 kernels dequantize with the plain version's one multiply, so the
 same tolerance holds; a full-width selection must give the dense kernel's
 bits exactly, and so must a verify window of one token at
-``q_offsets = lengths - 1``.
+``q_offsets = lengths - 1``, and the contiguous ``elite_decode`` over the
+same rows seen as identity-table pages.  ``rope_elite`` rotates each pair
+once with no reduction: 2e-6 relative (1e-6 absolute near zero).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import quant
+from repro_torch.core import quant, rope
 from repro_torch.kernels import ops, ref
 from repro_torch.models import lm
 from repro_torch.runtime import serve_loop
@@ -26,6 +28,8 @@ from repro_torch.runtime import serve_loop
 pytestmark = pytest.mark.cuda
 
 TOL = dict(atol=5e-5, rtol=5e-5)
+# rope_elite: one rotation per pair, no reduction; the floor is 2e-6 relative
+ROPE_TOL = dict(atol=1e-6, rtol=2e-6)
 # (nh, nkv, 2r, d_c, d_h): TinyLlama-1.1B and LLaMA2-7B under EliteKV at 25%
 WIDTHS = {"tinyllama_1_1b": (32, 4, 16, 64, 64), "llama2_7b": (32, 32, 32, 1024, 128)}
 
@@ -186,7 +190,9 @@ def test_scheduler_on_card_matches_cpu(pool, cuda):
         "paged" + ("_q8" if "cache_dtype" in pool else "")
     assert n[decode] == rep.decode_steps * cfg.num_layers > 0
     assert n["flash_prefill"] == rep.prefill_chunks * cfg.num_layers > 0
-    assert sum(n.values()) == n[decode] + n["flash_prefill"]
+    # q and k of every layer of every forward rotate through rope_elite
+    assert n["rope_elite"] == 2 * (rep.decode_steps + rep.prefill_chunks) * cfg.num_layers
+    assert sum(n.values()) == n[decode] + n["flash_prefill"] + n["rope_elite"]
 
 
 def _verify_inputs(dev, nh, nkv, r2, dc, separate, W, bs=16, mb=20, seed=0):
@@ -295,5 +301,95 @@ def test_speculative_scheduler_on_card_matches_cpu(pool, cuda):
     assert n["elite_verify_paged" + sfx] == rep.decode_steps * cfg.num_layers > 0
     assert n["elite_decode_paged" + sfx] == rep.draft_forwards * cfg.num_layers > 0
     assert n["flash_prefill"] == rep.prefill_chunks * cfg.num_layers > 0
+    assert n["rope_elite"] == 2 * (rep.decode_steps + rep.draft_forwards
+                                   + rep.prefill_chunks) * cfg.num_layers
     assert sum(n.values()) == (n["elite_verify_paged" + sfx] + n["elite_decode_paged" + sfx]
-                               + n["flash_prefill"])
+                               + n["flash_prefill"] + n["rope_elite"])
+
+
+@pytest.mark.parametrize("S", [300, 1152], ids=["S300", "S1152"])
+@pytest.mark.parametrize("separate", [False, True], ids=["jlrd", "slrd"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_contiguous_decode_kernel_matches_plain_and_paged(width, separate, S, cuda):
+    """Lengths 0, 1, a partial tile, S and past S, with S = 300 not a
+    multiple of the tile; the same rows as pages of an identity table give
+    ``elite_decode_paged``'s bits."""
+    nh, nkv, r2, dc, dh = WIDTHS[width]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    lengths = [0, 1, 13, 17, S - 5, S, S + 9]
+    B = len(lengths)
+    f = lambda *s: torch.randn(s, generator=g, device=cuda)
+    q_e, q_lat, k_e, c_k = f(B, nh, r2), f(B, nh, dc), f(B, S, nkv, r2), f(B, S, dc)
+    c_v = f(B, S, dc) if separate else c_k
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    args = (q_e, q_lat, k_e, c_k, c_v, lens, nh // nkv, dh ** -0.5)
+    before = ops.launches()["elite_decode"]
+    got = ops.elite_decode(*args)
+    want = ref.elite_decode_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.launches()["elite_decode"] == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+    assert float(got[0].abs().max()) == 0.0
+    # identity-table pages: each lane padded to whole tiles of 16 rows
+    bs, mb = 16, -(-S // 16)
+    pad = lambda t: torch.cat([t, t.new_zeros((B, mb * bs - S) + t.shape[2:])], 1)
+    pages = [pad(t).reshape((B * mb * bs,) + t.shape[2:]) for t in (k_e, c_k)]
+    pages.append(pad(c_v).reshape(B * mb * bs, dc) if separate else pages[1])
+    table = torch.arange(B * mb, dtype=torch.int32, device=cuda).reshape(B, mb)
+    paged = ops.elite_decode_paged(q_e, q_lat, *pages, table, lens.clamp(max=S),
+                                   nh // nkv, dh ** -0.5, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, paged)
+
+
+@pytest.mark.parametrize("case", ["elite_h32", "elite_h4", "strided_q", "full_dh64",
+                                  "full_dh128"])
+@pytest.mark.parametrize("per_lane", [False, True], ids=["pos_S", "pos_BS"])
+def test_rope_kernel_matches_plain(case, per_lane, cuda):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, S = 3, 257
+    if case.startswith("full"):
+        dh = int(case[len("full_dh"):])
+        H, width = 4, dh
+        freqs = rope.chunk_freqs(dh, 10000.0, device=cuda).expand(H, dh // 2)
+    else:
+        H, width = (4 if case == "elite_h4" else 32), 16
+        freqs = torch.exp(-4 * torch.rand(H, width // 2, generator=g, device=cuda))
+        freqs[:, 0] = 1.0                     # angles up to 4096 rad
+    wide = 64 if case == "strided_q" else width
+    x = torch.randn(B, S, H, wide, generator=g, device=cuda)[..., :width]
+    shape = (B, S) if per_lane else (S,)
+    pos = torch.randint(0, 4097, shape, generator=g, device=cuda)   # int64
+    if per_lane:
+        pos = pos.int()
+    before = ops.launches()["rope_elite"]
+    got = ops.rope_elite(x, pos, freqs)
+    want = ref.rope_elite_ref(x, pos, freqs)
+    torch.cuda.synchronize()
+    assert ops.launches()["rope_elite"] == before + 1
+    assert got.is_contiguous() and got.shape == (B, S, H, width)
+    torch.testing.assert_close(got, want, **ROPE_TOL)
+
+
+@pytest.mark.parametrize("elitekv", [True, False], ids=["elitekv", "baseline"])
+def test_generate_on_card_matches_cpu(elitekv, cuda):
+    """Lockstep ``generate`` on the card gives the CPU's greedy tokens and
+    launches only the contiguous path's kernels."""
+    cfg = get_config("tinyllama_1_1b").reduced(vocab_size=128)
+    if elitekv:
+        cfg = cfg.with_elitekv(elite_r=4, d_ckv=64)
+    params, buffers = lm.init(cfg, seed=0, device="cpu")
+    move = lambda t: {k: move(v) for k, v in t.items()} if isinstance(t, dict) else \
+        [move(v) for v in t] if isinstance(t, list) else t.to(cuda)
+    prompts = np.random.default_rng(5).integers(0, 128, (3, 20)).astype(np.int32)
+    want, _ = serve_loop.generate(params, buffers, cfg, prompts, 8, device="cpu")
+    ops.reset_launches()
+    got, _ = serve_loop.generate(move(params), move(buffers), cfg, prompts, 8,
+                                 device="cuda")
+    n = ops.launches()
+    np.testing.assert_array_equal(got, want)
+    L = cfg.num_layers
+    expect = {"rope_elite": 2 * 8 * L, "flash_prefill": L if elitekv else 8 * L}
+    if elitekv:
+        expect["elite_decode"] = 7 * L
+    assert {k: v for k, v in n.items() if v} == expect
