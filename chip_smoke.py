@@ -9,8 +9,10 @@ non-zero:
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, all at once) and print what ``-Xptxas -v`` reports
-   (registers, shared memory, spills) and each decode and verify entry's
-   shared memory per CTA at both model widths (verify at W = 1 and 5).
+   (registers, shared memory, spills; per instantiation of the decode
+   body) and the decode and verify plans at both model widths (kv heads
+   and query rows per CTA, stages, shared memory, splits, CTAs), whose
+   shared memory must be the kernel source's layout.
 2. Hold each kernel against its plain PyTorch version on the card at
    TinyLlama-1.1B widths and at LLaMA2-7B widths, J-LRD and S-LRD, with
    empty lanes, partial blocks and ragged per-lane offsets and lengths; the
@@ -59,7 +61,7 @@ non-zero:
       the per-token formula; the EliteKV tokens must equal
       ``generate_paged``'s on the same prompts, apart from near-ties.
    Every kernel is re-run on the busiest inputs recorded from its run and
-   held against its plain version; a torch.profiler window over 10 steady
+   held against its plain version, twice, with identical bits; a torch.profiler window over 10 steady
    decode steps of 8 lanes, on the f32 pool, on the int8 pool with sparse
    decode, and as speculative macro-steps (k=4, full-rank draft) on the f32
    pool, gives the card's busy share and its time by kernel; a
@@ -69,7 +71,8 @@ non-zero:
    ``generate``, EliteKV and baseline.
 4. Time each kernel at its recorded main-path inputs (CUDA events, warm-up,
    L2 flushed before every launch), its plain version, its bound, and the
-   PyTorch call that computes the same function where one exists; and, on
+   PyTorch call that computes the same function where one exists, with the
+   plan of each decode and verify call; and, on
    the int8 sparse run's busiest step, the dense kernels over the same
    lanes beside the pool's bytes per token, f32 against int8; and a W = 5
    verify call against the five decode calls that score the same window
@@ -101,6 +104,12 @@ DECODES = ("elite_decode_paged", "elite_decode_paged_q8", "elite_decode_sparse_p
            "elite_decode_sparse_paged_q8")
 VERIFIES = ("elite_verify_paged", "elite_verify_paged_q8")
 ROPE_ATOL, ROPE_RTOL = 1e-6, 2e-6   # one rotation per pair, no reduction
+# each decode and verify entry's time at its busiest call before the split-KV
+# body (H100 80GB HBM3, 700 W; PERF.md's kernel table), printed beside this run's
+EARLIER_MS = {"elite_decode": 0.494, "elite_decode_paged": 0.341,
+              "elite_decode_paged_q8": 0.342, "elite_decode_sparse_paged": 0.050,
+              "elite_decode_sparse_paged_q8": 0.056, "elite_verify_paged": 0.771,
+              "elite_verify_paged_q8": 0.895}
 TPU_LINES = {"elite_decode": "src/repro/kernels/elite_decode.py:89",
              "rope_elite": "src/repro/kernels/rope_elite.py:35",
              "elite_decode_paged": "src/repro/kernels/elite_decode.py:193",
@@ -121,6 +130,37 @@ def card_line() -> str:
 def flash_smem_bytes(dh: int) -> int:
     """csrc/flash_prefill.cu: Q [64, dh+1], K [32, dh+1], V [32, dh], P [64, 33]."""
     return 4 * (64 * (dh + 1) + 32 * (dh + 1) + 32 * dh + 64 * 33)
+
+
+def plan_line(p) -> str:
+    return (f"plan: {p.ctas} CTAs = lanes x {p.groups} head groups x {p.splits} splits of "
+            f"{p.tiles_per_split} tiles, {p.heads} kv heads per CTA, {p.stages} stages, "
+            f"{p.smem} B shared memory per CTA")
+
+
+def ptxas_summary(text: str):
+    """[(instantiation, registers, spill line)] from nvcc's ``-Xptxas -v``
+    report: each entry function's template arguments (page element, walk)
+    where the mangled name shows them."""
+    import re
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            walk = re.search(r"(Chain|Sel|Contig)Walk", name)
+            if "decode_kernel" in name and walk:
+                elem = "int8" if name.split("decode_kernel")[1].startswith("Ia") else "f32"
+                name = f"decode_kernel<{elem}, {walk.group(0)}>"
+            spills = ""
+        elif name and "spill" in line:
+            spills = line.strip()
+        else:
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out.append((name, int(m.group(1)), spills))
+                name = None
+    return out
 
 
 def time_ms(fn, iters: int = 30, warmup: int = 3, flush=None, ahead: bool = True) -> float:
@@ -698,21 +738,32 @@ def main() -> int:
         for line in text.splitlines():
             if "ptxas" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+        for inst, regs, spills in ptxas_summary(text):
+            print(f"  {name}: {inst}: {regs} registers, {spills}")
     # all shared memory is dynamic (ptxas reports none): the bytes per CTA
-    # from the kernels' layouts, at the widths below
-    print(f"  shared memory opt-in limit per block: {ed.smem_optin_limit(dev)} B")
-    for wname, (G, r2, dc) in {"tinyllama_1_1b": (8, 16, 64),
-                               "llama2_7b": (1, 32, 1024)}.items():
+    # of the plans at the widths below, from the host's formula, which must
+    # be the kernel source's layout
+    limit, sms = ed.smem_optin_limit(dev), ed.sm_count(dev)
+    print(f"  shared memory opt-in limit per block: {limit} B; {sms} SMs")
+    for wname, (G, nkv, r2, dc) in {"tinyllama_1_1b": (8, 4, 16, 64),
+                                    "llama2_7b": (1, 32, 32, 1024)}.items():
         for sep in (0, 1):
-            lrd = "S" if sep else "J"
-            print(f"  decode entries smem/CTA {wname} {lrd}-LRD: "
-                  f"{ed.smem_bytes(1, G, 16, r2, dc, not sep)} B; verify entries "
-                  + ", ".join(f"W={w}: {ed.smem_bytes(w, G, 16, r2, dc, not sep)} B"
-                              for w in (1, 5)))
+            for q8 in (False, True):
+                for w in (1, 5):
+                    p = ed.plan(8, w, G, nkv, 16, r2, dc, not sep, q8, 72, sms, limit)
+                    built = ed.smem_bytes_built(w, G, p.heads, 16, r2, dc, not sep, q8,
+                                                p.stages)
+                    if built != p.smem:
+                        raise AssertionError(f"smem formula {p.smem} B != kernel's {built} B")
+                    print(f"  plan {wname} {'S' if sep else 'J'}-LRD {'int8' if q8 else 'f32'} "
+                          f"{'decode' if w == 1 else f'verify W={w}'} (8 lanes, 72 tiles): "
+                          f"{p.heads} kv heads ({w * G * p.heads} query rows) per CTA, "
+                          f"{p.stages} stages, {p.smem} B/CTA, {p.splits} splits of "
+                          f"{p.tiles_per_split} tiles, {p.ctas} CTAs")
     for dh in (64, 128):
         print(f"  flash_prefill smem/CTA dh={dh}: {flash_smem_bytes(dh)} B")
     print(f"  elite_decode (contiguous) reads tiles of {ed.CONTIG_TILE} rows: the decode "
-          f"entries' smem/CTA at block_size {ed.CONTIG_TILE}; rope_elite uses none")
+          f"entries' plan at block_size {ed.CONTIG_TILE}; rope_elite uses no shared memory")
 
     # -- 2. kernel parity at both model widths ------------------------------
     errs = dict.fromkeys(DECODES + VERIFIES + ("flash_prefill", "elite_decode",
@@ -898,15 +949,23 @@ def main() -> int:
         calls = recs[name].calls[name]
         i = max(range(len(calls)), key=lambda k: visited_rows(name, calls[k]))
         busiest[name] = calls[i], i
+        got = run_decode(name, calls[i])
         errs[name] = max(errs[name], check(
             f"{name} on main-path pages",
-            max_err(run_decode(name, calls[i]), run_decode(name, calls[i], plain=True)), card))
+            max_err(got, run_decode(name, calls[i], plain=True)), card))
+        if not torch.equal(got, run_decode(name, calls[i])):
+            raise AssertionError(f"{name}: two calls on the same inputs differ")
     calls = grec.calls["elite_decode"]
     busiest["elite_decode"] = max(calls, key=lambda a: int(a[5].sum())), 0
     a = busiest["elite_decode"][0]
+    got = ed.elite_decode(*a)
     errs["elite_decode"] = max(errs["elite_decode"], check(
         "elite_decode on the generate run's cache",
-        max_err(ed.elite_decode(*a), ref.elite_decode_ref(*a)), card))
+        max_err(got, ref.elite_decode_ref(*a)), card))
+    if not torch.equal(got, ed.elite_decode(*a)):
+        raise AssertionError("elite_decode: two calls on the same inputs differ")
+    print(f"[{card}] every decode and verify entry: two calls on its busiest main-path "
+          f"inputs give identical bits", flush=True)
     busiest["rope_elite"] = max(grec.calls["rope_elite"], key=lambda a: a[0].numel()), 0
     a = busiest["rope_elite"][0]
     e, bad, same = rope_err(re_k.rope_elite(*a), ref.rope_elite_ref(*a))
@@ -995,7 +1054,8 @@ def main() -> int:
               f"visited rows {visited_rows(name, a)}, scored pairs {scored_pairs(name, a)}, "
               f"nh={q_e.shape[-2]} nkv={k_e.shape[1]} "
               f"2r={k_e.shape[2]} d_c={c_k.shape[-1]} {k_e.dtype}; bound: {d_bytes} B / "
-              f"3.35 TB/s vs {d_flops} flop / 67 TFLOP/s", flush=True)
+              f"3.35 TB/s vs {d_flops} flop / 67 TFLOP/s; {plan_line(ed.plan_for(name, a, sms, limit))}",
+              flush=True)
     for r in rows:
         a = busiest[r["name"]][0]
         print(f"[{card}] {r['name']}: {r['ms']:.4f} ms with the launch queued ahead, "
@@ -1053,7 +1113,7 @@ def main() -> int:
     print(f"[{card}] elite_decode shapes: B={B} S={S} lengths={lens.tolist()} "
           f"({int(lens.clamp(max=S).sum())} rows) nh={q_e.shape[1]} nkv={nkv} "
           f"2r={k_e.shape[-1]} d_c={dc}; bound: {e_bytes} B / 3.35 TB/s vs {e_flops} "
-          f"flop / 67 TFLOP/s", flush=True)
+          f"flop / 67 TFLOP/s; {plan_line(ed.plan_for('elite_decode', a, sms, limit))}", flush=True)
     a = busiest["rope_elite"][0]
     r_bytes, r_flops = rope_cost(a)
     r_bound, r_by = bound(r_bytes, r_flops)
@@ -1090,6 +1150,15 @@ def main() -> int:
           f"{time_ms(lambda: run_prefill(xb, plain=True), flush=flush):.4f} ms, SDPA "
           f"{time_ms(sdpa_b, flush=flush):.4f} ms, bound "
           f"{bound(*prefill_cost(xb))[0]:.5f} ms", flush=True)
+    by = {r["name"]: r for r in rows}
+    dec = by["elite_decode"]
+    print(f"[{card}] target elite_decode faster than SDPA: {dec['ms']:.4f} vs "
+          f"{dec['library_ms']:.4f} ms ({'met' if dec['ms'] < dec['library_ms'] else 'missed'}"
+          f"; aim <= 0.05 ms); elite_verify_paged <= 0.10 ms: "
+          f"{by['elite_verify_paged']['ms']:.4f} ms", flush=True)
+    for name, was in EARLIER_MS.items():
+        print(f"[{card}] {name}: {by[name]['ms']:.4f} ms against {was} ms before the "
+              f"split-KV body (ratio {by[name]['ms'] / was:.3f})", flush=True)
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms (SDPA)"
         print(f"[{card}] {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "

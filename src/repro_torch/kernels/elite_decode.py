@@ -1,8 +1,8 @@
 """Absorbed EliteKV decode and verify attention over the paged pool and
 over a contiguous cache: the CUDA kernels.
 
-Ports of the JAX package's ``kernels/elite_decode.py`` family.  Per
-(lane, kv head) one pass over the lane's compressed cache computes
+Ports of the JAX package's ``kernels/elite_decode.py`` family.  Per lane
+and query row, over the lane's compressed cache,
 
     s = (q_e · K_eᵀ + q_lat · C_kᵀ) · scale      over the visited rows
     o = softmax(s) · C_v
@@ -28,12 +28,23 @@ whose header says what bounds it and how it is built; the plain versions
 are ``ref.elite_decode_ref``, ``ref.elite_decode_[sparse_]paged[_q8]_ref`` and
 ``ref.elite_verify_paged[_q8]_ref``.  ``kernels.ops`` picks between kernel
 and plain version by the device of the inputs.  Each launcher counts its
-launches in its ``launches`` attribute.  A call whose shared memory per CTA
-exceeds the card's opt-in limit raises ``ValueError`` before launching.
+launches in its ``launches`` attribute.
+
+Each call is planned on the host (``plan_for``) from shapes alone: kv heads
+per CTA by shared memory, tiles in flight, and split-KV ranges of the walk
+by its width and the SM count (never by ``lengths``, so nothing is read
+back from the card); the kernel merges the ranges' partials itself, in the
+last CTA of each (lane, head group), using per-device scratch that the
+wrapper allocates once and grows.  Calls on one device are ordered by their
+stream.  A call that one kv head per CTA cannot fit in the card's opt-in
+shared memory raises ``ValueError`` before launching; ``ref.split_call_ref``
+is the plan's arithmetic in plain PyTorch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -41,19 +52,51 @@ from repro_torch.kernels import build
 
 _SOURCE = "elite_decode_paged"
 _SMEM_OPTIN: dict = {}
-#: rows of a contiguous cache staged per barrier round: the paged pool's
-#: block size, so that a contiguous call walks the rows in the tiles (and
-#: gives the bits) of ``elite_decode_paged`` over the identity table
+_SM_COUNT: dict = {}
+_SCRATCH: dict = {}
+_ENTRIES: dict = {}
+#: rows of a contiguous cache staged per tile: the paged pool's block size,
+#: so that a contiguous call walks the rows in the tiles (and gives the bits)
+#: of ``elite_decode_paged`` over the identity table
 CONTIG_TILE = 16
+#: CTAs a call's plan aims at, per SM of the card
+CTAS_PER_SM = 2
 
 
-def smem_bytes(window: int, q_group: int, block_size: int, r2: int, dc: int,
-               shared_cv: bool) -> int:
-    """Shared memory per CTA of a call (``window`` 1 for decode), from the
-    kernel source's own formula."""
-    fn = build.load("elite_decode_smem_bytes", [ctypes.c_int] * 6,
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _odd_quads(x: int) -> int:
+    return 4 * ((_round4(x) // 4) | 1)
+
+
+def smem_bytes(window: int, q_group: int, heads: int, block_size: int, r2: int,
+               dc: int, shared_cv: bool, q8: bool = False, stages: int = 2) -> int:
+    """Shared memory per CTA of a call (``window`` 1 for decode) whose CTAs
+    hold ``heads`` kv heads, with ``stages`` tiles in flight: the kernel
+    source's ``make_layout``, in bytes."""
+    R, bs, lat = window * q_group * heads, block_size, 1 if shared_cv else 2
+    ks, cs = _odd_quads(heads * r2), _odd_quads(dc)
+    rows = _round4(R * r2) + 2 * _round4(R * dc) + _round4(R * bs) + 3 * _round4(R) + 4
+    tile = bs * (ks + lat * cs)
+    raw = (bs * (_round16(heads * r2) + lat * _round16(dc)) + 12 * _round4(bs)) // 4
+    floats = rows + (tile + stages * raw if q8 else stages * tile)
+    return 4 * floats
+
+
+def smem_bytes_built(window: int, q_group: int, heads: int, block_size: int, r2: int,
+                     dc: int, shared_cv: bool, q8: bool, stages: int) -> int:
+    """``smem_bytes`` as the compiled kernel source computes it (needs the
+    build): a check that the two agree."""
+    fn = build.load("elite_decode_smem_bytes", [ctypes.c_int] * 9,
                     restype=ctypes.c_long, source=_SOURCE)
-    return int(fn(window, q_group, block_size, r2, dc, int(shared_cv)))
+    return int(fn(window, q_group, heads, block_size, r2, dc, int(shared_cv), int(q8),
+                  stages))
 
 
 def smem_optin_limit(device) -> int:
@@ -63,6 +106,110 @@ def smem_optin_limit(device) -> int:
         with torch.cuda.device(device):
             _SMEM_OPTIN[device] = int(fn())
     return _SMEM_OPTIN[device]
+
+
+def sm_count(device) -> int:
+    if device not in _SM_COUNT:
+        _SM_COUNT[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SM_COUNT[device]
+
+
+class Plan(NamedTuple):
+    """How one call is cut: ``heads`` kv heads per CTA in ``groups`` head
+    groups, ``stages`` tiles in flight, each lane's walk of ``n_tiles``
+    tiles in ``splits`` ranges of ``tiles_per_split``; ``ctas`` CTAs of
+    ``smem`` bytes of shared memory."""
+    heads: int
+    groups: int
+    stages: int
+    splits: int
+    tiles_per_split: int
+    ctas: int
+    smem: int
+
+
+def head_group(window: int, q_group: int, nkv: int, block_size: int, r2: int, dc: int,
+               shared_cv: bool, q8: bool, limit: int, symbol: str = "elite_decode"):
+    """(kv heads per CTA, stages, bytes): the largest divisor of ``nkv`` whose
+    CTA fits ``limit`` bytes with two tiles in flight, else with one.  A
+    call that one kv head per CTA cannot fit raises ``ValueError``."""
+    heads = [h for h in range(nkv, 0, -1) if nkv % h == 0]
+    for stages in (2, 1):
+        for h in heads:
+            need = smem_bytes(window, q_group, h, block_size, r2, dc, shared_cv, q8, stages)
+            if need <= limit:
+                return h, stages, need
+    need = smem_bytes(window, q_group, 1, block_size, r2, dc, shared_cv, q8, 1)
+    raise ValueError(f"{symbol}: {need} B of shared memory per CTA (window {window}, "
+                     f"G={q_group}, one kv head, 2r={r2}, d_c={dc}, block_size="
+                     f"{block_size}) exceeds the card's opt-in limit of {limit} B")
+
+
+def split_plan(B: int, groups: int, n_tiles: int, target_ctas: int, max_splits: int):
+    """(splits, tiles per split) of a walk ``n_tiles`` tiles wide: as many
+    ranges as give ``target_ctas`` CTAs over ``B`` lanes and ``groups`` head
+    groups, at most ``max_splits`` (the merge keeps a weight per row and
+    split in shared memory), at least one tile each, none empty by
+    construction.  Lengths play no part."""
+    if n_tiles < 1:
+        return 1, 1
+    want = min(n_tiles, max_splits, max(1, -(-target_ctas // (B * groups))))
+    tps = -(-n_tiles // want)
+    return -(-n_tiles // tps), tps
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, window: int, q_group: int, nkv: int, block_size: int, r2: int, dc: int,
+         shared_cv: bool, q8: bool, n_tiles: int, sms: int, limit: int,
+         symbol: str = "elite_decode") -> Plan:
+    """The plan of one call: head groups by shared memory, then splits of
+    the walk's width (``mb``, the selection's ``W`` or ``ceil(S / 16)``) for
+    as many CTAs as the SMs hold at once, up to ``CTAS_PER_SM`` each (an
+    SM's shared memory is the opt-in limit plus 1 KB, and each CTA reserves
+    1 KB), at most ``dc`` splits.  Raises ``ValueError`` for widths the
+    kernel does not take.  Memoized: a serving step asks for the same few
+    plans in every layer."""
+    if r2 % 4 or dc % 4 or not 1 <= block_size <= 32:
+        raise ValueError(f"{symbol}: needs 2r and d_c multiples of 4 and a tile of at most "
+                         f"32 rows, got 2r={r2} d_c={dc} block_size={block_size}")
+    heads, stages, need = head_group(window, q_group, nkv, block_size, r2, dc, shared_cv,
+                                     q8, limit, symbol)
+    groups = nkv // heads
+    per_sm = max(1, min(CTAS_PER_SM, (limit + 1024) // (need + 1024)))
+    splits, tps = split_plan(B, groups, n_tiles, sms * per_sm, dc)
+    return Plan(heads, groups, stages, splits, tps, B * groups * splits, need)
+
+
+def plan_for(name: str, args, sms: int, limit: int) -> Plan:
+    """The plan of the call ``ops.<name>(*args)`` (a decode or verify entry)
+    on a card of ``sms`` SMs and ``limit`` bytes of opt-in shared memory per
+    block."""
+    q_e, _, k_e, c_k, c_v = args[:5]
+    q8 = name.endswith("_q8")
+    scales = args[5:8] if q8 else ()
+    shared_cv = c_k.data_ptr() == c_v.data_ptr() and (
+        not q8 or scales[1].data_ptr() == scales[2].data_ptr())
+    r2, dc = k_e.shape[-1], c_k.shape[-1]
+    if name == "elite_decode":
+        (B, S, nkv), G = k_e.shape[:3], args[6]
+        window, bs, n_tiles = 1, CONTIG_TILE, -(-S // CONTIG_TILE)
+    else:
+        B, nkv, G, bs = q_e.shape[0], k_e.shape[1], args[-3], args[-1]
+        window = q_e.shape[1] if "verify" in name else 1
+        n_tiles = args[8 if q8 else 5].shape[-1]
+    return plan(B, window, G, nkv, bs, r2, dc, shared_cv, q8, n_tiles, sms, limit, name)
+
+
+def _scratch(dev, n_partial: int, n_counters: int):
+    """The device's partials (f32) and counters (int32 zeros), grown when a
+    call needs more; the kernel leaves every counter at 0."""
+    part, cnt = _SCRATCH.get(dev, (None, None))
+    if part is None or part.numel() < n_partial:
+        part = torch.empty(n_partial, dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < n_counters:
+        cnt = torch.zeros(n_counters, dtype=torch.int32, device=dev)
+    _SCRATCH[dev] = part, cnt
+    return part, cnt
 
 
 def _launch(symbol: str, q_e, q_lat, pages, scales, table, rows, q_group: int,
@@ -106,33 +253,35 @@ def _launch(symbol: str, q_e, q_lat, pages, scales, table, rows, q_group: int,
     if verify:
         build.check(q_offsets, "q_offsets", (B,), i32, dev)
         walk = (table, q_offsets, rows)
-    # as the kernel decides it: one latent tensor (and scale) staged once
     shared_cv = c_k.data_ptr() == c_v.data_ptr() and (
         not scales or scales[1].data_ptr() == scales[2].data_ptr())
+    p = plan(B, window, q_group, nkv, block_size, r2, dc, shared_cv, bool(scales), width,
+             sm_count(dev), smem_optin_limit(dev), symbol)
     out = torch.empty(lead + (nh, dc), dtype=f32, device=dev)
     ints = (B, window, nkv, q_group, r2, dc, block_size, width) if verify else \
         (B, nkv, q_group, r2, dc, block_size, width)
-    _call(symbol, (q_e, q_lat, k_e, c_k, c_v, *scales, *walk, out), ints, scale,
-          window, q_group, block_size, r2, dc, shared_cv)
+    _call(symbol, (q_e, q_lat, k_e, c_k, c_v, *scales, *walk, out), ints, scale, p,
+          window * q_group * p.heads, dc)
     return out
 
 
-def _call(symbol: str, ptrs, ints, scale: float, window: int, q_group: int,
-          block_size: int, r2: int, dc: int, shared_cv: bool) -> None:
-    """Refuse a call whose shared memory per CTA exceeds the card's opt-in
-    limit, then launch entry ``symbol`` with the tensors ``ptrs`` and the
-    ints ``ints`` on the current stream."""
+def _call(symbol: str, ptrs, ints, scale: float, p: Plan, R: int, dc: int) -> None:
+    """Launch entry ``symbol`` by the plan ``p`` (``R`` query rows per CTA)
+    with the tensors ``ptrs``, the scratch, the ints ``ints`` and the plan
+    on the current stream."""
     dev = ptrs[0].device
-    need = smem_bytes(window, q_group, block_size, r2, dc, shared_cv)
-    limit = smem_optin_limit(dev)
-    if need > limit:
-        raise ValueError(f"{symbol}: {need} B of shared memory per CTA (window "
-                         f"{window}, G={q_group}, 2r={r2}, d_c={dc}, block_size="
-                         f"{block_size}) exceeds the card's opt-in limit of {limit} B")
-    argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn = build.load(symbol, argtypes, source=_SOURCE)
-    err = fn(*(t.data_ptr() for t in ptrs), *ints, scale,
+    for t in ptrs:
+        if t.data_ptr() % 4:
+            raise ValueError(f"{symbol}: a {t.dtype} argument is not 4-byte aligned")
+    B = ints[0]
+    part, cnt = _scratch(dev, B * p.groups * p.splits * R * (dc + 2), B * p.groups)
+    fn = _ENTRIES.get(symbol)
+    if fn is None:
+        argtypes = [ctypes.c_void_p] * (len(ptrs) + 2) + [ctypes.c_int] * (len(ints) + 4) + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn = _ENTRIES[symbol] = build.load(symbol, argtypes, source=_SOURCE)
+    err = fn(*(t.data_ptr() for t in ptrs), part.data_ptr(), cnt.data_ptr(), *ints,
+             p.heads, p.splits, p.tiles_per_split, p.stages, scale,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
@@ -160,10 +309,12 @@ def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
     build.check(c_k, "c_k", (B, S, dc), f32, dev)
     build.check(c_v, "c_v", (B, S, dc), f32, dev)
     build.check(lengths, "lengths", (B,), torch.int32, dev)
+    p = plan(B, 1, q_group, nkv, CONTIG_TILE, r2, dc, c_k.data_ptr() == c_v.data_ptr(),
+             False, -(-S // CONTIG_TILE), sm_count(dev), smem_optin_limit(dev),
+             "elite_decode")
     out = torch.empty((B, nh, dc), dtype=f32, device=dev)
     _call("elite_decode", (q_e, q_lat, k_e, c_k, c_v, lengths, out),
-          (B, S, nkv, q_group, r2, dc, CONTIG_TILE), scale, 1, q_group, CONTIG_TILE,
-          r2, dc, c_k.data_ptr() == c_v.data_ptr())
+          (B, S, nkv, q_group, r2, dc, CONTIG_TILE), scale, p, q_group * p.heads, dc)
     elite_decode.launches += 1
     return out
 

@@ -213,6 +213,86 @@ def elite_verify_paged_q8_ref(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
         block_tables, q_offsets, lengths, q_group, scale, block_size)
 
 
+def split_merge_ref(q_e, q_lat, k_e, c_k, c_v, valid, q_group: int, scale: float,
+                    tile: int, tiles_per_split: int) -> torch.Tensor:
+    """Absorbed attention cut as the split-KV kernel cuts it: each range of
+    ``tiles_per_split`` tiles of ``tile`` positions gives a partial
+    (m, l, acc) per query row, and the partials merge in ascending order:
+    ``M = max m_i``, ``l = Σ l_i·e^(m_i−M)``, ``o = Σ acc_i·e^(m_i−M) /
+    max(l, 1e-30)``, a partial with ``l_i = 0`` adding nothing.
+
+    q_e [B,W,nh,2r], q_lat [B,W,nh,dc]; per-lane rows k_e [B,P,nkv,2r],
+    c_k/c_v [B,P,dc]; valid [B,W,P] bool → [B,W,nh,dc]; rows with no
+    visible key give exact zeros."""
+    B, W, nh, r2 = q_e.shape
+    P, nkv = k_e.shape[1], k_e.shape[2]
+    span = tile * tiles_per_split
+    qe_g = q_e.reshape(B, W, nkv, q_group, r2)
+    parts = []
+    for start in range(0, P, span):
+        # each range scored on its own rows, padded to the full span, so a
+        # range's arithmetic does not depend on the walk's width
+        sl = slice(start, start + span)
+        pad = span - k_e[:, sl].shape[1]
+        rows = [torch.cat([t[:, sl], t.new_zeros((B, pad) + t.shape[2:])], 1)
+                for t in (k_e, c_k, c_v)]
+        v = torch.cat([valid[:, :, sl], valid.new_zeros(B, W, pad)], 2)[:, :, None, :]
+        s_e = torch.einsum("bwhge,bphe->bwhgp", qe_g, rows[0]).reshape(B, W, nh, span)
+        sv = (s_e + torch.einsum("bwnc,bpc->bwnp", q_lat, rows[1])) * scale
+        v = v.expand_as(sv)
+        m = torch.where(v, sv, torch.full_like(sv, NEG_INF)).amax(-1)
+        p = torch.where(v, torch.exp(sv - m[..., None]), torch.zeros_like(sv))
+        parts.append((m, p.sum(-1), torch.einsum("bwnp,bpc->bwnc", p, rows[2])))
+    M = torch.full_like(parts[0][0], NEG_INF)
+    for m, l, _ in parts:
+        M = torch.where(l > 0, torch.maximum(M, m), M)
+    lsum = torch.zeros_like(M)
+    o = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.where(l > 0, torch.exp(m - M), torch.zeros_like(m))
+        lsum = lsum + l * w
+        o = o + acc * w[..., None]
+    return o / torch.clamp(lsum, min=1e-30)[..., None]
+
+
+def split_call_ref(name: str, args, tiles_per_split: int, tile: int = 16) -> torch.Tensor:
+    """The call ``ops.<name>(*args)`` of a decode or verify entry, split by a
+    plan of ``tiles_per_split`` tiles and merged as the kernel merges:
+    each lane's walk gathered to contiguous rows (a chain block, a selected
+    block or ``tile`` rows of a contiguous cache per tile), int8 pages
+    dequantized first."""
+    if name.endswith("_q8"):
+        args = (*args[:2], *dequantize_pages(*args[2:8]), *args[8:])
+        name = name[:-3]
+    q_e, q_lat, k_e, c_k, c_v = args[:5]
+    dev = k_e.device
+    if name == "elite_decode":
+        lengths, G, scale = args[5:8]
+        S = k_e.shape[1]
+        valid = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None]
+        return split_merge_ref(q_e[:, None], q_lat[:, None], k_e, c_k, c_v, valid, G,
+                               scale, tile, tiles_per_split)[:, 0]
+    bs = args[-1]
+    G, scale = args[-3], args[-2]
+    table = args[5]
+    rows = [gather_pages(p, table, bs) for p in (k_e, c_k, c_v)]
+    P = rows[0].shape[1]
+    pos = torch.arange(P, device=dev)[None, None, :]
+    if name == "elite_decode_paged":
+        valid = pos < args[6][:, None, None]
+    elif name == "elite_decode_sparse_paged":
+        valid = _sparse_valid(args[6], bs)
+    elif name == "elite_verify_paged":
+        offs, lengths = args[6], args[7]
+        w = torch.arange(q_e.shape[1], device=dev)[None, :, None]
+        valid = (pos <= offs[:, None, None] + w) & (pos < lengths[:, None, None])
+        return split_merge_ref(q_e, q_lat, *rows, valid, G, scale, bs, tiles_per_split)
+    else:
+        raise ValueError(f"no split reference for {name}")
+    return split_merge_ref(q_e[:, None], q_lat[:, None], *rows, valid, G, scale, bs,
+                           tiles_per_split)[:, 0]
+
+
 def flash_prefill_ref(q, k, v, q_group: int, scale: float, q_offsets,
                       kv_lens) -> torch.Tensor:
     """Causal GQA attention.  q [B,Sq,nh,dh], k/v [B,Sk,nkv,dh],

@@ -393,3 +393,111 @@ def test_generate_on_card_matches_cpu(elitekv, cuda):
     if elitekv:
         expect["elite_decode"] = 7 * L
     assert {k: v for k, v in n.items() if v} == expect
+
+
+def _split_case(dev, nh, nkv, r2, dc, separate, mb, lengths, seed):
+    """Pages for lanes of ``lengths`` rows over chains of ``mb`` blocks."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bs, B = 16, len(lengths)
+    n_blocks = B * mb + 1
+    f = lambda *s: torch.randn(s, generator=g, device=dev)
+    c_k = f(n_blocks * bs, dc)
+    x = dict(q_e=f(B, nh, r2), q_lat=f(B, nh, dc), k_e=f(n_blocks * bs, nkv, r2),
+             c_k=c_k, c_v=f(n_blocks * bs, dc) if separate else c_k)
+    perm = torch.randperm(n_blocks, generator=g, device=dev).int()
+    x["bt"] = perm[:B * mb].reshape(B, mb).contiguous()
+    x["lengths"] = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return x, nh // nkv, bs
+
+
+@pytest.mark.parametrize("separate", [False, True], ids=["jlrd", "slrd"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_split_boundaries_match_plain_and_split_reference(width, separate, cuda):
+    """Lengths at the plan's split boundaries (±1) over a wide table that
+    gives many splits: the kernel matches the plain version and the split
+    reference, and two calls in a row give identical bits (the counters were
+    reset, the merge order is fixed)."""
+    from repro_torch.kernels import elite_decode as ed
+    nh, nkv, r2, dc, dh = WIDTHS[width]
+    mb = 96
+    x, G, bs = _split_case(cuda, nh, nkv, r2, dc, separate, mb, [0] * 8, seed=8)
+    probe = (x["q_e"], x["q_lat"], x["k_e"], x["c_k"], x["c_v"], x["bt"], x["lengths"], G,
+             dh ** -0.5, bs)
+    p = ed.plan_for("elite_decode_paged", probe, ed.sm_count(cuda),
+                    ed.smem_optin_limit(cuda))
+    assert p.splits > 1
+    span = p.tiles_per_split * bs
+    x["lengths"] = torch.tensor([0, span - 1, span, span + 1, 2 * span + 1, 1, 17,
+                                 mb * bs], dtype=torch.int32, device=cuda)
+    args = probe[:6] + (x["lengths"],) + probe[7:]
+    got = ops.elite_decode_paged(*args)
+    again = ops.elite_decode_paged(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref.elite_decode_paged_ref(*args), **TOL)
+    torch.testing.assert_close(got, ref.split_call_ref("elite_decode_paged", args,
+                                                       p.tiles_per_split), **TOL)
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("W", [1, 5])
+def test_repeated_calls_give_identical_bits(W, cuda):
+    """Every entry called twice on the same inputs gives the same bits."""
+    nh, nkv, r2, dc, dh = WIDTHS["tinyllama_1_1b"]
+    x, G, bs = _verify_inputs(cuda, nh, nkv, r2, dc, False, W, seed=9)
+    d, _, _ = _decode_inputs(cuda, nh, nkv, r2, dc, False, seed=9)
+    sel = _selection(d, bs, 6, 9)
+    calls = {"elite_verify_paged": (x["q_e"], x["q_lat"], x["k_e"], x["c_k"], x["c_v"],
+                                    x["bt"], x["offs"], x["lengths"], G, dh ** -0.5, bs),
+             "elite_decode_paged": (d["q_e"], d["q_lat"], d["k_e"], d["c_k"], d["c_v"],
+                                    d["bt"], d["lengths"], G, dh ** -0.5, bs),
+             "elite_decode_sparse_paged": (d["q_e"], d["q_lat"], d["k_e"], d["c_k"],
+                                           d["c_v"], *sel, G, dh ** -0.5, bs)}
+    q = _quantize(d)
+    calls["elite_decode_paged_q8"] = (d["q_e"], d["q_lat"], *q, d["bt"], d["lengths"], G,
+                                      dh ** -0.5, bs)
+    calls["elite_decode_sparse_paged_q8"] = (d["q_e"], d["q_lat"], *q, *sel, G,
+                                             dh ** -0.5, bs)
+    calls["elite_verify_paged_q8"] = (x["q_e"], x["q_lat"], *_quantize(x), x["bt"],
+                                      x["offs"], x["lengths"], G, dh ** -0.5, bs)
+    c = torch.randn(8, 300, dc, device=cuda)
+    calls["elite_decode"] = (d["q_e"], d["q_lat"], torch.randn(8, 300, nkv, r2, device=cuda),
+                             c, c, d["lengths"], G, dh ** -0.5)
+    for name, args in calls.items():
+        a, b = getattr(ops, name)(*args), getattr(ops, name)(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "int8"])
+def test_selection_with_trailing_zero_counts_matches_plain(q8, cuda):
+    """Zero-count entries after a lane's picks (and whole lanes of them)
+    add nothing: the kernel matches the plain version, empty lanes are
+    exact zeros."""
+    nh, nkv, r2, dc, dh = WIDTHS["tinyllama_1_1b"]
+    x, G, bs = _decode_inputs(cuda, nh, nkv, r2, dc, False, seed=10)
+    st, ct = _selection(x, bs, 3, 10)
+    pad = torch.zeros((st.shape[0], 9), dtype=torch.int32, device=cuda)
+    st, ct = torch.cat([st, pad], 1), torch.cat([ct, pad], 1)
+    pages = _quantize(x) if q8 else [x["k_e"], x["c_k"], x["c_v"]]
+    name = "elite_decode_sparse_paged" + ("_q8" if q8 else "")
+    args = (x["q_e"], x["q_lat"], *pages, st, ct, G, dh ** -0.5, bs)
+    got = getattr(ops, name)(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, getattr(ref, name + "_ref")(*args), **TOL)
+    assert float(got[0].abs().max()) == 0.0
+
+
+def test_shared_memory_formula_matches_the_kernel(cuda):
+    """The host's shared-memory formula (which plans and refuses calls) is
+    the kernel source's layout, at both model widths, f32 and int8, one and
+    two stages."""
+    from repro_torch.kernels import elite_decode as ed
+    for (nh, nkv, r2, dc, _) in WIDTHS.values():
+        for window in (1, 5):
+            for heads in (1, nkv):
+                for shared, q8, stages in ((True, False, 2), (False, True, 1),
+                                           (False, False, 2), (True, True, 2)):
+                    args = (window, nh // nkv, heads, 16, r2, dc, shared, q8, stages)
+                    assert ed.smem_bytes(*args) == ed.smem_bytes_built(*args), args
+
