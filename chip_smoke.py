@@ -27,6 +27,13 @@ non-zero:
    pages; ``rope_elite`` with positions [S] and [B, S] up to 4096, 32 and 4
    heads of 2r = 16, a strided q slice, and the full RoPE at dh = 64 and
    128, to 2e-6 relative (the count of bitwise-equal outputs is printed).
+   ``flash_prefill``'s two bodies at Sq = 1, 2, 8, 100, 256 and 1024 over
+   Sk = Sq + 333 keys with ragged offsets and lengths and a kv_len = 0
+   lane, two calls giving the same bits.  A lane's bits must not depend on
+   the other lanes: one lane through ``elite_decode_paged``, ``_q8`` and
+   ``elite_verify_paged`` beside short lanes, beside a 600-row lane and
+   with a wider table, and through ``flash_prefill``'s decode body beside
+   lanes of other kv_len and at a larger Sk, all equal bit for bit.
 3. Serve TinyLlama-1.1B at full width (22 layers, d 2048, EliteKV r=8,
    d_ckv=64) with random weights from a seeded ``torch.Generator`` — not
    the reference's weights, since the card has no JAX.  Each run sets the
@@ -76,8 +83,14 @@ non-zero:
    the int8 sparse run's busiest step, the dense kernels over the same
    lanes beside the pool's bytes per token, f32 against int8; and a W = 5
    verify call against the five decode calls that score the same window
-   one token at a time; and the baseline's decode attention (one query row
-   per lane through ``flash_prefill``) and its full-RoPE rotation.
+   one token at a time; and the baseline's full-RoPE rotation.
+   ``flash_prefill`` is timed at three recorded inputs: the f32 run's
+   busiest prefill chunk, ``generate``'s 8 x 1024 prefill and the
+   baseline's busiest decode call (one query row per lane), each beside
+   its bound, launches, plain time and SDPA's time.  The inputs of this
+   phase's decode, verify and ``flash_prefill`` calls are saved to
+   ``build/phase4_inputs.pt``, where ``kernel_turns.py`` times other trees'
+   entry points on them.
 
 Output ends with the card's name and power limit, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -97,6 +110,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # outside the tensor cores (the kernels use plain f32 FMA).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3      # TF32 tensor cores, three products per f32 one
+PHASE4_INPUTS = ROOT / "build" / "phase4_inputs.pt"
 TOL = 5e-5                   # f32, same math in another summation order
 NEAR_TIE = 1e-3              # top-2 margin under which f32 rounding may decide
 NUM_LAYERS = 22
@@ -104,6 +119,13 @@ DECODES = ("elite_decode_paged", "elite_decode_paged_q8", "elite_decode_sparse_p
            "elite_decode_sparse_paged_q8")
 VERIFIES = ("elite_verify_paged", "elite_verify_paged_q8")
 ROPE_ATOL, ROPE_RTOL = 1e-6, 2e-6   # one rotation per pair, no reduction
+# flash_prefill's three main-path shapes at TinyLlama-1.1B widths, (B, Sq, Sk,
+# nh, nkv): a paged prefill chunk, generate's prefill, the baseline's decode
+FLASH_SHAPES = {"paged chunk": (8, 256, 768, 32, 4), "generate prefill": (8, 1024, 1024, 32, 4),
+                "baseline decode": (8, 1, 1152, 32, 4)}
+# flash_prefill's times at the recorded inputs with PR 11's body (H100 80GB
+# HBM3, 700 W; PERF.md's kernel table), printed beside this run's
+FLASH_EARLIER_MS = {"paged chunk": 0.190, "generate prefill": 1.588, "baseline decode": 0.2779}
 # each decode and verify entry's time at its busiest call before the split-KV
 # body (H100 80GB HBM3, 700 W; PERF.md's kernel table), printed beside this run's
 EARLIER_MS = {"elite_decode": 0.494, "elite_decode_paged": 0.341,
@@ -127,11 +149,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def flash_smem_bytes(dh: int) -> int:
-    """csrc/flash_prefill.cu: Q [64, dh+1], K [32, dh+1], V [32, dh], P [64, 33]."""
-    return 4 * (64 * (dh + 1) + 32 * (dh + 1) + 32 * dh + 64 * 33)
-
-
 def plan_line(p) -> str:
     return (f"plan: {p.ctas} CTAs = lanes x {p.groups} head groups x {p.splits} splits of "
             f"{p.tiles_per_split} tiles, {p.heads} kv heads per CTA, {p.stages} stages, "
@@ -149,9 +166,12 @@ def ptxas_summary(text: str):
         if m:
             name = m.group(1)
             walk = re.search(r"(Chain|Sel|Contig)Walk", name)
+            flash = re.search(r"(flash_\w+_kernel)ILi(\d+)E", name)
             if "decode_kernel" in name and walk:
                 elem = "int8" if name.split("decode_kernel")[1].startswith("Ia") else "f32"
                 name = f"decode_kernel<{elem}, {walk.group(0)}>"
+            elif flash:
+                name = f"{flash.group(1)}<dh={flash.group(2)}>"
             spills = ""
         elif name and "spill" in line:
             spills = line.strip()
@@ -287,8 +307,8 @@ def prefill_cost(x):
     return nbytes, pairs * nh * 4 * dh
 
 
-def bound(nbytes: int, flops: int):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+def bound(nbytes: int, flops: int, peak_flops: float = PEAK_F32_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -450,6 +470,96 @@ def random_prefill(dev, nh, nkv, dh, seed):
                 offs=torch.tensor([0, 300, 513, 0], dtype=torch.int32, device=dev),
                 lens=torch.tensor([Sq, 450, 713, 0], dtype=torch.int32, device=dev),
                 G=nh // nkv, scale=dh ** -0.5)
+
+
+def flash_cases(dev, nh, nkv, dh, seed):
+    """{label: inputs} with Sq of 1, 2, 8, 100, 256 and 1024 over Sk = Sq +
+    333 keys (a multiple of no tile): per lane a fresh start, a resumed
+    chunk, a kv_len that ends inside the chunk, kv_len = 0, and a random
+    offset."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for Sq in (1, 2, 8, 100, 256, 1024):
+        Sk, room = Sq + 333, 333
+        extra = int(torch.randint(0, room + 1, (1,), generator=g, device=dev))
+        offs = [0, room // 3, room, 0, extra]
+        lens = [Sq, room // 3 + Sq, room + Sq // 2 + 1, 0, offs[4] + Sq]
+        f = lambda *s: torch.randn(s, generator=g, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        out[f"Sq={Sq} Sk={Sk}"] = dict(
+            q=f(5, Sq, nh, dh), k=f(5, Sk, nkv, dh), v=f(5, Sk, nkv, dh),
+            offs=torch.tensor(offs, **i32), lens=torch.tensor(lens, **i32), G=nh // nkv,
+            scale=dh ** -0.5)
+    return out
+
+
+def sdpa_call(x):
+    """One ``scaled_dot_product_attention`` call that computes flash_prefill
+    on x (boolean mask, ``enable_gqa``), its inputs built beforehand."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, offs, lens = x["q"], x["k"], x["v"], x["offs"], x["lens"]
+    dev = q.device
+    kpos, qpos = torch.arange(k.shape[1], device=dev), torch.arange(q.shape[1], device=dev)
+    mask = ((kpos[None, None, :] <= qpos[None, :, None] + offs[:, None, None])
+            & (kpos[None, None, :] < lens[:, None, None]))[:, None]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  scale=x["scale"], enable_gqa=True)
+
+
+def lane_invariance(dev, card: str, wname: str, nh, nkv, r2, dc, dh) -> None:
+    """A lane's bits must not depend on the other lanes: lane 0 (300 rows)
+    decoded beside short lanes (a table of 19 blocks), beside a 600-row
+    lane (38 blocks) and with the table padded to 80 blocks, through
+    ``elite_decode_paged``, ``_q8`` and ``elite_verify_paged`` (W = 3); and
+    one decode row through ``flash_prefill``'s decode body beside lanes of
+    other kv_len and at a larger Sk."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import elite_decode as ed
+    from repro_torch.kernels import flash_prefill as fp
+    g = torch.Generator(device=dev).manual_seed(60)
+    f = lambda *s: torch.randn(s, generator=g, device=dev)
+    bs, n_blocks, G = 16, 200, nh // nkv
+    k_e, c = f(n_blocks * bs, nkv, r2), f(n_blocks * bs, dc)
+    (k8, ks), (c8, cs) = quant.quantize_rows(k_e), quant.quantize_rows(c)
+    perm = torch.randperm(n_blocks - 1, generator=g, device=dev).int() + 1
+    q1, q3 = (f(8, nh, r2), f(8, nh, dc)), (f(8, 3, nh, r2), f(8, 3, nh, dc))
+    outs = {n: [] for n in ("elite_decode_paged", "elite_decode_paged_q8", "elite_verify_paged")}
+    for lengths, mb in (([300, 20, 5, 40, 17, 1, 0, 33], 19),
+                        ([300, 20, 5, 600, 17, 1, 0, 33], 38),
+                        ([300, 20, 5, 40, 17, 1, 0, 33], 80)):
+        bt = torch.zeros((8, mb), dtype=torch.int32, device=dev)
+        used = 0
+        for b, L in enumerate(lengths):
+            n = -(-L // bs)
+            bt[b, :n] = perm[used:used + n]
+            used += n
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        tail = (G, dh ** -0.5, bs)
+        outs["elite_decode_paged"].append(ed.elite_decode_paged(*q1, k_e, c, c, bt, lens,
+                                                                *tail)[0])
+        outs["elite_decode_paged_q8"].append(ed.elite_decode_paged_q8(
+            *q1, k8, c8, c8, ks, cs, cs, bt, lens, *tail)[0])
+        outs["elite_verify_paged"].append(ed.elite_verify_paged(
+            *q3, k_e, c, c, bt, (lens - 3).clamp(min=0), lens, *tail)[0])
+    k, v, q = f(4, 1300, nkv, dh), f(4, 1300, nkv, dh), f(4, 1, nh, dh)
+    outs["flash_prefill decode body"] = []
+    for lengths, S in (([513, 20, 5, 90], 700), ([513, 700, 0, 600], 700),
+                       ([513, 20, 5, 90], 1300)):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        outs["flash_prefill decode body"].append(fp.flash_prefill(
+            q, k[:, :S].contiguous(), v[:, :S].contiguous(), G, dh ** -0.5, lens - 1,
+            lens)[0])
+    torch.cuda.synchronize()
+    for name, o in outs.items():
+        if not (torch.equal(o[0], o[1]) and torch.equal(o[0], o[2])):
+            raise AssertionError(f"{name} ({wname}): a lane's bits depend on the other "
+                                 f"lanes or on the table's width")
+    print(f"[{card}] lane bits independent of the other lanes and of the width, {wname}: "
+          f"{', '.join(outs)}", flush=True)
 
 
 def run_decode(name: str, a, plain=False):
@@ -717,6 +827,7 @@ def main() -> int:
     import torch.nn.functional as F
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import elite_decode as ed
+    from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import rope_elite as re_k
     from repro_torch.launch.serve import build_config, make_stream
     from repro_torch.models import lm
@@ -760,8 +871,16 @@ def main() -> int:
                           f"{p.heads} kv heads ({w * G * p.heads} query rows) per CTA, "
                           f"{p.stages} stages, {p.smem} B/CTA, {p.splits} splits of "
                           f"{p.tiles_per_split} tiles, {p.ctas} CTAs")
-    for dh in (64, 128):
-        print(f"  flash_prefill smem/CTA dh={dh}: {flash_smem_bytes(dh)} B")
+    for body in fp.BODIES:
+        for dh in fp.HEAD_DIMS:
+            want, built = fp.smem_bytes(body, dh), fp.smem_bytes_built(body, dh)
+            if built != want:
+                raise AssertionError(f"flash_prefill {body} dh={dh}: smem formula {want} B "
+                                     f"!= kernel's {built} B")
+            print(f"  flash_prefill {body} body smem/CTA dh={dh}: {want} B")
+    for label, shape in FLASH_SHAPES.items():
+        print(f"  flash_prefill plan, {label} (B, Sq, Sk, nh, nkv) = {shape}: "
+              f"{fp.plan(*shape)}")
     print(f"  elite_decode (contiguous) reads tiles of {ed.CONTIG_TILE} rows: the decode "
           f"entries' plan at block_size {ed.CONTIG_TILE}; rope_elite uses no shared memory")
 
@@ -847,6 +966,19 @@ def main() -> int:
         if float(got[-1].abs().max()) != 0.0:
             raise AssertionError("a kv_len = 0 lane did not give exact zeros")
         errs["flash_prefill"] = max(errs["flash_prefill"], e)
+        # both bodies: Sq of 1, 2, 8, 100, 256, 1024, ragged lanes, kv_len = 0
+        for label, x in flash_cases(dev, nh, nkv, dh, seed=50 + i).items():
+            body = fp.plan_for(x["q"], x["k"], x["v"], x["G"], x["scale"], x["offs"],
+                               x["lens"]).body
+            got = run_prefill(x)
+            errs["flash_prefill"] = max(errs["flash_prefill"], check(
+                f"flash_prefill {body} body {wname} {label}",
+                max_err(got, run_prefill(x, plain=True)), card))
+            if float(got[3].abs().max()) != 0.0:
+                raise AssertionError("a kv_len = 0 lane did not give exact zeros")
+            if not torch.equal(got, run_prefill(x)):
+                raise AssertionError(f"flash_prefill {label}: two calls differ")
+        lane_invariance(dev, card, wname, nh, nkv, r2, dc, dh)
     for label, a in rope_cases(dev, seed=40).items():
         e, bad, same = rope_err(re_k.rope_elite(*a), ref.rope_elite_ref(*a))
         print(f"[{card}] parity rope_elite {label}: max_abs_err={e:.3e}, {bad} outside "
@@ -975,11 +1107,32 @@ def main() -> int:
     if bad:
         raise AssertionError("rope_elite on the generate run's prefill q")
     errs["rope_elite"] = max(errs["rope_elite"], e)
-    pre = max(recs["elite_decode_paged"].calls["flash_prefill"], key=lambda a: int(a[6].sum()))
-    xp = dict(q=pre[0], k=pre[1], v=pre[2], G=pre[3], scale=pre[4], offs=pre[5], lens=pre[6])
-    errs["flash_prefill"] = max(errs["flash_prefill"], check(
-        "flash_prefill on a main-path chunk",
-        max_err(run_prefill(xp), run_prefill(xp, plain=True)), card))
+    # flash_prefill at its three main-path inputs: the f32 run's busiest
+    # prefill chunk, generate's 8 x 1024 prefill, the baseline's busiest decode
+    as_x = lambda a: dict(q=a[0], k=a[1], v=a[2], G=a[3], scale=a[4], offs=a[5], lens=a[6])
+    flash_x = {
+        "paged chunk": as_x(max(recs["elite_decode_paged"].calls["flash_prefill"],
+                                key=lambda a: int(a[6].sum()))),
+        "generate prefill": as_x(grec.calls["flash_prefill"][0]),
+        "baseline decode": as_x(max((c for c in brec.calls["flash_prefill"]
+                                     if c[0].shape[1] == 1), key=lambda c: int(c[6].sum())))}
+    flash_launches = {"paged chunk": runs["elite_decode_paged"][1]["flash_prefill"],
+                      "generate prefill": glaunches["flash_prefill"],
+                      "baseline decode": L * (N_GEN - 1)}
+    for label, x in flash_x.items():
+        got = run_prefill(x)
+        errs["flash_prefill"] = max(errs["flash_prefill"], check(
+            f"flash_prefill on the {label} input", max_err(got, run_prefill(x, plain=True)),
+            card))
+        if not torch.equal(got, run_prefill(x)):
+            raise AssertionError(f"flash_prefill {label}: two calls differ")
+    saved = {name: (name, busiest[name][0]) for name in ("elite_decode",) + DECODES + VERIFIES}
+    saved.update({f"flash_prefill {label}": ("flash_prefill", (
+        x["q"], x["k"], x["v"], x["G"], x["scale"], x["offs"], x["lens"]))
+        for label, x in flash_x.items()})
+    PHASE4_INPUTS.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: (n, tuple(t.clone() if torch.is_tensor(t) else t for t in a))
+                for k, (n, a) in saved.items()}, PHASE4_INPUTS)
 
     # a one-shot run on a tight pool must preempt and still finish everything
     tight = serve_loop.SchedulerConfig(max_slots=4, block_size=16, num_blocks=40,
@@ -1061,28 +1214,33 @@ def main() -> int:
         print(f"[{card}] {r['name']}: {r['ms']:.4f} ms with the launch queued ahead, "
               f"{time_ms(lambda: run_decode(r['name'], a), flush=flush, ahead=False):.4f} ms "
               f"counting the wrapper's host time", flush=True)
-    p_bytes, p_flops = prefill_cost(xp)
-    p_bound, p_by = bound(p_bytes, p_flops)
-    B, Sq, nh, dh = xp["q"].shape
-    Sk = xp["k"].shape[1]
-    kpos, qpos = torch.arange(Sk, device=dev), torch.arange(Sq, device=dev)
-    mask = ((kpos[None, None, :] <= qpos[None, :, None] + xp["offs"][:, None, None])
-            & (kpos[None, None, :] < xp["lens"][:, None, None]))[:, None]
-    qt, kt, vt = (xp[n].transpose(1, 2) for n in ("q", "k", "v"))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                  scale=xp["scale"], enable_gqa=True)
-    rows.insert(1, dict(
-        name="flash_prefill", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_prefill.cu",
-        replaces="src/repro/kernels/flash_prefill.py:97",
-        launches=runs["elite_decode_paged"][1]["flash_prefill"],
-        max_abs_err=errs["flash_prefill"],
-        ms=time_ms(lambda: run_prefill(xp), flush=flush),
-        plain_ms=time_ms(lambda: run_prefill(xp, plain=True), flush=flush),
-        bound_ms=p_bound, bound_by=p_by, library_ms=time_ms(sdpa, flush=flush)))
-    print(f"[{card}] prefill shapes: q={tuple(xp['q'].shape)} k={tuple(xp['k'].shape)} "
-          f"q_offsets={xp['offs'].tolist()} kv_lens={xp['lens'].tolist()}; bound: "
-          f"{p_bytes} B vs {p_flops} flop")
+    # flash_prefill at its three main-path inputs; the JSON row is the paged
+    # chunk's.  The prefill body's bound is at the tensor cores' 3xTF32 rate,
+    # the decode body's at the f32 rate (bytes bound it either way)
+    for label, x in flash_x.items():
+        nbytes, flops = prefill_cost(x)
+        body = fp.plan_for(x["q"], x["k"], x["v"], x["G"], x["scale"], x["offs"],
+                           x["lens"]).body
+        t_f32, by_f32 = bound(nbytes, flops)
+        t_bound, by_bound = bound(nbytes, flops, PEAK_3XTF32_FLOPS if body == "prefill"
+                                  else PEAK_F32_FLOPS)
+        r = dict(name="flash_prefill", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+                 replaces="src/repro/kernels/flash_prefill.py:126",
+                 launches=flash_launches[label], max_abs_err=errs["flash_prefill"],
+                 ms=time_ms(lambda: run_prefill(x), flush=flush),
+                 plain_ms=time_ms(lambda: run_prefill(x, plain=True), flush=flush),
+                 bound_ms=t_bound, bound_by=by_bound,
+                 library_ms=time_ms(sdpa_call(x), flush=flush))
+        if label == "paged chunk":
+            rows.insert(1, r)
+        print(f"[{card}] flash_prefill {label} ({body} body): q={tuple(x['q'].shape)} "
+              f"k={tuple(x['k'].shape)} q_offsets={x['offs'].tolist()} "
+              f"kv_lens={x['lens'].tolist()}: kernel {r['ms']:.4f} ms (PR 11's body: "
+              f"{FLASH_EARLIER_MS[label]} ms), plain {r['plain_ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f} ms, bound {t_bound:.5f} ms ({by_bound}; at the f32 "
+              f"rate {t_f32:.5f} ms, {by_f32}): {nbytes} B, {flops} flop; launches "
+              f"{flash_launches[label]}", flush=True)
     # the contiguous decode at the generate run's busiest call, against one
     # SDPA call over the same scores: prebuilt [q_e | q_lat] and
     # [K_e | C_k] (the latent broadcast to the kv heads) with values C_v and
@@ -1124,32 +1282,22 @@ def main() -> int:
         ms=time_ms(lambda: re_k.rope_elite(*a), flush=flush),
         plain_ms=time_ms(lambda: ref.rope_elite_ref(*a), flush=flush),
         bound_ms=r_bound, bound_by=r_by, library_ms=None))
-    small_rope = min(grec.calls["rope_elite"], key=lambda a: a[0].numel())
+    # the decode-shaped q rotation (one token per lane), as the prefill row
+    small_rope = max((c for c in grec.calls["rope_elite"] if c[0].shape[1] == 1),
+                     key=lambda a: a[0].numel())
     print(f"[{card}] rope_elite shapes: x={tuple(a[0].shape)} stride={a[0].stride()} "
           f"positions {tuple(a[1].shape)} {a[1].dtype}; bound: {r_bytes} B vs {r_flops} "
-          f"flop; at decode x={tuple(small_rope[0].shape)}: "
-          f"{time_ms(lambda: re_k.rope_elite(*small_rope), flush=flush):.4f} ms", flush=True)
-    # the baseline: its full-RoPE rotation of the prefill q, and its decode
-    # attention, one query row per lane through flash_prefill
+          f"flop; launches at prefill shapes {2 * L} (q and k), at decode shapes "
+          f"{2 * L * (N_GEN - 1)}; at decode x={tuple(small_rope[0].shape)}: "
+          f"{time_ms(lambda: re_k.rope_elite(*small_rope), flush=flush):.4f} ms, plain "
+          f"{time_ms(lambda: ref.rope_elite_ref(*small_rope), flush=flush):.4f} ms, bound "
+          f"{bound(*rope_cost(small_rope))[0]:.6f} ms", flush=True)
+    # the baseline's full-RoPE rotation of the prefill q
     a = max(brec.calls["rope_elite"], key=lambda a: a[0].numel())
     print(f"[{card}] baseline full RoPE x={tuple(a[0].shape)}: rope_elite "
           f"{time_ms(lambda: re_k.rope_elite(*a), flush=flush):.4f} ms, plain "
           f"{time_ms(lambda: ref.rope_elite_ref(*a), flush=flush):.4f} ms, bound "
           f"{bound(*rope_cost(a))[0]:.4f} ms", flush=True)
-    a = max((c for c in brec.calls["flash_prefill"] if c[0].shape[1] == 1),
-            key=lambda c: int(c[6].sum()))
-    xb = dict(q=a[0], k=a[1], v=a[2], G=a[3], scale=a[4], offs=a[5], lens=a[6])
-    kv = xb["k"].shape[1]
-    bmask = (torch.arange(kv, device=dev)[None, :] < xb["lens"][:, None])[:, None, None]
-    bq, bk, bv = (xb[n].transpose(1, 2) for n in ("q", "k", "v"))
-    sdpa_b = lambda: F.scaled_dot_product_attention(bq, bk, bv, attn_mask=bmask,
-                                                    scale=xb["scale"], enable_gqa=True)
-    print(f"[{card}] baseline decode attention (flash_prefill, Sq=1, kv_lens="
-          f"{xb['lens'].tolist()[0]} x {xb['q'].shape[0]} lanes): kernel "
-          f"{time_ms(lambda: run_prefill(xb), flush=flush):.4f} ms, plain "
-          f"{time_ms(lambda: run_prefill(xb, plain=True), flush=flush):.4f} ms, SDPA "
-          f"{time_ms(sdpa_b, flush=flush):.4f} ms, bound "
-          f"{bound(*prefill_cost(xb))[0]:.5f} ms", flush=True)
     by = {r["name"]: r for r in rows}
     dec = by["elite_decode"]
     print(f"[{card}] target elite_decode faster than SDPA: {dec['ms']:.4f} vs "

@@ -18,6 +18,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("elite_decode_paged", "flash_prefill", "rope_elite")
@@ -25,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_SCRATCH: Dict[tuple, tuple] = {}
 
 
 def _nvcc() -> str:
@@ -80,6 +83,19 @@ def load(symbol: str, argtypes, restype=ctypes.c_int, source: str = ""):
     fn = getattr(lib, symbol)
     fn.argtypes, fn.restype = argtypes, restype
     return fn
+
+
+def scratch(dev, key: str, n_partial: int, n_counters: int):
+    """The split-KV scratch of the kernels of ``key`` on device ``dev``:
+    partials (f32) and counters (int32 zeros), allocated at first use and
+    grown when a call needs more.  The kernels leave every counter at 0."""
+    part, cnt = _SCRATCH.get((dev, key), (None, None))
+    if part is None or part.numel() < n_partial:
+        part = torch.empty(max(n_partial, 1), dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < n_counters:
+        cnt = torch.zeros(n_counters, dtype=torch.int32, device=dev)
+    _SCRATCH[(dev, key)] = part, cnt
+    return part, cnt
 
 
 def check(t, name: str, shape, dtype, device) -> None:

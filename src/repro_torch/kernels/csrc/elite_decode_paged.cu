@@ -49,11 +49,13 @@
 // What the design does about it:
 //   * Split-KV.  The grid is (split, head group, lane).  The host cuts the
 //     walk's width (mb, W or ceil(S / bs) tiles) into `splits` ranges of
-//     `tps` tiles (kernels/elite_decode.py: plan) for as many CTAs as the
-//     SMs hold at once (two per SM where shared memory allows), at most dc
-//     splits, from shapes and the card only -- never from lengths, so the
-//     plan needs no device read, and the two sides of each bitwise identity
-//     below (which share those arguments) get the same plan.  A CTA walks
+//     `tps` tiles (kernels/elite_decode.py: plan).  tps is sized for two
+//     CTAs per SM on a reference load (8 lanes of 64 tiles), from the
+//     model's head groups and the card only -- never from lengths, the
+//     batch or the walk's width -- so the plan needs no device read, a
+//     lane's ranges (and bits) do not move when other lanes grow the table,
+//     and the two sides of each bitwise identity below get the same plan.
+//     At most dc splits.  A CTA walks
 //     its range and writes a partial (m, l, acc) per row; a range past the
 //     lane's end writes the empty partial (m = -1e30, l = 0).
 //   * All query heads of as many kv heads as fit.  A CTA holds R = nw*G*gh

@@ -32,13 +32,15 @@ launches in its ``launches`` attribute.
 
 Each call is planned on the host (``plan_for``) from shapes alone: kv heads
 per CTA by shared memory, tiles in flight, and split-KV ranges of the walk
-by its width and the SM count (never by ``lengths``, so nothing is read
-back from the card); the kernel merges the ranges' partials itself, in the
-last CTA of each (lane, head group), using per-device scratch that the
-wrapper allocates once and grows.  Calls on one device are ordered by their
-stream.  A call that one kv head per CTA cannot fit in the card's opt-in
-shared memory raises ``ValueError`` before launching; ``ref.split_call_ref``
-is the plan's arithmetic in plain PyTorch.
+of a fixed size per model width and card (never by ``lengths``, the batch
+or the walk's width, so nothing is read back from the card and a lane's
+bits do not depend on the other lanes); the kernel merges the ranges'
+partials itself, in the last CTA of each (lane, head group), using
+per-device scratch that the wrapper allocates once and grows.  Calls on
+one device are ordered by their stream.  A call that one kv head per CTA
+cannot fit in the card's opt-in shared memory raises ``ValueError`` before
+launching; ``ref.split_call_ref`` is the plan's arithmetic in plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -53,14 +55,16 @@ from repro_torch.kernels import build
 _SOURCE = "elite_decode_paged"
 _SMEM_OPTIN: dict = {}
 _SM_COUNT: dict = {}
-_SCRATCH: dict = {}
 _ENTRIES: dict = {}
 #: rows of a contiguous cache staged per tile: the paged pool's block size,
 #: so that a contiguous call walks the rows in the tiles (and gives the bits)
 #: of ``elite_decode_paged`` over the identity table
 CONTIG_TILE = 16
-#: CTAs a call's plan aims at, per SM of the card
+#: CTAs a plan aims at per SM of the card, on the reference load
 CTAS_PER_SM = 2
+#: the load a plan's ranges are sized for: lanes, and tiles per lane (8
+#: lanes of 1,024 rows in tiles of 16); see ``split_plan``
+REF_LANES, REF_TILES = 8, 64
 
 
 def _round4(x: int) -> int:
@@ -145,28 +149,32 @@ def head_group(window: int, q_group: int, nkv: int, block_size: int, r2: int, dc
                      f"{block_size}) exceeds the card's opt-in limit of {limit} B")
 
 
-def split_plan(B: int, groups: int, n_tiles: int, target_ctas: int, max_splits: int):
-    """(splits, tiles per split) of a walk ``n_tiles`` tiles wide: as many
-    ranges as give ``target_ctas`` CTAs over ``B`` lanes and ``groups`` head
-    groups, at most ``max_splits`` (the merge keeps a weight per row and
-    split in shared memory), at least one tile each, none empty by
-    construction.  Lengths play no part."""
-    if n_tiles < 1:
-        return 1, 1
-    want = min(n_tiles, max_splits, max(1, -(-target_ctas // (B * groups))))
-    tps = -(-n_tiles // want)
-    return -(-n_tiles // tps), tps
+def split_plan(groups: int, n_tiles: int, target_ctas: int, max_splits: int):
+    """(splits, tiles per split) of a walk ``n_tiles`` tiles wide.  Tiles per
+    split come from the head groups and the card alone: as many as give
+    ``target_ctas`` CTAs on the reference load of ``REF_LANES`` lanes of
+    ``REF_TILES`` tiles.  Neither the batch nor the walk's width (the step's
+    longest chain, which the other lanes set) plays a part, so a lane's
+    ranges, and so its bits, depend on its own length only: a wider walk
+    adds ranges past the lane's end, whose empty partials the merge skips
+    exactly.  Only a walk wider than ``tiles per split · max_splits`` (the
+    merge keeps a weight per row and split in shared memory) takes longer
+    ranges, as few as fit.  Lengths play no part."""
+    tps = max(1, -(-REF_LANES * groups * REF_TILES // target_ctas))
+    if n_tiles > tps * max_splits:
+        tps = -(-n_tiles // max_splits)
+    return max(1, -(-n_tiles // tps)), tps
 
 
 @functools.lru_cache(maxsize=None)
 def plan(B: int, window: int, q_group: int, nkv: int, block_size: int, r2: int, dc: int,
          shared_cv: bool, q8: bool, n_tiles: int, sms: int, limit: int,
          symbol: str = "elite_decode") -> Plan:
-    """The plan of one call: head groups by shared memory, then splits of
-    the walk's width (``mb``, the selection's ``W`` or ``ceil(S / 16)``) for
-    as many CTAs as the SMs hold at once, up to ``CTAS_PER_SM`` each (an
-    SM's shared memory is the opt-in limit plus 1 KB, and each CTA reserves
-    1 KB), at most ``dc`` splits.  Raises ``ValueError`` for widths the
+    """The plan of one call: head groups by shared memory, then the walk's
+    width (``mb``, the selection's ``W`` or ``ceil(S / 16)``) cut into
+    ranges sized for ``CTAS_PER_SM`` CTAs per SM on the reference load, at
+    most ``dc`` splits (``split_plan``: the range size does not depend on
+    ``B`` or the width).  Raises ``ValueError`` for widths the
     kernel does not take.  Memoized: a serving step asks for the same few
     plans in every layer."""
     if r2 % 4 or dc % 4 or not 1 <= block_size <= 32:
@@ -175,8 +183,7 @@ def plan(B: int, window: int, q_group: int, nkv: int, block_size: int, r2: int, 
     heads, stages, need = head_group(window, q_group, nkv, block_size, r2, dc, shared_cv,
                                      q8, limit, symbol)
     groups = nkv // heads
-    per_sm = max(1, min(CTAS_PER_SM, (limit + 1024) // (need + 1024)))
-    splits, tps = split_plan(B, groups, n_tiles, sms * per_sm, dc)
+    splits, tps = split_plan(groups, n_tiles, sms * CTAS_PER_SM, dc)
     return Plan(heads, groups, stages, splits, tps, B * groups * splits, need)
 
 
@@ -198,18 +205,6 @@ def plan_for(name: str, args, sms: int, limit: int) -> Plan:
         window = q_e.shape[1] if "verify" in name else 1
         n_tiles = args[8 if q8 else 5].shape[-1]
     return plan(B, window, G, nkv, bs, r2, dc, shared_cv, q8, n_tiles, sms, limit, name)
-
-
-def _scratch(dev, n_partial: int, n_counters: int):
-    """The device's partials (f32) and counters (int32 zeros), grown when a
-    call needs more; the kernel leaves every counter at 0."""
-    part, cnt = _SCRATCH.get(dev, (None, None))
-    if part is None or part.numel() < n_partial:
-        part = torch.empty(n_partial, dtype=torch.float32, device=dev)
-    if cnt is None or cnt.numel() < n_counters:
-        cnt = torch.zeros(n_counters, dtype=torch.int32, device=dev)
-    _SCRATCH[dev] = part, cnt
-    return part, cnt
 
 
 def _launch(symbol: str, q_e, q_lat, pages, scales, table, rows, q_group: int,
@@ -274,7 +269,8 @@ def _call(symbol: str, ptrs, ints, scale: float, p: Plan, R: int, dc: int) -> No
         if t.data_ptr() % 4:
             raise ValueError(f"{symbol}: a {t.dtype} argument is not 4-byte aligned")
     B = ints[0]
-    part, cnt = _scratch(dev, B * p.groups * p.splits * R * (dc + 2), B * p.groups)
+    part, cnt = build.scratch(dev, "elite_decode", B * p.groups * p.splits * R * (dc + 2),
+                              B * p.groups)
     fn = _ENTRIES.get(symbol)
     if fn is None:
         argtypes = [ctypes.c_void_p] * (len(ptrs) + 2) + [ctypes.c_int] * (len(ints) + 4) + [

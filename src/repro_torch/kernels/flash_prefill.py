@@ -7,18 +7,81 @@ the TPU version, ``Sq`` and ``Sk`` need not be multiples of the tiles.  The
 kernel source, with what bounds it and its design, is
 ``csrc/flash_prefill.cu``; the plain version is ``ref.flash_prefill_ref``.
 ``kernels.ops`` picks between them by the device of the inputs.
+
+One launch per call, through one of two bodies that ``plan`` picks from the
+shapes alone (never from ``q_offsets`` or ``kv_lens``):
+
+* ``decode``: at most ``DECODE_ROWS`` query rows per kv head (``G · Sq``),
+  as in the baseline model's decode.  A CTA takes one (lane, kv head, range
+  of ``RANGE_KEYS`` keys) and all the query rows that read that kv head;
+  the last CTA of a (lane, kv head) merges the ranges' partials in
+  ascending order (``ref.flash_split_ref`` is that arithmetic in plain
+  PyTorch).  The ranges are fixed, so a lane's bits depend on neither the
+  other lanes' ``kv_lens`` nor ``Sk``.  Partials and counters are per-device
+  scratch that the wrapper allocates once and grows.
+* ``prefill``: every other call; 64 query rows of one query head per CTA on
+  the tensor cores (3xTF32).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
 HEAD_DIMS = (32, 64, 128)          # the instantiations in csrc/flash_prefill.cu
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
+#: query rows per kv head (G · Sq) up to which the decode body runs
+DECODE_ROWS = 16
+#: keys per range of the decode body (the source's kRangeKeys)
+RANGE_KEYS = 128
+#: query rows per CTA of the prefill body, and keys per K/V tile
+PREFILL_ROWS, PREFILL_KEYS = 64, 32
+BODIES = {"prefill": 0, "decode": 1}
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                            ctypes.c_void_p]
+
+
+class Plan(NamedTuple):
+    """How one call is cut: ``body`` ("decode" or "prefill"); for the decode
+    body ``ranges`` key ranges of ``RANGE_KEYS`` per (lane, kv head) and
+    ``rows`` query rows per CTA, which size the partials."""
+    body: str
+    ranges: int
+    rows: int
+
+
+def plan(B: int, Sq: int, Sk: int, nh: int, nkv: int) -> Plan:
+    """The plan of a call on q [B, Sq, nh, ·] and k/v [B, Sk, nkv, ·]."""
+    G = nh // nkv
+    if G * Sq <= DECODE_ROWS:
+        ranges = max(1, -(-Sk // RANGE_KEYS))
+        return Plan("decode", ranges, G * Sq)
+    return Plan("prefill", 1, PREFILL_ROWS)
+
+
+def plan_for(q, k, v, q_group: int, scale: float, q_offsets, kv_lens) -> Plan:
+    """The plan of the call ``ops.flash_prefill(q, k, v, ...)``: read from
+    the shapes of q and k only."""
+    B, Sq, nh, _ = q.shape
+    return plan(B, Sq, k.shape[1], nh, k.shape[2])
+
+
+def smem_bytes(body: str, dh: int) -> int:
+    """Shared memory per CTA of ``body`` at head dim ``dh``: the kernel
+    source's layouts, in bytes."""
+    if body == "decode":
+        s, rows, tile = dh + 4, DECODE_ROWS, 32
+        return 4 * (rows * dh + 4 * tile * s + rows * tile + 3 * rows + 4)
+    return 4 * (PREFILL_ROWS + 4 * PREFILL_KEYS) * (dh + 4)
+
+
+def smem_bytes_built(body: str, dh: int) -> int:
+    """``smem_bytes`` as the compiled source computes it (needs the build)."""
+    fn = build.load("flash_prefill_smem_bytes", [ctypes.c_int] * 2,
+                    restype=ctypes.c_long, source="flash_prefill")
+    return int(fn(BODIES[body], dh))
 
 
 def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,
@@ -42,11 +105,15 @@ def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,
     build.check(v, "v", (B, Sk, nkv, dh), f32, dev)
     build.check(q_offsets, "q_offsets", (B,), i32, dev)
     build.check(kv_lens, "kv_lens", (B,), i32, dev)
+    p = plan(B, Sq, Sk, nh, nkv)
+    n_part = B * nkv * p.ranges * p.rows * (dh + 2) if p.body == "decode" else 0
+    part, cnt = build.scratch(dev, "flash_prefill", n_part, B * nkv)
     out = torch.empty((B, Sq, nh, dh), dtype=f32, device=dev)
     fn = build.load("flash_prefill", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offsets.data_ptr(),
-             kv_lens.data_ptr(), out.data_ptr(), B, Sq, Sk, nh, nkv, dh,
-             scale, torch.cuda.current_stream(dev).cuda_stream)
+             kv_lens.data_ptr(), out.data_ptr(), part.data_ptr(), cnt.data_ptr(), B, Sq,
+             Sk, nh, nkv, dh, BODIES[p.body], scale,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_prefill launch failed: CUDA error {err}")
     flash_prefill.launches += 1

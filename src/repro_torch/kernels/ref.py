@@ -317,6 +317,42 @@ def flash_prefill_ref(q, k, v, q_group: int, scale: float, q_offsets,
     return o.reshape(B, Sq, nh, dh)
 
 
+def flash_split_ref(q, k, v, q_group: int, scale: float, q_offsets, kv_lens,
+                    range_keys: int = 128) -> torch.Tensor:
+    """``flash_prefill_ref`` cut as the kernel's decode body cuts it: each
+    range of ``range_keys`` keys gives a partial (m, l, acc) per query row,
+    and the partials merge in ascending order: ``M = max m_i`` over ranges
+    with ``l_i > 0``, ``o = Σ acc_i·e^(m_i−M) / max(Σ l_i·e^(m_i−M), 1e-30)``,
+    a range with ``l_i = 0`` skipped.  Same arguments and result."""
+    B, Sq, nh, dh = q.shape
+    Sk, nkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, nkv, q_group, dh)
+    if Sk == 0:
+        return torch.zeros_like(q)
+    qpos = torch.arange(Sq, device=q.device)[None, :, None]
+    parts = []
+    for start in range(0, Sk, range_keys):
+        kpos = torch.arange(start, min(start + range_keys, Sk), device=q.device)[None, None, :]
+        vis = (kpos <= qpos + q_offsets[:, None, None]) & (kpos < kv_lens[:, None, None])
+        vis = vis[:, None, None]                              # [B,1,1,Sq,n]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k[:, start:start + range_keys]) * scale
+        m = torch.where(vis, s, torch.full_like(s, NEG_INF)).amax(-1)
+        p = torch.where(vis, torch.exp(s - m[..., None]), torch.zeros_like(s))
+        acc = torch.einsum("bhgqk,bkhd->bhgqd", p, v[:, start:start + range_keys])
+        parts.append((m, p.sum(-1), acc))
+    M = torch.full_like(parts[0][0], NEG_INF)
+    for m, l, _ in parts:
+        M = torch.where(l > 0, torch.maximum(M, m), M)
+    lsum = torch.zeros_like(M)
+    o = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.where(l > 0, torch.exp(m - M), torch.zeros_like(m))
+        lsum = lsum + l * w
+        o = o + acc * w[..., None]
+    o = o / torch.clamp(lsum, min=1e-30)[..., None]          # [B,nkv,G,Sq,dh]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, nh, dh)
+
+
 def cos_sin(positions: torch.Tensor, freqs: torch.Tensor):
     """cos/sin tables: positions [...P] (int or float), freqs [...F] →
     cos, sin [...P, ...F] (outer product over the trailing freq axes), the

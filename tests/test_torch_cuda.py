@@ -501,3 +501,122 @@ def test_shared_memory_formula_matches_the_kernel(cuda):
                     args = (window, nh // nkv, heads, 16, r2, dc, shared, q8, stages)
                     assert ed.smem_bytes(*args) == ed.smem_bytes_built(*args), args
 
+
+
+def _lane_walks(dev, nh, nkv, r2, dc, W, seed=11):
+    """One lane (lane 0: 300 rows, its own chain, queries and window) decoded
+    three ways: beside short lanes (table width 19 blocks), beside a lane of
+    600 rows (38 blocks, past the 33 at which a width-sized plan changes at
+    8 lanes), and beside the short lanes with the table padded to 80
+    blocks.  → [argument tuple of each walk, without the pages]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bs, n_blocks = 16, 200
+    f = lambda *s: torch.randn(s, generator=g, device=dev)
+    lead = (8, W) if W else (8,)
+    q_e, q_lat = f(*lead, nh, r2), f(*lead, nh, dc)
+    perm = torch.randperm(n_blocks - 1, generator=g, device=dev).int() + 1
+    walks = []
+    for lengths, mb in (([300, 20, 5, 40, 17, 1, 0, 33], 19),
+                        ([300, 20, 5, 600, 17, 1, 0, 33], 38),
+                        ([300, 20, 5, 40, 17, 1, 0, 33], 80)):
+        bt = torch.zeros((8, mb), dtype=torch.int32, device=dev)
+        used = 0
+        for b, L in enumerate(lengths):
+            n = -(-L // bs)
+            bt[b, :n] = perm[used:used + n]
+            used += n
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        offs = (lens - W).clamp(min=0) if W else None
+        walks.append((q_e, q_lat, bt, offs, lens))
+    pages = (f(n_blocks * bs, nkv, r2), f(n_blocks * bs, dc))
+    return walks, pages, bs
+
+
+@pytest.mark.parametrize("entry", ["elite_decode_paged", "elite_decode_paged_q8",
+                                   "elite_verify_paged"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_lane_decode_bits_do_not_depend_on_other_lanes(width, entry, cuda):
+    """A lane's output is the same bits beside short lanes, beside a
+    600-token lane that widens the table past 33 blocks, and with a wider
+    table: the plan's ranges do not move with the other lanes."""
+    nh, nkv, r2, dc, dh = WIDTHS[width]
+    W = 3 if "verify" in entry else 0
+    walks, (k_e, c), bs = _lane_walks(cuda, nh, nkv, r2, dc, W)
+    pages = [k_e, c, c]
+    if entry.endswith("q8"):
+        (k8, ks), (c8, cs) = quant.quantize_rows(k_e), quant.quantize_rows(c)
+        pages = [k8, c8, c8, ks, cs, cs]
+    outs = []
+    for q_e, q_lat, bt, offs, lens in walks:
+        walk = (bt, offs, lens) if W else (bt, lens)
+        outs.append(getattr(ops, entry)(q_e, q_lat, *pages, *walk, nh // nkv, dh ** -0.5,
+                                        bs)[0])
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def _flash_case(dev, nh, nkv, dh, B, Sq, Sk, seed):
+    """q, k, v and ragged per-lane (q_offsets, kv_lens): a fresh lane, a
+    resumed one, one whose kv_len ends inside the chunk, a kv_len = 0 lane,
+    and (B > 4) lanes of random offsets."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *s: torch.randn(s, generator=g, device=dev)
+    room = Sk - Sq
+    offs = [0, room // 3, room, 0] + [int(x) for x in
+                                      torch.randint(0, room + 1, (B - 4,), generator=g,
+                                                    device=dev)]
+    lens = [Sq, room // 3 + Sq, room + Sq // 2 + 1, 0] + [o + Sq for o in offs[4:]]
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (f(B, Sq, nh, dh), f(B, Sk, nkv, dh), f(B, Sk, nkv, dh), nh // nkv, dh ** -0.5,
+            torch.tensor(offs[:B], **i32), torch.tensor(lens[:B], **i32))
+
+
+@pytest.mark.parametrize("Sq", [1, 2, 8, 100, 256, 1024])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_flash_bodies_match_plain(width, Sq, cuda):
+    """Both bodies of ``flash_prefill`` (the decode body up to 16 query rows
+    per kv head) against the plain version, with ragged offsets and lengths,
+    a kv_len = 0 lane and Sk a multiple of no tile; two calls give the same
+    bits; one launch per call."""
+    from repro_torch.kernels import flash_prefill as fp
+    nh, nkv, _, _, dh = WIDTHS[width]
+    args = _flash_case(cuda, nh, nkv, dh, 5, Sq, Sq + 333, seed=Sq)
+    body = fp.plan_for(*args).body
+    assert body == ("decode" if (nh // nkv) * Sq <= fp.DECODE_ROWS else "prefill")
+    before = ops.launches()["flash_prefill"]
+    got = ops.flash_prefill(*args)
+    again = ops.flash_prefill(*args)
+    want = ref.flash_prefill_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_prefill"] == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, **TOL)
+    assert float(got[3].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_flash_decode_bits_do_not_depend_on_other_lanes(width, cuda):
+    """The decode body gives a lane the same bits whatever the other lanes'
+    kv_len and whatever Sk: its key ranges are fixed."""
+    nh, nkv, _, _, dh = WIDTHS[width]
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, Sk, wide = 4, 700, 1300
+    k = torch.randn(B, wide, nkv, dh, generator=g, device=cuda)
+    v = torch.randn(B, wide, nkv, dh, generator=g, device=cuda)
+    q = torch.randn(B, 1, nh, dh, generator=g, device=cuda)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    outs = []
+    for lens, S in (([513, 20, 5, 90], Sk), ([513, 700, 0, 600], Sk), ([513, 20, 5, 90], wide)):
+        lens = torch.tensor(lens, **i32)
+        outs.append(ops.flash_prefill(q, k[:, :S].contiguous(), v[:, :S].contiguous(),
+                                      nh // nkv, dh ** -0.5, lens - 1, lens)[0])
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def test_flash_shared_memory_formula_matches_the_kernel(cuda):
+    """The host's shared-memory formula is the kernel source's layout."""
+    from repro_torch.kernels import flash_prefill as fp
+    for body in fp.BODIES:
+        for dh in fp.HEAD_DIMS:
+            assert fp.smem_bytes(body, dh) == fp.smem_bytes_built(body, dh), (body, dh)

@@ -51,7 +51,7 @@ def _lengths(span, S):
 def test_split_paged_decode_matches_unsplit(separate, sms):
     nkv, G, r2, dc, bs, mb = 2, 4, 8, 32, 16, 6
     B = 9
-    tps = ed.split_plan(B, 1, mb, sms, 32)[1]
+    tps = ed.split_plan(1, mb, sms, 32)[1]
     x = _pool(0, B, nkv, G, r2, dc, bs, mb, separate)
     lengths = _lengths(tps * bs, mb * bs)
     args = (x["q_e"], x["q_lat"], x["k_e"], x["c_k"], x["c_v"], x["bt"], lengths, G, 0.3, bs)
@@ -194,15 +194,29 @@ def test_plan_is_shared_by_each_identity(width, separate, q8):
     (64, 8, 64, 264, 64), (8, 16, 72, 264, 1024), (2, 1, 1000, 4, 64), (1, 1, 500, 264, 16)])
 def test_split_plan_covers_the_walk(B, groups, n_tiles, ctas, cap):
     """Every tile lies in exactly one split, no split is empty by
-    construction, there are at most ``cap`` splits, and a wide enough walk
-    gives the CTAs asked for, or one split per tile."""
-    splits, tps = ed.split_plan(B, groups, n_tiles, ctas, cap)
+    construction, there are at most ``cap`` splits, and the reference load
+    gets the CTAs asked for, or one split per tile.  Tiles per split do not
+    depend on the batch or on the walk's width up to ``tiles per split ·
+    cap`` tiles, so a lane's ranges are the same whatever the other lanes'
+    lengths: a wider walk only adds trailing ranges."""
+    splits, tps = ed.split_plan(groups, n_tiles, ctas, cap)
     assert splits * tps >= n_tiles > (splits - 1) * tps
     assert splits <= cap
-    if n_tiles >= cap:
-        assert B * groups * splits >= min(ctas, B * groups * cap) // 2
+    base = ed.split_plan(groups, 1, ctas, cap)[1]
+    if n_tiles <= base * cap:
+        assert tps == base
+        for other in (1, n_tiles // 2 + 1, base * cap):
+            assert ed.split_plan(groups, other, ctas, cap)[1] == tps
     else:
-        assert B * groups * splits >= min(ctas, B * groups * n_tiles) // 2
+        assert tps == -(-n_tiles // cap)
+    ref_splits = -(-ed.REF_TILES // base)
+    ref_lanes = ed.REF_LANES * groups
+    assert ref_lanes * ref_splits >= min(ctas, ref_lanes * min(cap, ed.REF_TILES)) // 2
+    # the plan of a call: the same ranges for B lanes and for one
+    one, many = (ed.plan(b, 1, 8, 4, 16, 16, 64, True, False, n_tiles, SMS, LIMIT)
+                 for b in (1, B))
+    assert one.tiles_per_split == many.tiles_per_split
+    assert many.ctas == B * one.ctas
 
 
 def test_plan_sizes_heads_by_shared_memory_and_refuses_one_head():
@@ -213,7 +227,9 @@ def test_plan_sizes_heads_by_shared_memory_and_refuses_one_head():
     assert (tiny.heads, tiny.groups, tiny.stages) == (4, 1, 2)
     assert tiny.ctas >= 2 * SMS * 2 // 3               # two CTAs per SM fit
     verify = ed.plan(8, 5, 8, 4, 16, 16, 64, True, False, 72, SMS, LIMIT)
-    assert verify.heads == 4 and SMS // 2 <= verify.ctas <= SMS   # one per SM fits
+    assert verify.heads == 4 and LIMIT // 2 < verify.smem <= LIMIT   # one per SM fits
+    # ranges are sized by head groups and the card, not by a CTA's rows
+    assert verify.tiles_per_split == tiny.tiles_per_split
     big = ed.plan(8, 1, 1, 32, 16, 32, 1024, True, False, 72, SMS, LIMIT)
     assert 1 <= big.heads < 32 and big.smem <= LIMIT and big.stages == 2
     assert ed.plan(8, 1, 1, 32, 16, 32, 1024, False, False, 72, SMS, LIMIT).stages == 1
