@@ -24,9 +24,15 @@ non-zero:
    contiguous ``elite_decode`` with lengths 0, 1, a partial tile, S and
    past S (S = 1000, not a multiple of the tile, and 1152) must give the
    bits of ``elite_decode_paged`` over the same rows as identity-table
-   pages; ``rope_elite`` with positions [S] and [B, S] up to 4096, 32 and 4
-   heads of 2r = 16, a strided q slice, and the full RoPE at dh = 64 and
-   128, to 2e-6 relative (the count of bitwise-equal outputs is printed).
+   pages; ``rope_elite``'s one-tensor entry with positions [S] and [B, S]
+   up to 4096, 32 and 4 heads of 2r = 16, a strided q slice, and the full
+   RoPE at dh = 64 and 128, and its q-and-k entry (``rope_elite_qk``) with
+   EliteKV's grouping at TinyLlama-1.1B (32/4, 2r = 16) and LLaMA2-7B
+   (32/32, 2r = 32) widths, the full RoPE at dh = 64 and 128, a slice 8
+   bytes into the row (the 8-byte accesses) and B·S = 1, to 2e-6 relative;
+   the share of bitwise-equal outputs is printed beside the earlier
+   one-tensor kernel's (one launch per tensor, one sincos per head) on the
+   same cases and must not be lower.
    ``flash_prefill``'s two bodies at Sq = 1, 2, 8, 100, 256 and 1024 over
    Sk = Sq + 333 keys with ragged offsets and lengths and a kv_len = 0
    lane, two calls giving the same bits.  A lane's bits must not depend on
@@ -48,8 +54,9 @@ non-zero:
       (``elite_decode_sparse_paged_q8``);
    c. 6 requests on the int8 pool, dense (``elite_decode_paged_q8``), and
       6 with f32 sparse decode (``elite_decode_sparse_paged``);
-   Every EliteKV forward also rotates q and k through ``rope_elite``:
-   2 launches per layer and forward (prefill, decode, draft, verify).
+   Every EliteKV forward also rotates q and k together through
+   ``rope_elite``: 1 launch per layer and forward (prefill, decode, draft,
+   verify).
    e. greedy self-speculative decode: 12 requests on the f32 pool, plain,
       then k=4 with the full-rank draft, then k=4 with the draft truncated
       to rank 32; 6 requests on the int8 pool, plain, then k=4 rank 32.
@@ -62,9 +69,9 @@ non-zero:
       must accept >= 99% of its proposals.
    f. lockstep ``generate`` over a contiguous cache, 8 prompts of 1024
       tokens and 128 new tokens each, EliteKV (``elite_decode`` 22 x 127,
-      ``flash_prefill`` 22, ``rope_elite`` 44 x 128, nothing else) and the
+      ``flash_prefill`` 22, ``rope_elite`` 22 x 128, nothing else) and the
       baseline GQA model (``flash_prefill`` 22 x 128, ``rope_elite``
-      44 x 128): tok/s, step ms and the measured cache, which must equal
+      22 x 128): tok/s, step ms and the measured cache, which must equal
       the per-token formula; the EliteKV tokens must equal
       ``generate_paged``'s on the same prompts, apart from near-ties.
    Every kernel is re-run on the busiest inputs recorded from its run and
@@ -83,12 +90,16 @@ non-zero:
    the int8 sparse run's busiest step, the dense kernels over the same
    lanes beside the pool's bytes per token, f32 against int8; and a W = 5
    verify call against the five decode calls that score the same window
-   one token at a time; and the baseline's full-RoPE rotation.
+   one token at a time.  ``rope_elite_qk`` is timed at four recorded
+   inputs, ``generate``'s prefill and decode q and k, EliteKV and baseline
+   (full RoPE), beside two launches of the one-tensor entry on the same
+   inputs, its bound, launches and plain time.
    ``flash_prefill`` is timed at three recorded inputs: the f32 run's
    busiest prefill chunk, ``generate``'s 8 x 1024 prefill and the
    baseline's busiest decode call (one query row per lane), each beside
    its bound, launches, plain time and SDPA's time.  The inputs of this
-   phase's decode, verify and ``flash_prefill`` calls are saved to
+   phase's decode, verify, ``flash_prefill`` and ``rope_elite_qk`` calls
+   are saved to
    ``build/phase4_inputs.pt``, where ``kernel_turns.py`` times other trees'
    entry points on them.
 
@@ -132,6 +143,13 @@ EARLIER_MS = {"elite_decode": 0.494, "elite_decode_paged": 0.341,
               "elite_decode_paged_q8": 0.342, "elite_decode_sparse_paged": 0.050,
               "elite_decode_sparse_paged_q8": 0.056, "elite_verify_paged": 0.771,
               "elite_verify_paged_q8": 0.895}
+# rope_elite's bitwise-equal share against its plain version with the
+# earlier one-tensor kernel (one launch per tensor, one sincos per head; two
+# launches for a pair): 100% on every phase 2 case and recorded input
+# (kernel_turns.py on that kernel's tree, H100 80GB HBM3, 700 W; PERF.md)
+ROPE_EARLIER_SAME = 1.0
+# the dispatch entry a kernel's main-path calls go through, where the names differ
+ENTRY = {"rope_elite": "rope_elite_qk"}
 TPU_LINES = {"elite_decode": "src/repro/kernels/elite_decode.py:89",
              "rope_elite": "src/repro/kernels/rope_elite.py:35",
              "elite_decode_paged": "src/repro/kernels/elite_decode.py:193",
@@ -280,15 +298,29 @@ def contig_decode_cost(a):
 
 
 def rope_cost(a):
-    """(bytes, flops) of ``rope_elite`` on (x, positions, freqs): x read and
-    the output written once, the positions and the freq rows once; per
-    pair 9 flops (the angle, 4 products, a sum and a difference, one sincos
+    """(bytes, flops) of ``rope_elite_qk`` on (q, k, positions, freqs,
+    q_per_row, k_per_row): q and k read and their outputs written once, the
+    positions and the freq rows once; 6 flops per rotated pair (4 products,
+    a sum and a difference) and 3 per distinct angle (the angle, one sincos
     counted as two)."""
-    x, pos, freqs = a
-    pairs = x.numel() // 2
-    f_rows = freqs.shape[0] if freqs.stride(0) else 1
-    return 8 * x.numel() + pos.numel() * pos.element_size() + 4 * f_rows * freqs.shape[1], \
-        9 * pairs
+    q, k, pos, freqs = a[:4]
+    tokens = q.shape[0] * q.shape[1]
+    return (8 * (q.numel() + k.numel()) + pos.numel() * pos.element_size()
+            + 4 * freqs.numel(), 3 * (q.numel() + k.numel()) + 3 * tokens * freqs.numel())
+
+
+def rope_two_launches(a, plain=False):
+    """q and k rotated as the callers did before the q-and-k entry, by two
+    launches of the one-tensor entry (or its plain version), each frequency
+    row repeated for the heads that read it (broadcast, head stride 0, for
+    one row)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rope_elite as re_k
+    q, k, pos, freqs = a[:4]
+    rows = lambda heads: (freqs.expand(heads, -1) if freqs.shape[0] == 1
+                          else freqs.repeat_interleave(heads // freqs.shape[0], 0))
+    fn = ref.rope_elite_ref if plain else re_k.rope_elite
+    return fn(q, pos, rows(q.shape[2])), fn(k, pos, rows(k.shape[2]))
 
 
 def prefill_cost(x):
@@ -451,13 +483,68 @@ def rope_cases(dev, seed):
     return out
 
 
+# rope_elite_qk's cases: (query heads, key heads, frequency rows, 2r,
+# projection width, slice start): EliteKV at TinyLlama-1.1B and LLaMA2-7B
+# widths, the full RoPE at dh 64 and 128, and a slice 8 bytes into the row
+ROPE_PAIR_CASES = {"EliteKV 32/4 2r=16": (32, 4, 4, 16, 64, 0),
+                   "EliteKV 32/32 2r=32": (32, 32, 32, 32, 128, 0),
+                   "full dh=64 32/4": (32, 4, 1, 64, 64, 0),
+                   "full dh=128 32/32": (32, 32, 1, 128, 128, 0),
+                   "slice at 8 B 32/4 2r=16": (32, 4, 4, 16, 64, 2)}
+
+
+def rope_pair_cases(dev, seed):
+    """{label: (q, k, positions, freqs, q_per_row, k_per_row)}: each of
+    ROPE_PAIR_CASES at B, S = 4, 1000 with positions [S] int64 and [B, S]
+    int32 up to 4096, and at B = S = 1; elite frequency rows with chunk 0
+    at 1.0, the full RoPE's one ``chunk_freqs`` row."""
+    import torch
+    from repro_torch.core import rope
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for label, (Hq, Hk, rows, r2, wide, start) in ROPE_PAIR_CASES.items():
+        if rows == 1:
+            freqs = rope.chunk_freqs(r2, 10000.0, device=dev)[None]
+        else:
+            freqs = torch.exp(-4 * torch.rand(rows, r2 // 2, generator=g, device=dev))
+            freqs[:, 0] = 1.0
+        for B, S, per_lane in ((4, 1000, False), (4, 1000, True), (1, 1, False)):
+            q = torch.randn(B, S, Hq, wide + start, generator=g, device=dev)[
+                ..., start:start + r2]
+            k = torch.randn(B, S, Hk, r2, generator=g, device=dev)
+            pos = torch.randint(0, 4097, (B, S) if per_lane else (S,), generator=g,
+                                device=dev)
+            tag = "B=S=1" if B * S == 1 else "pos [B,S]" if per_lane else "pos [S]"
+            out[f"{label} {tag}"] = (q, k, pos.int() if per_lane else pos, freqs,
+                                     Hq // rows, Hk // rows)
+    return out
+
+
 def rope_err(got, want):
     """(max abs error, elements outside atol + rtol·|want|, bitwise-equal share)."""
     import torch
     torch.cuda.synchronize()
+    if isinstance(got, tuple):               # (q, k) of the pair entry
+        got, want = (torch.cat([t.flatten() for t in x]) for x in (got, want))
     d = (got - want).abs()
     bad = int((d > ROPE_ATOL + ROPE_RTOL * want.abs()).sum())
     return float(d.max()), bad, float((got == want).float().mean())
+
+
+def rope_check(label: str, got, want, card: str) -> float:
+    """Print a rotation's error and bitwise-equal share beside the earlier
+    kernel's (``ROPE_EARLIER_SAME``); raise on an element past the
+    tolerance or a share below the earlier kernel's.  → max abs error."""
+    e, bad, same = rope_err(got, want)
+    print(f"[{card}] parity {label}: max_abs_err={e:.3e}, {bad} outside "
+          f"{ROPE_ATOL:.0e} + {ROPE_RTOL:.0e}·|plain|, bitwise equal {100 * same:.2f}% "
+          f"(earlier one-tensor kernel: {100 * ROPE_EARLIER_SAME:.2f}%)", flush=True)
+    if bad:
+        raise AssertionError(f"{label}: {bad} elements past the tolerance")
+    if same < ROPE_EARLIER_SAME:
+        raise AssertionError(f"{label}: bitwise-equal share {same} below the earlier "
+                             f"kernel's {ROPE_EARLIER_SAME}")
+    return e
 
 
 def random_prefill(dev, nh, nkv, dh, seed):
@@ -667,12 +754,12 @@ def path_kernels(scfg, rep, n_layers: int):
     """{kernel: launches} a run with this config must have made: its decode
     kernel once per layer and decode forward (per draft forward, and the
     verify kernel per verify forward, when speculating), ``flash_prefill``
-    once per layer and prefill forward, ``rope_elite`` twice per layer and
-    forward of any kind (q and k)."""
+    once per layer and prefill forward, ``rope_elite`` once per layer and
+    forward of any kind (q and k together)."""
     q8 = "_q8" if scfg.cache_dtype == "int8" else ""
     sparse = "sparse_" if scfg.sparse_topk_blocks else ""
     want = {"flash_prefill": rep.prefill_chunks,
-            "rope_elite": 2 * (rep.prefill_chunks + rep.decode_steps + rep.draft_forwards)}
+            "rope_elite": rep.prefill_chunks + rep.decode_steps + rep.draft_forwards}
     if scfg.speculate_k:
         want["elite_verify_paged" + q8] = rep.decode_steps
         want["elite_decode_paged" + q8] = rep.draft_forwards
@@ -781,13 +868,14 @@ def generate_run(label, params, buffers, cfg, prompts, new_tokens: int, want, ca
     """Lockstep ``generate`` with the counts set to 0 just before and read
     just after; the launches must be exactly ``want``.  Prints tok/s, step
     ms and the measured cache, which must equal the per-token formula.
-    → (tokens, stats, wall_s, recorder, launches)."""
+    The recorder keeps each kernel's dispatch calls, ``rope_elite``'s as
+    ``rope_elite_qk``.  → (tokens, stats, wall_s, recorder, launches)."""
     import numpy as np
     import torch
     from repro_torch.core.cache import model_cache_floats_per_token
     from repro_torch.kernels import ops
     from repro_torch.runtime import serve_loop
-    rec = Recorder(cfg.num_layers, names=tuple(want))
+    rec = Recorder(cfg.num_layers, names=tuple(ENTRY.get(k, k) for k in want))
     dev = params["embed"]["table"].device
     ops.reset_launches()
     try:
@@ -979,14 +1067,13 @@ def main() -> int:
             if not torch.equal(got, run_prefill(x)):
                 raise AssertionError(f"flash_prefill {label}: two calls differ")
         lane_invariance(dev, card, wname, nh, nkv, r2, dc, dh)
-    for label, a in rope_cases(dev, seed=40).items():
-        e, bad, same = rope_err(re_k.rope_elite(*a), ref.rope_elite_ref(*a))
-        print(f"[{card}] parity rope_elite {label}: max_abs_err={e:.3e}, {bad} outside "
-              f"{ROPE_ATOL:.0e} + {ROPE_RTOL:.0e}·|plain|, bitwise equal {100 * same:.2f}%",
-              flush=True)
-        if bad:
-            raise AssertionError(f"rope_elite {label}: {bad} elements past the tolerance")
-        errs["rope_elite"] = max(errs["rope_elite"], e)
+    for entry, cases, kernel, plain in (
+            ("rope_elite", rope_cases(dev, seed=40), re_k.rope_elite, ref.rope_elite_ref),
+            ("rope_elite_qk", rope_pair_cases(dev, seed=41), re_k.rope_elite_qk,
+             ref.rope_elite_qk_ref)):
+        for label, a in cases.items():
+            errs["rope_elite"] = max(errs["rope_elite"], rope_check(
+                f"{entry} {label}", kernel(*a), plain(*a), card))
 
     # -- 3. the main paths at full width ------------------------------------
     cfg = build_config("tinyllama_1_1b", reduced=False, cache_ratio=0.25)
@@ -1056,7 +1143,7 @@ def main() -> int:
     gen = {}
     out, gstats, gwall, grec, glaunches = generate_run(
         "generate EliteKV", params, buffers, cfg, prompts, N_GEN,
-        {"elite_decode": L * (N_GEN - 1), "flash_prefill": L, "rope_elite": 2 * L * N_GEN},
+        {"elite_decode": L * (N_GEN - 1), "flash_prefill": L, "rope_elite": L * N_GEN},
         card)
     gen["EliteKV"] = gstats, gwall
     paged, _ = serve_loop.generate_paged(params, buffers, cfg, prompts, N_GEN, device=dev)
@@ -1067,7 +1154,7 @@ def main() -> int:
     bparams, bbuffers = lm.init(bcfg, seed=0, device=dev)
     _, bstats, bwall, brec, _ = generate_run(
         "generate baseline GQA", bparams, bbuffers, bcfg, prompts, N_GEN,
-        {"flash_prefill": L * N_GEN, "rope_elite": 2 * L * N_GEN}, card)
+        {"flash_prefill": L * N_GEN, "rope_elite": L * N_GEN}, card)
     gen["baseline GQA"] = bstats, bwall
     del bparams, bbuffers
     print(f"[{card}] measured cache: EliteKV {gstats.cache_bytes} B vs baseline "
@@ -1098,15 +1185,18 @@ def main() -> int:
         raise AssertionError("elite_decode: two calls on the same inputs differ")
     print(f"[{card}] every decode and verify entry: two calls on its busiest main-path "
           f"inputs give identical bits", flush=True)
-    busiest["rope_elite"] = max(grec.calls["rope_elite"], key=lambda a: a[0].numel()), 0
-    a = busiest["rope_elite"][0]
-    e, bad, same = rope_err(re_k.rope_elite(*a), ref.rope_elite_ref(*a))
-    print(f"[{card}] parity rope_elite on the generate run's prefill q "
-          f"{tuple(a[0].shape)}: max_abs_err={e:.3e}, {bad} outside the tolerance, "
-          f"bitwise equal {100 * same:.2f}%", flush=True)
-    if bad:
-        raise AssertionError("rope_elite on the generate run's prefill q")
-    errs["rope_elite"] = max(errs["rope_elite"], e)
+    # rope_elite_qk at four recorded inputs: generate's prefill and one
+    # decode step, EliteKV and baseline (the full RoPE)
+    rope_x = {}
+    for model, r in (("EliteKV", grec), ("baseline", brec)):
+        calls = r.calls["rope_elite_qk"]
+        rope_x[f"{model} prefill"] = max(calls, key=lambda a: a[0].numel())
+        rope_x[f"{model} decode"] = calls[-1]
+    for label, a in rope_x.items():
+        errs["rope_elite"] = max(errs["rope_elite"], rope_check(
+            f"rope_elite_qk on the generate run's {label} q {tuple(a[0].shape)} "
+            f"k {tuple(a[1].shape)}", re_k.rope_elite_qk(*a), ref.rope_elite_qk_ref(*a),
+            card))
     # flash_prefill at its three main-path inputs: the f32 run's busiest
     # prefill chunk, generate's 8 x 1024 prefill, the baseline's busiest decode
     as_x = lambda a: dict(q=a[0], k=a[1], v=a[2], G=a[3], scale=a[4], offs=a[5], lens=a[6])
@@ -1130,8 +1220,13 @@ def main() -> int:
     saved.update({f"flash_prefill {label}": ("flash_prefill", (
         x["q"], x["k"], x["v"], x["G"], x["scale"], x["offs"], x["lens"]))
         for label, x in flash_x.items()})
+    saved.update({f"rope_elite_qk {label}": ("rope_elite_qk", a)
+                  for label, a in rope_x.items()})
+    # copies with the recorded strides (the q_e slice stays a strided view)
+    keep = lambda t: torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                         device=t.device).copy_(t)
     PHASE4_INPUTS.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({k: (n, tuple(t.clone() if torch.is_tensor(t) else t for t in a))
+    torch.save({k: (n, tuple(keep(t) if torch.is_tensor(t) else t for t in a))
                 for k, (n, a) in saved.items()}, PHASE4_INPUTS)
 
     # a one-shot run on a tight pool must preempt and still finish everything
@@ -1272,32 +1367,32 @@ def main() -> int:
           f"({int(lens.clamp(max=S).sum())} rows) nh={q_e.shape[1]} nkv={nkv} "
           f"2r={k_e.shape[-1]} d_c={dc}; bound: {e_bytes} B / 3.35 TB/s vs {e_flops} "
           f"flop / 67 TFLOP/s; {plan_line(ed.plan_for('elite_decode', a, sms, limit))}", flush=True)
-    a = busiest["rope_elite"][0]
-    r_bytes, r_flops = rope_cost(a)
-    r_bound, r_by = bound(r_bytes, r_flops)
-    rows.append(dict(
-        name="rope_elite", route="cuda", source="src/repro_torch/kernels/csrc/rope_elite.cu",
-        replaces=TPU_LINES["rope_elite"], launches=glaunches["rope_elite"],
-        max_abs_err=errs["rope_elite"],
-        ms=time_ms(lambda: re_k.rope_elite(*a), flush=flush),
-        plain_ms=time_ms(lambda: ref.rope_elite_ref(*a), flush=flush),
-        bound_ms=r_bound, bound_by=r_by, library_ms=None))
-    # the decode-shaped q rotation (one token per lane), as the prefill row
-    small_rope = max((c for c in grec.calls["rope_elite"] if c[0].shape[1] == 1),
-                     key=lambda a: a[0].numel())
-    print(f"[{card}] rope_elite shapes: x={tuple(a[0].shape)} stride={a[0].stride()} "
-          f"positions {tuple(a[1].shape)} {a[1].dtype}; bound: {r_bytes} B vs {r_flops} "
-          f"flop; launches at prefill shapes {2 * L} (q and k), at decode shapes "
-          f"{2 * L * (N_GEN - 1)}; at decode x={tuple(small_rope[0].shape)}: "
-          f"{time_ms(lambda: re_k.rope_elite(*small_rope), flush=flush):.4f} ms, plain "
-          f"{time_ms(lambda: ref.rope_elite_ref(*small_rope), flush=flush):.4f} ms, bound "
-          f"{bound(*rope_cost(small_rope))[0]:.6f} ms", flush=True)
-    # the baseline's full-RoPE rotation of the prefill q
-    a = max(brec.calls["rope_elite"], key=lambda a: a[0].numel())
-    print(f"[{card}] baseline full RoPE x={tuple(a[0].shape)}: rope_elite "
-          f"{time_ms(lambda: re_k.rope_elite(*a), flush=flush):.4f} ms, plain "
-          f"{time_ms(lambda: ref.rope_elite_ref(*a), flush=flush):.4f} ms, bound "
-          f"{bound(*rope_cost(a))[0]:.4f} ms", flush=True)
+    # rope_elite_qk at its four recorded inputs, beside two launches of the
+    # one-tensor entry (the callers before the q-and-k entry); the JSON row
+    # is the EliteKV prefill's
+    rope_launches = {"prefill": L, "decode": L * (N_GEN - 1)}
+    for label, a in rope_x.items():
+        r_bytes, r_flops = rope_cost(a)
+        r_bound, r_by = bound(r_bytes, r_flops)
+        r = dict(name="rope_elite", route="cuda",
+                 source="src/repro_torch/kernels/csrc/rope_elite.cu",
+                 replaces=TPU_LINES["rope_elite"], launches=glaunches["rope_elite"],
+                 max_abs_err=errs["rope_elite"],
+                 ms=time_ms(lambda: re_k.rope_elite_qk(*a), flush=flush),
+                 plain_ms=time_ms(lambda: ref.rope_elite_qk_ref(*a), flush=flush),
+                 bound_ms=r_bound, bound_by=r_by, library_ms=None)
+        if label == "EliteKV prefill":
+            rows.append(r)
+        q, k, pos = a[:3]
+        print(f"[{card}] rope_elite_qk {label}: q={tuple(q.shape)} stride={q.stride()} "
+              f"k={tuple(k.shape)} positions {tuple(pos.shape)} {pos.dtype} "
+              f"{re_k.plan_for(*a)}: "
+              f"kernel {r['ms']:.4f} ms, two one-tensor launches with the rows "
+              f"expanded per call (the callers before the q-and-k entry) "
+              f"{time_ms(lambda: rope_two_launches(a), flush=flush):.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r_bound:.6f} ms ({r_by}: {r_bytes} B, "
+              f"{r_flops} flop), {100 * r_bound / r['ms']:.1f}% of the bound; launches "
+              f"{rope_launches[label.split()[1]]} per generate run", flush=True)
     by = {r["name"]: r for r in rows}
     dec = by["elite_decode"]
     print(f"[{card}] target elite_decode faster than SDPA: {dec['ms']:.4f} vs "

@@ -12,16 +12,26 @@ that tree's ``repro_torch``, builds its kernels into the tree's own
 (``kernels.ops.LAUNCHERS``) on every input:
 
 * the busiest decode, verify and ``flash_prefill`` calls that
-  ``chip_smoke.py`` phase 4 recorded from its main-path runs;
+  ``chip_smoke.py`` phase 4 recorded from its main-path runs, and its four
+  recorded rotations of a layer's q and k (``generate``'s prefill and
+  decode, EliteKV and baseline);
 * a verify call of 8 lanes over a full 72-tile walk (TinyLlama-1.1B widths,
-  f32, 5-token windows ending at 1,152 - b), made from a seed.
+  f32, 5-token windows ending at 1,152 - b), made from a seed;
+* ``chip_smoke.py`` phase 2's rotation cases (``rope_cases`` through the
+  one-tensor entry, ``rope_pair_cases`` through q and k), made from its
+  seeds.
 
-A time is ``chip_smoke.time_ms``: CUDA events, the launch queued ahead, the
-L2 flushed before every launch.  Every output is checked against the tree's
-plain version within ``chip_smoke.TOL``, and every wrapper's launch count
-must rise by one per call.  Prints one line per input with each turn's time
-in ms, then the card's name and power limit.  Exits non-zero, having
-printed no times, if a turn fails.
+q and k rotate through the tree's ``ops.rope_elite_qk`` where it has one
+(one launch), else as two calls of ``ops.rope_elite`` with the frequency
+rows repeated for the heads (two launches: the trees before the pair
+entry).  A time is ``chip_smoke.time_ms``: CUDA events, the launch queued
+ahead, the L2 flushed before every launch.  Every output is checked
+against the tree's plain version, within ``chip_smoke.TOL`` (a rotation:
+``chip_smoke.rope_err``'s tolerance, with its bitwise-equal share
+printed), and every launch count must rise by the launches of one call.
+Prints one line per input with each turn's time in ms, then the card's
+name and power limit.  Exits non-zero, having printed no times, if a turn
+fails.
 """
 from __future__ import annotations
 
@@ -51,6 +61,14 @@ def full_walk_verify(dev, W: int = 5, mb: int = 72, bs: int = 16, seed: int = 7)
             lens - W, lens, nh // nkv, dh ** -0.5, bs)
 
 
+def rotation(ops, ref, a):
+    """(kernel call, plain call, launches per call) rotating q and k of
+    ``a`` = (q, k, positions, freqs, q_per_row, k_per_row) on this tree."""
+    if hasattr(ops, "rope_elite_qk"):
+        return lambda: ops.rope_elite_qk(*a), lambda: ref.rope_elite_qk_ref(*a), 1
+    return lambda: cs.rope_two_launches(a), lambda: cs.rope_two_launches(a, plain=True), 2
+
+
 def one_turn(tree: str) -> int:
     """Time ``tree``'s wrappers on every input; prints one JSON line
     {label: {"ms": t, "err": e}}."""
@@ -64,9 +82,27 @@ def one_turn(tree: str) -> int:
     calls = torch.load(cs.PHASE4_INPUTS, map_location=dev)
     calls["elite_verify_paged full 72-tile walk"] = ("elite_verify_paged",
                                                      full_walk_verify(dev))
+    calls.update({f"rope_elite case {k}": ("rope_elite", a)
+                  for k, a in cs.rope_cases(dev, seed=40).items()})
+    calls.update({f"rope_elite_qk case {k}": ("rope_elite_qk", a)
+                  for k, a in cs.rope_pair_cases(dev, seed=41).items()})
     flush = torch.empty(64 * 2**20 // 4, device=dev).zero_      # > the 50 MB L2
     out = {}
     for label, (name, a) in calls.items():
+        if name.startswith("rope_elite"):
+            if name == "rope_elite":
+                fn, plain, n = (lambda: ops.rope_elite(*a)), (lambda: ref.rope_elite_ref(*a)), 1
+            else:
+                fn, plain, n = rotation(ops, ref, a)
+            before = ops.launches()["rope_elite"]
+            got = fn()
+            if ops.launches()["rope_elite"] != before + n:
+                raise AssertionError(f"{tree} {label}: {n} launches not counted")
+            err, bad, same = cs.rope_err(got, plain())
+            if bad:
+                raise AssertionError(f"{tree} {label}: {bad} elements past the tolerance")
+            out[label] = dict(ms=cs.time_ms(fn, flush=flush), err=err, same=same)
+            continue
         fn = ops.LAUNCHERS[name]
         before = fn.launches
         got = fn(*a)
@@ -104,7 +140,9 @@ def main() -> int:
         print(f"[{card}] {label}: " + "; ".join(
             f"{tree} {res[label]['ms']:.4f}" for tree, res in turns)
             + " ms; max abs err " + ", ".join(
-            f"{tree} {res[label]['err']:.2e}" for tree, res in turns[:len(args.trees)]),
+            f"{tree} {res[label]['err']:.2e}" for tree, res in turns[:len(args.trees)])
+            + "".join(f", bitwise equal {tree} {100 * res[label]['same']:.2f}%"
+                      for tree, res in turns[:len(args.trees)] if "same" in res[label]),
             flush=True)
     print(card)
     return 0

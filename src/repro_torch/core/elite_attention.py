@@ -50,8 +50,9 @@ f32 only, written in place at rows ``[0, S)`` by prefill and at row
 prefill attends its own K/V through ``flash_prefill`` with offset 0, and
 decode is the absorbed path through the ``elite_decode`` kernel with
 ``lengths = index + 1`` (the reference's ``use_kernel=False`` einsum branch
-is that kernel's plain version, ``ref.elite_decode_ref``).  Every rotation,
-on every path, is the ``rope_elite`` kernel (``core/rope.py``).
+is that kernel's plain version, ``ref.elite_decode_ref``).  Every forward
+of every path projects q_e and k_e first and rotates them together in one
+``rope_elite`` launch per layer (``_project``, ``core/rope.py``).
 
 Prefill routing differs from the reference, which attends through XLA
 (``_attend`` for fresh chunks, ``_attend_resumed`` over a gathered prefix):
@@ -112,16 +113,18 @@ def init(cfg, generator: torch.Generator, device) -> Tuple[Dict, Dict]:
 # shared pieces
 # ---------------------------------------------------------------------------
 
-def _project_q(params, cfg, x):
-    """Unrotated q_e [B,S,nh,2r] and linear q_ne [B,S,nh,d_nope]."""
+def _project(params, cfg, buffers, x, positions):
+    """Rotated elite queries q_e [B,S,nh,2r], linear q_ne [B,S,nh,d_nope],
+    rotated k_e [B,S,nkv,2r] and the latents c_k, c_v [B,S,dc] of x [B,S,d]
+    at ``positions``: q_e and k_e rotate in one call, query head h with kv
+    head ``h // q_group``'s elite frequencies."""
+    dt = x.dtype
     r2 = 2 * cfg.elitekv.elite_r
-    q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(x.dtype))
-    return q[..., :r2], q[..., r2:]
-
-
-def _rot_q(cfg, buffers, q_e, positions):
-    ef_q = rope_lib.expand_kv_to_q(buffers["elite_freqs"], cfg.q_group)  # [nh, r]
-    return rope_lib.apply_elite_rope(q_e, positions, ef_q)
+    q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(dt))
+    k_e = torch.einsum("bsd,dhe->bshe", x, params["wk_e"].to(dt))
+    q_e, k_e = ops.rope_elite_qk(q[..., :r2], k_e, positions, buffers["elite_freqs"],
+                                 cfg.q_group, 1)
+    return q_e, q[..., r2:], k_e, *_latents(params, cfg, x)
 
 
 def _latents(params, cfg, x):
@@ -136,9 +139,8 @@ def _latents(params, cfg, x):
 def _streams(params, cfg, buffers, x, positions):
     """Rotated queries q [B,S,nh,dh] and the compressed streams the pool
     stores: k_e [B,S,nkv,2r], c_k, c_v [B,S,dc] (one tensor under J-LRD)."""
-    q_e, q_ne = _project_q(params, cfg, x)
-    q_e = _rot_q(cfg, buffers, q_e, positions)
-    return (torch.cat([q_e, q_ne], dim=-1), *_new_streams(params, cfg, buffers, x, positions))
+    q_e, q_ne, *streams = _project(params, cfg, buffers, x, positions)
+    return (torch.cat([q_e, q_ne], dim=-1), *streams)
 
 
 def _up_project(params, k_e, c_k, c_v, dt):
@@ -147,14 +149,6 @@ def _up_project(params, k_e, c_k, c_v, dt):
     k_ne = torch.einsum("bsc,che->bshe", c_k, params["bk"].to(dt))
     v = torch.einsum("bsc,che->bshe", c_v, params["bv"].to(dt))
     return torch.cat([k_e, k_ne], dim=-1), v.contiguous()
-
-
-def _new_streams(params, cfg, buffers, x, pos):
-    """The compressed streams a cache stores for x [B,S,d] at positions
-    ``pos``: rotated k_e [B,S,nkv,2r] and the latents c_k, c_v [B,S,dc]."""
-    k_e = torch.einsum("bsd,dhe->bshe", x, params["wk_e"].to(x.dtype))
-    k_e = rope_lib.apply_elite_rope(k_e, pos, buffers["elite_freqs"])
-    return (k_e, *_latents(params, cfg, x))
 
 
 # ---------------------------------------------------------------------------
@@ -227,8 +221,8 @@ def apply_decode(params, cfg, buffers, x, index: int, cache) -> torch.Tensor:
     B = x.shape[0]
     nh = cfg.n_heads
     pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
-    q_e, q_lat = _absorbed_query(params, cfg, buffers, x, pos)
-    k_e, c_k, c_v = _new_streams(params, cfg, buffers, x, pos)
+    q_e, q_ne, k_e, c_k, c_v = _project(params, cfg, buffers, x, pos)
+    q_lat = _absorbed_query(params, cfg, q_ne, dt)
     _write_cache(cache, index, k_e[:, 0], c_k[:, 0], c_v[:, 0])
     C_k, C_v = _cache_latents(cache)
     o = ops.elite_decode(q_e.reshape(B, nh, -1).contiguous(),
@@ -376,8 +370,7 @@ def apply_prefill_paged(params, cfg, buffers, x, positions, pages, writes: Write
     dt = x.dtype
     B, S = x.shape[:2]
     q, k_e, c_k, c_v = _streams(params, cfg, buffers, x, positions)
-    _scatter_pages(pages, k_e.reshape(B * S, *k_e.shape[2:]),
-                   c_k.reshape(B * S, -1), c_v.reshape(B * S, -1), writes)
+    _scatter_new(pages, k_e, c_k, c_v, writes)
     scale = cfg.head_dim ** -0.5
     if block_tables is None:
         if "k_e_scale" in pages:
@@ -397,21 +390,17 @@ def apply_prefill_paged(params, cfg, buffers, x, positions, pages, writes: Write
     return torch.einsum("bshe,hed->bsd", o, params["wo"].to(dt))
 
 
-def _absorbed_query(params, cfg, buffers, x, pos):
-    """Rotated elite queries q_e [B,S,nh,2r] and the bk-absorbed latent
-    queries q_lat [B,S,nh,dc] of x [B,S,d] at positions ``pos`` [B,S]."""
-    dt = x.dtype
-    q_e, q_ne = _project_q(params, cfg, x)
-    q_e = _rot_q(cfg, buffers, q_e, pos)
+def _absorbed_query(params, cfg, q_ne, dt):
+    """The bk-absorbed latent queries q_lat [B,S,nh,dc] of the linear
+    queries q_ne [B,S,nh,d_nope]."""
     bk_q = rope_lib.expand_kv_to_q(params["bk"].permute(1, 0, 2), cfg.q_group)  # [nh,dc,dn]
-    return q_e, torch.einsum("bshn,hcn->bshc", q_ne, bk_q.to(dt))
+    return torch.einsum("bshn,hcn->bshc", q_ne, bk_q.to(dt))
 
 
-def _scatter_new(params, cfg, buffers, x, pos, pages, writes: Writes) -> None:
-    """Write the compressed streams of x [B,S,d] at positions ``pos``
-    [B,S] into the pool, row ``b·S + s`` to its slot in ``writes``."""
-    B, S = x.shape[:2]
-    k_e, c_k, c_v = _new_streams(params, cfg, buffers, x, pos)
+def _scatter_new(pages, k_e, c_k, c_v, writes: Writes) -> None:
+    """Write the compressed streams k_e [B,S,nkv,2r], c_k, c_v [B,S,dc]
+    into the pool, row ``b·S + s`` to its slot in ``writes``."""
+    B, S = k_e.shape[:2]
     _scatter_pages(pages, k_e.reshape(B * S, *k_e.shape[2:]),
                    c_k.reshape(B * S, -1), c_v.reshape(B * S, -1), writes)
 
@@ -441,8 +430,9 @@ def apply_decode_paged(params, cfg, buffers, x, pages, writes: Writes,
     B = x.shape[0]
     nh, dh, G = cfg.n_heads, cfg.head_dim, cfg.q_group
     pos = (lengths - 1)[:, None]                             # [B,1] per lane
-    q_e, q_lat = _absorbed_query(params, cfg, buffers, x, pos)
-    _scatter_new(params, cfg, buffers, x, pos, pages, writes)
+    q_e, q_ne, *streams = _project(params, cfg, buffers, x, pos)
+    q_lat = _absorbed_query(params, cfg, q_ne, dt)
+    _scatter_new(pages, *streams, writes)
 
     C_k, C_v = _page_latents(pages)
     scales = _page_scales(pages) or ()
@@ -487,8 +477,9 @@ def apply_verify_paged(params, cfg, buffers, x, pages, writes: Writes,
     B, W = x.shape[:2]
     nh, dh, G = cfg.n_heads, cfg.head_dim, cfg.q_group
     pos = q_offsets[:, None] + torch.arange(W, device=x.device)[None, :]   # [B,W]
-    q_e, q_lat = _absorbed_query(params, cfg, buffers, x, pos)
-    _scatter_new(params, cfg, buffers, x, pos, pages, writes)
+    q_e, q_ne, *streams = _project(params, cfg, buffers, x, pos)
+    q_lat = _absorbed_query(params, cfg, q_ne, dt)
+    _scatter_new(pages, *streams, writes)
 
     C_k, C_v = _page_latents(pages)
     scales = _page_scales(pages) or ()

@@ -11,9 +11,11 @@ Conventions (same as the JAX package):
 
 Angles are computed in f32.  Both rotations are one function, the
 ``rope_elite`` kernel's: the full RoPE is the elite rotation with
-``chunk_freqs`` broadcast over the heads.  ``kernels.ops.rope_elite``
-launches the kernel for a CUDA tensor and runs the plain math
-(``kernels/ref.py``: ``cos_sin``, ``rotate``) for a CPU one.
+``chunk_freqs`` shared by all heads.  A layer rotates its q and k in one
+call (``apply_rope_qk``; EliteKV's attention calls
+``kernels.ops.rope_elite_qk`` itself), which launches the kernel for a CUDA
+tensor and runs the plain math (``kernels/ref.py``: ``cos_sin``,
+``rotate``) for a CPU one.
 """
 from __future__ import annotations
 
@@ -43,6 +45,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     H, D = x.shape[-2:]
     f = _full_freqs(D, float(theta), x.device)
     return ops.rope_elite(x, positions, f.expand(H, D // 2))
+
+
+def apply_rope_qk(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+                  theta: float):
+    """Full RoPE of a layer's q [B,S,nh,D] and k [B,S,nkv,D] in one call;
+    positions [B,S] or [S].  → (q_rot, k_rot), contiguous."""
+    D = q.shape[-1]
+    f = _full_freqs(D, float(theta), q.device)[None]              # [1, D/2]
+    return ops.rope_elite_qk(q, k, positions, f, q.shape[-2], k.shape[-2])
 
 
 def apply_elite_rope(x: torch.Tensor, positions: torch.Tensor,

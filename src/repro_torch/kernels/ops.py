@@ -1,12 +1,15 @@
 """Dispatch for the attention and rotary kernels, with their launch counts.
 
-A call whose query (``x`` for ``rope_elite``) lies on a CUDA device
-launches the hand-written kernel (which raises on anything it does not
-take); a call on the CPU runs the plain PyTorch version.  Nothing falls
-back from one to the other.  Each launcher counts its launches in a plain
-integer attribute (``elite_decode.elite_decode_paged.launches``, ...),
-which ``launches()`` reads.  ``select_topk_blocks`` is no kernel: it runs the plain torch
-selection on either device, as the reference runs it in plain jnp.
+A call whose query (``x`` for ``rope_elite``, ``q`` for ``rope_elite_qk``)
+lies on a CUDA device launches the hand-written kernel (which raises on
+anything it does not take); a call on the CPU runs the plain PyTorch
+version.  Nothing falls back from one to the other.  Each launcher counts
+its launches in a plain integer attribute
+(``elite_decode.elite_decode_paged.launches``, ...), which ``launches()``
+reads; both rotary entries launch one body and count in
+``rope_elite.launches``.  ``select_topk_blocks`` is no kernel: it runs the
+plain torch selection on either device, as the reference runs it in plain
+jnp.
 """
 from __future__ import annotations
 
@@ -117,3 +120,9 @@ def rope_elite(x, positions, freqs) -> torch.Tensor:
     """Per-head rotary of packed elite dims; see ``ref.rope_elite_ref``."""
     fn = _re.rope_elite if x.is_cuda else ref.rope_elite_ref
     return fn(x, positions, freqs)
+
+
+def rope_elite_qk(q, k, positions, freqs, q_per_row: int, k_per_row: int):
+    """q and k of a layer rotated in one launch; see ``ref.rope_elite_qk_ref``."""
+    fn = _re.rope_elite_qk if q.is_cuda else ref.rope_elite_qk_ref
+    return fn(q, k, positions, freqs, q_per_row, k_per_row)

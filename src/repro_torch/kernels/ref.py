@@ -385,3 +385,14 @@ def rope_elite_ref(x, positions, freqs) -> torch.Tensor:
     assert tuple(freqs.shape) == (H, r2 // 2), (tuple(freqs.shape), (H, r2 // 2))
     cos, sin = cos_sin(positions, freqs)       # [S,H,r] or [B,S,H,r]
     return rotate(x, cos, sin)
+
+
+def rope_elite_qk_ref(q, k, positions, freqs, q_per_row: int, k_per_row: int):
+    """q and k rotated at the same positions: query head h with freqs row
+    ``h // q_per_row``, key head h with row ``h // k_per_row``.
+
+    q [B,S,Hq,2r], k [B,S,Hk,2r], positions [S] or [B,S], freqs [R,r] with
+    Hq = R·q_per_row and Hk = R·k_per_row → (q_rot, k_rot).
+    """
+    return (rope_elite_ref(q, positions, freqs.repeat_interleave(q_per_row, 0)),
+            rope_elite_ref(k, positions, freqs.repeat_interleave(k_per_row, 0)))

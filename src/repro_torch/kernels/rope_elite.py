@@ -1,71 +1,178 @@
-"""Per-head rotary embedding of the packed elite dims: the CUDA kernel.
+"""Rotary embedding of q and k in one launch: the CUDA kernel.
 
-Port of the JAX package's ``kernels/rope_elite.py::rope_elite``: x
-``[B, S, H, 2r]`` is rotated pair by pair at angle ``pos · freqs[h, c]``,
-with cos/sin computed in the kernel.  Beyond the TPU contract, positions
-may be ``[S]`` or per lane ``[B, S]`` (int32 or int64), x may be a strided
-view with a unit last stride (the ``q[..., :2r]`` slice of a projection),
-and ``freqs`` may broadcast over the heads (head stride 0: the full RoPE's
-``chunk_freqs``).  The kernel source, with what bounds it, is
-``csrc/rope_elite.cu``; the plain version is ``ref.rope_elite_ref``.
-``kernels.ops`` picks between them by the device of ``x``.
+Port of the JAX package's ``kernels/rope_elite.py::rope_elite``: each pair
+of a head is rotated at angle ``pos · freqs[row, c]``, with cos/sin
+computed in the kernel.  ``rope_elite_qk`` rotates a layer's q and k at the
+same positions in one launch: query head ``h`` reads frequency row
+``h // q_per_row``, key head ``h`` row ``h // k_per_row``, and each angle's
+sincos is computed once for all the heads of its row.  ``rope_elite`` is
+the TPU contract, one tensor with freqs ``[H, r]``, run by the same body
+with no k.  Beyond that contract, positions may be ``[S]`` or per lane
+``[B, S]`` (int32 or int64) and q, k may be strided views with a unit last
+stride (the ``q[..., :2r]`` slice of a projection).  The kernel source,
+with what bounds it, is ``csrc/rope_elite.cu``; the plain versions are
+``ref.rope_elite_ref`` and ``ref.rope_elite_qk_ref``.  ``kernels.ops``
+picks between them by the device of the query.
+
+``plan`` chooses the launch from shapes and alignment: 16-byte accesses
+where every row start and stride allows them, else 8-byte ones; head
+subsets of at most ``MAX_VECTORS`` heads per thread; a CTA of about
+``CTA_THREADS`` threads over the tokens of one lane.  A CUDA tensor the
+kernel cannot take (a row start not 8-byte aligned, an offset past 32
+bits, a token needing more than ``MAX_THREADS`` threads) raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_long] * 5
-             + [ctypes.c_void_p])
+MAX_VECTORS = 9        # heads per thread (kMaxVectors in the source)
+MAX_THREADS = 512      # threads per CTA (kMaxThreads)
+CTA_THREADS = 256      # what a CTA aims at: tokens per CTA = this // per token
+MAX_TOKENS_PER_CTA = 64          # blockDim.z's limit
+
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+             + [ctypes.c_int] * 18 + [ctypes.c_void_p])
 
 
-def rope_elite(x, positions, freqs) -> torch.Tensor:
-    """Launch the CUDA kernel.
+class Plan(NamedTuple):
+    vec: int               # pairs per access: 2 (16 bytes) or 1 (8 bytes)
+    subsets: int           # threads that share one (token, row, vector)
+    per_sub: int           # heads per thread
+    block: Tuple[int, int, int]   # (vectors per row, rows x subsets, tokens)
+    grid: Tuple[int, int]         # (token blocks, lanes)
 
-    x [B,S,H,2r] f32 with ``x.stride(-1) == 1``; positions [S] or [B,S]
-    int32/int64, contiguous; freqs [H,r] f32 with a unit last stride (head
-    stride 0 broadcasts one row); all on one CUDA device.
-    → contiguous [B,S,H,2r] f32.
-    """
-    dev = x.device
+
+@functools.lru_cache(maxsize=256)
+def plan(B: int, S: int, r: int, rows: int, heads_per_row: int, aligned16: bool) -> Plan:
+    """The launch for B lanes of S tokens, ``rows`` frequency rows of r
+    pairs, each read by ``heads_per_row`` heads (q and k together).
+    ``aligned16``: every input row start and stride is 16-byte aligned."""
+    vec = 2 if aligned16 and r % 2 == 0 else 1
+    subsets = -(-heads_per_row // MAX_VECTORS)
+    per_sub = -(-heads_per_row // subsets)
+    per_token = (r // vec) * rows * subsets
+    if per_token > MAX_THREADS:
+        raise ValueError(f"rope_elite: {per_token} threads per token (r={r}, {rows} rows "
+                         f"x {subsets} subsets) exceed the CTA's {MAX_THREADS}")
+    tz = max(1, min(MAX_TOKENS_PER_CTA, CTA_THREADS // per_token, S))
+    return Plan(vec, subsets, per_sub, (r // vec, rows * subsets, tz), (-(-S // tz), B))
+
+
+def access_bytes(*tensors) -> int:
+    """16 if every tensor's start and every stride of an axis longer than
+    one (but the last, which is 1) is 16-byte aligned, else 8 if they are
+    8-byte aligned; raises otherwise."""
+    best = 16
+    for t in tensors:
+        offs = [t.data_ptr()] + [4 * st for n, st in zip(t.shape[:-1], t.stride()[:-1])
+                                 if n > 1]
+        while best > 4 and any(o % best for o in offs):
+            best //= 2
+    if best < 8:
+        raise ValueError("rope_elite: a row start or stride is not 8-byte aligned")
+    return best
+
+
+def plan_for(q, k, positions, freqs, q_per_row: int, k_per_row: int) -> Plan:
+    """``plan`` for a call's arguments (k None: the one-tensor entry)."""
+    B, S, _, r2 = q.shape
+    inputs = (q,) if k is None else (q, k)
+    return plan(B, S, r2 // 2, freqs.shape[0], q_per_row + k_per_row,
+                access_bytes(*inputs) == 16)
+
+
+def _check(name, t, shape, dev) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name}: on {t.device}, expected {dev}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
+    if t.dim() != len(shape) or any(w is not None and n != w for n, w in zip(t.shape, shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: the last axis must have unit stride")
+    span = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    if span >= 2**31:
+        raise ValueError(f"{name}: offsets past 32 bits")
+
+
+def _launch(q, k, positions, freqs, q_per_row: int, k_per_row: int):
+    """Check and launch; k is None for the one-tensor entry.  → (q_rot, k_rot)."""
+    dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"rope_elite kernel needs CUDA tensors, got {dev}")
-    if x.dim() != 4 or x.shape[-1] % 2:
-        raise ValueError(f"x: shape {tuple(x.shape)}, expected [B, S, H, 2r]")
-    B, S, H, r2 = x.shape
-    r = r2 // 2
-    if x.dtype != torch.float32 or freqs.dtype != torch.float32:
-        raise TypeError(f"x {x.dtype}, freqs {freqs.dtype}: expected float32")
-    if x.stride(-1) != 1:
-        raise ValueError("x: the last axis must have unit stride")
-    if tuple(freqs.shape) != (H, r) or freqs.stride(-1) != 1:
-        raise ValueError(f"freqs: shape {tuple(freqs.shape)} stride {freqs.stride()}, "
-                         f"expected ({H}, {r}) with a unit last stride")
+    if q.dim() != 4 or q.shape[-1] % 2:
+        raise ValueError(f"q: shape {tuple(q.shape)}, expected [B, S, H, 2r]")
+    B, S, Hq, r2 = q.shape
+    rows, r = freqs.shape if freqs.dim() == 2 else (-1, -1)
+    if r != r2 // 2 or q_per_row < 1 or k_per_row < 0 or rows * q_per_row != Hq:
+        raise ValueError(f"freqs: shape {tuple(freqs.shape)} with {q_per_row} query "
+                         f"heads per row, expected ({Hq // max(q_per_row, 1)}, {r2 // 2})")
+    _check("q", q, (B, S, Hq, r2), dev)
+    _check("freqs", freqs, (rows, r), dev)
+    if k is not None:
+        _check("k", k, (B, S, rows * k_per_row, r2), dev)
     if positions.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"positions: dtype {positions.dtype}, expected int32 or int64")
     if tuple(positions.shape) not in ((S,), (B, S)) or not positions.is_contiguous():
         raise ValueError(f"positions: shape {tuple(positions.shape)}, expected "
                          f"contiguous ({S},) or ({B}, {S})")
-    for name, t in (("positions", positions), ("freqs", freqs)):
-        if t.device != dev:
-            raise ValueError(f"{name}: on {t.device}, expected {dev}")
-    out = torch.empty((B, S, H, r2), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
-    fn = build.load("rope_elite", _ARGTYPES)
-    err = fn(x.data_ptr(), positions.data_ptr(), int(positions.dtype == torch.int64),
-             freqs.data_ptr(), out.data_ptr(), B, S, H, r,
-             x.stride(0), x.stride(1), x.stride(2),
+    if positions.device != dev:
+        raise ValueError(f"positions: on {positions.device}, expected {dev}")
+    if B > 65535:
+        raise ValueError(f"rope_elite: {B} lanes exceed the grid's 65535")
+    q_out = torch.empty((B, S, Hq, r2), dtype=torch.float32, device=dev)
+    k_out = None if k is None else torch.empty(k.shape, dtype=torch.float32, device=dev)
+    if q_out.numel() == 0:
+        return q_out, k_out
+    if max(q_out.numel(), 0 if k_out is None else k_out.numel()) >= 2**31:
+        raise ValueError("rope_elite: outputs past 32-bit offsets")
+    p = plan_for(q, k, positions, freqs, q_per_row, k_per_row)
+    kst = k.stride()[:3] if k is not None else (0, 0, 0)
+    fn = build.load("rope_elite_qk", _ARGTYPES, source="rope_elite")
+    err = fn(q.data_ptr(), 0 if k is None else k.data_ptr(), positions.data_ptr(),
+             int(positions.dtype == torch.int64), freqs.data_ptr(), q_out.data_ptr(),
+             0 if k_out is None else k_out.data_ptr(), p.vec, B, S, r, rows, q_per_row,
+             k_per_row, p.subsets, p.per_sub, p.block[2], *q.stride()[:3], *kst,
              S if positions.dim() == 2 else 0, freqs.stride(0),
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"rope_elite launch failed: CUDA error {err}")
     rope_elite.launches += 1
-    return out
+    return q_out, k_out
+
+
+def rope_elite_qk(q, k, positions, freqs, q_per_row: int, k_per_row: int):
+    """Launch the CUDA kernel on q and k together.
+
+    q [B,S,Hq,2r] and k [B,S,Hk,2r] f32, each with ``stride(-1) == 1``;
+    positions [S] or [B,S] int32/int64, contiguous; freqs [R,r] f32 with a
+    unit last stride, Hq = R·q_per_row, Hk = R·k_per_row; all on one CUDA
+    device.  → (q_rot, k_rot), contiguous f32.  Counts one launch in
+    ``rope_elite.launches``.
+    """
+    if k_per_row < 1:
+        raise ValueError(f"k_per_row {k_per_row}: expected >= 1")
+    return _launch(q, k, positions, freqs, q_per_row, k_per_row)
+
+
+def rope_elite(x, positions, freqs) -> torch.Tensor:
+    """Launch the CUDA kernel on one tensor (the TPU contract).
+
+    x [B,S,H,2r] f32 with ``x.stride(-1) == 1``; positions [S] or [B,S]
+    int32/int64, contiguous; freqs [H,r] f32 with a unit last stride (head
+    stride 0 broadcasts one row, whose sincos the heads then share); all on
+    one CUDA device.  → contiguous [B,S,H,2r] f32.
+    """
+    if x.dim() == 4 and freqs.dim() == 2 and freqs.shape[0] == x.shape[2] > 1 \
+            and freqs.stride(0) == 0:
+        return _launch(x, None, positions, freqs[:1], x.shape[2], 0)[0]
+    return _launch(x, None, positions, freqs, 1, 0)[0]
 
 
 rope_elite.launches = 0

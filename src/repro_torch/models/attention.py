@@ -66,8 +66,7 @@ def _qkv(params, cfg, x, positions):
     q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(dt))
     k = torch.einsum("bsd,dhe->bshe", x, params["wk"].to(dt))
     v = torch.einsum("bsd,dhe->bshe", x, params["wv"].to(dt))
-    q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
-    k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
+    q, k = rope_lib.apply_rope_qk(q, k, positions, cfg.rope_theta)
     return q, k, v.contiguous()
 
 

@@ -13,7 +13,8 @@ same tolerance holds; a full-width selection must give the dense kernel's
 bits exactly, and so must a verify window of one token at
 ``q_offsets = lengths - 1``, and the contiguous ``elite_decode`` over the
 same rows seen as identity-table pages.  ``rope_elite`` rotates each pair
-once with no reduction: 2e-6 relative (1e-6 absolute near zero).
+once with no reduction, through its one-tensor entry and its q-and-k entry:
+2e-6 relative (1e-6 absolute near zero).
 """
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import quant, rope
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rope_elite as re_k
 from repro_torch.models import lm
 from repro_torch.runtime import serve_loop
 
@@ -190,8 +192,8 @@ def test_scheduler_on_card_matches_cpu(pool, cuda):
         "paged" + ("_q8" if "cache_dtype" in pool else "")
     assert n[decode] == rep.decode_steps * cfg.num_layers > 0
     assert n["flash_prefill"] == rep.prefill_chunks * cfg.num_layers > 0
-    # q and k of every layer of every forward rotate through rope_elite
-    assert n["rope_elite"] == 2 * (rep.decode_steps + rep.prefill_chunks) * cfg.num_layers
+    # q and k of every layer of every forward rotate in one rope_elite launch
+    assert n["rope_elite"] == (rep.decode_steps + rep.prefill_chunks) * cfg.num_layers
     assert sum(n.values()) == n[decode] + n["flash_prefill"] + n["rope_elite"]
 
 
@@ -301,8 +303,8 @@ def test_speculative_scheduler_on_card_matches_cpu(pool, cuda):
     assert n["elite_verify_paged" + sfx] == rep.decode_steps * cfg.num_layers > 0
     assert n["elite_decode_paged" + sfx] == rep.draft_forwards * cfg.num_layers > 0
     assert n["flash_prefill"] == rep.prefill_chunks * cfg.num_layers > 0
-    assert n["rope_elite"] == 2 * (rep.decode_steps + rep.draft_forwards
-                                   + rep.prefill_chunks) * cfg.num_layers
+    assert n["rope_elite"] == (rep.decode_steps + rep.draft_forwards
+                               + rep.prefill_chunks) * cfg.num_layers
     assert sum(n.values()) == (n["elite_verify_paged" + sfx] + n["elite_decode_paged" + sfx]
                                + n["flash_prefill"] + n["rope_elite"])
 
@@ -371,6 +373,44 @@ def test_rope_kernel_matches_plain(case, per_lane, cuda):
     torch.testing.assert_close(got, want, **ROPE_TOL)
 
 
+# (query heads, key heads, frequency rows, 2r, projection width, slice start):
+# EliteKV at TinyLlama-1.1B and LLaMA2-7B widths (q_e a slice of the
+# projection), the full RoPE at dh 64 and 128, and a slice 8 bytes into the
+# row, which takes the 8-byte accesses
+PAIR_CASES = {"elite_tinyllama": (32, 4, 4, 16, 64, 0), "elite_llama2_7b": (32, 32, 32, 32, 128, 0),
+              "full_dh64": (32, 4, 1, 64, 64, 0), "full_dh128": (32, 32, 1, 128, 128, 0),
+              "misaligned_slice": (32, 4, 4, 16, 64, 2)}
+
+
+@pytest.mark.parametrize("BS", [(3, 257), (1, 1)], ids=["B3_S257", "B1_S1"])
+@pytest.mark.parametrize("case", list(PAIR_CASES))
+@pytest.mark.parametrize("per_lane", [False, True], ids=["pos_S", "pos_BS"])
+def test_rope_pair_kernel_matches_plain(case, per_lane, BS, cuda):
+    Hq, Hk, rows, r2, wide, start = PAIR_CASES[case]
+    B, S = BS
+    g = torch.Generator(device=cuda).manual_seed(8)
+    if rows == 1:
+        freqs = rope.chunk_freqs(r2, 10000.0, device=cuda)[None]
+    else:
+        freqs = torch.exp(-4 * torch.rand(rows, r2 // 2, generator=g, device=cuda))
+        freqs[:, 0] = 1.0                     # angles up to 4096 rad
+    q = torch.randn(B, S, Hq, wide + start, generator=g, device=cuda)[..., start:start + r2]
+    k = torch.randn(B, S, Hk, r2, generator=g, device=cuda)
+    pos = torch.randint(0, 4097, (B, S) if per_lane else (S,), generator=g, device=cuda)
+    if per_lane:
+        pos = pos.int()
+    args = (q, k, pos, freqs, Hq // rows, Hk // rows)
+    assert re_k.access_bytes(q, k) == (8 if start else 16)
+    before = ops.launches()["rope_elite"]
+    got_q, got_k = ops.rope_elite_qk(*args)
+    want_q, want_k = ref.rope_elite_qk_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.launches()["rope_elite"] == before + 1
+    assert got_q.is_contiguous() and got_k.is_contiguous()
+    torch.testing.assert_close(got_q, want_q, **ROPE_TOL)
+    torch.testing.assert_close(got_k, want_k, **ROPE_TOL)
+
+
 @pytest.mark.parametrize("elitekv", [True, False], ids=["elitekv", "baseline"])
 def test_generate_on_card_matches_cpu(elitekv, cuda):
     """Lockstep ``generate`` on the card gives the CPU's greedy tokens and
@@ -389,7 +429,7 @@ def test_generate_on_card_matches_cpu(elitekv, cuda):
     n = ops.launches()
     np.testing.assert_array_equal(got, want)
     L = cfg.num_layers
-    expect = {"rope_elite": 2 * 8 * L, "flash_prefill": L if elitekv else 8 * L}
+    expect = {"rope_elite": 8 * L, "flash_prefill": L if elitekv else 8 * L}
     if elitekv:
         expect["elite_decode"] = 7 * L
     assert {k: v for k, v in n.items() if v} == expect
