@@ -74,6 +74,26 @@ non-zero:
       22 x 128): tok/s, step ms and the measured cache, which must equal
       the per-token formula; the EliteKV tokens must equal
       ``generate_paged``'s on the same prompts, apart from near-ties.
+   g. sampled serving (temperature 0.8, top_p 0.95, a seed per request),
+      12 f32 requests: undisturbed, its greedy twin (the sampler's cost), on
+      a 160-block pool with recompute and with swap eviction, and k=4
+      speculation with the full-rank draft (acceptance >= 99%).  Each
+      sampled run keeps the logits row of every draw: up to where a stream
+      parts from the undisturbed one, every token's row must be within
+      1e-4 (max abs) of the undisturbed row, and where it parts the two
+      rows must differ by at least the draw's flip distance (the least
+      move of the logits that may change it), else the run fails; the
+      flip distances of all undisturbed draws are printed.  The swap run's
+      greedy twin must give the greedy twin's streams apart from top-2
+      near-ties (under 1e-3).  The prefix cache off and on over 16 requests
+      behind one 256-token prefix, sampled (rows as above) and greedy
+      (near-ties as above): equal streams, and the tokens prefilled drop
+      by exactly the hit tokens.
+      The int8 pool with partial sparse decode (k=4+2), preempt admission
+      and swap eviction on a tight pool: it preempts, finishes, and the
+      first sequence swapped comes back bit for bit (codes, scales,
+      summaries).  Swap-out and swap-in of a 1024-token sequence are timed,
+      and the sampler at [8, 32000].
    Every kernel is re-run on the busiest inputs recorded from its run and
    held against its plain version, twice, with identical bits; a torch.profiler window over 10 steady
    decode steps of 8 lanes, on the f32 pool, on the int8 pool with sparse
@@ -81,8 +101,9 @@ non-zero:
    pool, gives the card's busy share and its time by kernel; a
    narrow model on the card must give
    the CPU's tokens on the f32 pool and on the int8 pool with sparse decode,
-   with speculative decode (k=2, rank-16 draft) on both pools, and through
-   ``generate``, EliteKV and baseline.
+   with speculative decode (k=2, rank-16 draft) on both pools, through
+   ``generate``, EliteKV and baseline, and sampled requests behind a shared
+   prefix with the prefix cache on and swap eviction on a tight pool.
 4. Time each kernel at its recorded main-path inputs (CUDA events, warm-up,
    L2 flushed before every launch), its plain version, its bound, and the
    PyTorch call that computes the same function where one exists, with the
@@ -116,6 +137,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(1, str(ROOT / "tests"))      # sampling_margins, the checks' arithmetic
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32 rate
 # outside the tensor cores (the kernels use plain f32 FMA).
@@ -125,6 +147,12 @@ PEAK_3XTF32_FLOPS = 495e12 / 3      # TF32 tensor cores, three products per f32 
 PHASE4_INPUTS = ROOT / "build" / "phase4_inputs.pt"
 TOL = 5e-5                   # f32, same math in another summation order
 NEAR_TIE = 1e-3              # top-2 margin under which f32 rounding may decide
+# max |logits difference| of two runs' rows for the same request and token
+# (the same context through other forwards: another batch, a recompute
+# prefill, a verify window, shared prefix blocks); a sampled stream may
+# part only where its rows differ by no more than this
+LOGIT_TOL = 1e-4
+FLIP_SLACK = 2 * 2.0 ** -23  # f32 rounding of the scaled logits, times max |logit|
 NUM_LAYERS = 22
 DECODES = ("elite_decode_paged", "elite_decode_paged_q8", "elite_decode_sparse_paged",
            "elite_decode_sparse_paged_q8")
@@ -768,10 +796,12 @@ def path_kernels(scfg, rep, n_layers: int):
     return {k: v * n_layers for k, v in want.items()}
 
 
-def serve_run(label, params, buffers, cfg, scfg, reqs, card: str):
+def serve_run(label, params, buffers, cfg, scfg, reqs, card: str, setup=None, draws=None):
     """Serve ``reqs`` with the counts set to 0 just before and read just
     after; check outputs and that the path's kernels (``path_kernels``) ran
-    22 times per forward and nothing else launched.
+    22 times per forward and nothing else launched.  ``setup(scheduler)``
+    runs before the requests are served; ``draws`` (a dict) gets every
+    sampled draw (``record_draws``).
     → (report, launches, recorder, scheduler)."""
     import numpy as np
     import torch
@@ -780,6 +810,9 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, card: str):
     rec = Recorder(cfg.num_layers)
     sched = serve_loop.Scheduler(params, buffers, cfg, scfg,
                                  device=params["embed"]["table"].device)
+    if setup is not None:
+        setup(sched)
+    undo = record_draws(draws) if draws is not None else (lambda: None)
     ops.reset_launches()
     try:
         rep = sched.run(reqs)
@@ -787,6 +820,7 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, card: str):
         launches = ops.launches()
     finally:
         rec.close()
+        undo()
     print(f"[{card}] {label}: {rep.summary()}", flush=True)
     print(f"[{card}] {label} phases: {rep.phase_table()}")
     fwd = (f"{rep.draft_forwards} draft + {rep.decode_steps} verify" if scfg.speculate_k
@@ -811,7 +845,7 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, card: str):
 
 
 def near_tie_margin(params, buffers, cfg, tokens, dev) -> float:
-    """Top-1/top-2 margin of the full model's next-token logits after
+    """Top-1/top-2 logits margin of the full model's next token after
     ``tokens``, from a one-shot prefill into a fresh pool."""
     import numpy as np
     import torch
@@ -830,12 +864,12 @@ def near_tie_margin(params, buffers, cfg, tokens, dev) -> float:
 
 def compare_streams(label, streams, params, buffers, cfg, dev, card,
                     against: str = "plain run's") -> int:
-    """Streams against a reference run's on the same requests; ``streams``
-    is [(uid, prompt, tokens, reference tokens)].  A stream may part from
-    the reference only where the reference logits' top-2 margin, recomputed
-    by a one-shot paged prefill of prompt + reference stream up to that
-    token, is under NEAR_TIE; it is then compared no further.  Any other
-    difference raises.  → the number of such near-tie tokens."""
+    """Greedy streams against a reference run's on the same requests;
+    ``streams`` is [(uid, prompt, tokens, reference tokens)].  A stream may
+    part from the reference only where the reference's token is a near-tie
+    (``near_tie_margin`` of prompt + reference stream up to that token
+    under NEAR_TIE); it is then compared no further.  Any other difference
+    raises.  → the number of such near-tie tokens."""
     import numpy as np
     ties = 0
     for uid, prompt, got, want in streams:
@@ -849,13 +883,145 @@ def compare_streams(label, streams, params, buffers, cfg, dev, card,
         ctx = np.concatenate([prompt, np.asarray(want[:t], np.int32)])
         margin = near_tie_margin(params, buffers, cfg, ctx, dev)
         print(f"[{card}] {label} request {uid}: token {t} is {got[t]} against "
-              f"{want[t]}; reference top-2 margin {margin:.3e}", flush=True)
+              f"{want[t]}; reference margin {margin:.3e}", flush=True)
         if not margin < NEAR_TIE:
             raise AssertionError(f"{label} request {uid}: stream differs at token {t} "
-                                 f"with top-2 margin {margin} >= {NEAR_TIE}")
+                                 f"with margin {margin} >= {NEAR_TIE}")
         ties += 1
     print(f"[{card}] {label}: streams == {against} ({ties} near-tie tokens)", flush=True)
     return ties
+
+
+def record_draws(draws: dict):
+    """Patch ``serve_loop.sample_tokens`` so that every sampled lane's draw
+    leaves its logits row (a device copy) and token in ``draws`` under
+    (seed, token index), and ``serve_loop._spec_uniform`` so that each
+    residual draw of a rejected draft leaves ("residual", seed, token
+    index); → a function that undoes the patches."""
+    import torch
+    from repro_torch.runtime import serve_loop
+    real, real_u = serve_loop.sample_tokens, serve_loop._spec_uniform
+
+    def rec(logits, temps, top_ps, seeds, counts):
+        out = real(logits, temps, top_ps, seeds, counts)
+        lanes = torch.nonzero(temps > 0)[:, 0]
+        keys = torch.stack([seeds[lanes].long(), counts[lanes].long(), out[lanes]], 1)
+        for row, (seed, count, tok) in zip(logits[lanes].float(), keys.tolist()):
+            draws[seed, count] = row, tok
+        return out
+
+    def rec_u(seed, count, salt):
+        if salt == serve_loop._RESID_SALT:
+            draws["residual", seed, count] = True
+        return real_u(seed, count, salt)
+
+    serve_loop.sample_tokens, serve_loop._spec_uniform = rec, rec_u
+
+    def undo():
+        serve_loop.sample_tokens, serve_loop._spec_uniform = real, real_u
+    return undo
+
+
+def flip_distances(draws: dict, req_of: dict, keys) -> "np.ndarray":
+    """``sampling_margins.flip_distance`` of the recorded draws ``keys``
+    ((seed, count) pairs; ``req_of`` maps a seed to its request), 256 rows
+    at a time."""
+    import numpy as np
+    import torch
+    from sampling_margins import flip_distance
+    out = []
+    for i in range(0, len(keys), 256):
+        part = keys[i:i + 256]
+        rows = torch.stack([draws[k][0] for k in part])
+        reqs = [req_of[seed] for seed, _ in part]
+        t = lambda v, dt: torch.tensor(v, dtype=dt, device=rows.device)
+        out.append(flip_distance(rows, t([r.temperature for r in reqs], torch.float32),
+                                 t([r.top_p for r in reqs], torch.float32),
+                                 t([r.seed for r in reqs], torch.int32),
+                                 t([c for _, c in part], torch.int32)))
+    return np.concatenate(out) if out else np.zeros(0)
+
+
+def compare_sampled(label, streams, want_draws: dict, got_draws: dict, reqs: dict,
+                    card: str, against: str) -> dict:
+    """Sampled streams against a reference run's, through the logits rows
+    each token was drawn from (``record_draws``); ``streams`` is [(uid,
+    prompt, tokens, reference tokens)], ``reqs`` {uid: Request}.
+
+    Every token up to where a stream parts must come from a row within
+    LOGIT_TOL (max abs) of the reference's row for the same request and
+    token index.  Where a stream parts, its row and the reference's must
+    also differ by at least the reference draw's flip distance (the least
+    move of the logits that may change the draw, less FLIP_SLACK): the
+    change of token is then one the rows' difference can make.  A token
+    that is not its own run's draw (a rejected draft, replaced by the
+    residual draw, which ``record_draws`` saw) may part a stream; it is
+    counted and printed.  Anything else fails, after every stream is
+    checked and printed.
+    → {"parted", "rejected", "draws", "bitwise", "max_d"}."""
+    import numpy as np
+    import torch
+    st = dict(parted=0, rejected=0, draws=0, bitwise=0, max_d=0.0)
+    bad = []
+    for uid, prompt, got, want in streams:
+        got, want, seed = list(got), list(want), reqs[uid].seed
+        diff = [t for t, (a, b) in enumerate(zip(got, want)) if a != b]
+        if not diff and len(got) != len(want):
+            bad.append(f"request {uid}: stream length differs")
+            continue
+        n = diff[0] + 1 if diff else len(want)
+        missing = [c for c in range(n) if (seed, c) not in want_draws
+                   or (seed, c) not in got_draws]
+        if missing:
+            bad.append(f"request {uid}: no recorded draw at tokens {missing[:4]}")
+            continue
+        A = torch.stack([want_draws[seed, c][0] for c in range(n)])
+        B = torch.stack([got_draws[seed, c][0] for c in range(n)])
+        d = (A.double() - B.double()).abs().amax(-1).cpu().numpy()
+        st["draws"] += n
+        st["bitwise"] += int((d == 0).sum())
+        st["max_d"] = max(st["max_d"], float(d.max()))
+        if [want_draws[seed, c][1] for c in range(n)] != want[:n]:
+            bad.append(f"request {uid}: the reference stream is not its draws")
+        wrong = [c for c in range(min(n, len(got))) if got_draws[seed, c][1] != got[c]
+                 and ("residual", seed, c) not in got_draws]
+        if wrong and wrong[0] < n - 1:
+            bad.append(f"request {uid}: token {wrong[0]} is not the run's draw")
+            continue
+        far = np.flatnonzero(d > LOGIT_TOL)
+        if len(far):
+            bad.append(f"request {uid}: rows differ by {d[far[0]]:.3e} > {LOGIT_TOL} at "
+                       f"token {far[0]} ({len(far)} of {n} tokens)")
+            continue
+        if not diff:
+            continue
+        t = diff[0]
+        if got_draws[seed, t][1] != got[t]:
+            if ("residual", seed, t) not in got_draws:
+                bad.append(f"request {uid}: token {t} is {got[t]}, neither the run's draw "
+                           f"{got_draws[seed, t][1]} nor a residual draw")
+                continue
+            st["rejected"] += 1
+            print(f"[{card}] {label} request {uid}: token {t} is a residual draw "
+                  f"{got[t]} (draft {got_draws[seed, t][1]}) against {want[t]}; rows "
+                  f"differ by {d[t]:.3e}", flush=True)
+            continue
+        flip = float(flip_distances(want_draws, {seed: reqs[uid]}, [(seed, t)])[0])
+        slack = FLIP_SLACK * float(A[t].abs().max())
+        st["parted"] += 1
+        print(f"[{card}] {label} request {uid}: token {t} is {got[t]} against {want[t]}; "
+              f"rows differ by {d[t]:.3e} (<= {LOGIT_TOL}), the draw's flip distance "
+              f"{flip:.3e}", flush=True)
+        if not d[t] + slack >= flip:
+            bad.append(f"request {uid}: token {t} parted with rows {d[t]:.3e} apart, under "
+                       f"the draw's flip distance {flip:.3e}")
+    print(f"[{card}] {label}: {st['draws']} draws compared with the {against}: rows "
+          f"bitwise equal {st['bitwise']}, max |logits difference| {st['max_d']:.3e} "
+          f"(limit {LOGIT_TOL}); {st['parted']} streams parted where the rows' "
+          f"difference can move the draw, {st['rejected']} at a residual draw", flush=True)
+    if bad:
+        raise AssertionError(f"{label}: " + "; ".join(bad))
+    return st
 
 
 def sched_streams(plain_sched, spec_sched):
@@ -904,6 +1070,185 @@ def generate_run(label, params, buffers, cfg, prompts, new_tokens: int, want, ca
     if stats.cache_bytes != cache_want:
         raise AssertionError(f"{label}: cache {stats.cache_bytes} B, expected {cache_want}")
     return out, stats, wall, rec, got
+
+
+def pool_contents(pool, seq_id: int, length: int):
+    """{leaf: a copy of ``seq_id``'s first ``length`` slots in token order,
+    or its chain's block-summary rows}."""
+    import numpy as np
+    import torch
+    bs = pool.block_size
+    slots = torch.as_tensor(pool.flat_slots(seq_id, np.arange(length)), device=pool.device)
+    chain = torch.tensor(pool.block_table(seq_id)[:-(-length // bs)], device=pool.device)
+    return {n: (a[:, chain] if n.endswith(("_blkmean", "_blkmax")) else a[:, slots]).clone()
+            for n, a in pool.pages["p0"].items()}
+
+
+def watch_swaps(sched, checked: list) -> None:
+    """Wrap ``sched``'s swap-out and swap-in so the first sequence swapped
+    out is copied before, and compared bit for bit after it is restored
+    (every leaf: codes, scales, summary rows); ``checked`` gets
+    (uid, length, leaves) once it matched."""
+    import torch
+    bm, pool, kept = sched.bm, sched.pool, {}
+    swap_out, swap_in = bm.preempt_swap_out, bm.swap_in
+
+    def out(seq_id, length):
+        if not kept and length > 0:
+            kept[seq_id] = length, pool_contents(pool, seq_id, length)
+        return swap_out(seq_id, length)
+
+    def back(seq_id, swapped):
+        swap_in(seq_id, swapped)
+        if seq_id in kept and not checked:
+            length, before = kept[seq_id]
+            after = pool_contents(pool, seq_id, length)
+            bad = [n for n in before if not torch.equal(before[n], after[n])]
+            if bad:
+                raise AssertionError(f"swap round trip of sequence {seq_id} changed {bad}")
+            checked.append((seq_id, length, sorted(before)))
+
+    bm.preempt_swap_out, bm.swap_in = out, back
+
+
+def serving_features(params, buffers, cfg, dev, card: str, base: dict) -> dict:
+    """Phase 3g: sampled serving, the prefix cache and host swap at full
+    width, each run through ``serve_run`` (22 launches per forward, nothing
+    else).  → the numbers phase 4 prints."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cache import BlockManager, PagedKVPool
+    from repro_torch.launch.serve import make_stream
+    from repro_torch.runtime import serve_loop
+    SC = serve_loop.SchedulerConfig
+    out = {}
+    # sampled f32 runs, 12 requests: undisturbed, its greedy twin (the
+    # sampler's cost), and on a pool of 160 blocks with each eviction
+    stream = lambda temp: make_stream(cfg, 12, rate=0.5, prompt_len=512, new_tokens=128,
+                                      seed=10, prompt_min=64, new_min=64, temperature=temp,
+                                      top_p=0.95, sample_seed=100)
+    sampled = {r.uid: r for r in stream(0.8)}
+    ref_draws = {}
+    rep, _, _, plain = serve_run("sampled f32 12 requests", params, buffers, cfg, SC(**base),
+                                 stream(0.8), card, draws=ref_draws)
+    grep_, _, _, gplain = serve_run("greedy twin f32 12 requests", params, buffers, cfg,
+                                    SC(**base), stream(0.0), card)
+    out["sampled"], out["greedy"] = rep, grep_
+    # how far each undisturbed draw is from changing: the old near-tie
+    # limit (2 x flip distance under NEAR_TIE) against LOGIT_TOL
+    flip = flip_distances(ref_draws, {r.seed: r for r in sampled.values()}, sorted(ref_draws))
+    q = np.percentile(2 * flip, [0, 5, 50, 95, 100])
+    print(f"[{card}] sampled f32 12 requests: {len(flip)} draws, 2 x flip distance "
+          f"min/p5/p50/p95/max {'/'.join(f'{v:.3e}' for v in q)}; under NEAR_TIE "
+          f"{NEAR_TIE}: {np.mean(2 * flip < NEAR_TIE):.2%}, flip distance under "
+          f"LOGIT_TOL {LOGIT_TOL}: {np.mean(flip < LOGIT_TOL):.2%}", flush=True)
+    for eviction in ("recompute", "swap"):
+        label, draws = f"sampled tight pool {eviction}", {}
+        trep, _, _, tsched = serve_run(f"{label} 12 requests", params, buffers, cfg,
+                                       SC(**dict(base, num_blocks=160, eviction=eviction)),
+                                       stream(0.8), card, draws=draws)
+        if not trep.preemptions > 0 or (eviction == "swap") != (trep.swap_outs > 0):
+            raise AssertionError(f"{label}: preemptions {trep.preemptions}, "
+                                 f"swaps {trep.swap_outs}/{trep.swap_ins}")
+        out[f"cmp {eviction}"] = compare_sampled(
+            label, sched_streams(plain, tsched), ref_draws, draws, sampled, card,
+            "undisturbed sampled run's")
+        out[f"tight {eviction}"] = trep
+    # the swap run's greedy twin, where the top-2 margin decides
+    gtrep, _, _, gtsched = serve_run("greedy tight pool swap 12 requests", params, buffers,
+                                     cfg, SC(**dict(base, num_blocks=160, eviction="swap")),
+                                     stream(0.0), card)
+    if not gtrep.swap_outs > 0:
+        raise AssertionError(f"greedy tight pool swap: swaps {gtrep.swap_outs}")
+    compare_streams(
+        "greedy tight pool swap", sched_streams(gplain, gtsched), params, buffers, cfg, dev,
+        card, against="greedy twin's")
+    # sampled speculation, k=4 with the full-rank draft
+    draws = {}
+    srep, _, _, ssched = serve_run("sampled spec k=4 r=full 12 requests", params, buffers,
+                                   cfg, SC(**base, speculate_k=4), stream(0.8), card,
+                                   draws=draws)
+    out["cmp spec"] = compare_sampled("sampled spec k=4 r=full", sched_streams(plain, ssched),
+                                      ref_draws, draws, sampled, card,
+                                      "plain sampled run's")
+    if not srep.acceptance_rate >= 0.99:
+        raise AssertionError(f"sampled spec full-rank: acceptance {srep.acceptance_rate}")
+    out["spec"] = srep
+    del ref_draws, draws
+    # the prefix cache, off then on: 16 requests behind one 256-token
+    # prefix, sampled (the logits rows decide) and greedy (the top-2 margin)
+    for temp in (0.8, 0.0):
+        kind = "sampled" if temp > 0 else "greedy"
+        pstream = lambda: make_stream(cfg, 16, rate=0.5, prompt_len=256, new_tokens=128,
+                                      seed=11, prompt_min=64, new_min=64, shared_prefix=256,
+                                      temperature=temp, top_p=0.95, sample_seed=200)
+        d_off, d_on = ({}, {}) if temp > 0 else (None, None)
+        off, _, _, off_sched = serve_run(f"prefix cache off {kind} 16 requests", params,
+                                         buffers, cfg, SC(**base), pstream(), card,
+                                         draws=d_off)
+        on, _, _, on_sched = serve_run(f"prefix cache on {kind} 16 requests", params,
+                                       buffers, cfg, SC(**base, prefix_cache=True), pstream(),
+                                       card, draws=d_on)
+        pairs = sched_streams(off_sched, on_sched)
+        if temp > 0:
+            compare_sampled(f"prefix cache on {kind}", pairs, d_off, d_on,
+                            {r.uid: r for r in pstream()}, card, "cache-off run's")
+            out["prefix off"], out["prefix on"] = off, on
+        else:
+            compare_streams(f"prefix cache on {kind}", pairs, params, buffers, cfg, dev,
+                            card, against="cache-off run's")
+        if not (on.prefix_cache_hit_tokens > 0 and on.prefill_forward_tokens
+                == off.prefill_forward_tokens - on.prefix_cache_hit_tokens):
+            raise AssertionError(f"prefix cache {kind}: {on.prefill_forward_tokens} tokens "
+                                 f"prefilled, cache off {off.prefill_forward_tokens}, hits "
+                                 f"{on.prefix_cache_hit_tokens}")
+        del d_off, d_on
+    # int8 + partial sparse (k=4+2), preempt admission, swap eviction, tight
+    checked = []
+    qrep, *_ = serve_run(
+        "int8 + sparse k=4+2 swap tight pool 10 requests", params, buffers, cfg,
+        SC(**dict(base, num_blocks=200, cache_dtype="int8", sparse_topk_blocks=4,
+                  sparse_recent_blocks=2, eviction="swap")),
+        make_stream(cfg, 10, rate=0.5, prompt_len=768, new_tokens=128, seed=12,
+                    prompt_min=512, new_min=64), card,
+        setup=lambda sched: watch_swaps(sched, checked))
+    if not (qrep.preemptions > 0 and qrep.swap_outs > 0 and checked):
+        raise AssertionError(f"int8 sparse swap: preemptions {qrep.preemptions}, swaps "
+                             f"{qrep.swap_outs}, round trips checked {len(checked)}")
+    if not qrep.mean_selected_blocks < qrep.mean_candidate_blocks:
+        raise AssertionError("int8 sparse swap: the selection was never partial")
+    uid, length, leaves = checked[0]
+    print(f"[{card}] int8 sparse swap: sequence {uid} ({length} tokens) restored bit for "
+          f"bit after swap-out/in, leaves {leaves}", flush=True)
+    out["int8 swap"] = qrep
+    # swap-out and swap-in of one 1024-token sequence, f32 and int8 pools
+    for dtype in ("float32", "int8"):
+        pool = PagedKVPool(cfg, base["num_blocks"], 16, device=dev, dtype=dtype,
+                           block_summaries=dtype == "int8")
+        bm = BlockManager(pool)
+        times = []
+        for _ in range(7):
+            bm.grow(0, 1024)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            swapped = bm.preempt_swap_out(0, 1024)
+            swapped.ready.synchronize()
+            t1 = time.perf_counter()
+            bm.swap_in(0, swapped)
+            torch.cuda.synchronize()
+            times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+            bm.release(0)
+        t_out, t_in = np.median(np.asarray(times[2:]), axis=0)
+        out[f"swap {dtype}"] = swapped.nbytes(), t_out, t_in
+    # the sampler alone at the decode step's shape, against the argmax
+    logits = torch.randn(base["max_slots"], cfg.vocab_size, device=dev) * 3
+    args = (logits, torch.full((base["max_slots"],), 0.8, device=dev),
+            torch.full((base["max_slots"],), 0.95, device=dev),
+            torch.arange(base["max_slots"], dtype=torch.int32, device=dev),
+            torch.full((base["max_slots"],), 7, dtype=torch.int32, device=dev))
+    out["sampler ms"] = time_ms(lambda: serve_loop.sample_tokens(*args), ahead=False)
+    out["argmax ms"] = time_ms(lambda: logits.argmax(-1), ahead=False)
+    return out
 
 
 def main() -> int:
@@ -1162,6 +1507,9 @@ def main() -> int:
           f"per token {gstats.cache_bytes // (B_GEN * (P_GEN + N_GEN))} vs "
           f"{bstats.cache_bytes // (B_GEN * (P_GEN + N_GEN))} B", flush=True)
 
+    # g. sampled serving, the prefix cache and host swap
+    feats = serving_features(params, buffers, cfg, dev, card, base)
+
     # each decode and verify kernel again, on the busiest recorded main-path inputs
     busiest = {}
     for name in DECODES + VERIFIES:
@@ -1267,6 +1615,26 @@ def main() -> int:
             raise AssertionError(f"narrow model {label}: card tokens {got.tolist()} "
                                  f"!= CPU tokens {want.tolist()}")
         print(f"narrow model {label}: card tokens == CPU tokens", flush=True)
+    # sampled requests behind a shared prefix, prefix cache on, on a pool
+    # tight enough to swap
+    nscfg = serve_loop.SchedulerConfig(max_slots=3, block_size=8, num_blocks=12, max_len=64,
+                                       prefill_chunk_tokens=16, prefix_cache=True,
+                                       eviction="swap")
+    nstreams = {}
+    for where, (p_, b_) in (("cpu", (cp, cb)), (dev, (to(cp), to(cb)))):
+        sched = serve_loop.Scheduler(p_, b_, ncfg, nscfg, device=where)
+        nrep = sched.run(make_stream(ncfg, 5, rate=1.0, prompt_len=16, new_tokens=12, seed=3,
+                                     prompt_min=8, new_min=12, shared_prefix=24,
+                                     temperature=0.8, top_p=0.9, sample_seed=40))
+        nstreams[str(where)] = {r.uid: r.generated for r in sched.finished}
+        if not (nrep.swap_outs > 0 and nrep.prefix_cache_hit_tokens > 0):
+            raise AssertionError(f"narrow sampled run on {where}: swaps {nrep.swap_outs}, "
+                                 f"hit tokens {nrep.prefix_cache_hit_tokens}")
+    if nstreams["cpu"] != nstreams[str(dev)]:
+        raise AssertionError(f"narrow model sampled + prefix cache + swap: card tokens "
+                             f"{nstreams[str(dev)]} != CPU tokens {nstreams['cpu']}")
+    print(f"narrow model sampled + prefix cache + swap ({nrep.swap_outs} swap-outs, "
+          f"{nrep.prefix_cache_hit_tokens} hit tokens): card tokens == CPU tokens", flush=True)
     for label, elitekv in (("EliteKV", True), ("baseline GQA", False)):
         gcfg = build_config("tinyllama_1_1b", reduced=True, cache_ratio=0.25,
                             elitekv=elitekv)
@@ -1465,6 +1833,44 @@ def main() -> int:
               f"forwards={rep.draft_forwards} draft + {rep.decode_steps} "
               f"{'verify' if rep.speculate_k else 'decode'} wall_s={rep.wall_s:.2f}",
               flush=True)
+
+    # phase 3g's numbers: the sampler's cost, the prefix cache, host swap
+    g, sm = feats["greedy"], feats["sampled"]
+    print(f"[{card}] sampler: sample_tokens on [{base['max_slots']}, {cfg.vocab_size}] "
+          f"{feats['sampler ms']:.4f} ms per call as the loop issues it, argmax "
+          f"{feats['argmax ms']:.4f} ms; decode step_ms p50/p95 sampled "
+          f"{sm.step_ms_p50:.2f}/{sm.step_ms_p95:.2f} vs greedy {g.step_ms_p50:.2f}/"
+          f"{g.step_ms_p95:.2f} (same 12 requests), tok/s {sm.tok_per_s:.1f} vs "
+          f"{g.tok_per_s:.1f}, sample phase {sm.phase_ms['sample']:.1f} vs "
+          f"{g.phase_ms['sample']:.1f} ms", flush=True)
+    for ev in ("recompute", "swap"):
+        r = feats[f"tight {ev}"]
+        print(f"[{card}] sampled tight pool {ev}: preemptions={r.preemptions} swaps out/in="
+              f"{r.swap_outs}/{r.swap_ins} swapped_bytes={r.swapped_bytes} swap phase "
+              f"{r.phase_ms['swap']:.1f} ms, prefill forward tokens "
+              f"{r.prefill_forward_tokens}, tok/s={r.tok_per_s:.1f}, streams parted "
+              f"{feats[f'cmp {ev}']['parted']}", flush=True)
+    r = feats["spec"]
+    print(f"[{card}] sampled spec k=4 r=full: acceptance={r.acceptance_rate:.4f} "
+          f"tokens/forward={r.tokens_per_forward:.2f} tok/s={r.tok_per_s:.1f} step_ms p50="
+          f"{r.step_ms_p50:.2f} accept phase {r.phase_ms['accept']:.1f} ms, streams parted "
+          f"{feats['cmp spec']['parted']}", flush=True)
+    for label in ("prefix off", "prefix on"):
+        r = feats[label]
+        print(f"[{card}] {label}: ttft_ms p50/p95={r.ttft_wall_p50_ms:.1f}/"
+              f"{r.ttft_wall_p95_ms:.1f} tok/s={r.tok_per_s:.1f} prefill forward tokens "
+              f"{r.prefill_forward_tokens} hit_rate={r.prefix_cache_hit_rate:.3f} hit tokens "
+              f"{r.prefix_cache_hit_tokens} cow={r.cow_copies} prefill phase "
+              f"{r.phase_ms['prefill']:.1f} ms wall_s={r.wall_s:.2f}", flush=True)
+    r = feats["int8 swap"]
+    print(f"[{card}] int8 + sparse swap tight pool: preemptions={r.preemptions} swaps out/in="
+          f"{r.swap_outs}/{r.swap_ins} swapped_bytes={r.swapped_bytes} swap phase "
+          f"{r.phase_ms['swap']:.1f} ms tok/s={r.tok_per_s:.1f}", flush=True)
+    for dtype in ("float32", "int8"):
+        nbytes, t_out, t_in = feats[f"swap {dtype}"]
+        print(f"[{card}] swap of one 1024-token sequence, {dtype} pool: {nbytes} B, out "
+              f"{t_out:.3f} ms ({nbytes / t_out / 1e6:.2f} GB/s), in {t_in:.3f} ms "
+              f"({nbytes / t_in / 1e6:.2f} GB/s), host clock, median of 5", flush=True)
 
     # -- 5. result lines -----------------------------------------------------
     print(card)

@@ -23,16 +23,24 @@ latent key stream's per-block masked mean and absmax, ``<key>_blkmean`` and
 
 ``BlockManager`` adds the scheduler's policy: ``"preempt"`` admission (no
 reservation; growth may raise ``OutOfBlocks`` and the scheduler evicts) or
-the ``"watermark"`` reservation, recompute eviction, and the rollback of a
-speculative window (``truncate``).
+the ``"watermark"`` reservation, recompute or host-swap eviction, the
+rollback of a speculative window (``truncate``) and, with
+``prefix_cache=True``, the cross-request prefix cache: full prompt blocks
+are content-addressed by chained sha256 hashes (``prefix_block_hashes``),
+shared across chains with refcounts, kept in an LRU once no chain holds
+them, and copied on write (``make_private``) before a chain writes into a
+block another chain reads.  Swap-out gathers a victim's slots on the
+device and copies them once into pinned host memory (``SwappedSeq``);
+swap-in scatters them back onto whatever chain it is given, byte for byte.
 
-Not ported yet: the prefix cache and copy-on-write, host swap and
-tensor-parallel page placement.
+Not ported: tensor-parallel page placement.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import hashlib
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +50,110 @@ from repro_torch.core import quant
 
 #: per-block latent summary leaves of a ``block_summaries=True`` pool
 BLOCK_SUMMARY_SUFFIXES = ("_blkmean", "_blkmax")
+
+
+def is_block_summary(name: str) -> bool:
+    """True for page leaves indexed by block rather than by slot."""
+    return name.endswith(BLOCK_SUMMARY_SUFFIXES)
+
+
+#: the hash chain's root "parent" digest (the reference's, so keys agree)
+_HASH_ROOT = b"elitekv-prefix-v1"
+
+
+def block_hash(parent: bytes, tokens) -> bytes:
+    """Key of one full token block: ``sha256(parent ‖ int32 tokens)``.  The
+    parent makes the key commit to every token before the block."""
+    h = hashlib.sha256(parent)
+    h.update(np.asarray(tokens, np.int32).tobytes())
+    return h.digest()
+
+
+def prefix_block_hashes(tokens, block_size: int) -> List[bytes]:
+    """Chained hashes of every full ``block_size``-token block of
+    ``tokens``; a partial tail block has none (it is never cached)."""
+    toks = np.asarray(tokens, np.int32)
+    out: List[bytes] = []
+    parent = _HASH_ROOT
+    for i in range(len(toks) // block_size):
+        parent = block_hash(parent, toks[i * block_size:(i + 1) * block_size])
+        out.append(parent)
+    return out
+
+
+class PrefixCache:
+    """Content-addressed map from chained block hashes to physical blocks,
+    with LRU retention of blocks no chain references.
+
+    A cached block whose refcount drops to 0 is *retained* (still servable
+    to lookups) instead of freed, and reclaimed oldest first only when the
+    allocator runs dry.  A cached block is never rewritten in place: shared
+    blocks are copied on write, and a sole owner about to rewrite one first
+    drops its claim (``invalidate``)."""
+
+    def __init__(self):
+        self._by_hash: Dict[bytes, int] = {}          # chain hash → block
+        self._by_block: Dict[int, bytes] = {}         # block → chain hash
+        self._lru: "collections.OrderedDict[int, None]" = collections.OrderedDict()
+        self.hits = 0                                 # lookups that shared >= 1 block
+        self.misses = 0                               # lookups that shared none
+        self.hit_tokens = 0                           # tokens served from the cache
+        self.lookup_tokens = 0                        # tokens presented to lookups
+        self.reclaimed = 0                            # retained blocks evicted
+
+    @property
+    def num_cached(self) -> int:
+        return len(self._by_hash)
+
+    @property
+    def num_retained(self) -> int:
+        return len(self._lru)
+
+    def get(self, h: bytes) -> Optional[int]:
+        return self._by_hash.get(h)
+
+    def is_cached(self, block: int) -> bool:
+        return block in self._by_block
+
+    def claim(self, h: bytes, block: int) -> bool:
+        """Register ``block`` as the home of chain hash ``h``; the first
+        claim wins (a duplicate keeps the existing block)."""
+        if h in self._by_hash or block in self._by_block:
+            return False
+        self._by_hash[h] = block
+        self._by_block[block] = h
+        return True
+
+    def on_ref(self, block: int) -> None:
+        """``block`` gained a reference: it leaves the reclaimable LRU."""
+        self._lru.pop(block, None)
+
+    def retain(self, block: int) -> bool:
+        """``block``'s refcount hit 0: keep it (most recently used) if it is
+        cached → True; False means the pool frees it."""
+        if block not in self._by_block:
+            return False
+        self._lru[block] = None
+        self._lru.move_to_end(block)
+        return True
+
+    def invalidate(self, block: int) -> None:
+        """Drop ``block``'s content claim; the block stays where it is."""
+        h = self._by_block.pop(block, None)
+        if h is not None:
+            del self._by_hash[h]
+        self._lru.pop(block, None)
+
+    def reclaim(self, n: int) -> List[int]:
+        """Evict up to ``n`` retained blocks, least recently used first,
+        dropping their claims → the blocks, now unowned."""
+        out: List[int] = []
+        while len(out) < n and self._lru:
+            block, _ = self._lru.popitem(last=False)
+            del self._by_hash[self._by_block.pop(block)]
+            self.reclaimed += 1
+            out.append(block)
+        return out
 
 
 def attn_cache_floats_per_token(cfg: ModelConfig) -> int:
@@ -116,6 +228,9 @@ class PoolStats:
     allocated_tokens: int   # blocks_in_use * block_size (internal fragmentation)
     live_bytes: int
     allocated_bytes: int
+    blocks_shared: int = 0     # blocks referenced by more than one chain
+    blocks_retained: int = 0   # refcount-0 prefix-cache blocks (reclaimable)
+    cow_copies: int = 0        # lifetime copy-on-write block copies
     dtype: str = "float32"
     bytes_per_token: int = 0
 
@@ -144,6 +259,9 @@ class PagedKVPool:
         self.allocator = BlockAllocator(num_blocks)
         self._tables: Dict[int, List[int]] = {}   # seq_id → block chain
         self._lengths: Dict[int, int] = {}        # seq_id → live token count
+        self._refcount: Dict[int, int] = {}       # block → chains referencing it
+        self.prefix: Optional[PrefixCache] = None  # set by BlockManager
+        self.cow_copies = 0                       # lifetime copy-on-write count
         e = cfg.elitekv
         n_slots = num_blocks * block_size
         tails = {"k_e": (cfg.n_kv_heads, 2 * e.elite_r)}
@@ -164,6 +282,32 @@ class PagedKVPool:
                 leaves[key + sfx] = torch.zeros((L, num_blocks) + tails[key], device=dev)
         self.pages = {"p0": leaves}
 
+    # -- allocation (prefix-cache aware) ------------------------------------
+    def _alloc(self, n: int) -> List[int]:
+        """Allocate ``n`` blocks at refcount 1, reclaiming LRU-retained
+        prefix blocks (oldest first) when the free list alone is short."""
+        short = n - self.allocator.num_free
+        if short > 0 and self.prefix is not None:
+            self.allocator.free(self.prefix.reclaim(short))
+        got = self.allocator.alloc(n)       # raises OutOfBlocks if still short
+        for b in got:
+            self._refcount[b] = 1
+        return got
+
+    def _release_blocks(self, blocks: Sequence[int]) -> None:
+        """Drop one reference per block.  A block at refcount 0 returns to
+        the free list, or stays retained in the prefix cache's LRU when it
+        backs a cached prefix."""
+        freed = []
+        for b in blocks:
+            self._refcount[b] -= 1
+            if self._refcount[b] > 0:
+                continue                    # another chain still reads it
+            del self._refcount[b]
+            if self.prefix is None or not self.prefix.retain(b):
+                freed.append(b)
+        self.allocator.free(freed)
+
     # -- sequence lifecycle -------------------------------------------------
     def ensure_capacity(self, seq_id: int, length: int) -> None:
         """Grow ``seq_id``'s chain to hold ``length`` tokens (allocating
@@ -171,22 +315,65 @@ class PagedKVPool:
         table = self._tables.setdefault(seq_id, [])
         need = -(-length // self.block_size) - len(table)
         if need > 0:
-            table.extend(self.allocator.alloc(need))
+            table.extend(self._alloc(need))
         self._lengths[seq_id] = max(self._lengths.get(seq_id, 0), length)
 
+    def share_prefix(self, seq_id: int, blocks: Sequence[int]) -> None:
+        """Splice cached ``blocks`` into ``seq_id``'s fresh chain as its
+        head; each gains a reference.  The chain's length becomes exactly
+        the shared coverage."""
+        table = self._tables.setdefault(seq_id, [])
+        assert not table and not self._lengths.get(seq_id, 0), \
+            (seq_id, "prefix sharing requires a fresh chain")
+        for b in blocks:
+            self._refcount[b] = self._refcount.get(b, 0) + 1
+            if self.prefix is not None:
+                self.prefix.on_ref(b)
+        table.extend(blocks)
+        self._lengths[seq_id] = len(blocks) * self.block_size
+
+    def make_private(self, seq_id: int, start: int, end: int) -> None:
+        """Copy-on-write barrier: before ``seq_id`` writes positions
+        ``[start, end)``, give it sole ownership of every covered block.  A
+        block another chain references is copied on the device into a fresh
+        block (slot leaves copy the block's ``block_size`` slots, summary
+        leaves its one row) and the writer's chain repoints; a sole-owner
+        block that backs a cached prefix just drops its claim.  The copies
+        are issued on the current stream, so they precede the writes the
+        caller issues next."""
+        if end <= start:
+            return
+        table = self._tables.get(seq_id, [])
+        bs = self.block_size
+        for bi in range(start // bs, min(-(-end // bs), len(table))):
+            b = table[bi]
+            if self._refcount.get(b, 0) > 1:
+                new = self._alloc(1)[0]
+                for name, arr in self.pages["p0"].items():
+                    if is_block_summary(name):
+                        arr[:, new] = arr[:, b]
+                    else:
+                        arr[:, new * bs:(new + 1) * bs] = arr[:, b * bs:(b + 1) * bs]
+                self._refcount[b] -= 1
+                table[bi] = new
+                self.cow_copies += 1
+            elif self.prefix is not None and self.prefix.is_cached(b):
+                self.prefix.invalidate(b)   # sole owner rewrites in place
+
     def can_fit(self, extra_tokens: int) -> bool:
-        return self.allocator.num_free * self.block_size >= extra_tokens
+        retained = self.prefix.num_retained if self.prefix is not None else 0
+        return (self.allocator.num_free + retained) * self.block_size >= extra_tokens
 
     def truncate(self, seq_id: int, length: int) -> None:
-        """Shrink ``seq_id`` to ``length`` tokens and return the tail blocks
-        the shorter chain no longer covers to the allocator (speculative
-        decode rolls a rejected window tail back here).  Pages are never
-        rewritten: later growth writes over the stale slots.  Every block
-        has one owner (there is no prefix cache in the port yet, hence no
-        refcount and no shared block to merely un-link).  An unknown
-        sequence accepts only ``length == 0`` and stays unknown; growing
-        through ``truncate`` is an assertion; 0 keeps the empty chain
-        registered."""
+        """Shrink ``seq_id`` to ``length`` tokens, releasing the tail blocks
+        the shorter chain no longer covers (speculative decode rolls a
+        rejected window tail back here).  Pages are never rewritten: later
+        growth writes over the stale slots.  A released block another chain
+        still references is only un-linked, never freed or rolled back; the
+        next write into a kept block that is still shared goes through
+        ``make_private`` first.  An unknown sequence accepts only
+        ``length == 0`` and stays unknown; growing through ``truncate`` is
+        an assertion; 0 keeps the empty chain registered."""
         assert length >= 0, length
         if seq_id not in self._lengths:
             assert length == 0, (seq_id, length)
@@ -195,14 +382,13 @@ class PagedKVPool:
         table = self._tables.get(seq_id, [])
         keep = -(-length // self.block_size)
         if keep < len(table):
-            self.allocator.free(table[keep:])
+            dropped = table[keep:]
             del table[keep:]
+            self._release_blocks(dropped)
         self._lengths[seq_id] = length
 
     def free_seq(self, seq_id: int) -> None:
-        blocks = self._tables.pop(seq_id, [])
-        if blocks:
-            self.allocator.free(blocks)
+        self._release_blocks(self._tables.pop(seq_id, []))
         self._lengths.pop(seq_id, None)
 
     def length(self, seq_id: int) -> int:
@@ -279,29 +465,133 @@ class PagedKVPool:
             total_allocs=self.allocator.total_allocs,
             live_tokens=live, allocated_tokens=alloc_tok,
             live_bytes=live * bpt, allocated_bytes=alloc_tok * bpt,
+            blocks_shared=sum(1 for c in self._refcount.values() if c > 1),
+            blocks_retained=self.prefix.num_retained if self.prefix is not None else 0,
+            cow_copies=self.cow_copies,
             dtype=str(self.dtype).removeprefix("torch."), bytes_per_token=bpt)
+
+
+@dataclasses.dataclass
+class SwappedSeq:
+    """Host copy of a preempted sequence's cached streams (swap eviction).
+
+    ``host`` is one byte buffer — pinned when the pool is on a CUDA card —
+    holding, per page leaf, the sequence's ``length`` slots in *token
+    order* (``[n_layers, length, ...]``) or, for block-summary leaves, its
+    chain's rows in *chain order* (``[n_layers, n_chain_blocks, ...]``), so
+    swap-in may land on other blocks.  ``layout`` is ``(name, dtype, shape,
+    byte offset)`` per leaf.  ``ready`` marks the end of the device→host
+    copy; ``leaves()`` waits for it before the host reads the buffer."""
+    length: int
+    host: torch.Tensor
+    layout: Tuple[Tuple[str, torch.dtype, Tuple[int, ...], int], ...]
+    ready: Optional["torch.cuda.Event"] = None
+
+    def nbytes(self) -> int:
+        return sum(_nbytes(dt, shape) for _, dt, shape, _ in self.layout)
+
+    def leaves(self) -> Dict[str, torch.Tensor]:
+        """{leaf name: host tensor}, once the copy has landed."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        return _unpack(self.host, self.layout)
+
+
+def _nbytes(dtype: torch.dtype, shape) -> int:
+    return int(np.prod(shape)) * dtype.itemsize
+
+
+def _unpack(buf: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
+    """Typed views of a packed byte buffer, one per ``layout`` entry."""
+    return {name: buf[off:off + _nbytes(dt, shape)].view(dt).view(shape)
+            for name, dt, shape, off in layout}
 
 
 class BlockManager:
     """Admission + eviction policy over a ``PagedKVPool``.
 
     * ``"preempt"`` (default) — no reservation: a request is admitted once
-      its next allocation fits; residents grow on demand, and growth may
-      raise ``OutOfBlocks``, which the scheduler resolves by preempting the
-      youngest resident (recompute eviction: its blocks are freed and its
-      prefix re-prefilled after re-admission).
+      its next allocation (first prefill chunk, or a swapped prefix being
+      restored) fits; residents grow on demand, and growth may raise
+      ``OutOfBlocks``, which the scheduler resolves by preempting the
+      youngest resident.
     * ``"watermark"`` — the worst-case blocks still owed to every resident
       are held back, so growth never fails.
+
+    Eviction: ``preempt_recompute`` frees the victim's blocks (its prefix is
+    re-prefilled after re-admission); ``preempt_swap_out`` / ``swap_in``
+    copy its cached tokens to host memory and back onto a fresh chain.
+
+    With ``prefix_cache=True`` the manager runs the cross-request prefix
+    cache: ``lookup_prefix`` splices cached full prompt blocks into a fresh
+    chain, ``register_prefix`` claims a chain's freshly written full blocks,
+    and ``prepare_write`` is the copy-on-write barrier before a scatter.
+    Release, preemption and ``truncate`` respect refcounts: a block another
+    chain references is never freed or rolled back.
     """
 
-    def __init__(self, pool: PagedKVPool, policy: str = "preempt"):
+    def __init__(self, pool: PagedKVPool, policy: str = "preempt",
+                 prefix_cache: bool = False):
         if policy not in ("preempt", "watermark"):
             raise ValueError(f"unknown admission policy {policy!r}")
         self.pool = pool
         self.policy = policy
+        if prefix_cache and pool.prefix is None:
+            pool.prefix = PrefixCache()
         self._resident_worst: Dict[int, int] = {}   # seq_id → worst-case blocks
         self.preemptions = 0
+        self.swap_outs = 0
+        self.swap_ins = 0
+        self.swapped_bytes = 0                      # lifetime device→host bytes
 
+    @property
+    def prefix(self) -> Optional[PrefixCache]:
+        return self.pool.prefix
+
+    # -- prefix cache -------------------------------------------------------
+    def lookup_prefix(self, seq_id: int, tokens) -> int:
+        """Share the longest cached chain of full ``tokens`` blocks into
+        ``seq_id``'s fresh chain → tokens covered (0 on a miss).  The hit
+        stops one token short of ``len(tokens)``: the final prompt token is
+        always prefilled, so its logits row exists."""
+        pc = self.prefix
+        if pc is None or len(tokens) == 0:
+            return 0
+        bs = self.pool.block_size
+        pc.lookup_tokens += len(tokens)
+        blocks: List[int] = []
+        for h in prefix_block_hashes(tokens, bs)[:(len(tokens) - 1) // bs]:
+            b = pc.get(h)
+            if b is None:
+                break
+            blocks.append(b)
+        if not blocks:
+            pc.misses += 1
+            return 0
+        self.pool.share_prefix(seq_id, blocks)
+        pc.hits += 1
+        pc.hit_tokens += len(blocks) * bs
+        return len(blocks) * bs
+
+    def register_prefix(self, seq_id: int, tokens) -> int:
+        """Claim every full block of ``tokens`` that ``seq_id``'s chain has
+        written for future lookups (first claim wins) → new claims."""
+        pc = self.prefix
+        if pc is None:
+            return 0
+        bs = self.pool.block_size
+        table = self.pool.block_table(seq_id)
+        n_full = min(len(tokens) // bs, self.pool.length(seq_id) // bs, len(table))
+        return sum(pc.claim(h, table[i])
+                   for i, h in enumerate(prefix_block_hashes(tokens, bs)[:n_full]))
+
+    def prepare_write(self, seq_id: int, start: int, end: int) -> None:
+        """Copy-on-write barrier for a scatter into positions ``[start,
+        end)`` of ``seq_id``'s chain (nothing to do without the cache)."""
+        if self.prefix is not None:
+            self.pool.make_private(seq_id, start, end)
+
+    # -- admission ----------------------------------------------------------
     @property
     def reserved_blocks(self) -> int:
         """Watermark: worst-case blocks still owed to registered residents."""
@@ -310,13 +600,16 @@ class BlockManager:
 
     def can_admit(self, first_alloc_tokens: int, worst_case_blocks: int) -> bool:
         if self.policy == "watermark":
-            return (self.pool.allocator.num_free - self.reserved_blocks
+            # retained prefix blocks count as free: growth reclaims them
+            retained = self.prefix.num_retained if self.prefix is not None else 0
+            return (self.pool.allocator.num_free + retained - self.reserved_blocks
                     >= worst_case_blocks)
         return self.pool.can_fit(first_alloc_tokens)
 
     def register(self, seq_id: int, worst_case_blocks: int) -> None:
         self._resident_worst[seq_id] = worst_case_blocks
 
+    # -- growth / release ---------------------------------------------------
     def grow(self, seq_id: int, length: int) -> None:
         """Grow ``seq_id`` to ``length`` tokens; raises ``OutOfBlocks`` when
         the pool is exhausted (the scheduler then preempts)."""
@@ -329,11 +622,72 @@ class BlockManager:
 
     def truncate(self, seq_id: int, length: int) -> None:
         """Roll ``seq_id`` back to ``length`` tokens (a rejected speculative
-        window tail): its tail blocks return to the free list at once and
-        residency is kept, so the watermark reservation grows back by
-        exactly the released blocks."""
+        window tail): its tail blocks are released at once (a block another
+        chain reads is only un-linked) and residency is kept, so the
+        watermark reservation grows back by exactly the released blocks."""
         self.pool.truncate(seq_id, length)
 
+    # -- eviction -----------------------------------------------------------
     def preempt_recompute(self, seq_id: int) -> None:
         self.release(seq_id)
         self.preemptions += 1
+
+    def preempt_swap_out(self, seq_id: int, length: int) -> Optional[SwappedSeq]:
+        """Copy ``length`` cached tokens to host memory, then free the chain.
+        ``length`` comes from the request's state, not ``pool.length``: a
+        growth whose write never ran must not be swapped.  The slots are
+        gathered on the device into one buffer and copied once, without
+        waiting, into pinned host memory; freeing the blocks after the
+        gather is safe because later writes to them queue behind it.
+        → None when nothing is cached yet (a plain requeue)."""
+        self.preemptions += 1
+        if length <= 0:
+            self.release(seq_id)
+            return None
+        pool = self.pool
+        dev = pool.device
+        slots = torch.as_tensor(pool.flat_slots(seq_id, np.arange(length)), device=dev)
+        chain = torch.as_tensor(pool.block_table(seq_id)[:-(-length // pool.block_size)],
+                                dtype=torch.int64, device=dev)
+        layout, off = [], 0
+        for name, arr in pool.pages["p0"].items():
+            n = len(chain) if is_block_summary(name) else length
+            shape = (arr.shape[0], n) + tuple(arr.shape[2:])
+            layout.append((name, arr.dtype, shape, off))
+            off += -(-_nbytes(arr.dtype, shape) // 16) * 16     # 16-byte aligned leaves
+        staging = torch.empty(off, dtype=torch.uint8, device=dev)
+        for name, view in _unpack(staging, layout).items():
+            idx = chain if is_block_summary(name) else slots
+            torch.index_select(pool.pages["p0"][name], 1, idx, out=view)
+        ready = None
+        if dev.type == "cuda":
+            host = torch.empty(off, dtype=torch.uint8, pin_memory=True)
+            host.copy_(staging, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        else:
+            host = staging
+        self.release(seq_id)
+        swapped = SwappedSeq(length=length, host=host, layout=tuple(layout), ready=ready)
+        self.swap_outs += 1
+        self.swapped_bytes += swapped.nbytes()
+        return swapped
+
+    def swap_in(self, seq_id: int, swapped: SwappedSeq) -> None:
+        """Allocate a fresh chain and scatter the host copy back, byte for
+        byte.  Raises ``OutOfBlocks`` if it does not fit (the caller defers
+        admission).  The host→device copy queues on the stream behind the
+        swap-out's device→host copy."""
+        pool = self.pool
+        pool.ensure_capacity(seq_id, swapped.length)
+        dev = pool.device
+        slots = torch.as_tensor(pool.flat_slots(seq_id, np.arange(swapped.length)),
+                                device=dev)
+        chain = torch.as_tensor(
+            pool.block_table(seq_id)[:-(-swapped.length // pool.block_size)],
+            dtype=torch.int64, device=dev)
+        staged = swapped.host.to(dev, non_blocking=True)
+        for name, view in _unpack(staged, swapped.layout).items():
+            idx = chain if is_block_summary(name) else slots
+            pool.pages["p0"][name].index_copy_(1, idx, view)
+        self.swap_ins += 1

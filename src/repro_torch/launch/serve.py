@@ -23,30 +23,48 @@ picks its dims), without it the baseline GQA model.
 lengths and generation budgets from a seeded generator — the same stream
 the JAX driver draws — and the ``Scheduler`` admits, prefills (whole, or
 ``--prefill-chunk`` tokens for up to ``--prefill-lanes`` lanes per forward),
-decodes greedily and retires them.  The run ends with the scheduler metrics
-line (throughput, TTFT, step latency, pool reuse, preemptions), the pool
-accounting and the per-phase wall breakdown.
+decodes and retires them.  ``--temperature`` / ``--top-p`` select nucleus
+sampling (temperature 0 = greedy); request ``i`` samples with the PRNG seed
+``--sample-seed + i``, so reruns reproduce token for token, preemptions
+included.  ``--prefix-cache`` shares full prompt blocks across requests
+(content-addressed, copy-on-write); ``--shared-prefix N`` puts one common
+N-token prefix, drawn from ``--seed``, before every prompt so the cache
+has something to hit.  ``--eviction swap`` makes a preemption copy the
+victim's cached streams to pinned host memory and restore them on
+re-admission, instead of recomputing them.  The run ends with the scheduler
+metrics line (throughput, TTFT, step latency, pool reuse, preemptions and
+swaps), the prefix cache's hit rate and copies, the pool accounting and the
+per-phase wall breakdown:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --elitekv \
+        --stream --device cpu --temperature 0.8 --top-p 0.9 --sample-seed 7
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --elitekv \
+        --stream --device cpu --prefix-cache --shared-prefix 32 --prefill-chunk 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --elitekv \
+        --stream --device cpu --eviction swap --num-blocks 24 --block-size 4
 
 ``--pool-dtype int8`` stores the pool as int8 rows with per-slot f32 scales;
 ``--sparse-topk K`` decodes over the K best-scoring blocks plus the
-``--sparse-recent`` newest ones.  Below full width, sparse decode needs
-``--admission watermark`` (a recompute after preemption would re-prefill
-densely and fork the stream; host swap is not ported):
+``--sparse-recent`` newest ones.  Below full width, sparse decode with
+preempt admission needs ``--eviction swap`` (a recompute after preemption
+would re-prefill densely and fork the stream), or ``--admission
+watermark``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --elitekv \
         --stream --device cpu --pool-dtype int8 --sparse-topk 2 \
-        --admission watermark
+        --eviction swap
 
-``--speculate K`` decodes by greedy self-speculative macro-steps: ``K``
-draft forwards (``--draft-rank R`` truncates the draft's joint factors to
-rank R; 0 = the full model) and one verify forward per step.  It cannot be
-combined with ``--sparse-topk``:
+``--speculate K`` decodes by self-speculative macro-steps: ``K`` draft
+forwards (``--draft-rank R`` truncates the draft's joint factors to rank R;
+0 = the full model) and one verify forward per step; sampled requests
+accept by rejection sampling.  It cannot be combined with
+``--sparse-topk``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --elitekv \
         --stream --device cpu --speculate 2 --draft-rank 16
 
-The reference's sampling, prefix-cache, swap, tracing and multi-device
-options are not ported yet (ROADMAP Queue 1).
+The reference's tracing and multi-device options are not ported yet
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -66,19 +84,28 @@ from repro_torch.runtime import serve_loop
 
 def make_stream(cfg, n_requests: int, rate: float, prompt_len: int,
                 new_tokens: int, seed: int, prompt_min: int = 4,
-                new_min: int = 4):
-    """Seeded Poisson stream of greedy requests: prompt lengths uniform in
-    [prompt_min, prompt_len], budgets uniform in [new_min, new_tokens]."""
+                new_min: int = 4, shared_prefix: int = 0, temperature: float = 0.0,
+                top_p: float = 1.0, sample_seed: int = 0):
+    """Seeded Poisson stream: prompt lengths uniform in [prompt_min,
+    prompt_len], budgets uniform in [new_min, new_tokens], drawn in the JAX
+    driver's order.  ``shared_prefix > 0`` draws one prefix of that many
+    tokens first and puts it before every prompt.  Request ``i`` samples
+    with ``temperature``/``top_p`` and seed ``sample_seed + i``."""
     rng = np.random.default_rng(seed)
     p_lo, n_lo = min(prompt_min, prompt_len), min(new_min, new_tokens)
+    shared = (rng.integers(0, cfg.vocab_size, shared_prefix).astype(np.int32)
+              if shared_prefix else None)
     t, reqs = 0.0, []
     for i in range(n_requests):
         t += rng.exponential(1.0 / rate)
         prompt = rng.integers(0, cfg.vocab_size,
                               int(rng.integers(p_lo, prompt_len + 1))).astype(np.int32)
+        if shared is not None:
+            prompt = np.concatenate([shared, prompt])
         reqs.append(serve_loop.Request(
             uid=i, prompt=prompt,
-            max_new_tokens=int(rng.integers(n_lo, new_tokens + 1)), arrival=t))
+            max_new_tokens=int(rng.integers(n_lo, new_tokens + 1)), arrival=t,
+            temperature=temperature, top_p=top_p, seed=sample_seed + i))
     return reqs
 
 
@@ -87,15 +114,18 @@ def serve_stream(params, buffers, cfg, args):
         max_slots=args.max_slots, block_size=args.block_size,
         num_blocks=args.num_blocks, eos_id=args.eos_id,
         max_new_tokens=args.new_tokens,
-        max_len=args.prompt_len + args.new_tokens + 1,
+        max_len=args.shared_prefix + args.prompt_len + args.new_tokens + 1,
         prefill_chunk_tokens=args.prefill_chunk,
         prefill_batch_lanes=args.prefill_lanes, admission=args.admission,
+        eviction=args.eviction, prefix_cache=args.prefix_cache,
         cache_dtype="int8" if args.pool_dtype == "int8" else "float32",
         sparse_topk_blocks=args.sparse_topk, sparse_recent_blocks=args.sparse_recent,
         speculate_k=args.speculate, draft_rank=args.draft_rank)
     sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=args.device)
     reqs = make_stream(cfg, args.requests, args.rate, args.prompt_len,
-                       args.new_tokens, args.seed)
+                       args.new_tokens, args.seed, shared_prefix=args.shared_prefix,
+                       temperature=args.temperature, top_p=args.top_p,
+                       sample_seed=args.sample_seed)
     report = sched.run(reqs)
     stats = sched.pool.stats()
     print(f"arch={cfg.name} stream [{args.device}]: {report.summary()}")
@@ -118,10 +148,19 @@ def serve_stream(params, buffers, cfg, args):
               f"mean {report.mean_selected_blocks:.1f}/"
               f"{report.mean_candidate_blocks:.1f} blocks attended per lane "
               f"over {report.sparse_steps} decode forwards")
+    if scfg.prefix_cache:
+        print(f"prefix cache: hit_rate={report.prefix_cache_hit_rate:.2f} "
+              f"({report.prefix_cache_hit_tokens} prompt tokens served from "
+              f"cache across {report.prefix_cache_hits} hits / "
+              f"{report.prefix_cache_misses} misses), "
+              f"cow_copies={report.cow_copies}, "
+              f"retained_blocks={report.blocks_retained}")
     if report.preemptions:
-        print(f"preemption [recompute]: {report.preemptions} evictions across "
-              f"{report.preempted_requests} requests; mean occupancy "
-              f"{report.mean_occupancy:.2f}")
+        print(f"preemption [{scfg.eviction}]: {report.preemptions} evictions "
+              f"across {report.preempted_requests} requests "
+              f"(host swaps out/in {report.swap_outs}/{report.swap_ins}, "
+              f"{report.swapped_bytes / 2**10:.1f}KiB out); "
+              f"mean occupancy {report.mean_occupancy:.2f}")
     print(f"pool: block_size={stats.block_size} blocks={stats.num_blocks} "
           f"high_water={report.pool_high_water_blocks} "
           f"free_after_drain={stats.blocks_free} dtype={report.pool_dtype} "
@@ -202,7 +241,20 @@ def main(argv=None):
                     help="mid-prefill sequences packed per chunked-prefill "
                          "forward (0 = max-slots)")
     ap.add_argument("--admission", choices=("preempt", "watermark"),
-                    default="preempt")
+                    default="preempt",
+                    help="preempt: admit on demand, evict youngest on "
+                         "OutOfBlocks; watermark: legacy worst-case "
+                         "reservation (never preempts)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share prompt-prefix blocks across requests "
+                         "(content-addressed cache, copy-on-write)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend a common N-token system prefix to every "
+                         "stream prompt (exercises --prefix-cache hits)")
+    ap.add_argument("--eviction", choices=("recompute", "swap"),
+                    default="recompute",
+                    help="preemption mechanism: recompute the evicted prefix "
+                         "or swap the cached streams to host memory")
     ap.add_argument("--pool-dtype", choices=("f32", "int8"), default="f32",
                     help="pool page type: int8 rows with per-slot f32 scales")
     ap.add_argument("--sparse-topk", type=int, default=0,
@@ -216,6 +268,12 @@ def main(argv=None):
     ap.add_argument("--draft-rank", type=int, default=0,
                     help="joint-factor rank of the draft model (0 or >= "
                          "d_ckv = the full model, acceptance 1)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature for stream requests (0 = greedy)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (1 = full softmax)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="base PRNG seed; request i samples with seed+i")
     args = ap.parse_args(argv)
     if args.stream and not args.elitekv:
         ap.error("--stream requires --elitekv (the paged pool stores the "
@@ -232,10 +290,13 @@ def main(argv=None):
         ap.error("--sparse-topk and --speculate are mutually exclusive "
                  "(the multi-query verify window has no single selection "
                  "query)")
-    if args.sparse_topk > 0 and args.admission == "preempt":
-        ap.error("--sparse-topk with preempt admission needs --admission "
-                 "watermark (a recompute prefill cannot reproduce "
-                 "sparse-generated streams; host swap is not ported)")
+    if (args.sparse_topk > 0 and args.admission == "preempt"
+            and args.eviction == "recompute"):
+        ap.error("--sparse-topk with preempt admission needs --eviction swap "
+                 "(recompute prefill cannot reproduce sparse-generated "
+                 "streams)")
+    if args.shared_prefix < 0:
+        ap.error("--shared-prefix must be >= 0")
     # the reference is f32 end to end: keep matmuls out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

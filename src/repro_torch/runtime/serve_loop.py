@@ -1,4 +1,4 @@
-"""Greedy serving: lockstep batches over a contiguous cache, and continuous
+"""Serving: lockstep batches over a contiguous cache, and continuous
 batching over the paged compressed cache.
 
 Counterpart of the JAX package's ``runtime/serve_loop.py``.  Two tiers:
@@ -15,31 +15,49 @@ Counterpart of the JAX package's ``runtime/serve_loop.py``.  Two tiers:
   token budget, recycling their pool blocks at once.  With
   ``admission="preempt"`` (default) a pool that runs dry mid-flight
   preempts the youngest resident, which is requeued at the head of the
-  line and recomputes its prefix (prompt + generated) on re-admission, so
-  its token stream is unchanged.
+  line and either recomputes its prefix (prompt + generated) on
+  re-admission (``eviction="recompute"``) or has its cached streams copied
+  to pinned host memory and restored byte for byte (``eviction="swap"``);
+  either way its token stream is unchanged.
+
+Decoding samples per request: ``temperature <= 0`` is greedy argmax;
+otherwise nucleus (``top_p``) sampling with the request's ``seed``, batched
+over the lanes on the device (``sample_tokens``).  Token ``i`` of a request
+draws from the Threefry key ``fold_in(key(seed), i)`` (``runtime/prng.py``,
+bit for bit the reference's), so the draw does not depend on the slot, the
+step or a preemption that served it.  The noise follows the sorted
+position, so a draw can move when two near-equal logits swap order under
+a rounding-level change.
+
+``prefix_cache=True`` shares full prompt blocks across requests: admission
+probes the content-addressed cache (``BlockManager.lookup_prefix``) and
+prefill resumes at the first miss, freshly prefilled blocks are registered
+after every chunk, and every write goes through the copy-on-write barrier
+(``prepare_write`` inside ``_grow_or_preempt``), so streams equal the
+cache-off run's.
 
 ``cache_dtype="int8"`` serves from an int8 pool (per-slot scales, fused
 dequantization in the decode kernels); ``sparse_topk_blocks > 0`` decodes
 over the block-top-k selection plus ``sparse_recent_blocks`` newest blocks.
-Partial-width sparse decode with ``admission="preempt"`` is rejected: a
-recompute re-prefills densely and cannot reproduce streams that lower
-layers attended sparsely, so ``admission="watermark"`` (which never
-preempts) is the sound setting.
+Partial-width sparse decode with ``admission="preempt"`` needs
+``eviction="swap"``: a recompute re-prefills densely and cannot reproduce
+streams that lower layers attended sparsely, while swap restores the pages
+and block summaries exactly (``admission="watermark"``, which never
+preempts, is sound too).
 
-``speculate_k > 0`` replaces the one-token decode step with a greedy
+``speculate_k > 0`` replaces the one-token decode step with a
 self-speculative macro-step: ``k`` batched decode forwards of a draft model
 (``lm.make_draft_params``: the joint factors truncated to ``draft_rank``,
 0 = the full model) propose tokens, one verify forward of the full model
 (``lm.apply_verify_paged``) scores all ``k+1`` window positions per lane,
-the argmax-matching prefix plus one corrected or bonus token is kept, and
-the chain is truncated back over the rest.  The stream equals plain
-decode's; only the number of forwards changes.  Speculation with sparse
-decode is a ``ValueError`` (a verify window has no single selection query).
-
-Decoding is greedy.  Not ported yet, and rejected with
-``NotImplementedError`` rather than ignored: sampling (``temperature > 0``,
-speculative or not), the prefix cache and host-swap eviction — ROADMAP
-Queue 1 items 6, 9 and 10.
+and the chain is truncated back over what is not kept.  Greedy lanes keep
+the argmax-matching prefix plus one corrected or bonus token; sampled
+lanes accept by rejection sampling against the request's nucleus
+distribution (``speculative_accept`` / ``residual_sample``, coins from the
+same count-folded PRNG), so a full-rank draft gives plain decode's stream
+up to the verify and decode forwards' rounding.
+Speculation with sparse decode is a ``ValueError`` (a verify window has no
+single selection query).
 """
 from __future__ import annotations
 
@@ -54,13 +72,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import (BlockManager, OutOfBlocks, PagedKVPool,
-                                    measured_cache_bytes)
+                                    SwappedSeq, measured_cache_bytes)
 from repro_torch.models import lm
+from repro_torch.runtime import prng
 
 #: Host-observable phases of one scheduler step (``ServeReport.phase_ms``
 #: keys); ``other`` is the residual, so the phases sum to the step wall time.
-#: ``draft``/``verify``/``accept`` are the speculative macro-step's.
-PHASES = ("prefill", "decode", "draft", "verify", "sample", "accept", "other")
+#: ``draft``/``verify``/``accept`` are the speculative macro-step's, ``swap``
+#: the host-swap copies'.
+PHASES = ("prefill", "decode", "draft", "verify", "sample", "accept", "swap", "other")
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -133,26 +153,124 @@ def generate(params, buffers, cfg: ModelConfig, prompts, max_new_tokens: int,
     return torch.stack(outs, dim=1).cpu().numpy().astype(np.int32), stats
 
 
-def _unsupported(what: str, item: int, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item}: {name})")
+# ---------------------------------------------------------------------------
+# sampling
+# ---------------------------------------------------------------------------
+
+def _gumbel_scores(logits, temps, top_ps, seeds, counts):
+    """The reference sampler's pieces for every lane, by sorted position:
+    logits / temperature sorted descending (stable, so equal logits keep
+    token order), the Gumbel noise drawn for *sorted* positions from
+    ``fold_in(key(seed), count)``, and the mass before each position.
+    → (order [B,V] token ids, sorted scaled logits, noise, excluded mass)."""
+    scaled = logits.float() / temps.float().clamp(min=1e-6)[:, None]
+    order = torch.sort(-scaled, dim=-1, stable=True).indices
+    sl = scaled.gather(-1, order)
+    probs = torch.softmax(sl, dim=-1)
+    noise = prng.gumbel(prng.fold_in(prng.key(seeds), counts), sl.shape[-1])
+    return order, sl, noise, torch.cumsum(probs, dim=-1) - probs
+
+
+def _nucleus(excl, top_ps):
+    """A sorted position stays in the nucleus while the mass before it is
+    under top_p; the first always stays."""
+    kept = excl < top_ps.float()[:, None]
+    kept[:, 0] = True
+    return kept
+
+
+def sample_tokens(logits, temps, top_ps, seeds, counts):
+    """Batched per-request sampling, on ``logits``' device.
+
+    logits [B,V]; temps/top_ps [B] f32; seeds/counts [B] int.  Lane ``i``
+    draws from ``fold_in(key(seeds[i]), counts[i])`` (the count is the
+    request's token index), the reference's ``categorical`` over its
+    nucleus: the argmax of the sorted scaled logits plus Gumbel noise by
+    sorted position.  ``temps[i] <= 0`` is the argmax itself, never a
+    division by the clamped temperature.  → [B] int64."""
+    greedy = logits.argmax(dim=-1)
+    order, sl, noise, excl = _gumbel_scores(logits, temps, top_ps, seeds, counts)
+    scores = (noise + sl).masked_fill(~_nucleus(excl, top_ps), float("-inf"))
+    return torch.where(temps > 0, order.gather(-1, scores.argmax(-1, keepdim=True))[:, 0],
+                       greedy)
+
+
+#: PRNG fold salts of the speculative accept coin and the residual draw
+_ACCEPT_SALT = 0x5BEC
+_RESID_SALT = 0x5BED
+
+
+def nucleus_probs(logits, temp: float, top_p: float) -> np.ndarray:
+    """The categorical distribution ``sample_tokens`` draws from, as a dense
+    float64 probability vector: the temperature-scaled softmax restricted
+    to the smallest descending set whose mass reaches ``top_p`` (its first
+    member always kept); tokens outside get exactly 0."""
+    scaled = np.asarray(logits, np.float64) / max(float(temp), 1e-6)
+    order = np.argsort(-scaled, kind="stable")
+    sl = scaled[order]
+    e = np.exp(sl - sl.max())
+    probs = e / e.sum()
+    cut = (np.cumsum(probs) - probs) >= top_p
+    cut[0] = False                        # the first member survives even top_p=0
+    sl = np.where(cut, -np.inf, sl)
+    e = np.exp(sl - sl[0])                # sl[0] is always kept (finite max)
+    p_sorted = e / e.sum()
+    out = np.zeros_like(p_sorted)
+    out[order] = p_sorted
+    return out
+
+
+def speculative_accept(token: int, p: np.ndarray, q: np.ndarray, u: float) -> bool:
+    """Accept a draft ``token`` proposed from ``q`` against target ``p`` iff
+    ``u <= p(token)/q(token)``; with ``residual_sample`` on rejection the
+    emitted token is distributed as ``p``.  A token outside the target
+    nucleus is never accepted, even where ``q(token) == 0``."""
+    return p[token] > 0.0 and u * q[token] <= p[token]
+
+
+def residual_sample(p: np.ndarray, q: np.ndarray, r: float) -> int:
+    """Inverse-CDF draw from the normalized residual ``max(p - q, 0)``, the
+    corrected token after a rejection; a residual that rounding left empty
+    falls back to ``p``."""
+    res = np.maximum(np.asarray(p, np.float64) - np.asarray(q, np.float64), 0.0)
+    if res.sum() <= 1e-12:
+        res = np.asarray(p, np.float64)
+    nz = np.flatnonzero(res)
+    cdf = np.cumsum(res[nz]) / res[nz].sum()
+    return int(nz[min(np.searchsorted(cdf, r, side="right"), len(nz) - 1)])
+
+
+def _spec_uniform(seed: int, count: int, salt: int) -> float:
+    """Uniform [0,1) tied to (request seed, token index, salt), on the host:
+    the count-folded PRNG of ``sample_tokens``, so acceptance decisions
+    replay identically across preemptions."""
+    return prng.uniform(prng.fold_in(prng.fold_in(prng.key(seed), count), salt))
 
 
 @dataclasses.dataclass
 class Request:
     """One generation request.  ``arrival`` is in scheduler steps.
-    ``temperature`` must be 0 (greedy); sampling is not ported yet."""
+
+    ``temperature <= 0`` is greedy argmax; otherwise nucleus sampling from
+    the smallest token set whose probability mass reaches ``top_p``, with a
+    PRNG keyed on ``seed`` and folded with the token index — the same
+    (seed, prompt) always yields the same tokens."""
     uid: int
     prompt: np.ndarray                    # [Sp] int32
     max_new_tokens: int
     arrival: float = 0.0
-    temperature: float = 0.0
+    temperature: float = 0.0              # 0 → greedy
+    top_p: float = 1.0                    # nucleus mass (1 → full softmax)
+    seed: int = 0                         # per-request PRNG seed (int32)
     # filled in by the scheduler:
     generated: List[int] = dataclasses.field(default_factory=list)
     prefill_pos: int = 0                  # prefill-source tokens already cached
     prefill_src: Optional[np.ndarray] = None   # recompute source (None → prompt)
+    swapped: Optional[SwappedSeq] = None  # host copy awaiting swap-in
     preempted_at: List[int] = dataclasses.field(default_factory=list)
     #   ^ len(generated) at each preemption (0 = preempted mid-prefill)
+    prefix_hit_tokens: int = 0            # prompt tokens served from the prefix
+                                          # cache (summed over re-admissions)
     submit_wall: float = 0.0
     first_token_wall: float = 0.0
     first_token_step: int = -1
@@ -163,7 +281,7 @@ class Request:
 
     def prefill_source(self) -> np.ndarray:
         """Tokens that must be cached before decode (re)starts: the prompt,
-        or — after a recompute preemption — prompt + generated prefix."""
+        or — after a preemption — prompt + generated prefix."""
         return self.prompt if self.prefill_src is None else self.prefill_src
 
 
@@ -184,9 +302,8 @@ class SchedulerConfig:
     sparse_recent_blocks: int = 2         # newest blocks always attended
     speculate_k: int = 0                  # draft tokens per lane per step (0 = plain)
     draft_rank: int = 0                   # draft joint-factor rank (0 = full)
-    # options of the reference that are not ported yet; any other value raises
-    eviction: str = "recompute"
-    prefix_cache: bool = False
+    eviction: str = "recompute"           # "recompute" | "swap" (pinned host memory)
+    prefix_cache: bool = False            # share prompt blocks across requests (COW)
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -237,8 +354,11 @@ class ServeReport:
     ``_steps`` is in scheduler steps, ``_wall``/``_ms`` in wall time."""
     completed: int = 0
     decode_steps: int = 0                 # decode forwards issued
-    prefill_tokens: int = 0
+    prefill_tokens: int = 0               # Σ prompt lengths of finished requests
     prefill_chunks: int = 0               # prefill forwards issued
+    prefill_forward_tokens: int = 0       # tokens run through prefill forwards
+                                          # (prefix-cache hits skip theirs,
+                                          # recomputes add theirs)
     decoded_tokens: int = 0
     wall_s: float = 0.0
     tok_per_s: float = 0.0
@@ -259,7 +379,12 @@ class ServeReport:
     admission: str = "preempt"
     preemptions: int = 0
     preempted_requests: int = 0
-    mean_occupancy: float = 0.0
+    swap_outs: int = 0                    # preemptions served by host swap
+    swap_ins: int = 0                     # swapped prefixes restored
+    swapped_bytes: int = 0                # device → host eviction bytes
+    mean_occupancy: float = 0.0           # pool fraction referenced by chains
+    mean_occupancy_retained: float = 0.0  # ... counting prefix-cache retained
+                                          # (refcount-0) blocks too
     mean_prefill_batch: float = 0.0       # mean lanes per prefill forward
     sparse_topk: int = 0                  # block top-k the run decoded with
     sparse_recent: int = 0                # forced newest-block tail width
@@ -276,6 +401,13 @@ class ServeReport:
     tokens_per_forward: float = 0.0       # tokens per lane per decode/verify
                                           # forward (speculative: ~1 + mean_accepted)
     acceptance_by_bucket: Dict[str, float] = dataclasses.field(default_factory=dict)
+    prefix_cache: bool = False            # the run shared prompt blocks
+    prefix_cache_hits: int = 0            # admissions that reused cached blocks
+    prefix_cache_misses: int = 0          # admissions finding nothing cached
+    prefix_cache_hit_tokens: int = 0      # prompt tokens skipped at prefill
+    prefix_cache_hit_rate: float = 0.0    # hit tokens / tokens presented to lookups
+    cow_copies: int = 0                   # copy-on-write block copies
+    blocks_retained: int = 0              # refcount-0 cached blocks at the end
     phase_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
     step_wall_ms_total: float = 0.0
 
@@ -301,6 +433,10 @@ class ServeReport:
             spec = (f" spec[k={self.speculate_k},r={self.draft_rank}] "
                     f"acc={self.acceptance_rate:.2f} "
                     f"tok/fwd={self.tokens_per_forward:.2f}")
+        pc = ""
+        if self.prefix_cache:
+            pc = (f" pc[hit={self.prefix_cache_hit_rate:.2f} "
+                  f"tok={self.prefix_cache_hit_tokens} cow={self.cow_copies}]")
         return (f"completed={self.completed} steps={self.decode_steps} "
                 f"decoded={self.decoded_tokens} tok/s={self.tok_per_s:.1f} "
                 f"ttft_steps={self.ttft_steps_mean:.1f}{bucket} "
@@ -310,8 +446,8 @@ class ServeReport:
                 f"blocks high-water/naive={self.pool_high_water_blocks}/"
                 f"{self.naive_blocks} reuse×{self.block_reuse_ratio:.2f} "
                 f"occ={self.mean_occupancy:.2f} [{self.admission}] "
-                f"preempt={self.preemptions} "
-                f"prefill_batch={self.mean_prefill_batch:.1f}{q8}{sp}{spec}")
+                f"preempt={self.preemptions}(swap {self.swap_outs}/{self.swap_ins}) "
+                f"prefill_batch={self.mean_prefill_batch:.1f}{spec}{pc}{q8}{sp}")
 
 
 class Scheduler:
@@ -324,6 +460,8 @@ class Scheduler:
                  device="cuda"):
         if not cfg.elitekv.enabled:
             raise ValueError("paged serving requires an EliteKV config")
+        if scfg.eviction not in ("recompute", "swap"):
+            raise ValueError(f"unknown eviction {scfg.eviction!r}")
         if scfg.sparse_topk_blocks < 0 or scfg.sparse_recent_blocks < 0:
             raise ValueError("sparse_topk_blocks and sparse_recent_blocks must be >= 0")
         if scfg.speculate_k < 0 or scfg.draft_rank < 0:
@@ -331,18 +469,17 @@ class Scheduler:
         if scfg.sparse_topk_blocks and scfg.speculate_k:
             raise ValueError("sparse_topk_blocks and speculate_k are mutually "
                              "exclusive: a verify window has no single selection query")
+        # a recompute re-prefills densely and cannot reproduce streams whose
+        # lower layers attended sparsely; swap restores pages and summaries
+        # byte for byte, and full width is dense, so only this one is unsound
         sparse_partial = (0 < scfg.sparse_topk_blocks and
                           scfg.sparse_topk_blocks + scfg.sparse_recent_blocks
                           < scfg.max_blocks_per_seq)
         if sparse_partial and scfg.admission == "preempt" and scfg.eviction == "recompute":
             raise ValueError(
-                "partial-width sparse decode needs admission='watermark': a "
-                "recompute re-prefills densely and cannot reproduce streams "
-                "generated with sparse attention (host swap is not ported)")
-        if scfg.prefix_cache:
-            raise _unsupported("the prefix cache", 9, "prefix caching and copy-on-write")
-        if scfg.eviction != "recompute":
-            raise _unsupported(f"eviction={scfg.eviction!r}", 10, "host swap")
+                "partial-width sparse decode needs eviction='swap' (or "
+                "admission='watermark'): a recompute re-prefills densely and "
+                "cannot reproduce streams generated with sparse attention")
         self.device = torch.empty(0, device=device).device   # "cuda" → "cuda:0"
         if params["embed"]["table"].device != self.device:
             raise ValueError(f"params live on {params['embed']['table'].device}, "
@@ -351,17 +488,20 @@ class Scheduler:
         self.pool = PagedKVPool(cfg, scfg.num_blocks, scfg.block_size,
                                 device=self.device, dtype=scfg.cache_dtype,
                                 block_summaries=scfg.sparse_topk_blocks > 0)
-        self.bm = BlockManager(self.pool, policy=scfg.admission)
+        self.bm = BlockManager(self.pool, policy=scfg.admission,
+                               prefix_cache=scfg.prefix_cache)
         self.slots: List[Optional[Request]] = [None] * scfg.max_slots
         self.waiting: collections.deque = collections.deque()
         self.finished: List[Request] = []
         self.t = 0                          # simulated clock (scheduler steps)
         self._step_wall_ms: List[float] = []
-        self._occupancy: List[float] = []
+        self._occupancy: List[float] = []   # referenced fill fraction per step
+        self._occupancy_retained: List[float] = []   # ... with retained blocks
         self.peak_slots = 0
         self.naive_blocks = 0
         self.prefill_chunks = 0
         self._prefill_lanes_total = 0
+        self._prefill_forward_tokens = 0
         self._phase_ms = {p: 0.0 for p in PHASES}
         self._step_wall_ms_total = 0.0
         self._sparse_steps = 0
@@ -398,19 +538,45 @@ class Scheduler:
         lines = [f"scheduler did not drain in {max_steps} steps",
                  f"pool: {self.pool.allocator.num_used}/{self.pool.num_blocks} "
                  f"blocks used, block_size={self.pool.block_size}"]
+        if self.bm.prefix is not None:
+            pc = self.bm.prefix
+            lines.append(f"prefix cache: {pc.num_cached} cached, {pc.num_retained} "
+                         f"retained, cow={self.pool.cow_copies}")
         for i, r in enumerate(self.slots):
             lines.append(f"slot{i}: empty" if r is None else
                          f"slot{i}: uid={r.uid} prefill={r.prefill_pos}/"
                          f"{len(r.prefill_source())} generated="
                          f"{len(r.generated)}/{r.max_new_tokens}")
-        lines += [f"waiting: uid={r.uid} arrival={r.arrival:.1f}"
-                  for r in list(self.waiting)[:8]]
+        lines += [f"waiting: uid={r.uid} arrival={r.arrival:.1f} "
+                  f"swapped={r.swapped is not None}" for r in list(self.waiting)[:8]]
         return "\n".join(lines)
+
+    def _blocks_referenced(self) -> int:
+        """Pool blocks referenced by live chains: allocator usage minus the
+        refcount-0 blocks the prefix cache only retains (reclaimable, and
+        free to admission)."""
+        retained = self.bm.prefix.num_retained if self.bm.prefix is not None else 0
+        return self.pool.allocator.num_used - retained
+
+    def _record_occupancy(self) -> None:
+        self._occupancy.append(self._blocks_referenced() / self.pool.num_blocks)
+        self._occupancy_retained.append(self.pool.allocator.num_used / self.pool.num_blocks)
+
+    def _sampling_arrays(self, lanes: Dict[int, Request], counts: Dict[int, int], B: int):
+        """Device tensors (temps, top_ps, seeds, counts) [B] for the lanes
+        ``{lane: request}`` with token indices ``counts``; other lanes are
+        greedy."""
+        temps = np.zeros((B,), np.float32)
+        top_ps = np.ones((B,), np.float32)
+        seeds = np.zeros((B,), np.int32)
+        cnt = np.zeros((B,), np.int32)
+        for i, req in lanes.items():
+            temps[i], top_ps[i], seeds[i], cnt[i] = (req.temperature, req.top_p,
+                                                     req.seed, counts[i])
+        return tuple(self._tensor(a) for a in (temps, top_ps, seeds, cnt))
 
     # -- request intake -----------------------------------------------------
     def submit(self, req: Request) -> None:
-        if req.temperature > 0:
-            raise _unsupported(f"temperature={req.temperature}", 6, "sampling")
         req.max_new_tokens = min(req.max_new_tokens, self.scfg.max_new_tokens)
         if len(req.prompt) + req.max_new_tokens > self.scfg.max_len:
             raise ValueError(f"request {req.uid}: prompt {len(req.prompt)} + "
@@ -428,8 +594,11 @@ class Scheduler:
         return -(-(len(req.prompt) + req.max_new_tokens) // self.scfg.block_size)
 
     def _first_alloc_tokens(self, req: Request) -> int:
-        """Pool tokens the request needs at admission: its first prefill
-        chunk, or (one-shot mode) its whole prefill source."""
+        """Pool tokens the request needs at admission: its swapped-out
+        prefix, its first prefill chunk, or (one-shot mode) its whole
+        prefill source."""
+        if req.swapped is not None:
+            return req.swapped.length
         src = len(req.prefill_source())
         chunk = self.scfg.prefill_chunk_tokens
         return min(chunk, src) if chunk > 0 else src
@@ -451,7 +620,19 @@ class Scheduler:
         return admitted
 
     def _admit(self, slot: int, req: Request) -> None:
-        """Claim a slot; blocks are allocated on demand by the prefill."""
+        """Claim a slot, restoring a swapped-out prefix if there is one.
+        Otherwise, with the prefix cache on, a request with nothing cached
+        yet probes the cache with its prefill source: hit blocks splice into
+        its chain and ``prefill_pos`` jumps past them.  Other blocks are
+        allocated on demand by the prefill."""
+        if req.swapped is not None:
+            with self._phase("swap"):
+                self.bm.swap_in(req.uid, req.swapped)
+            req.swapped = None
+        elif self.bm.prefix is not None and req.prefill_pos == 0:
+            hit = self.bm.lookup_prefix(req.uid, req.prefill_source())
+            req.prefill_pos = hit
+            req.prefix_hit_tokens += hit
         self.bm.register(req.uid, self._worst_case_blocks(req))
         self.slots[slot] = req
 
@@ -465,28 +646,52 @@ class Scheduler:
         return max(occ)[2] if occ else None
 
     def _preempt(self, slot: int) -> None:
-        """Evict the resident in ``slot`` (recompute eviction) and requeue it
-        at the head of the waiting line: its blocks are freed and its prefill
-        source becomes prompt + generated-so-far, whose final logits
-        reproduce the token the interrupted decode step would have drawn."""
+        """Evict the resident in ``slot`` and requeue it at the head of the
+        waiting line.  Recompute eviction frees its blocks and makes prompt +
+        generated-so-far its prefill source, whose final logits reproduce
+        the token the interrupted decode step would have drawn.  Swap
+        eviction copies its cached tokens to host memory — counted from the
+        request's state (prompt + generated minus the pending last token,
+        or the prefill cursor), not from ``pool.length``, which may hold a
+        growth whose write never ran — and restores them at re-admission."""
         req = self.slots[slot]
         req.preempted_at.append(len(req.generated))
-        if req.generated:
-            req.prefill_src = np.concatenate(
-                [req.prompt, np.asarray(req.generated, np.int32)])
-        req.prefill_pos = 0
-        self.bm.preempt_recompute(req.uid)
+        if self.scfg.eviction == "swap":
+            if self._decode_ready(req):
+                cached = len(req.prompt) + len(req.generated) - 1
+                req.prefill_src = np.concatenate(
+                    [req.prompt, np.asarray(req.generated[:-1], np.int32)])
+                req.prefill_pos = cached
+            else:
+                cached = req.prefill_pos
+            with self._phase("swap"):
+                req.swapped = self.bm.preempt_swap_out(req.uid, cached)
+        else:
+            if req.generated:
+                req.prefill_src = np.concatenate(
+                    [req.prompt, np.asarray(req.generated, np.int32)])
+            req.prefill_pos = 0
+            self.bm.preempt_recompute(req.uid)
         self.slots[slot] = None
         self.waiting.appendleft(req)
 
-    def _grow_or_preempt(self, req: Request, length: int) -> bool:
+    def _grow_or_preempt(self, req: Request, length: int,
+                         write_from: Optional[int] = None) -> bool:
         """Grow ``req``'s chain to ``length`` tokens, preempting the youngest
         resident until the allocation fits.  Returns False iff ``req`` itself
         was the youngest and got evicted.  Terminates: every retry removes one
-        resident, and a lone resident's worst case fits (checked at submit)."""
+        resident, and a lone resident's worst case fits (checked at submit).
+
+        ``write_from`` is the copy-on-write barrier: the caller is about to
+        write positions ``[write_from, length)``, so every shared block there
+        is made private first.  The copy allocates, so it sits inside the
+        same retry loop as the growth, and it is issued before the caller's
+        scatter."""
         while True:
             try:
                 self.bm.grow(req.uid, length)
+                if write_from is not None:
+                    self.bm.prepare_write(req.uid, write_from, length)
                 return True
             except OutOfBlocks:
                 slot = self._youngest_slot()
@@ -497,32 +702,56 @@ class Scheduler:
                 if victim is req:
                     return False
 
+    # -- sampling -------------------------------------------------------------
+    def _sample_one(self, req: Request, row: torch.Tensor, count: int) -> int:
+        """One token from one logits row with ``req``'s sampling settings and
+        token index ``count``: the draw the batched decode sampler would
+        make.  Serves the token after a prefill and the speculative bonus
+        token."""
+        if req.temperature <= 0:
+            return int(torch.argmax(row))
+        return int(sample_tokens(row[None], *self._sampling_arrays({0: req}, {0: count}, 1))[0])
+
     # -- prefill --------------------------------------------------------------
     def _sample_prefill_token(self, req: Request, last_row: torch.Tensor) -> None:
-        """Greedy token after a completed (re)prefill, from its final logits
-        row.  After a recompute this re-draws exactly the token the
-        interrupted decode step would have produced."""
-        req.generated.append(int(torch.argmax(last_row)))
+        """The token after a completed (re)prefill, from its final logits
+        row, at token index ``len(generated)``: after a recompute this
+        re-draws exactly the token the interrupted decode step would have
+        produced."""
+        req.generated.append(self._sample_one(req, last_row, len(req.generated)))
         if req.first_token_step < 0:        # TTFT survives preemption
             req.first_token_wall = time.perf_counter()
             req.first_token_step = self.t
 
     def _run_oneshot(self, slot: int, req: Request) -> None:
-        """Whole-source causal prefill in one call, padded to the bucket."""
+        """Prefill the rest of the source in one call, padded to the bucket.
+        From position 0 it is a causal prefill; after a prefix-cache hit
+        (``prefill_pos > 0``) the uncovered tail runs as one resumed chunk
+        attending to the cached prefix through the block table."""
         src = req.prefill_source()
-        n = len(src)
-        if not self._grow_or_preempt(req, n):
+        sp, pos = len(src), req.prefill_pos
+        if not self._grow_or_preempt(req, sp, write_from=pos):
             return                          # req evicted itself — retry later
+        n = sp - pos
         pad = -(-n // self.scfg.prefill_bucket) * self.scfg.prefill_bucket
         tokens = np.zeros((1, pad), np.int32)
-        tokens[0, :n] = src
-        sm = self.pool.prefill_slot_mapping(req.uid, 0, n, pad)[None]
+        tokens[0, :n] = src[pos:]
+        sm = self.pool.prefill_slot_mapping(req.uid, pos, n, pad)[None]
+        kw = {}
+        if pos:
+            starts = np.asarray([pos], np.int32)
+            kw = dict(chunk_start=starts, prefix_lens=starts,
+                      block_tables=self.pool.block_table_array(
+                          [req.uid], len(self.pool.block_table(req.uid))),
+                      block_size=self.scfg.block_size)
         with self._phase("prefill"):
             logits = lm.apply_prefill_paged(
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
-                self.pool.pages, torch.from_numpy(sm))
+                self.pool.pages, torch.from_numpy(sm), **kw)
             self._sync()
-        req.prefill_pos = n
+        req.prefill_pos = sp
+        self.bm.register_prefix(req.uid, src)
+        self._prefill_forward_tokens += n
         self.prefill_chunks += 1
         self._prefill_lanes_total += 1
         with self._phase("sample"):
@@ -533,7 +762,8 @@ class Scheduler:
         """Advance mid-prefill residents.  One-shot mode: each pending source
         prefills whole, FCFS.  Chunked mode: the next chunk of up to
         ``chunk_lanes`` lanes (FCFS) in ONE forward, each lane attending to
-        its own paged prefix at its own offset."""
+        its own paged prefix at its own offset.  Freshly written full prompt
+        blocks are registered with the prefix cache after every chunk."""
         scfg = self.scfg
         chunk = scfg.prefill_chunk_tokens
         if chunk <= 0:
@@ -554,7 +784,7 @@ class Scheduler:
             if req is None:                 # evicted by an earlier growth
                 continue
             n = min(chunk, len(req.prefill_source()) - req.prefill_pos)
-            if self._grow_or_preempt(req, req.prefill_pos + n):
+            if self._grow_or_preempt(req, req.prefill_pos + n, write_from=req.prefill_pos):
                 selected.append((slot, req, req.prefill_pos, n))
         selected = [(s, r, st, n) for s, r, st, n in selected
                     if self.slots[s] is r]  # drop lanes evicted after selection
@@ -582,8 +812,10 @@ class Scheduler:
             self._sync()
         self.prefill_chunks += 1
         self._prefill_lanes_total += len(selected)
+        self._prefill_forward_tokens += sum(n for *_, n in selected)
         for lane, (slot, req, start, n) in enumerate(selected):
             req.prefill_pos = start + n
+            self.bm.register_prefix(req.uid, req.prefill_source()[:req.prefill_pos])
             if req.prefill_pos >= len(req.prefill_source()):
                 with self._phase("sample"):
                     self._sample_prefill_token(req, logits[lane, n - 1])
@@ -627,18 +859,19 @@ class Scheduler:
         return bool(self.waiting) or any(s is not None for s in self.slots)
 
     def _decode_step(self, order) -> bool:
-        """One-token greedy decode over every decode-ready lane (one forward).
-        Returns False when no lane was live."""
+        """One-token decode over every decode-ready lane (one forward), then
+        one batched sampling call — the argmax on the device when no lane
+        samples.  Returns False when no lane was live."""
         grown: Dict[int, int] = {}          # slot → position of the new token
         for _, _, i in order:
             req = self.slots[i]
             if req is None:
                 continue                    # evicted by an older lane's growth
             cur = self.pool.length(req.uid)
-            if self._grow_or_preempt(req, cur + 1):
+            if self._grow_or_preempt(req, cur + 1, write_from=cur):
                 grown[i] = cur
         active = [i for i in grown if self.slots[i] is not None]
-        self._occupancy.append(self.pool.allocator.num_used / self.pool.num_blocks)
+        self._record_occupancy()
         if not active:
             return False
 
@@ -657,6 +890,7 @@ class Scheduler:
         sm = self.pool.slot_mapping(seq_ids, positions)
         width = max(len(self.pool.block_table(self.slots[i].uid)) for i in active)
         bt = self.pool.block_table_array(seq_ids, width)
+        sampled = {i: self.slots[i] for i in active if self.slots[i].temperature > 0}
 
         t0 = time.perf_counter()
         with self._phase("decode"):
@@ -667,7 +901,12 @@ class Scheduler:
                 self.scfg.sparse_topk_blocks, self.scfg.sparse_recent_blocks)
             self._sync()
         with self._phase("sample"):
-            nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+            if sampled:
+                arrays = self._sampling_arrays(
+                    sampled, {i: len(r.generated) for i, r in sampled.items()}, B)
+                nxt = sample_tokens(logits[:, -1, :], *arrays).cpu().numpy()
+            else:
+                nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
         self._step_wall_ms.append((time.perf_counter() - t0) * 1e3)
         self._lane_steps += len(active)
         if self.scfg.sparse_topk_blocks > 0:
@@ -681,23 +920,27 @@ class Scheduler:
 
     # -- speculative decode: draft / verify macro-step -------------------------
     def _speculative_step(self, order) -> bool:
-        """Greedy draft + verify for every decode-ready lane:
+        """Draft + verify for every decode-ready lane:
 
         1. grow each lane's chain to ``cur + w + 1`` up front (``w = min(k,
            budget left)`` draft slots plus the pending token's), preempting
-           as plain decode's growth does;
+           as plain decode's growth does, behind the copy-on-write barrier;
         2. build the block table once for the macro-step;
-        3. ``k`` batched decode forwards of the draft propose tokens (their
-           streams go into the pool, so later proposals attend to earlier
-           ones; a lane whose window is shorter sits out as an idle lane);
+        3. ``k`` batched decode forwards of the draft propose tokens, sampled
+           as plain decode would sample them (their streams go into the
+           pool, so later proposals attend to earlier ones; a lane whose
+           window is shorter sits out as an idle lane);
         4. one verify forward of the full model scores all ``k+1`` window
            positions, overwriting the window's slots with full-model streams;
-        5. per lane, keep the argmax-matching prefix plus one corrected or
-           bonus token, and truncate the chain to what was kept.
+        5. per lane, keep the accepted prefix plus one corrected or bonus
+           token (``_accept_window``), and truncate the chain to what was
+           kept.  Sampled lanes need the draft and verify rows on the host:
+           they come over in one copy per step.
 
         Between steps the request/pool invariant is plain decode's (cache =
-        prompt + generated[:-1], the last token pending), so preemption and
-        recompute work unchanged.  Returns False when no lane was live."""
+        prompt + generated[:-1], the last token pending), so preemption,
+        swap and recompute work unchanged.  Returns False when no lane was
+        live."""
         scfg = self.scfg
         k, B = scfg.speculate_k, scfg.max_slots
         W = k + 1
@@ -708,10 +951,10 @@ class Scheduler:
                 continue                    # evicted by an older lane's growth
             cur = self.pool.length(req.uid)
             w = min(k, req.max_new_tokens - len(req.generated))
-            if self._grow_or_preempt(req, cur + w + 1):
+            if self._grow_or_preempt(req, cur + w + 1, write_from=cur):
                 windows[i] = (cur, w)
         active = [i for i in windows if self.slots[i] is not None]
-        self._occupancy.append(self.pool.allocator.num_used / self.pool.num_blocks)
+        self._record_occupancy()
         if not active:
             return False
 
@@ -721,7 +964,9 @@ class Scheduler:
             seq_ids[i] = self.slots[i].uid
         width = max(len(self.pool.block_table(self.slots[i].uid)) for i in active)
         bt = self._tensor(self.pool.block_table_array(seq_ids, width))
+        sampled = {i: self.slots[i] for i in active if self.slots[i].temperature > 0}
         drafts: Dict[int, List[int]] = {i: [] for i in active}
+        draft_rows: List[torch.Tensor] = []      # [B, V] per draft forward (sampled)
         for j in range(k):
             live = [i for i in active if windows[i][1] > j]
             if not live:
@@ -742,7 +987,13 @@ class Scheduler:
                     self.draft_params, self.buffers, self.cfg, self._tensor(tokens),
                     self.pool.pages, torch.from_numpy(sm), bt, self._tensor(lengths),
                     scfg.block_size)
-                nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+                if sampled:
+                    arrays = self._sampling_arrays(
+                        sampled, {i: len(r.generated) + j for i, r in sampled.items()}, B)
+                    nxt = sample_tokens(logits[:, -1, :], *arrays).cpu().numpy()
+                    draft_rows.append(logits[:, -1, :])
+                else:
+                    nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
             self.draft_forwards += 1
             for i in live:
                 drafts[i].append(int(nxt[i]))
@@ -767,6 +1018,9 @@ class Scheduler:
             self._sync()
         with self._phase("sample"):
             targets = torch.argmax(logits, dim=-1).cpu().numpy()       # [B, W]
+            rows = None
+            if sampled:                     # verify rows, then draft rows
+                rows = torch.cat([logits, torch.stack(draft_rows, 1)], 1).cpu().numpy()
         self._step_wall_ms.append((time.perf_counter() - t0) * 1e3)
         self._lane_steps += len(active)
 
@@ -774,7 +1028,11 @@ class Scheduler:
             for i in active:
                 req = self.slots[i]
                 cur, w = windows[i]
-                out = self._accept_window(drafts[i], targets[i])
+                if req.temperature > 0:
+                    out = self._accept_sampled(req, drafts[i], rows[i, :W],
+                                               rows[i, W:W + w], logits[i, w])
+                else:
+                    out = self._accept_greedy(drafts[i], targets[i])
                 n_acc = len(out) - 1
                 self.bm.truncate(req.uid, cur + n_acc + 1)
                 appended = 0
@@ -795,7 +1053,7 @@ class Scheduler:
         return True
 
     @staticmethod
-    def _accept_window(drafts: List[int], targets: np.ndarray) -> List[int]:
+    def _accept_greedy(drafts: List[int], targets: np.ndarray) -> List[int]:
         """Greedy accept of one lane's window: the drafts that equal the full
         model's argmax ``targets[j]`` (its choice after window token ``j``),
         up to the first that does not, plus one more token — the correction
@@ -808,6 +1066,27 @@ class Scheduler:
             if x != tgt:
                 return out
         out.append(int(targets[len(drafts)]))
+        return out
+
+    def _accept_sampled(self, req: Request, drafts: List[int], rows: np.ndarray,
+                        dlogits: np.ndarray, bonus_row: torch.Tensor) -> List[int]:
+        """Rejection-sampling accept of one sampled lane's window.  ``rows[j]``
+        are the full model's logits after window token ``j``, ``dlogits[j]``
+        the draft's that proposed ``drafts[j]``; proposal ``j`` (token index
+        ``len(generated) + j``) survives with probability ``min(1, p/q)`` of
+        the two nucleus distributions, else the residual draw replaces it
+        and the window ends.  When all survive, the bonus token is drawn
+        from ``bonus_row`` exactly as plain decode would draw it."""
+        out: List[int] = []
+        for j, x in enumerate(drafts):
+            t_idx = len(req.generated) + j
+            p = nucleus_probs(rows[j], req.temperature, req.top_p)
+            q = nucleus_probs(dlogits[j], req.temperature, req.top_p)
+            if not speculative_accept(x, p, q, _spec_uniform(req.seed, t_idx, _ACCEPT_SALT)):
+                out.append(residual_sample(p, q, _spec_uniform(req.seed, t_idx, _RESID_SALT)))
+                return out
+            out.append(x)
+        out.append(self._sample_one(req, bonus_row, len(req.generated) + len(drafts)))
         return out
 
     def _count_sparse(self, lengths: np.ndarray) -> None:
@@ -852,10 +1131,12 @@ class Scheduler:
         pct = lambda xs, q: float(np.percentile(xs, q)) if xs else 0.0
         hw = self.pool.allocator.high_water
         bpt = self.pool.bytes_per_token()
+        pc = self.bm.prefix
         return ServeReport(
             completed=len(fin), decode_steps=len(self._step_wall_ms),
             prefill_tokens=sum(len(r.prompt) for r in fin),
-            prefill_chunks=self.prefill_chunks, decoded_tokens=decoded,
+            prefill_chunks=self.prefill_chunks,
+            prefill_forward_tokens=self._prefill_forward_tokens, decoded_tokens=decoded,
             wall_s=wall_s, tok_per_s=decoded / max(wall_s, 1e-9),
             ttft_steps_mean=float(np.mean(ttft_steps)) if ttft_steps else 0.0,
             ttft_steps_by_bucket=ttft_by_prompt_bucket(fin),
@@ -871,7 +1152,11 @@ class Scheduler:
             admission=self.scfg.admission,
             preemptions=self.bm.preemptions,
             preempted_requests=sum(1 for r in fin if r.preempted_at),
+            swap_outs=self.bm.swap_outs, swap_ins=self.bm.swap_ins,
+            swapped_bytes=self.bm.swapped_bytes,
             mean_occupancy=float(np.mean(self._occupancy)) if self._occupancy else 0.0,
+            mean_occupancy_retained=(float(np.mean(self._occupancy_retained))
+                                     if self._occupancy_retained else 0.0),
             mean_prefill_batch=self._prefill_lanes_total / max(self.prefill_chunks, 1),
             sparse_topk=self.scfg.sparse_topk_blocks,
             sparse_recent=self.scfg.sparse_recent_blocks,
@@ -885,6 +1170,13 @@ class Scheduler:
             mean_accepted=self.draft_accepted / max(self._spec_windows, 1),
             tokens_per_forward=self._decode_appended / max(self._lane_steps, 1),
             acceptance_by_bucket=acceptance_by_prompt_bucket(fin),
+            prefix_cache=pc is not None,
+            prefix_cache_hits=pc.hits if pc else 0,
+            prefix_cache_misses=pc.misses if pc else 0,
+            prefix_cache_hit_tokens=pc.hit_tokens if pc else 0,
+            prefix_cache_hit_rate=pc.hit_tokens / max(pc.lookup_tokens, 1) if pc else 0.0,
+            cow_copies=self.pool.cow_copies,
+            blocks_retained=pc.num_retained if pc else 0,
             phase_ms=dict(self._phase_ms),
             step_wall_ms_total=self._step_wall_ms_total)
 

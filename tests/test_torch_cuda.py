@@ -26,6 +26,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rope_elite as re_k
 from repro_torch.models import lm
 from repro_torch.runtime import serve_loop
+import sampling_margins
 
 pytestmark = pytest.mark.cuda
 
@@ -660,3 +661,99 @@ def test_flash_shared_memory_formula_matches_the_kernel(cuda):
     for body in fp.BODIES:
         for dh in fp.HEAD_DIMS:
             assert fp.smem_bytes(body, dh) == fp.smem_bytes_built(body, dh), (body, dh)
+
+
+# ---------------------------------------------------------------------------
+# pool lifecycle on the card: copy-on-write, pinned host swap, the sampler
+# ---------------------------------------------------------------------------
+
+def _random_pool(dev, dtype, seed):
+    from repro_torch.core.cache import PagedKVPool
+    cfg = get_config("tinyllama_1_1b").with_elitekv(elite_r=8, d_ckv=64)
+    pool = PagedKVPool(cfg, 64, 16, device=dev, dtype=dtype, block_summaries=True)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for a in pool.pages["p0"].values():
+        a.copy_(torch.randint(-127, 128, a.shape, generator=g, device=dev, dtype=a.dtype)
+                if a.dtype == torch.int8 else torch.randn(a.shape, generator=g, device=dev))
+    return pool
+
+
+def _chain_contents(pool, seq_id, length):
+    bs = pool.block_size
+    slots = torch.as_tensor(pool.flat_slots(seq_id, np.arange(length)), device=pool.device)
+    chain = torch.tensor(pool.block_table(seq_id)[:-(-length // bs)], device=pool.device)
+    return {n: (a[:, chain] if n.endswith(("_blkmean", "_blkmax")) else a[:, slots]).cpu()
+            for n, a in pool.pages["p0"].items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_cow_block_copy_on_the_card_is_bitwise(dtype, cuda):
+    """A write barrier into a shared block copies its 16 slots of every
+    leaf and its summary rows on the card, bit for bit, and leaves the
+    reader's block untouched."""
+    from repro_torch.core.cache import BlockManager
+    pool = _random_pool(cuda, dtype, seed=21)
+    bm = BlockManager(pool, prefix_cache=True)
+    toks = np.arange(40, dtype=np.int32)
+    bm.grow(0, 40)
+    assert bm.register_prefix(0, toks) == 2
+    assert bm.lookup_prefix(1, toks) == 32
+    before = _chain_contents(pool, 0, 32)
+    bm.grow(1, 33)
+    bm.prepare_write(1, 20, 33)                    # block 1 of the shared two
+    torch.cuda.synchronize()
+    assert pool.cow_copies == 1 and pool.block_table(1)[0] == pool.block_table(0)[0]
+    assert pool.block_table(1)[1] != pool.block_table(0)[1]
+    after_reader, after_writer = _chain_contents(pool, 0, 32), _chain_contents(pool, 1, 32)
+    for n in before:
+        assert torch.equal(after_reader[n], before[n]), n
+        assert torch.equal(after_writer[n], before[n]), n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_pinned_swap_roundtrip_on_the_card_is_bitwise(dtype, cuda):
+    """Swap-out gathers on the card and copies once into pinned host memory;
+    swap-in restores the slots, scales and summary rows on another chain."""
+    from repro_torch.core.cache import BlockManager
+    pool = _random_pool(cuda, dtype, seed=22)
+    bm = BlockManager(pool)
+    bm.grow(0, 333)
+    before, old = _chain_contents(pool, 0, 333), pool.block_table(0)
+    swapped = bm.preempt_swap_out(0, 333)
+    assert swapped.host.is_pinned() and swapped.ready is not None
+    assert swapped.nbytes() == bm.swapped_bytes
+    host = swapped.leaves()
+    for n in before:
+        assert torch.equal(host[n], before[n]), n
+    bm.grow(9, 17)                                 # the restored chain must move
+    bm.swap_in(0, swapped)
+    torch.cuda.synchronize()
+    assert pool.block_table(0) != old
+    after = _chain_contents(pool, 0, 333)
+    for n in before:
+        assert torch.equal(after[n], before[n]), n
+
+
+def test_sampler_on_the_card_draws_the_cpu_tokens(cuda):
+    """The Threefry bits are integer arithmetic: the card draws the CPU's
+    bits, and on the same logits the same tokens away from near-ties."""
+    from repro_torch.runtime import prng
+    g = torch.Generator().manual_seed(5)
+    B, V = 32, 32000
+    logits = torch.randn(B, V, generator=g) * 3
+    temps = torch.rand(B, generator=g) * 1.5
+    temps[::4] = 0.0
+    top_ps = torch.rand(B, generator=g)
+    seeds = torch.randint(-2**31, 2**31 - 1, (B,), generator=g, dtype=torch.int32)
+    counts = torch.randint(0, 4096, (B,), generator=g, dtype=torch.int32)
+    key_cpu = prng.fold_in(prng.key(seeds), counts)
+    key_dev = prng.fold_in(prng.key(seeds.to(cuda)), counts.to(cuda))
+    assert torch.equal(prng.random_bits(key_dev, V).cpu(), prng.random_bits(key_cpu, V))
+    assert torch.equal(prng.uniform(key_dev, V).cpu(), prng.uniform(key_cpu, V))
+    args = (logits, temps, top_ps, seeds, counts)
+    want = serve_loop.sample_tokens(*args)
+    got = serve_loop.sample_tokens(*(a.to(cuda) for a in args)).cpu()
+    margins = sampling_margins.sample_margins(*args)
+    decided = margins > 1e-4
+    assert decided.sum() >= B - 2
+    assert torch.equal(got[decided], want[decided])

@@ -135,25 +135,6 @@ def test_generate_paged_matches_reference(tiny_elite_cfg, tiny_elite_model, port
     assert rep.completed == 2 and rep.decoded_tokens == 12
 
 
-@pytest.mark.parametrize("field,value", [
-    ("prefix_cache", True), ("eviction", "swap"),
-])
-def test_unported_options_raise(field, value, port):
-    cfg, tp, tb = port
-    scfg = serve_loop.SchedulerConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_loop.Scheduler(tp, tb, cfg, scfg, device="cpu")
-
-
-def test_sampling_request_raises(port):
-    cfg, tp, tb = port
-    sched = serve_loop.Scheduler(tp, tb, cfg, serve_loop.SchedulerConfig(), device="cpu")
-    req = serve_loop.Request(uid=0, prompt=np.arange(4, dtype=np.int32),
-                             max_new_tokens=2, temperature=0.7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sched.submit(req)
-
-
 def test_params_on_another_device_raise(port):
     cfg, tp, tb = port
     with pytest.raises(ValueError, match="device"):

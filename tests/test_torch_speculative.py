@@ -411,18 +411,69 @@ def test_speculative_streams_match(case, tiny_elite_cfg, tiny_elite_model, port)
 
 
 # ---------------------------------------------------------------------------
-# what is refused
+# sampled speculative decode
 # ---------------------------------------------------------------------------
 
-def test_sampling_with_speculation_raises(port):
-    cfg, tp, tb = port
-    sched = serve_loop.Scheduler(tp, tb, cfg, serve_loop.SchedulerConfig(speculate_k=2),
-                                 device="cpu")
-    req = serve_loop.Request(uid=0, prompt=np.arange(4, dtype=np.int32),
-                             max_new_tokens=2, temperature=0.7)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        sched.submit(req)
+SAMPLED = {
+    "k2": (dict(BASE), 2),
+    # window growth preempts; swap eviction restores the prefix exactly
+    "preempt-swap-k4": (dict(BASE, num_blocks=9, eviction="swap"), 4),
+    "int8-k2": (dict(BASE, cache_dtype="int8"), 2),
+}
 
+
+@pytest.mark.parametrize("case", list(SAMPLED))
+def test_sampled_full_rank_matches_plain(case, tiny_elite_cfg, tiny_elite_model, port):
+    """A full-rank draft proposes from the target's own distribution, so
+    rejection sampling accepts everything and the bonus token is drawn with
+    plain decode's count-folded key: the sampled stream equals plain
+    sampled decode's, and the JAX scheduler's speculative one."""
+    from test_torch_sampling import match_sampled, sampled_requests
+    scfg_kw, k = SAMPLED[case]
+    cfg, tp, tb = port
+    plain = serve_loop.Scheduler(tp, tb, cfg, serve_loop.SchedulerConfig(**scfg_kw),
+                                 device="cpu")
+    plain.run(sampled_requests(serve_loop, cfg.vocab_size, **REQS))
+    spec_kw = dict(scfg_kw, speculate_k=k, draft_rank=0)
+    if case == "int8-k2":
+        sched = serve_loop.Scheduler(tp, tb, cfg, serve_loop.SchedulerConfig(**spec_kw),
+                                     device="cpu")
+        rep = sched.run(sampled_requests(serve_loop, cfg.vocab_size, **REQS))
+    else:
+        jrep, rep, sched, _ = match_sampled((*tiny_elite_model, tiny_elite_cfg), port,
+                                            spec_kw, REQS)
+        for field in ("draft_forwards", "draft_proposed", "draft_accepted"):
+            assert getattr(rep, field) == getattr(jrep, field), field
+    assert {r.uid: r.generated for r in sched.finished} == \
+        {r.uid: r.generated for r in plain.finished}
+    assert rep.acceptance_rate == 1.0 and rep.draft_proposed > 0
+    assert rep.phase_ms["accept"] > 0
+    if case.startswith("preempt"):
+        assert rep.preemptions > 0 and rep.swap_outs > 0
+    assert sched.pool.allocator.num_free == sched.pool.num_blocks
+
+
+def test_truncated_sampled_is_well_formed(port):
+    """A truncated draft changes the sample path (rejection sampling keeps
+    the distribution, not the path), but every request completes its
+    budget, accounting is conserved and every block comes back."""
+    from test_torch_sampling import sampled_requests
+    cfg, tp, tb = port
+    sched = serve_loop.Scheduler(
+        tp, tb, cfg, serve_loop.SchedulerConfig(**BASE, speculate_k=3, draft_rank=16),
+        device="cpu")
+    rep = sched.run(sampled_requests(serve_loop, cfg.vocab_size, temp=0.9, **REQS))
+    assert rep.completed == 4
+    assert all(len(r.generated) == 10 for r in sched.finished)
+    assert 0 <= rep.draft_accepted < rep.draft_proposed
+    assert 1.0 <= rep.tokens_per_forward <= 4.0
+    assert all(0 <= t < cfg.vocab_size for r in sched.finished for t in r.generated)
+    assert sched.pool.allocator.num_free == sched.pool.num_blocks
+
+
+# ---------------------------------------------------------------------------
+# what is refused
+# ---------------------------------------------------------------------------
 
 def test_speculation_with_sparse_decode_raises(port):
     cfg, tp, tb = port
