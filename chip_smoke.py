@@ -94,6 +94,21 @@ non-zero:
       first sequence swapped comes back bit for bit (codes, scales,
       summaries).  Swap-out and swap-in of a 1024-token sequence are timed,
       and the sampler at [8, 32000].
+   h. observability: a, g's swap run and g's sampled prefix-cache-on run
+      again with the scheduler's tracer, a fresh metrics registry and the
+      kernel tracer armed.  Each must give its untraced run's tokens bit
+      for bit on every stream, one ``kernel`` span per launch (span count
+      per name == the launch counts' delta), and a trace and metrics file
+      that ``tools/check_trace.py`` passes (run as a subprocess; the files
+      go to ``build/obs/``); a's trace is summarised by ``diagnose
+      trace-summary``.  A torch.profiler window over 10 steady f32 decode
+      steps with the kernel tracer armed holds each kernel's summed span
+      time against the profiler's device time for it (spans must cover
+      the kernels and exceed them by under 10 us per launch: the launch
+      gate keeps the host's issue time out), and again with the gate's
+      stream wait taken out, to show what it keeps out; the decode step's p50 traced
+      against untraced is taken in turns on one scheduler (U T T U), with
+      events per step and ring drops.
    Every kernel is re-run on the busiest inputs recorded from its run and
    held against its plain version, twice, with identical bits; a torch.profiler window over 10 steady
    decode steps of 8 lanes, on the f32 pool, on the int8 pool with sparse
@@ -703,34 +718,44 @@ def check(name: str, err: float, card: str) -> float:
 
 
 def profile_decode(params, buffers, cfg, dev, card: str, label: str, steps: int = 10,
-                   **pool) -> None:
+                   tracer=None, **pool):
     """Device time by kernel and the card's busy share over ``steps`` steady
     decode steps of 8 lanes (prompts of 512 tokens, prefilled first) on a
     pool configured by ``pool`` (SchedulerConfig fields); a speculative
-    config's step is one draft/verify macro-step."""
+    config's step is one draft/verify macro-step.  With a ``tracer`` the
+    scheduler records into it and the kernel tracer is armed for the
+    window (the tracer holds only the window's events).
+    → [(profiler key, device ms, count)] of the window's device rows."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
     from repro_torch.runtime import serve_loop
     scfg = serve_loop.SchedulerConfig(
         max_slots=8, block_size=16, num_blocks=512, max_new_tokens=64,
         max_len=1024, prefill_chunk_tokens=256, prefill_batch_lanes=8, **pool)
     rng = np.random.default_rng(2)
-    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=dev)
+    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=dev, tracer=tracer)
     for i in range(8):
         sched.submit(serve_loop.Request(
             uid=i, prompt=rng.integers(0, cfg.vocab_size, 512).astype(np.int32),
             max_new_tokens=64))
     for _ in range(3):                  # two 256-token chunks, then decoding
         sched.step()
+    ops.set_kernel_tracer(tracer, device=dev)
+    if tracer is not None:
+        tracer.clear()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            sched.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                sched.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ops.set_kernel_tracer(None)
     # device-side events only (kernels, copies, sets): a CPU op's row repeats
     # the time of the kernels it launched
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -744,6 +769,7 @@ def profile_decode(params, buffers, cfg, dev, card: str, label: str, steps: int 
           f"{sum(c for *_, c in rows) / steps:.0f} device events per step")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"[{card}]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:<6d} {key[:90]}")
+    return rows
 
 
 class Recorder:
@@ -796,29 +822,35 @@ def path_kernels(scfg, rep, n_layers: int):
     return {k: v * n_layers for k, v in want.items()}
 
 
-def serve_run(label, params, buffers, cfg, scfg, reqs, card: str, setup=None, draws=None):
+def serve_run(label, params, buffers, cfg, scfg, reqs, card: str, setup=None, draws=None,
+              tracer=None, metrics=None):
     """Serve ``reqs`` with the counts set to 0 just before and read just
     after; check outputs and that the path's kernels (``path_kernels``) ran
     22 times per forward and nothing else launched.  ``setup(scheduler)``
     runs before the requests are served; ``draws`` (a dict) gets every
-    sampled draw (``record_draws``).
+    sampled draw (``record_draws``).  With a ``tracer`` the scheduler
+    records into it (and meters into ``metrics``) and the kernel tracer is
+    armed for the run.
     → (report, launches, recorder, scheduler)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.runtime import serve_loop
     rec = Recorder(cfg.num_layers)
-    sched = serve_loop.Scheduler(params, buffers, cfg, scfg,
-                                 device=params["embed"]["table"].device)
+    dev = params["embed"]["table"].device
+    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=dev, tracer=tracer,
+                                 metrics=metrics)
     if setup is not None:
         setup(sched)
     undo = record_draws(draws) if draws is not None else (lambda: None)
     ops.reset_launches()
+    ops.set_kernel_tracer(tracer, device=dev)
     try:
         rep = sched.run(reqs)
         torch.cuda.synchronize()
         launches = ops.launches()
     finally:
+        ops.set_kernel_tracer(None)
         rec.close()
         undo()
     print(f"[{card}] {label}: {rep.summary()}", flush=True)
@@ -842,6 +874,178 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, card: str, setup=None, dr
     if others:
         raise AssertionError(f"{label}: other kernels launched: {others}")
     return rep, launches, rec, sched
+
+
+# a profiler row's kernel → its launch counter in the f32 dense decode
+# window (checked in this order: "flash_decode_kernel" is flash_prefill's)
+PROFILED = (("rope_qk_kernel", "rope_elite"), ("flash_", "flash_prefill"),
+            ("decode_kernel", "elite_decode_paged"))
+
+
+def spans_vs_profiler(rows, events) -> dict:
+    """{launch counter: (span ms, spans, profiler device ms, profiled
+    launches)} for a window's profiler rows and its tracer's events."""
+    prof, spans = {}, {}
+    for key, ms, count in rows:
+        name = next((n for part, n in PROFILED if part in key), None)
+        if name is not None:
+            ms0, c0 = prof.get(name, (0.0, 0))
+            prof[name] = ms0 + ms, c0 + count
+    for e in events:
+        if e.track == "kernel":
+            name = "rope_elite" if e.name == "rope_elite_qk" else e.name
+            ms0, c0 = spans.get(name, (0.0, 0))
+            spans[name] = ms0 + e.dur * 1e3, c0 + 1
+    if set(spans) != set(prof):
+        raise AssertionError(f"profiler kernels {sorted(prof)} != span names {sorted(spans)}")
+    return {name: spans[name] + prof[name] for name in sorted(spans)}
+
+
+def observability(params, buffers, cfg, dev, card: str, runs: dict) -> None:
+    """Phase 3h: each of ``runs`` ({label: (SchedulerConfig, requests,
+    untraced streams, untraced report)}) again, traced; the kernel spans
+    against the profiler; tracing's cost in turns."""
+    import bisect
+    import collections
+    import re
+    import numpy as np
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import diagnose
+    from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer, write_chrome_trace
+    from repro_torch.runtime import serve_loop
+    out_dir = ROOT / "build" / "obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for label, (scfg, reqs, want, urep) in runs.items():
+        tr, metrics = Tracer(), MetricsRegistry()
+        rep, launches, _, sched = serve_run(f"traced {label}", params, buffers, cfg, scfg,
+                                            reqs, card, tracer=tr, metrics=metrics)
+        got = {r.uid: r.generated for r in sched.finished}
+        if got != want:
+            bad = sorted(u for u in want if got.get(u) != want[u])
+            raise AssertionError(f"traced {label}: streams {bad} differ from the untraced "
+                                 f"run's")
+        t0 = time.perf_counter()
+        events = tr.events()
+        spans = collections.Counter(e.name for e in events if e.track == "kernel")
+        spans["rope_elite"] += spans.pop("rope_elite_qk", 0)    # both entries count there
+        spans = {k: v for k, v in spans.items() if v}
+        counted = {k: v for k, v in launches.items() if v}
+        if spans != counted:
+            raise AssertionError(f"traced {label}: kernel spans {spans} != launches {counted}")
+        stem = re.sub(r"\W+", "_", label)
+        paths[label] = write_chrome_trace(out_dir / f"{stem}.json", tr)
+        prom = out_dir / f"{stem}.prom"
+        prom.write_text(metrics.to_prometheus())
+        t_export = time.perf_counter() - t0
+        chk = subprocess.run([sys.executable, str(ROOT / "tools" / "check_trace.py"),
+                              str(paths[label]), "--metrics", str(prom)],
+                             capture_output=True, text=True, timeout=300)
+        if chk.returncode:
+            raise AssertionError(f"traced {label}: check_trace failed\n{chk.stdout[-3000:]}")
+        host = [e for e in events if e.track != "kernel"]
+        steps = max(rep.decode_steps, 1)
+        print(f"[{card}] traced {label}: tokens == untraced run's on all {len(got)} streams; "
+              f"{rep.trace_events} events, {rep.trace_dropped} dropped by the ring: "
+              f"{sum(spans.values())} kernel spans == launches, {len(host)} host events; "
+              f"{rep.trace_events / steps:.1f} per decode step ({len(host) / steps:.1f} "
+              f"host); step_ms p50 {rep.step_ms_p50:.2f} vs {urep.step_ms_p50:.2f} in the "
+              f"untraced run; export {t_export * 1e3:.0f} ms, "
+              f"{paths[label].stat().st_size} B; {chk.stdout.strip().splitlines()[-1]}",
+              flush=True)
+        swaps = [e for e in events if e.name in ("swap_out", "swap_in")]
+        if swaps:
+            if not all(e.arg("device_ms") > 0 for e in swaps):
+                raise AssertionError(f"traced {label}: a swap span without device time")
+            for name in ("swap_out", "swap_in"):
+                sw = [e for e in swaps if e.name == name]
+                print(f"[{card}] traced {label}: {len(sw)} {name} spans, host "
+                      f"{sum(e.dur for e in sw) * 1e3:.2f} ms, device (gather/scatter "
+                      f"and copy) {sum(e.arg('device_ms') for e in sw):.2f} ms", flush=True)
+    # the f32 run's step from its spans: host phases per decode step, and
+    # the card's time in the kernel spans inside each decode phase
+    label = next(iter(runs))
+    records = json.loads(paths[label].read_text())["traceEvents"]
+    phase = {}
+    for e in records:
+        if e["ph"] == "X" and e.get("cat") == "phase":
+            phase.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+    kern = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in records
+                  if e["ph"] == "X" and e.get("cat") == "kernel")
+    starts = [k[0] for k in kern]
+    inside, dec_ms = [], {}
+    for a, b in phase.get("decode", []):
+        k = [x for x in kern[bisect.bisect_left(starts, a):bisect.bisect_right(starts, b)]
+             if x[1] <= b]
+        inside.append(len(k))
+        for s, t, n in k:
+            dec_ms[n] = dec_ms.get(n, 0.0) + (t - s) / 1e3
+    n_dec = max(len(phase.get("decode", [])), 1)
+    print(f"[{card}] traced {label} from its spans: host phases, mean per call "
+          + ", ".join(f"{p} {sum(b - a for a, b in v) / 1e3 / len(v):.3f} ms x{len(v)}"
+                      for p, v in sorted(phase.items()))
+          + f"; kernel spans inside a decode phase min/p50/max {min(inside)}/"
+          f"{int(np.median(inside))}/{max(inside)}, their card time per decode step "
+          + ", ".join(f"{n} {v / n_dec:.4f} ms" for n, v in dec_ms.items()), flush=True)
+    diagnose.main(["trace-summary", str(paths[label]), "--top", "4"])
+    # the spans against the profiler's device time, kernel by kernel; then
+    # the same window with the launch gate's stream wait taken out, which
+    # shows what the gate keeps out of a span (the host's time to issue)
+    for gated in (True, False):
+        tr = Tracer()
+        title = f"f32 dense, kernel tracer armed, {'gated' if gated else 'gate taken out'}"
+        if gated:
+            rows = profile_decode(params, buffers, cfg, dev, card, title, tracer=tr)
+        else:
+            wait, build._GATE["wait"] = build._GATE["wait"], lambda *a: 0
+            try:
+                rows = profile_decode(params, buffers, cfg, dev, card, title, tracer=tr)
+            finally:
+                build._GATE["wait"] = wait
+        for name, (s_ms, s_n, p_ms, p_n) in spans_vs_profiler(rows, tr.events()).items():
+            excess_us = (s_ms - p_ms) / s_n * 1e3
+            print(f"[{card}] spans vs profiler, {'gated' if gated else 'ungated'}, {name}: "
+                  f"{s_n} spans / {p_n} profiled launches, span sum {s_ms:.3f} ms, profiler "
+                  f"device {p_ms:.3f} ms ({100 * (s_ms / p_ms - 1):+.1f}%), per launch "
+                  f"{s_ms / s_n * 1e3:.2f} vs {p_ms / p_n * 1e3:.2f} us "
+                  f"(+{excess_us:.2f} us)", flush=True)
+            if s_n != p_n or (gated and (s_ms < 0.95 * p_ms or excess_us > 10.0)):
+                raise AssertionError(f"{name}: spans do not measure the card's launches")
+    # tracing's cost: one scheduler at 8 steady lanes, turns U T T U of 10
+    # decode steps, untraced and traced (scheduler, pool and kernel tracer)
+    scfg = serve_loop.SchedulerConfig(max_slots=8, block_size=16, num_blocks=512,
+                                      max_new_tokens=256, max_len=1024,
+                                      prefill_chunk_tokens=256, prefill_batch_lanes=8)
+    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=dev)
+    rng = np.random.default_rng(2)
+    for i in range(8):
+        sched.submit(serve_loop.Request(
+            uid=i, prompt=rng.integers(0, cfg.vocab_size, 512).astype(np.int32),
+            max_new_tokens=256))
+    for _ in range(3):
+        sched.step()
+    tr, times, turns = Tracer(), {"U": [], "T": []}, []
+    try:
+        for _ in range(5):
+            for mode in "UTTU":
+                on = tr if mode == "T" else None
+                sched.trace = sched.pool.trace = on or NULL_TRACER
+                ops.set_kernel_tracer(on, device=dev)
+                turn = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    sched.step()
+                    turn.append((time.perf_counter() - t0) * 1e3)
+                times[mode] += turn
+                turns.append(f"{mode}{np.median(turn):.2f}")
+    finally:
+        ops.set_kernel_tracer(None)
+    u50, t50 = np.percentile(times["U"], 50), np.percentile(times["T"], 50)
+    print(f"[{card}] tracing cost in turns (5 x U T T U of 10 steady f32 decode steps of 8 "
+          f"lanes, one scheduler): decode step p50 untraced {u50:.3f} ms, traced "
+          f"{t50:.3f} ms ({100 * (t50 / u50 - 1):+.1f}%); {tr.emitted / len(times['T']):.1f} "
+          f"events per traced step, {tr.dropped} dropped; turn medians {' '.join(turns)}",
+          flush=True)
 
 
 def near_tie_margin(params, buffers, cfg, tokens, dev) -> float:
@@ -1154,6 +1358,7 @@ def serving_features(params, buffers, cfg, dev, card: str, base: dict) -> dict:
             label, sched_streams(plain, tsched), ref_draws, draws, sampled, card,
             "undisturbed sampled run's")
         out[f"tight {eviction}"] = trep
+        out[f"streams {eviction}"] = {r.uid: r.generated for r in tsched.finished}
     # the swap run's greedy twin, where the top-2 margin decides
     gtrep, _, _, gtsched = serve_run("greedy tight pool swap 12 requests", params, buffers,
                                      cfg, SC(**dict(base, num_blocks=160, eviction="swap")),
@@ -1194,6 +1399,7 @@ def serving_features(params, buffers, cfg, dev, card: str, base: dict) -> dict:
             compare_sampled(f"prefix cache on {kind}", pairs, d_off, d_on,
                             {r.uid: r for r in pstream()}, card, "cache-off run's")
             out["prefix off"], out["prefix on"] = off, on
+            out["streams prefix on"] = {r.uid: r.generated for r in on_sched.finished}
         else:
             compare_streams(f"prefix cache on {kind}", pairs, params, buffers, cfg, dev,
                             card, against="cache-off run's")
@@ -1265,6 +1471,7 @@ def main() -> int:
     from repro_torch.launch.serve import build_config, make_stream
     from repro_torch.models import lm
     from repro_torch.runtime import serve_loop
+    SchedulerConfig = serve_loop.SchedulerConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1431,9 +1638,10 @@ def main() -> int:
     # a. the f32 pool, dense decode
     reqs = make_stream(cfg, 24, rate=0.5, prompt_len=768, new_tokens=128, seed=0,
                        prompt_min=64, new_min=32)
-    rep, launches, rec, _ = serve_run(
+    rep, launches, rec, sched = serve_run(
         "main path f32 24 requests", params, buffers, cfg,
         serve_loop.SchedulerConfig(**base), reqs, card)
+    f32_streams = {r.uid: r.generated for r in sched.finished}
     runs["elite_decode_paged"] = rep, launches
     recs["elite_decode_paged"] = rec
     # b. the int8 pool with sparse decode; c. int8 dense and f32 sparse
@@ -1509,6 +1717,21 @@ def main() -> int:
 
     # g. sampled serving, the prefix cache and host swap
     feats = serving_features(params, buffers, cfg, dev, card, base)
+    # h. the same runs traced, the spans against the profiler, the cost
+    observability(params, buffers, cfg, dev, card, {
+        "f32 24 requests": (SchedulerConfig(**base), make_stream(
+            cfg, 24, rate=0.5, prompt_len=768, new_tokens=128, seed=0, prompt_min=64,
+            new_min=32), f32_streams, runs["elite_decode_paged"][0]),
+        "sampled swap 12 requests": (SchedulerConfig(**dict(
+            base, num_blocks=160, eviction="swap")), make_stream(
+            cfg, 12, rate=0.5, prompt_len=512, new_tokens=128, seed=10, prompt_min=64,
+            new_min=64, temperature=0.8, top_p=0.95, sample_seed=100),
+            feats["streams swap"], feats["tight swap"]),
+        "sampled prefix cache on 16 requests": (SchedulerConfig(**base, prefix_cache=True),
+                                                make_stream(
+            cfg, 16, rate=0.5, prompt_len=256, new_tokens=128, seed=11, prompt_min=64,
+            new_min=64, shared_prefix=256, temperature=0.8, top_p=0.95, sample_seed=200),
+            feats["streams prefix on"], feats["prefix on"])})
 
     # each decode and verify kernel again, on the busiest recorded main-path inputs
     busiest = {}

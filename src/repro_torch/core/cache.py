@@ -33,6 +33,13 @@ block another chain reads.  Swap-out gathers a victim's slots on the
 device and copies them once into pinned host memory (``SwappedSeq``);
 swap-in scatters them back onto whatever chain it is given, byte for byte.
 
+With a ``tracer`` the pool emits the reference's events on the ``pool``
+track: ``alloc``, ``free`` (reasons ``release``, ``truncate``, ``reclaim``)
+and ``retain`` as blocks change hands, ``share``, ``cow`` and
+``prefix_register`` for the prefix cache, and ``swap_out``/``swap_in``
+spans over the host window of a swap, whose device copy on the card adds a
+``device_ms`` argument read when the trace is (two CUDA events, no wait).
+
 Not ported: tensor-parallel page placement.
 """
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
+from repro_torch.obs.trace import NULL_TRACER, DeviceDuration
 
 #: per-block latent summary leaves of a ``block_summaries=True`` pool
 BLOCK_SUMMARY_SUFFIXES = ("_blkmean", "_blkmax")
@@ -241,17 +249,19 @@ class PagedKVPool:
     ``pages["p0"][name]`` is ``[n_layers, n_slots, ...]`` with
     ``n_slots = num_blocks · block_size``; token ``t`` of block ``b`` lives at
     flat slot ``b · block_size + t``.  ``dtype`` is ``"float32"`` or
-    ``"int8"`` (or the torch dtype).
+    ``"int8"`` (or the torch dtype).  ``tracer`` receives the pool events.
     """
 
     def __init__(self, cfg: ModelConfig, num_blocks: int, block_size: int,
-                 device="cuda", dtype="float32", block_summaries: bool = False):
+                 device="cuda", dtype="float32", block_summaries: bool = False,
+                 tracer=None):
         if not cfg.elitekv.enabled:
             raise ValueError("the paged pool stores EliteKV compressed streams only")
         quantized = quant.is_int8(dtype)
         if not quantized and dtype not in ("float32", torch.float32):
             raise ValueError(f"pool dtype {dtype!r}: expected 'float32' or 'int8'")
         self.dtype = torch.int8 if quantized else torch.float32
+        self.trace = tracer or NULL_TRACER
         self.cfg = cfg
         self.block_size = block_size
         self.num_blocks = num_blocks
@@ -288,25 +298,38 @@ class PagedKVPool:
         prefix blocks (oldest first) when the free list alone is short."""
         short = n - self.allocator.num_free
         if short > 0 and self.prefix is not None:
-            self.allocator.free(self.prefix.reclaim(short))
+            evicted = self.prefix.reclaim(short)
+            if evicted:
+                self.allocator.free(evicted)
+                self.trace.instant("free", track="pool", cat="pool", seq=-1,
+                                   blocks=evicted, reason="reclaim")
         got = self.allocator.alloc(n)       # raises OutOfBlocks if still short
         for b in got:
             self._refcount[b] = 1
         return got
 
-    def _release_blocks(self, blocks: Sequence[int]) -> None:
+    def _release_blocks(self, blocks: Sequence[int], seq_id: int, reason: str) -> None:
         """Drop one reference per block.  A block at refcount 0 returns to
         the free list, or stays retained in the prefix cache's LRU when it
         backs a cached prefix."""
-        freed = []
+        freed: List[int] = []
+        retained: List[int] = []
         for b in blocks:
             self._refcount[b] -= 1
             if self._refcount[b] > 0:
                 continue                    # another chain still reads it
             del self._refcount[b]
-            if self.prefix is None or not self.prefix.retain(b):
+            if self.prefix is not None and self.prefix.retain(b):
+                retained.append(b)
+            else:
                 freed.append(b)
-        self.allocator.free(freed)
+        if freed:
+            self.allocator.free(freed)
+            self.trace.instant("free", track="pool", cat="pool", seq=seq_id,
+                               blocks=freed, reason=reason)
+        if retained:
+            self.trace.instant("retain", track="pool", cat="cache", seq=seq_id,
+                               blocks=retained)
 
     # -- sequence lifecycle -------------------------------------------------
     def ensure_capacity(self, seq_id: int, length: int) -> None:
@@ -315,7 +338,10 @@ class PagedKVPool:
         table = self._tables.setdefault(seq_id, [])
         need = -(-length // self.block_size) - len(table)
         if need > 0:
-            table.extend(self._alloc(need))
+            got = self._alloc(need)
+            table.extend(got)
+            self.trace.instant("alloc", track="pool", cat="pool", seq=seq_id,
+                               blocks=got, length=length)
         self._lengths[seq_id] = max(self._lengths.get(seq_id, 0), length)
 
     def share_prefix(self, seq_id: int, blocks: Sequence[int]) -> None:
@@ -331,6 +357,9 @@ class PagedKVPool:
                 self.prefix.on_ref(b)
         table.extend(blocks)
         self._lengths[seq_id] = len(blocks) * self.block_size
+        if blocks:
+            self.trace.instant("share", track="pool", cat="cache", seq=seq_id,
+                               blocks=list(blocks))
 
     def make_private(self, seq_id: int, start: int, end: int) -> None:
         """Copy-on-write barrier: before ``seq_id`` writes positions
@@ -357,6 +386,8 @@ class PagedKVPool:
                 self._refcount[b] -= 1
                 table[bi] = new
                 self.cow_copies += 1
+                self.trace.instant("cow", track="pool", cat="cache", seq=seq_id,
+                                   block=b, copy=new)
             elif self.prefix is not None and self.prefix.is_cached(b):
                 self.prefix.invalidate(b)   # sole owner rewrites in place
 
@@ -384,11 +415,11 @@ class PagedKVPool:
         if keep < len(table):
             dropped = table[keep:]
             del table[keep:]
-            self._release_blocks(dropped)
+            self._release_blocks(dropped, seq_id, reason="truncate")
         self._lengths[seq_id] = length
 
     def free_seq(self, seq_id: int) -> None:
-        self._release_blocks(self._tables.pop(seq_id, []))
+        self._release_blocks(self._tables.pop(seq_id, []), seq_id, reason="release")
         self._lengths.pop(seq_id, None)
 
     def length(self, seq_id: int) -> int:
@@ -501,6 +532,13 @@ def _nbytes(dtype: torch.dtype, shape) -> int:
     return int(np.prod(shape)) * dtype.itemsize
 
 
+def _copy_events(trace, dev):
+    """Two timing CUDA events for a traced swap copy on the card, else None."""
+    if not trace.enabled or dev.type != "cuda":
+        return None
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
 def _unpack(buf: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
     """Typed views of a packed byte buffer, one per ``layout`` entry."""
     return {name: buf[off:off + _nbytes(dt, shape)].view(dt).view(shape)
@@ -582,8 +620,12 @@ class BlockManager:
         bs = self.pool.block_size
         table = self.pool.block_table(seq_id)
         n_full = min(len(tokens) // bs, self.pool.length(seq_id) // bs, len(table))
-        return sum(pc.claim(h, table[i])
-                   for i, h in enumerate(prefix_block_hashes(tokens, bs)[:n_full]))
+        claimed = sum(pc.claim(h, table[i])
+                      for i, h in enumerate(prefix_block_hashes(tokens, bs)[:n_full]))
+        if claimed:
+            self.pool.trace.instant("prefix_register", track="pool", cat="cache",
+                                    seq=seq_id, blocks=claimed)
+        return claimed
 
     def prepare_write(self, seq_id: int, start: int, end: int) -> None:
         """Copy-on-write barrier for a scatter into positions ``[start,
@@ -638,7 +680,9 @@ class BlockManager:
         growth whose write never ran must not be swapped.  The slots are
         gathered on the device into one buffer and copied once, without
         waiting, into pinned host memory; freeing the blocks after the
-        gather is safe because later writes to them queue behind it.
+        gather is safe because later writes to them queue behind it.  The
+        ``swap_out`` span covers the host window; traced on the card, its
+        ``device_ms`` times the gather and the copy.
         → None when nothing is cached yet (a plain requeue)."""
         self.preemptions += 1
         if length <= 0:
@@ -646,29 +690,37 @@ class BlockManager:
             return None
         pool = self.pool
         dev = pool.device
-        slots = torch.as_tensor(pool.flat_slots(seq_id, np.arange(length)), device=dev)
-        chain = torch.as_tensor(pool.block_table(seq_id)[:-(-length // pool.block_size)],
-                                dtype=torch.int64, device=dev)
-        layout, off = [], 0
-        for name, arr in pool.pages["p0"].items():
-            n = len(chain) if is_block_summary(name) else length
-            shape = (arr.shape[0], n) + tuple(arr.shape[2:])
-            layout.append((name, arr.dtype, shape, off))
-            off += -(-_nbytes(arr.dtype, shape) // 16) * 16     # 16-byte aligned leaves
-        staging = torch.empty(off, dtype=torch.uint8, device=dev)
-        for name, view in _unpack(staging, layout).items():
-            idx = chain if is_block_summary(name) else slots
-            torch.index_select(pool.pages["p0"][name], 1, idx, out=view)
-        ready = None
-        if dev.type == "cuda":
-            host = torch.empty(off, dtype=torch.uint8, pin_memory=True)
-            host.copy_(staging, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        else:
-            host = staging
-        self.release(seq_id)
-        swapped = SwappedSeq(length=length, host=host, layout=tuple(layout), ready=ready)
+        ev = _copy_events(pool.trace, dev)
+        timed = {"device_ms": DeviceDuration(*ev)} if ev else {}
+        with pool.trace.span("swap_out", track="pool", cat="swap", seq=seq_id,
+                             length=length, **timed):
+            slots = torch.as_tensor(pool.flat_slots(seq_id, np.arange(length)), device=dev)
+            chain = torch.as_tensor(pool.block_table(seq_id)[:-(-length // pool.block_size)],
+                                    dtype=torch.int64, device=dev)
+            layout, off = [], 0
+            for name, arr in pool.pages["p0"].items():
+                n = len(chain) if is_block_summary(name) else length
+                shape = (arr.shape[0], n) + tuple(arr.shape[2:])
+                layout.append((name, arr.dtype, shape, off))
+                off += -(-_nbytes(arr.dtype, shape) // 16) * 16     # 16-byte aligned leaves
+            if ev:
+                ev[0].record(torch.cuda.current_stream(dev))
+            staging = torch.empty(off, dtype=torch.uint8, device=dev)
+            for name, view in _unpack(staging, layout).items():
+                idx = chain if is_block_summary(name) else slots
+                torch.index_select(pool.pages["p0"][name], 1, idx, out=view)
+            ready = None
+            if dev.type == "cuda":
+                host = torch.empty(off, dtype=torch.uint8, pin_memory=True)
+                host.copy_(staging, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+            else:
+                host = staging
+            if ev:
+                ev[1].record(torch.cuda.current_stream(dev))
+            self.release(seq_id)
+            swapped = SwappedSeq(length=length, host=host, layout=tuple(layout), ready=ready)
         self.swap_outs += 1
         self.swapped_bytes += swapped.nbytes()
         return swapped
@@ -677,17 +729,27 @@ class BlockManager:
         """Allocate a fresh chain and scatter the host copy back, byte for
         byte.  Raises ``OutOfBlocks`` if it does not fit (the caller defers
         admission).  The host→device copy queues on the stream behind the
-        swap-out's device→host copy."""
+        swap-out's device→host copy.  The ``swap_in`` span covers the host
+        window; traced on the card, its ``device_ms`` times the copy and the
+        scatter."""
         pool = self.pool
         pool.ensure_capacity(seq_id, swapped.length)
         dev = pool.device
-        slots = torch.as_tensor(pool.flat_slots(seq_id, np.arange(swapped.length)),
-                                device=dev)
-        chain = torch.as_tensor(
-            pool.block_table(seq_id)[:-(-swapped.length // pool.block_size)],
-            dtype=torch.int64, device=dev)
-        staged = swapped.host.to(dev, non_blocking=True)
-        for name, view in _unpack(staged, swapped.layout).items():
-            idx = chain if is_block_summary(name) else slots
-            pool.pages["p0"][name].index_copy_(1, idx, view)
+        ev = _copy_events(pool.trace, dev)
+        timed = {"device_ms": DeviceDuration(*ev)} if ev else {}
+        with pool.trace.span("swap_in", track="pool", cat="swap", seq=seq_id,
+                             length=swapped.length, **timed):
+            slots = torch.as_tensor(pool.flat_slots(seq_id, np.arange(swapped.length)),
+                                    device=dev)
+            chain = torch.as_tensor(
+                pool.block_table(seq_id)[:-(-swapped.length // pool.block_size)],
+                dtype=torch.int64, device=dev)
+            if ev:
+                ev[0].record(torch.cuda.current_stream(dev))
+            staged = swapped.host.to(dev, non_blocking=True)
+            for name, view in _unpack(staged, swapped.layout).items():
+                idx = chain if is_block_summary(name) else slots
+                pool.pages["p0"][name].index_copy_(1, idx, view)
+            if ev:
+                ev[1].record(torch.cuda.current_stream(dev))
         self.swap_ins += 1

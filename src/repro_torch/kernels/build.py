@@ -7,6 +7,18 @@ by a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one is reused.  ``build()`` starts one nvcc per source, all at
 once, and returns what ``-Xptxas -v`` reported (registers, shared memory,
 spills) for each source it compiled.
+
+``launch`` calls an entry on the current stream.  With a kernel tracer
+armed (``ops.set_kernel_tracer``) it brackets the call with two CUDA events
+and leaves a span on the tracer's ``kernel`` track, read when the trace is;
+disarmed, the cost is one ``is None`` test.  The host issues a launch well
+after it records the start event, and an idle card stamps that event at
+once, so a traced launch is *gated*: the stream first waits
+(``cuStreamWaitValue32``) for a pinned host counter that the host bumps
+once the start event, the launch and the end event are all queued.  The
+card then runs the three back to back and the span measures the card: the
+launch, not the host's time to issue it.  Nothing on the host waits; the
+card waits only for work the host had not yet issued.
 """
 from __future__ import annotations
 
@@ -28,6 +40,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _SCRATCH: Dict[tuple, tuple] = {}
+
+#: the tracer kernel launches report to (``ops.set_kernel_tracer``), or None
+TRACER = None
+#: the launch gate: cuStreamWaitValue32, the pinned counter (its device
+#: address and a host view) and the last value issued; set up by ``anchor``
+_GATE: Dict[str, object] = {}
 
 
 def _nvcc() -> str:
@@ -109,3 +127,71 @@ def check(t, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def _gate() -> Dict[str, object]:
+    """The launch gate, made once per process: libcuda's stream wait
+    (``cuStreamWaitValue32``) and a pinned, device-mapped uint32 counter
+    at 0."""
+    if not _GATE:
+        cuda = ctypes.CDLL("libcuda.so.1")
+        wait = getattr(cuda, "cuStreamWaitValue32_v2", None) or cuda.cuStreamWaitValue32
+        wait.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint]
+        mapped = cuda.cuMemHostGetDevicePointer_v2
+        mapped.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.c_void_p, ctypes.c_uint]
+        flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+        addr = ctypes.c_uint64()
+        err = mapped(ctypes.byref(addr), ctypes.c_void_p(flag.data_ptr()), 0)
+        if err:
+            raise RuntimeError(f"cuMemHostGetDevicePointer failed: CUDA error {err}")
+        _GATE.update(wait=wait, flag=flag, addr=addr.value, issued=0,
+                     host=ctypes.c_uint32.from_address(flag.data_ptr()))
+    return _GATE
+
+
+def anchor(tracer, dev) -> None:
+    """Tie ``tracer``'s device spans on ``dev`` to its clock: wait for the
+    card, take the host time, record an event on the idle card.  Also makes
+    the launch gate, so a traced launch allocates nothing."""
+    _gate()
+    torch.cuda.synchronize(dev)
+    ev = torch.cuda.Event(enable_timing=True)
+    t = tracer.now()
+    ev.record(torch.cuda.current_stream(dev))
+    tracer.anchor(dev.index, ev, t)
+
+
+def launch(name: str, fn, args, first) -> None:
+    """Call the C entry ``fn(*args, stream)`` on the current stream of
+    ``first``'s device; raise on a CUDA error.  With a kernel tracer armed,
+    the call goes behind the gate between two CUDA events on that stream
+    and a ``name`` span (arg ``shape``: ``first``'s) goes to the ``kernel``
+    track; nothing here waits for the card (a device the tracer was not
+    armed on is anchored at its first launch, the one wait)."""
+    dev = first.device
+    stream = torch.cuda.current_stream(dev)
+    tr = TRACER
+    if tr is None:
+        err = fn(*args, stream.cuda_stream)
+    else:
+        if not tr.has_anchor(dev.index):
+            anchor(tr, dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        handle = stream.cuda_stream
+        gate = _GATE
+        value = gate["issued"] = (gate["issued"] + 1) & 0xFFFFFFFF
+        # CU_STREAM_WAIT_VALUE_GEQ: a counter that moved on releases it too
+        werr = gate["wait"](handle, gate["addr"], value, 0)
+        if werr:
+            raise RuntimeError(f"cuStreamWaitValue32 failed: CUDA error {werr}")
+        try:
+            start.record(stream)
+            err = fn(*args, handle)
+            end.record(stream)
+        finally:
+            gate["host"].value = value          # release, whatever happened
+        if not err:
+            tr.device_span(name, dev.index, start, end, shape=str(tuple(first.shape)))
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

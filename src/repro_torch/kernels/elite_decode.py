@@ -276,11 +276,9 @@ def _call(symbol: str, ptrs, ints, scale: float, p: Plan, R: int, dc: int) -> No
         argtypes = [ctypes.c_void_p] * (len(ptrs) + 2) + [ctypes.c_int] * (len(ints) + 4) + [
             ctypes.c_float, ctypes.c_void_p]
         fn = _ENTRIES[symbol] = build.load(symbol, argtypes, source=_SOURCE)
-    err = fn(*(t.data_ptr() for t in ptrs), part.data_ptr(), cnt.data_ptr(), *ints,
-             p.heads, p.splits, p.tiles_per_split, p.stages, scale,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+    build.launch(symbol, fn, (*(t.data_ptr() for t in ptrs), part.data_ptr(),
+                              cnt.data_ptr(), *ints, p.heads, p.splits,
+                              p.tiles_per_split, p.stages, scale), ptrs[0])
 
 
 def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,

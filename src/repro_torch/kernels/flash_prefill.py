@@ -110,12 +110,10 @@ def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,
     part, cnt = build.scratch(dev, "flash_prefill", n_part, B * nkv)
     out = torch.empty((B, Sq, nh, dh), dtype=f32, device=dev)
     fn = build.load("flash_prefill", _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offsets.data_ptr(),
-             kv_lens.data_ptr(), out.data_ptr(), part.data_ptr(), cnt.data_ptr(), B, Sq,
-             Sk, nh, nkv, dh, BODIES[p.body], scale,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_prefill launch failed: CUDA error {err}")
+    build.launch("flash_prefill", fn,
+                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offsets.data_ptr(),
+                  kv_lens.data_ptr(), out.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+                  B, Sq, Sk, nh, nkv, dh, BODIES[p.body], scale), q)
     flash_prefill.launches += 1
     return out
 

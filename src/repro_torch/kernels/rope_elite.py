@@ -135,14 +135,13 @@ def _launch(q, k, positions, freqs, q_per_row: int, k_per_row: int):
     p = plan_for(q, k, positions, freqs, q_per_row, k_per_row)
     kst = k.stride()[:3] if k is not None else (0, 0, 0)
     fn = build.load("rope_elite_qk", _ARGTYPES, source="rope_elite")
-    err = fn(q.data_ptr(), 0 if k is None else k.data_ptr(), positions.data_ptr(),
-             int(positions.dtype == torch.int64), freqs.data_ptr(), q_out.data_ptr(),
-             0 if k_out is None else k_out.data_ptr(), p.vec, B, S, r, rows, q_per_row,
-             k_per_row, p.subsets, p.per_sub, p.block[2], *q.stride()[:3], *kst,
-             S if positions.dim() == 2 else 0, freqs.stride(0),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"rope_elite launch failed: CUDA error {err}")
+    build.launch("rope_elite" if k is None else "rope_elite_qk", fn,
+                 (q.data_ptr(), 0 if k is None else k.data_ptr(), positions.data_ptr(),
+                  int(positions.dtype == torch.int64), freqs.data_ptr(), q_out.data_ptr(),
+                  0 if k_out is None else k_out.data_ptr(), p.vec, B, S, r, rows,
+                  q_per_row, k_per_row, p.subsets, p.per_sub, p.block[2],
+                  *q.stride()[:3], *kst, S if positions.dim() == 2 else 0,
+                  freqs.stride(0)), q)
     rope_elite.launches += 1
     return q_out, k_out
 

@@ -63,8 +63,21 @@ accept by rejection sampling.  It cannot be combined with
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --elitekv \
         --stream --device cpu --speculate 2 --draft-rank 16
 
-The reference's tracing and multi-device options are not ported yet
-(ROADMAP Queue 1).
+Observability: ``--trace out.json`` records the stream run into a
+ring-buffer tracer (``--trace-capacity`` events, the oldest dropped beyond)
+and writes a Chrome trace-event timeline — open it in
+https://ui.perfetto.dev — with the scheduler's phase spans, request
+lifecycles per slot, pool events and counters, and a span per kernel launch
+on the ``kernel`` track (timed by CUDA events on the card, read when the
+trace is written).  ``--metrics-out metrics.prom`` writes the process-wide
+metrics registry in Prometheus text format.  Traced and untraced streams
+are token-identical.  Check and summarise the artifacts with
+
+    python tools/check_trace.py out.json --metrics metrics.prom
+    PYTHONPATH=src python -m repro_torch.launch.diagnose trace-summary out.json
+
+Batch mode rejects both flags, as the reference does.  The reference's
+multi-device options are not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -78,7 +91,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.cache import model_cache_floats_per_token
 from repro_torch.core.convert import pick_dims
+from repro_torch.kernels import ops
 from repro_torch.models import lm
+from repro_torch.obs import REGISTRY, Tracer, write_chrome_trace
 from repro_torch.runtime import serve_loop
 
 
@@ -121,12 +136,18 @@ def serve_stream(params, buffers, cfg, args):
         cache_dtype="int8" if args.pool_dtype == "int8" else "float32",
         sparse_topk_blocks=args.sparse_topk, sparse_recent_blocks=args.sparse_recent,
         speculate_k=args.speculate, draft_rank=args.draft_rank)
-    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=args.device)
+    tracer = Tracer(capacity=args.trace_capacity) if args.trace else None
+    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=args.device,
+                                 tracer=tracer, metrics=REGISTRY)
     reqs = make_stream(cfg, args.requests, args.rate, args.prompt_len,
                        args.new_tokens, args.seed, shared_prefix=args.shared_prefix,
                        temperature=args.temperature, top_p=args.top_p,
                        sample_seed=args.sample_seed)
-    report = sched.run(reqs)
+    ops.set_kernel_tracer(tracer, device=args.device)
+    try:
+        report = sched.run(reqs)
+    finally:
+        ops.set_kernel_tracer(None)
     stats = sched.pool.stats()
     print(f"arch={cfg.name} stream [{args.device}]: {report.summary()}")
     if scfg.prefill_chunk_tokens:
@@ -172,6 +193,16 @@ def serve_stream(params, buffers, cfg, args):
               f"({report.block_reuse_ratio:.2f}x)")
     print(f"phases: {report.phase_table()} "
           f"(step wall {report.step_wall_ms_total:.0f}ms)")
+    if tracer is not None:
+        path = write_chrome_trace(args.trace, tracer)
+        print(f"trace: {report.trace_events} events "
+              f"({report.trace_dropped} dropped by the ring) -> {path} "
+              f"(open in https://ui.perfetto.dev)")
+    if args.metrics_out:
+        with open(args.metrics_out, "w", encoding="utf-8") as f:
+            f.write(REGISTRY.to_prometheus())
+        print(f"metrics: {len(REGISTRY.names())} instruments -> "
+              f"{args.metrics_out} (Prometheus text format)")
     return report
 
 
@@ -274,7 +305,21 @@ def main(argv=None):
                     help="nucleus sampling mass (1 = full softmax)")
     ap.add_argument("--sample-seed", type=int, default=0,
                     help="base PRNG seed; request i samples with seed+i")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome trace-event timeline of the stream "
+                         "run to this path (view at ui.perfetto.dev)")
+    ap.add_argument("--trace-capacity", type=int, default=65536,
+                    help="tracer ring-buffer capacity (oldest events drop "
+                         "beyond this)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the metrics registry in Prometheus text "
+                         "format to this path after the run")
     args = ap.parse_args(argv)
+    if (args.trace or args.metrics_out) and not args.stream:
+        ap.error("--trace/--metrics-out instrument the paged scheduler; "
+                 "add --stream")
+    if args.trace_capacity < 1:
+        ap.error("--trace-capacity must be >= 1")
     if args.stream and not args.elitekv:
         ap.error("--stream requires --elitekv (the paged pool stores the "
                  "compressed streams)")

@@ -58,6 +58,16 @@ same count-folded PRNG), so a full-rank draft gives plain decode's stream
 up to the verify and decode forwards' rounding.
 Speculation with sparse decode is a ``ValueError`` (a verify window has no
 single selection query).
+
+Observability, as in the reference: ``Scheduler(tracer=..., metrics=...)``
+records the run into a ``repro_torch.obs.Tracer`` — a span per step phase
+on the ``scheduler`` track, request lifecycle instants (``submit``,
+``admit``, ``prefix_hit``/``prefix_miss``, ``preempt``, ``prefill_chunk``,
+``first_token``, ``retire``, ``sparse_select``), ``req<uid>`` residency on
+``slot<i>``, pool counters and the pool's own events — and meters it into a
+``MetricsRegistry`` (a fresh one per scheduler unless one is passed).  The
+hooks read clocks and host state only: a traced run gives the untraced
+run's tokens bit for bit, and waits for the card no more often.
 """
 from __future__ import annotations
 
@@ -74,6 +84,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import (BlockManager, OutOfBlocks, PagedKVPool,
                                     SwappedSeq, measured_cache_bytes)
 from repro_torch.models import lm
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime import prng
 
 #: Host-observable phases of one scheduler step (``ServeReport.phase_ms``
@@ -410,6 +422,8 @@ class ServeReport:
     blocks_retained: int = 0              # refcount-0 cached blocks at the end
     phase_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
     step_wall_ms_total: float = 0.0
+    trace_events: int = 0                 # events emitted to the tracer
+    trace_dropped: int = 0                # events the ring buffer evicted
 
     def phase_table(self) -> str:
         total = max(self.step_wall_ms_total, 1e-9)
@@ -453,11 +467,13 @@ class ServeReport:
 class Scheduler:
     """Continuous-batching serving loop over the paged compressed cache.
 
-    ``params``/``buffers`` must already live on ``device``.
+    ``params``/``buffers`` must already live on ``device``.  ``tracer`` (a
+    ``repro_torch.obs.Tracer``) and ``metrics`` (a ``MetricsRegistry``)
+    observe the run.
     """
 
     def __init__(self, params, buffers, cfg: ModelConfig, scfg: SchedulerConfig,
-                 device="cuda"):
+                 device="cuda", tracer=None, metrics=None):
         if not cfg.elitekv.enabled:
             raise ValueError("paged serving requires an EliteKV config")
         if scfg.eviction not in ("recompute", "swap"):
@@ -485,9 +501,12 @@ class Scheduler:
             raise ValueError(f"params live on {params['embed']['table'].device}, "
                              f"scheduler device is {self.device}")
         self.params, self.buffers, self.cfg, self.scfg = params, buffers, cfg, scfg
+        self.trace = tracer or NULL_TRACER
+        self.metrics = metrics or MetricsRegistry()
         self.pool = PagedKVPool(cfg, scfg.num_blocks, scfg.block_size,
                                 device=self.device, dtype=scfg.cache_dtype,
-                                block_summaries=scfg.sparse_topk_blocks > 0)
+                                block_summaries=scfg.sparse_topk_blocks > 0,
+                                tracer=self.trace)
         self.bm = BlockManager(self.pool, policy=scfg.admission,
                                prefix_cache=scfg.prefix_cache)
         self.slots: List[Optional[Request]] = [None] * scfg.max_slots
@@ -510,9 +529,95 @@ class Scheduler:
         self._lane_steps = 0                # Σ live lanes over decode/verify forwards
         self.draft_forwards = self.draft_proposed = self.draft_accepted = 0
         self._spec_windows = 0              # (lane, step) verify windows run
+        self._register_metrics()
         # the draft shares the params unless a rank truncation is asked for
         self.draft_params = (lm.make_draft_params(params, cfg, scfg.draft_rank)
                              if scfg.speculate_k > 0 else None)
+
+    def _register_metrics(self) -> None:
+        """The reference's metric families.  The prefix-cache and pool
+        families are always registered (zero-valued when unused, so an
+        export keeps one schema); the sparse family only on sparse runs."""
+        m, scfg = self.metrics, self.scfg
+        self._m_submitted = m.counter(
+            "serve_requests_submitted_total", "requests submitted")
+        self._m_completed = m.counter(
+            "serve_requests_completed_total", "requests retired (eos|budget)")
+        self._m_decoded = m.counter(
+            "serve_tokens_decoded_total", "tokens appended by decode/verify")
+        self._m_prefill_tokens = m.counter(
+            "serve_prefill_tokens_total", "tokens cached by prefill forwards")
+        self._m_preemptions = m.counter(
+            "serve_preemptions_total", "residents evicted on OutOfBlocks")
+        self._m_swap_outs = m.counter(
+            "serve_swap_outs_total", "preemptions served by host swap-out")
+        self._m_swap_ins = m.counter(
+            "serve_swap_ins_total", "swapped prefixes restored to the pool")
+        self._m_draft_proposed = m.counter(
+            "serve_draft_proposed_total", "speculative draft tokens proposed")
+        self._m_draft_accepted = m.counter(
+            "serve_draft_accepted_total", "draft tokens that survived verify")
+        self._m_blocks_used = m.gauge(
+            "serve_pool_blocks_used",
+            "pool blocks referenced by live chains (excludes prefix-cache "
+            "retained blocks; see serve_prefix_cache_blocks_retained)")
+        self._m_slots = m.gauge(
+            "serve_slots_occupied", "scheduler slots currently resident")
+        self._m_step_ms = m.histogram(
+            "serve_step_ms", "decode/verify macro-step wall milliseconds")
+        self._m_ttft_ms = m.histogram(
+            "serve_ttft_ms", "request arrival to first token, wall ms")
+        self._m_phase = {p: m.counter(f"serve_phase_{p}_ms_total",
+                                      f"total wall ms spent in the {p} phase")
+                         for p in PHASES}
+        self._m_pc_hits = m.counter(
+            "serve_prefix_cache_hits_total",
+            "admissions that reused >=1 cached prefix block")
+        self._m_pc_misses = m.counter(
+            "serve_prefix_cache_misses_total",
+            "admissions whose prompt missed the prefix cache")
+        self._m_pc_hit_tokens = m.counter(
+            "serve_prefix_cache_hit_tokens_total",
+            "prompt tokens served from cached blocks instead of prefill")
+        self._m_pc_cow = m.counter(
+            "serve_prefix_cache_cow_total",
+            "copy-on-write block copies (write into a shared block)")
+        self._m_pc_retained = m.gauge(
+            "serve_prefix_cache_blocks_retained",
+            "zero-refcount cached blocks held in the reclaimable LRU")
+        self._m_pc_cached = m.gauge(
+            "serve_prefix_cache_blocks_cached",
+            "physical blocks with a registered prefix-hash claim")
+        self._pool_bpt = self.pool.bytes_per_token()
+        m.gauge("serve_pool_quantized",
+                "1 when the latent pool stores int8 rows + scales, else 0"
+                ).set(1 if self.pool.dtype == torch.int8 else 0)
+        m.gauge("serve_pool_bytes_per_token",
+                "device bytes per pooled token across all layers and streams"
+                ).set(self._pool_bpt)
+        self._m_pool_bytes = m.gauge(
+            "serve_pool_allocated_bytes",
+            "device bytes of pool blocks currently allocated to sequences")
+        self._cow_synced = 0                # pool.cow_copies already metered
+        if scfg.sparse_topk_blocks > 0:
+            m.gauge("serve_sparse_topk",
+                    "top-k blocks scored into each sparse decode selection"
+                    ).set(scfg.sparse_topk_blocks)
+            m.gauge("serve_sparse_recent",
+                    "newest blocks always attended by sparse decode"
+                    ).set(scfg.sparse_recent_blocks)
+            self._m_sparse_steps = m.counter(
+                "serve_sparse_steps_total",
+                "decode forwards that ran with sparse block selection")
+            self._m_sparse_selected = m.counter(
+                "serve_sparse_selected_blocks_total",
+                "blocks attended across all sparse-decode lanes")
+            self._m_sparse_candidate = m.counter(
+                "serve_sparse_candidate_blocks_total",
+                "resident blocks eligible across all sparse-decode lanes")
+            self._m_sparse_hist = m.histogram(
+                "serve_sparse_selected_blocks",
+                "blocks attended per lane per sparse decode forward")
 
     # -- helpers ------------------------------------------------------------
     def _sync(self) -> None:
@@ -524,31 +629,49 @@ class Scheduler:
         return torch.from_numpy(a).to(self.device)
 
     @contextlib.contextmanager
-    def _phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._phase_ms[name] += (time.perf_counter() - t0) * 1e3
+    def _phase(self, name: str, **args):
+        """Attribute the enclosed wall time to step phase ``name``: into
+        ``phase_ms``, the metrics and (when tracing) a span on the
+        ``scheduler`` track.  Phases never nest."""
+        with self.trace.span(name, track="scheduler", cat="phase", **args):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                dt_ms = (time.perf_counter() - t0) * 1e3
+                self._phase_ms[name] += dt_ms
+                self._m_phase[name].inc(dt_ms)
 
     def _measured_phase_ms(self) -> float:
         return sum(v for k, v in self._phase_ms.items() if k != "other")
 
     def _stuck_report(self, max_steps: int) -> str:
+        """The did-not-drain failure's payload: every resident's and
+        waiter's status, and the tracer's recent event tail."""
         lines = [f"scheduler did not drain in {max_steps} steps",
                  f"pool: {self.pool.allocator.num_used}/{self.pool.num_blocks} "
-                 f"blocks used, block_size={self.pool.block_size}"]
+                 f"blocks used, {self.pool.allocator.num_free} free, "
+                 f"block_size={self.pool.block_size}"]
         if self.bm.prefix is not None:
             pc = self.bm.prefix
             lines.append(f"prefix cache: {pc.num_cached} cached, {pc.num_retained} "
-                         f"retained, cow={self.pool.cow_copies}")
+                         f"retained, hits={pc.hits} misses={pc.misses} "
+                         f"cow={self.pool.cow_copies}")
         for i, r in enumerate(self.slots):
             lines.append(f"slot{i}: empty" if r is None else
                          f"slot{i}: uid={r.uid} prefill={r.prefill_pos}/"
                          f"{len(r.prefill_source())} generated="
-                         f"{len(r.generated)}/{r.max_new_tokens}")
+                         f"{len(r.generated)}/{r.max_new_tokens} "
+                         f"pool_len={self.pool.length(r.uid)} "
+                         f"blocks={len(self.pool.block_table(r.uid))} "
+                         f"preempted={len(r.preempted_at)}x")
         lines += [f"waiting: uid={r.uid} arrival={r.arrival:.1f} "
-                  f"swapped={r.swapped is not None}" for r in list(self.waiting)[:8]]
+                  f"prefill_src={len(r.prefill_source())} "
+                  f"swapped={r.swapped is not None} "
+                  f"preempted={len(r.preempted_at)}x" for r in list(self.waiting)[:8]]
+        if len(self.waiting) > 8:
+            lines.append(f"waiting: … {len(self.waiting) - 8} more")
+        lines.append(self.trace.format_tail(40))
         return "\n".join(lines)
 
     def _blocks_referenced(self) -> int:
@@ -589,6 +712,10 @@ class Scheduler:
         req.submit_wall = time.perf_counter()
         self.waiting.append(req)
         self.naive_blocks += self._worst_case_blocks(req)
+        self._m_submitted.inc()
+        self.trace.instant("submit", track="scheduler", cat="request", uid=req.uid,
+                           prompt=len(req.prompt), budget=req.max_new_tokens,
+                           arrival=req.arrival)
 
     def _worst_case_blocks(self, req: Request) -> int:
         return -(-(len(req.prompt) + req.max_new_tokens) // self.scfg.block_size)
@@ -626,15 +753,38 @@ class Scheduler:
         its chain and ``prefill_pos`` jumps past them.  Other blocks are
         allocated on demand by the prefill."""
         if req.swapped is not None:
-            with self._phase("swap"):
+            with self._phase("swap", direction="in", uid=req.uid):
                 self.bm.swap_in(req.uid, req.swapped)
             req.swapped = None
+            self._m_swap_ins.inc()
         elif self.bm.prefix is not None and req.prefill_pos == 0:
-            hit = self.bm.lookup_prefix(req.uid, req.prefill_source())
-            req.prefill_pos = hit
-            req.prefix_hit_tokens += hit
+            self._lookup_prefix(req)
         self.bm.register(req.uid, self._worst_case_blocks(req))
         self.slots[slot] = req
+        self.trace.begin(f"req{req.uid}", track=f"slot{slot}", cat="request",
+                         uid=req.uid)
+        self.trace.instant("admit", track="scheduler", cat="request", uid=req.uid,
+                           slot=slot, queued_steps=self.t - req.arrival)
+
+    def _lookup_prefix(self, req: Request) -> None:
+        """Probe the prefix cache with the request's prefill source and
+        splice the hit blocks into its fresh chain (after a recompute
+        preemption the source is prompt + generated, so a re-admission can
+        hit its own retained blocks)."""
+        src = req.prefill_source()
+        hit = self.bm.lookup_prefix(req.uid, src)
+        if hit:
+            req.prefill_pos = hit
+            req.prefix_hit_tokens += hit
+            self._m_pc_hits.inc()
+            self._m_pc_hit_tokens.inc(hit)
+            self.trace.instant("prefix_hit", track="scheduler", cat="cache",
+                               uid=req.uid, tokens=hit,
+                               blocks=hit // self.scfg.block_size)
+        else:
+            self._m_pc_misses.inc()
+            self.trace.instant("prefix_miss", track="scheduler", cat="cache",
+                               uid=req.uid, tokens=len(src))
 
     # -- preemption ---------------------------------------------------------
     def _decode_ready(self, req: Request) -> bool:
@@ -664,14 +814,22 @@ class Scheduler:
                 req.prefill_pos = cached
             else:
                 cached = req.prefill_pos
-            with self._phase("swap"):
+            with self._phase("swap", direction="out", uid=req.uid):
                 req.swapped = self.bm.preempt_swap_out(req.uid, cached)
+            if req.swapped is not None:
+                self._m_swap_outs.inc()
         else:
             if req.generated:
                 req.prefill_src = np.concatenate(
                     [req.prompt, np.asarray(req.generated, np.int32)])
             req.prefill_pos = 0
             self.bm.preempt_recompute(req.uid)
+        self._m_preemptions.inc()
+        self.trace.end(f"req{req.uid}", track=f"slot{slot}", cat="request",
+                       reason="preempt")
+        self.trace.instant("preempt", track="scheduler", cat="request", uid=req.uid,
+                           slot=slot, mode=self.scfg.eviction,
+                           generated=len(req.generated))
         self.slots[slot] = None
         self.waiting.appendleft(req)
 
@@ -719,9 +877,13 @@ class Scheduler:
         re-draws exactly the token the interrupted decode step would have
         produced."""
         req.generated.append(self._sample_one(req, last_row, len(req.generated)))
+        self._m_decoded.inc()               # prefill-sampled tokens count too
         if req.first_token_step < 0:        # TTFT survives preemption
             req.first_token_wall = time.perf_counter()
             req.first_token_step = self.t
+            self._m_ttft_ms.observe((req.first_token_wall - req.submit_wall) * 1e3)
+            self.trace.instant("first_token", track="scheduler", cat="request",
+                               uid=req.uid, step=self.t)
 
     def _run_oneshot(self, slot: int, req: Request) -> None:
         """Prefill the rest of the source in one call, padded to the bucket.
@@ -744,11 +906,14 @@ class Scheduler:
                       block_tables=self.pool.block_table_array(
                           [req.uid], len(self.pool.block_table(req.uid))),
                       block_size=self.scfg.block_size)
-        with self._phase("prefill"):
+        with self._phase("prefill", lanes=1, tokens=n):
             logits = lm.apply_prefill_paged(
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
                 self.pool.pages, torch.from_numpy(sm), **kw)
             self._sync()
+        self.trace.instant("prefill_chunk", track=f"slot{slot}", cat="request",
+                           uid=req.uid, start=pos, n=n)
+        self._m_prefill_tokens.inc(n)
         req.prefill_pos = sp
         self.bm.register_prefix(req.uid, src)
         self._prefill_forward_tokens += n
@@ -803,17 +968,21 @@ class Scheduler:
         # the table only needs to be as wide as the longest chain in the call
         width = max(len(self.pool.block_table(r.uid)) for _, r, _, _ in selected)
         bt = self.pool.block_table_array(seq_ids, width)
-        with self._phase("prefill"):
+        n_toks = sum(n for *_, n in selected)
+        with self._phase("prefill", lanes=len(selected), tokens=n_toks):
             logits = lm.apply_prefill_paged(
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
                 self.pool.pages, torch.from_numpy(sms), chunk_start=starts,
                 block_tables=bt, prefix_lens=starts,
                 block_size=scfg.block_size)
             self._sync()
+        self._m_prefill_tokens.inc(n_toks)
         self.prefill_chunks += 1
         self._prefill_lanes_total += len(selected)
-        self._prefill_forward_tokens += sum(n for *_, n in selected)
+        self._prefill_forward_tokens += n_toks
         for lane, (slot, req, start, n) in enumerate(selected):
+            self.trace.instant("prefill_chunk", track=f"slot{slot}", cat="request",
+                               uid=req.uid, start=start, n=n)
             req.prefill_pos = start + n
             self.bm.register_prefix(req.uid, req.prefill_source()[:req.prefill_pos])
             if req.prefill_pos >= len(req.prefill_source()):
@@ -834,6 +1003,11 @@ class Scheduler:
         self.bm.release(req.uid)            # blocks recycle immediately
         self.finished.append(req)
         self.slots[slot] = None
+        self._m_completed.inc()
+        self.trace.end(f"req{req.uid}", track=f"slot{slot}", cat="request",
+                       reason=req.finish_reason)
+        self.trace.instant("retire", track="scheduler", cat="request", uid=req.uid,
+                           reason=req.finish_reason, tokens=len(req.generated))
 
     # -- one scheduler iteration ---------------------------------------------
     def step(self) -> bool:
@@ -842,6 +1016,7 @@ class Scheduler:
         self._prefill_work()
         occupied = [i for i, s in enumerate(self.slots) if s is not None]
         self.peak_slots = max(self.peak_slots, len(occupied))
+        self._sample_gauges(len(occupied))
         # decode lanes: decode-ready slots, oldest first — chain growth may
         # preempt the youngest residents (who then sit out this step)
         order = sorted((self.slots[i].arrival, self.slots[i].uid, i)
@@ -857,6 +1032,27 @@ class Scheduler:
             return True
         self.t += 1
         return bool(self.waiting) or any(s is not None for s in self.slots)
+
+    def _sample_gauges(self, occupied: int) -> None:
+        """Pool and slot gauges and counter samples, once per step.  Used
+        blocks are those live chains reference: prefix-cache retained
+        blocks are reclaimable, so they show apart."""
+        referenced = self._blocks_referenced()
+        self._m_blocks_used.set(referenced)
+        self._m_slots.set(occupied)
+        self.trace.counter("pool_blocks_used", referenced, track="pool")
+        alloc_bytes = self.pool.allocator.num_used * self.scfg.block_size * self._pool_bpt
+        self._m_pool_bytes.set(alloc_bytes)
+        self.trace.counter("pool_allocated_bytes", alloc_bytes, track="pool")
+        self.trace.counter("slots_occupied", occupied, track="scheduler")
+        pc = self.bm.prefix
+        if pc is not None:
+            if self.pool.cow_copies > self._cow_synced:
+                self._m_pc_cow.inc(self.pool.cow_copies - self._cow_synced)
+                self._cow_synced = self.pool.cow_copies
+            self._m_pc_retained.set(pc.num_retained)
+            self._m_pc_cached.set(pc.num_cached)
+            self.trace.counter("prefix_blocks_retained", pc.num_retained, track="pool")
 
     def _decode_step(self, order) -> bool:
         """One-token decode over every decode-ready lane (one forward), then
@@ -893,7 +1089,7 @@ class Scheduler:
         sampled = {i: self.slots[i] for i in active if self.slots[i].temperature > 0}
 
         t0 = time.perf_counter()
-        with self._phase("decode"):
+        with self._phase("decode", lanes=len(active)):
             logits = lm.apply_decode_paged(
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
                 self.pool.pages, torch.from_numpy(sm), self._tensor(bt),
@@ -908,6 +1104,7 @@ class Scheduler:
             else:
                 nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
         self._step_wall_ms.append((time.perf_counter() - t0) * 1e3)
+        self._m_step_ms.observe(self._step_wall_ms[-1])
         self._lane_steps += len(active)
         if self.scfg.sparse_topk_blocks > 0:
             self._count_sparse(lengths[active])
@@ -915,6 +1112,7 @@ class Scheduler:
             tok = int(nxt[i])
             self.slots[i].generated.append(tok)
             self._decode_appended += 1
+            self._m_decoded.inc()
             self._maybe_finish(i, tok)
         return True
 
@@ -982,7 +1180,7 @@ class Scheduler:
                 ids[i] = seq_ids[i]
                 positions[i] = cur + j
             sm = self.pool.slot_mapping(ids, positions)
-            with self._phase("draft"):
+            with self._phase("draft", j=j, lanes=len(live)):
                 logits = lm.apply_decode_paged(
                     self.draft_params, self.buffers, self.cfg, self._tensor(tokens),
                     self.pool.pages, torch.from_numpy(sm), bt, self._tensor(lengths),
@@ -1010,21 +1208,20 @@ class Scheduler:
             sms[i] = self.pool.prefill_slot_mapping(req.uid, cur, w + 1, W)
             offs[i] = cur
             lengths[i] = cur + w + 1
-        with self._phase("verify"):
+        with self._phase("verify", lanes=len(active)):
             logits = lm.apply_verify_paged(
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
                 self.pool.pages, torch.from_numpy(sms), bt, self._tensor(offs),
                 self._tensor(lengths), scfg.block_size)
-            self._sync()
-        with self._phase("sample"):
             targets = torch.argmax(logits, dim=-1).cpu().numpy()       # [B, W]
             rows = None
             if sampled:                     # verify rows, then draft rows
                 rows = torch.cat([logits, torch.stack(draft_rows, 1)], 1).cpu().numpy()
         self._step_wall_ms.append((time.perf_counter() - t0) * 1e3)
+        self._m_step_ms.observe(self._step_wall_ms[-1])
         self._lane_steps += len(active)
 
-        with self._phase("accept"):
+        with self._phase("accept", lanes=len(active)):
             for i in active:
                 req = self.slots[i]
                 cur, w = windows[i]
@@ -1043,12 +1240,15 @@ class Scheduler:
                     if self.slots[i] is None:
                         break               # EOS or budget mid-window: the rest drops
                 self._decode_appended += appended
+                self._m_decoded.inc(appended)
                 # accepted drafts that an EOS cut off do not count as kept
                 kept = min(n_acc, appended)
                 req.spec_proposed += w
                 req.spec_accepted += kept
                 self.draft_proposed += w
                 self.draft_accepted += kept
+                self._m_draft_proposed.inc(w)
+                self._m_draft_accepted.inc(kept)
                 self._spec_windows += 1
         return True
 
@@ -1098,9 +1298,18 @@ class Scheduler:
         width = min(scfg.sparse_topk_blocks + scfg.sparse_recent_blocks,
                     scfg.max_blocks_per_seq)
         n_chain = -(-lengths.astype(np.int64) // scfg.block_size)
+        sel = np.minimum(n_chain, width)
+        step_sel, step_cand = int(sel.sum()), int(n_chain.sum())
+        for v in sel.tolist():
+            self._m_sparse_hist.observe(v)
         self._sparse_steps += 1
-        self._sparse_selected += int(np.minimum(n_chain, width).sum())
-        self._sparse_candidate += int(n_chain.sum())
+        self._sparse_selected += step_sel
+        self._sparse_candidate += step_cand
+        self._m_sparse_steps.inc()
+        self._m_sparse_selected.inc(step_sel)
+        self._m_sparse_candidate.inc(step_cand)
+        self.trace.instant("sparse_select", track="pool", cat="cache",
+                           selected=step_sel, candidate=step_cand)
 
     # -- drive to completion --------------------------------------------------
     def run(self, requests: Optional[List[Request]] = None,
@@ -1115,13 +1324,18 @@ class Scheduler:
             alive = self.step()
             dt_ms = (time.perf_counter() - s0) * 1e3
             self._step_wall_ms_total += dt_ms
-            self._phase_ms["other"] += max(0.0, dt_ms - (self._measured_phase_ms() - before))
+            # residual host time (admission, growth bookkeeping, packing)
+            other = max(0.0, dt_ms - (self._measured_phase_ms() - before))
+            self._phase_ms["other"] += other
+            self._m_phase["other"].inc(other)
             if not alive:
                 break
             steps += 1
             if steps > max_steps:
                 raise RuntimeError(self._stuck_report(max_steps))
-        return self.report(time.perf_counter() - t0)
+        wall_s = time.perf_counter() - t0
+        self.trace.resolve()                # device-timed entries, read once
+        return self.report(wall_s)
 
     def report(self, wall_s: float) -> ServeReport:
         fin = self.finished
@@ -1130,7 +1344,7 @@ class Scheduler:
         ttft_ms = [(r.first_token_wall - r.submit_wall) * 1e3 for r in fin]
         pct = lambda xs, q: float(np.percentile(xs, q)) if xs else 0.0
         hw = self.pool.allocator.high_water
-        bpt = self.pool.bytes_per_token()
+        bpt = self._pool_bpt
         pc = self.bm.prefix
         return ServeReport(
             completed=len(fin), decode_steps=len(self._step_wall_ms),
@@ -1178,7 +1392,9 @@ class Scheduler:
             cow_copies=self.pool.cow_copies,
             blocks_retained=pc.num_retained if pc else 0,
             phase_ms=dict(self._phase_ms),
-            step_wall_ms_total=self._step_wall_ms_total)
+            step_wall_ms_total=self._step_wall_ms_total,
+            trace_events=self.trace.emitted if self.trace.enabled else 0,
+            trace_dropped=self.trace.dropped if self.trace.enabled else 0)
 
 
 def generate_paged(params, buffers, cfg: ModelConfig, prompts: np.ndarray,

@@ -757,3 +757,109 @@ def test_sampler_on_the_card_draws_the_cpu_tokens(cuda):
     decided = margins > 1e-4
     assert decided.sum() >= B - 2
     assert torch.equal(got[decided], want[decided])
+
+
+# ---------------------------------------------------------------------------
+# observability on the card
+# ---------------------------------------------------------------------------
+
+def _narrow_on_card(cuda):
+    cfg = get_config("tinyllama_1_1b").reduced(vocab_size=128).with_elitekv(
+        elite_r=4, d_ckv=64)
+    params, buffers = lm.init(cfg, seed=0, device="cpu")
+    move = lambda t: {k: move(v) for k, v in t.items()} if isinstance(t, dict) else \
+        [move(v) for v in t] if isinstance(t, list) else t.to(cuda)
+    return cfg, move(params), move(buffers)
+
+
+def _obs_requests(n=4, temp=0.0):
+    rng = np.random.default_rng(6)
+    return [serve_loop.Request(uid=i, prompt=rng.integers(0, 128, int(rng.integers(12, 30)))
+                               .astype(np.int32), max_new_tokens=10, arrival=0.5 * i,
+                               temperature=temp, top_p=0.9, seed=3 + i) for i in range(n)]
+
+
+@pytest.mark.parametrize("pool", [
+    dict(eviction="swap", num_blocks=14),
+    dict(cache_dtype="int8", sparse_topk_blocks=2, sparse_recent_blocks=1,
+         admission="watermark"),
+], ids=["f32_swap", "int8_sparse"])
+@pytest.mark.parametrize("temp", [0.0, 0.8], ids=["greedy", "sampled"])
+def test_traced_run_on_the_card_is_bitwise_and_spans_equal_launches(pool, temp, cuda):
+    """A traced paged run (scheduler, pool and kernel tracer armed) gives the
+    untraced run's tokens bit for bit, one kernel span per launch, device
+    spans that nest on their track, and a swap's device time."""
+    from repro_torch import obs
+    cfg, params, buffers = _narrow_on_card(cuda)
+    scfg = serve_loop.SchedulerConfig(max_slots=3, block_size=4, max_len=48,
+                                      prefill_chunk_tokens=8, **{"num_blocks": 64, **pool})
+    plain = serve_loop.Scheduler(params, buffers, cfg, scfg, device=cuda)
+    plain.run(_obs_requests(temp=temp))
+    tr = obs.Tracer()
+    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=cuda, tracer=tr,
+                                 metrics=obs.MetricsRegistry())
+    ops.reset_launches()
+    ops.set_kernel_tracer(tr, device=cuda)
+    try:
+        rep = sched.run(_obs_requests(temp=temp))
+    finally:
+        ops.set_kernel_tracer(None)
+    launches = ops.launches()
+    assert {r.uid: r.generated for r in sched.finished} == \
+        {r.uid: r.generated for r in plain.finished}
+    kern = [e for e in tr.events() if e.track == "kernel"]
+    spans = {}
+    for e in kern:
+        spans[e.name] = spans.get(e.name, 0) + 1
+    spans["rope_elite"] = spans.pop("rope_elite_qk", 0) + spans.get("rope_elite", 0)
+    assert spans == {k: v for k, v in launches.items() if v}
+    ends = sorted((e.ts, e.ts + e.dur) for e in kern)
+    assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))   # one stream: disjoint
+    assert all(e.dur > 0 for e in kern)
+    if "eviction" in pool:
+        swaps = [e for e in tr.events() if e.name in ("swap_out", "swap_in")]
+        assert rep.swap_outs > 0 and len(swaps) == rep.swap_outs + rep.swap_ins
+        assert all(e.arg("device_ms") > 0 for e in swaps)
+
+
+def test_tracing_adds_no_sync_to_a_decode_step(cuda, monkeypatch):
+    """Count every call that waits for the card or reads a device value
+    during one decode step: a traced step makes exactly the untraced
+    step's calls."""
+    from repro_torch import obs
+    cfg, params, buffers = _narrow_on_card(cuda)
+    scfg = serve_loop.SchedulerConfig(max_slots=3, block_size=4, num_blocks=64, max_len=48,
+                                      prefill_chunk_tokens=0)
+    counts = {}
+
+    def counting(owner, name):
+        orig = getattr(owner, name)
+
+        def fn(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return orig(*a, **k)
+        monkeypatch.setattr(owner, name, fn)
+
+    for owner, name in ((torch.cuda, "synchronize"), (torch.Tensor, "item"),
+                        (torch.Tensor, "tolist"), (torch.Tensor, "cpu"),
+                        (torch.cuda.Event, "synchronize"), (torch.cuda.Event, "query"),
+                        (torch.cuda.Event, "elapsed_time"), (torch.cuda.Stream, "synchronize")):
+        counting(owner, name)
+
+    def one_decode_step(tracer):
+        sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=cuda, tracer=tracer)
+        for r in _obs_requests(n=3):
+            r.arrival = 0.0
+            sched.submit(r)
+        sched.step()                                   # admission, prefill, first decode
+        ops.set_kernel_tracer(tracer, device=cuda)     # anchoring waits once, here
+        try:
+            counts.clear()
+            sched.step()                               # a decode step
+            return dict(counts)
+        finally:
+            ops.set_kernel_tracer(None)
+
+    untraced = one_decode_step(None)
+    traced = one_decode_step(obs.Tracer())
+    assert traced == untraced
