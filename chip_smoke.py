@@ -12,7 +12,11 @@ non-zero:
    (registers, shared memory, spills; per instantiation of the decode
    body) and the decode and verify plans at both model widths (kv heads
    and query rows per CTA, stages, shared memory, splits, CTAs), whose
-   shared memory must be the kernel source's layout.
+   shared memory must be the kernel source's layout; then the plans of
+   LLaMA2-7B (half cache), LLaMA2-13B, Yi-6B, Granite-3.0-2B and
+   MiniCPM-2B at half and a quarter cache, J- and S-LRD, f32 and int8,
+   W = 1, 5 and 9, the verify windows that one kv head per CTA cannot hold
+   cut into parts of fewer positions (LLaMA2-13B f32 at W = 5 must cut).
 2. Hold each kernel against its plain PyTorch version on the card at
    TinyLlama-1.1B widths and at LLaMA2-7B widths, J-LRD and S-LRD, with
    empty lanes, partial blocks and ragged per-lane offsets and lengths; the
@@ -40,6 +44,13 @@ non-zero:
    ``elite_verify_paged`` beside short lanes, beside a 600-row lane and
    with a wider table, and through ``flash_prefill``'s decode body beside
    lanes of other kv_len and at a larger Sk, all equal bit for bit.
+   At the other dense architectures' widths: every decode entry and both
+   verify entries (W = 1, 3, 5, 9; LLaMA2-13B's windows cut) at LLaMA2-13B
+   half cache (40 kv heads, G = 1, 2r = 64, d_c = 2560) and MiniCPM-2B
+   quarter cache (36 kv heads, 2r = 16, d_c = 512), J- and S-LRD; a
+   forced cut at LLaMA2-7B quarter cache giving the uncut call's bits;
+   ``rope_elite_qk`` at 40/40 and 36/36 heads (full and elite) and with
+   Yi-6B's base 5e6; ``flash_prefill`` at 40/40 heads of 128.
 3. Serve TinyLlama-1.1B at full width (22 layers, d 2048, EliteKV r=8,
    d_ckv=64) with random weights from a seeded ``torch.Generator`` — not
    the reference's weights, since the card has no JAX.  Each run sets the
@@ -109,6 +120,23 @@ non-zero:
       stream wait taken out, to show what it keeps out; the decode step's p50 traced
       against untraced is taken in turns on one scheduler (U T T U), with
       events per step and ring drops.
+   i. conversion (the paper's §3): the baseline TinyLlama-1.1B of f,
+      4 x 512 random calibration tokens, ``capture_attn_inputs`` and a
+      greedy RoPElite search at r = 8 per layer (``rope_elite`` 22 times in
+      the capture and 22 in the search, nothing else); layers 0 and 21
+      searched again on the CPU, equal apart from float64 ties; greedy,
+      uniform and contribution distances per layer (greedy <= both x 1.001
+      on layer 0); conversion at d_ckv = 64 and at exact rank 448, whose
+      logits (``apply_train`` and a paged prefill through the kernels)
+      must equal the baseline with RoPE restricted to the elite sets
+      within 1e-3; the d_ckv = 64 model serves 8 greedy requests through
+      the ``Scheduler``, its streams equal to lockstep ``generate``'s apart
+      from near-ties; the times of capture, search per layer and SVDs.
+   j. MiniCPM-2B with tied embeddings at full width (40 layers, 36/36
+      heads of 64, vocab 122,880; EliteKV r = 8, d_ckv = 512; ~10 GiB of
+      f32 weights): 6 greedy requests plain, then k = 4 speculation with
+      the full-rank draft, streams equal apart from near-ties, kernels 40
+      times per forward.
    Every kernel is re-run on the busiest inputs recorded from its run and
    held against its plain version, twice, with identical bits; a torch.profiler window over 10 steady
    decode steps of 8 lanes, on the f32 pool, on the int8 pool with sparse
@@ -152,7 +180,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(1, str(ROOT / "tests"))      # sampling_margins, the checks' arithmetic
+sys.path.insert(1, str(ROOT / "tests"))      # sampling_margins, conversion_checks
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32 rate
 # outside the tensor cores (the kernels use plain f32 FMA).
@@ -534,20 +562,35 @@ ROPE_PAIR_CASES = {"EliteKV 32/4 2r=16": (32, 4, 4, 16, 64, 0),
                    "full dh=64 32/4": (32, 4, 1, 64, 64, 0),
                    "full dh=128 32/32": (32, 32, 1, 128, 128, 0),
                    "slice at 8 B 32/4 2r=16": (32, 4, 4, 16, 64, 2)}
+# ... and at the other dense architectures' widths (one query head per
+# frequency row for LLaMA2-13B and MiniCPM-2B), a last field the RoPE base
+# where it is not 10,000: Yi-6B's 5e6, its elite rows drawn from that table
+ARCH_ROPE_PAIR_CASES = {"EliteKV 40/40 2r=64": (40, 40, 40, 64, 128, 0),
+                        "full dh=128 40/40": (40, 40, 1, 128, 128, 0),
+                        "EliteKV 36/36 2r=16": (36, 36, 36, 16, 64, 0),
+                        "full dh=64 36/36": (36, 36, 1, 64, 64, 0),
+                        "Yi-6B EliteKV 32/4 2r=32 theta 5e6": (32, 4, 4, 32, 128, 0, 5e6),
+                        "Yi-6B full dh=128 32/4 theta 5e6": (32, 4, 1, 128, 128, 0, 5e6)}
 
 
-def rope_pair_cases(dev, seed):
+def rope_pair_cases(dev, seed, cases=ROPE_PAIR_CASES):
     """{label: (q, k, positions, freqs, q_per_row, k_per_row)}: each of
-    ROPE_PAIR_CASES at B, S = 4, 1000 with positions [S] int64 and [B, S]
-    int32 up to 4096, and at B = S = 1; elite frequency rows with chunk 0
-    at 1.0, the full RoPE's one ``chunk_freqs`` row."""
+    ``cases`` at B, S = 4, 1000 with positions [S] int64 and [B, S] int32
+    up to 4096, and at B = S = 1; elite frequency rows with chunk 0 at 1.0
+    (or, with a RoPE base given, distinct chunks of that base's table), the
+    full RoPE's one ``chunk_freqs`` row."""
     import torch
     from repro_torch.core import rope
     g = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    for label, (Hq, Hk, rows, r2, wide, start) in ROPE_PAIR_CASES.items():
+    for label, (Hq, Hk, rows, r2, wide, start, *base) in cases.items():
+        theta = base[0] if base else 10000.0
         if rows == 1:
-            freqs = rope.chunk_freqs(r2, 10000.0, device=dev)[None]
+            freqs = rope.chunk_freqs(r2, theta, device=dev)[None]
+        elif base:
+            table = rope.chunk_freqs(wide, theta, device=dev)
+            freqs = torch.stack([table[torch.randperm(wide // 2, generator=g, device=dev)[
+                :r2 // 2]] for _ in range(rows)])
         else:
             freqs = torch.exp(-4 * torch.rand(rows, r2 // 2, generator=g, device=dev))
             freqs[:, 0] = 1.0
@@ -1457,6 +1500,347 @@ def serving_features(params, buffers, cfg, dev, card: str, base: dict) -> dict:
     return out
 
 
+# -- the dense architectures' widths (phases 1, 2) -----------------------------
+
+# the architectures beyond phase 1's two widths whose decode and verify plans
+# phase 1 prints, at half and a quarter cache (LLaMA2-7B at half only: its
+# quarter is above)
+PLAN_ARCHS = ("llama2_7b", "llama2_13b", "yi_6b", "granite_3_2b", "minicpm_2b")
+# (arch, ratio) whose decode and verify kernels phase 2 holds to the plain
+# versions: 40 kv heads at 2r = 64, d_c = 2560 (verify cuts its window), and
+# 36 kv heads at 2r = 16, d_c = 512
+PARITY_ARCHS = (("llama2_13b", 0.5), ("minicpm_2b", 0.25))
+
+
+def arch_widths(arch: str, ratio: float):
+    """(G, n_kv, 2r, d_ckv, d_h) of ``arch`` under EliteKV at ``ratio``
+    (``pick_dims``); S-LRD splits d_ckv into two streams of half each."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import pick_dims
+    cfg = get_config(arch)
+    e = pick_dims(cfg, ratio)
+    return cfg.q_group, cfg.n_kv_heads, 2 * e.elite_r, e.d_ckv, cfg.head_dim
+
+
+def arch_plans(limit: int, sms: int) -> list:
+    """Print the decode and verify plans (8 lanes, 72 tiles) of PLAN_ARCHS at
+    ratios 0.5 and 0.25, J-LRD and S-LRD, f32 and int8, W = 1, 5 and 9; each
+    plan's shared memory must be the kernel source's layout for its part of
+    the window.  → [(arch, ratio, lrd, dtype, W, parts)] of the cut windows."""
+    from repro_torch.kernels import elite_decode as ed
+    cuts = []
+    for arch in PLAN_ARCHS:
+        for ratio in ((0.5,) if arch == "llama2_7b" else (0.5, 0.25)):
+            G, nkv, r2, dcj, _ = arch_widths(arch, ratio)
+            for sep in (False, True):
+                dc = dcj // 2 if sep else dcj
+                for q8 in (False, True):
+                    lrd, dt = "S-LRD" if sep else "J-LRD", "int8" if q8 else "f32"
+                    cells = []
+                    for w in (1, 5, 9):
+                        p = ed.plan(8, w, G, nkv, 16, r2, dc, not sep, q8, 72, sms, limit)
+                        built = ed.smem_bytes_built(p.part, G, p.heads, 16, r2, dc, not sep,
+                                                    q8, p.stages)
+                        if built != p.smem:
+                            raise AssertionError(f"{arch} W={w}: smem formula {p.smem} B "
+                                                 f"!= kernel's {built} B")
+                        cut = ""
+                        if p.parts > 1:
+                            cut = f" cut into {p.parts} parts of {p.part}"
+                            cuts.append((arch, ratio, lrd, dt, w, p.parts))
+                        cells.append(f"W={w}: {p.heads} kv heads x {p.part} positions "
+                                     f"({p.part * G * p.heads} rows)/CTA{cut}, {p.stages} "
+                                     f"stages, {p.smem} B, {p.splits} splits of "
+                                     f"{p.tiles_per_split}, {p.ctas} CTAs")
+                    print(f"  plan {arch} {ratio} {lrd} {dt} (G={G}, {nkv} kv heads, "
+                          f"2r={r2}, d_c={dc}): " + "; ".join(cells))
+    return cuts
+
+
+def arch_parity(dev, card: str, errs: dict) -> None:
+    """Phase 2 at PARITY_ARCHS' widths: every decode entry (J-LRD and S-LRD)
+    and both verify entries at W = 1, 3, 5 and 9 against their plain
+    versions, empty lanes exact zeros; LLaMA2-13B's f32 verify at W = 5 and
+    int8 at W = 3 must plan a cut window.  Then a forced cut at LLaMA2-7B's
+    quarter-cache widths (where the uncut call fits) must give the uncut
+    call's bits, row for row, f32 and int8."""
+    import torch
+    from repro_torch.kernels import elite_decode as ed
+    limit, sms = ed.smem_optin_limit(dev), ed.sm_count(dev)
+    for i, (arch, ratio) in enumerate(PARITY_ARCHS):
+        G, nkv, r2, dcj, dh = arch_widths(arch, ratio)
+        nh = G * nkv
+        for separate in (False, True):
+            lrd = "S-LRD" if separate else "J-LRD"
+            dc = dcj // 2 if separate else dcj
+            x = random_decode(dev, nh, nkv, r2, dc, separate, seed=60 + i)
+            sel = random_selection(x, W=24, seed=60 + i)
+            for name in DECODES:
+                a = decode_call(name, x, dh, sel)
+                got = run_decode(name, a)
+                errs[name] = max(errs[name], check(
+                    f"{name} {arch} {ratio} {lrd}",
+                    max_err(got, run_decode(name, a, plain=True)), card))
+                if float(got[0].abs().max()) != 0.0 or float(got[-1].abs().max()) != 0.0:
+                    raise AssertionError(f"{name}: an empty lane did not give exact zeros")
+            for W in (1, 3, 5, 9):
+                xv = random_verify(dev, nh, nkv, r2, dc, separate, W, seed=70 + W + i)
+                for name in VERIFIES:
+                    a = decode_call(name, xv, dh)
+                    p = ed.plan_for(name, a, sms, limit)
+                    must = arch == "llama2_13b" and not separate and (
+                        (name.endswith("q8") and W >= 3) or W >= 5)
+                    if must and p.parts == 1:
+                        raise AssertionError(f"{name} {arch} W={W}: the window was not cut")
+                    got = run_decode(name, a)
+                    errs[name] = max(errs[name], check(
+                        f"{name} W={W} {arch} {ratio} {lrd} ({p.parts} window parts of "
+                        f"{p.part}, {p.heads} kv heads/CTA)",
+                        max_err(got, run_decode(name, a, plain=True)), card))
+                    if float(got[0].abs().max()) != 0.0 or float(got[-1].abs().max()) != 0.0:
+                        raise AssertionError(f"{name}: a dead lane did not give exact zeros")
+    G, nkv, r2, dc, dh = arch_widths("llama2_7b", 0.25)
+    for separate in (False, True):
+        xv = random_verify(dev, G * nkv, nkv, r2, dc, separate, 5, seed=80)
+        for name in VERIFIES:
+            a = decode_call(name, xv, dh)
+            fn = getattr(ed, name)
+            whole = fn(*a)
+            for part in (1, 2, 3):
+                cut = fn(*a, part=part)
+                torch.cuda.synchronize()
+                if not torch.equal(cut, whole):
+                    raise AssertionError(f"{name}: a window cut into parts of {part} "
+                                         f"differs from the uncut call (llama2_7b 0.25)")
+            print(f"[{card}] {name} W=5 llama2_7b 0.25 {'S' if separate else 'J'}-LRD: "
+                  f"windows cut into parts of 1, 2 and 3 positions == the uncut call "
+                  f"bitwise", flush=True)
+
+
+# -- conversion and a tied-embedding model (phases 3i, 3j) -----------------------
+
+CALIB = (4, 512)            # calibration batch: lanes x tokens, random tokens
+ELITE_R = 8                 # the search's r: pick_dims' at a quarter cache
+EXACT_TOL = 1e-3            # exact-rank model vs partial-RoPE baseline (the reference's)
+MINICPM_LAYERS = 40         # MiniCPM-2B's depth, all of it
+
+
+def conversion(dev, card: str) -> dict:
+    """Phase 3i: the paper's conversion of a baseline TinyLlama-1.1B at full
+    width (3f's seeded GQA model) and the converted model served.  Capture
+    and a greedy RoPElite search at r = 8 on 4 x 512 random calibration
+    tokens (counts set to 0 before, read after: ``rope_elite`` once per
+    layer in the capture forward and once per layer in the search, nothing
+    else); (a) layers 0 and 21 searched again on the CPU, sets equal apart
+    from float64 ties; (c) greedy, uniform and contribution distances per
+    layer, greedy <= both x 1.001 on layer 0; conversion at d_ckv = 64
+    (``pick_dims(0.25)``) and at exact rank 448; (b) the exact-rank model's
+    logits, ``apply_train`` and a paged prefill through the kernels, equal
+    the partial-RoPE baseline's within 1e-3; (d) the d_ckv = 64 model
+    serves 8 greedy requests through the ``Scheduler`` (its kernels 22
+    times per forward, nothing else) and its streams equal lockstep
+    ``generate``'s apart from near-ties.  → (e) the times, s."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import EliteKVConfig
+    from repro_torch.core import convert, ropelite
+    from repro_torch.core.cache import PagedKVPool
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models import lm
+    from repro_torch.runtime import serve_loop
+    from conversion_checks import compare_sets, subset_rope_logits
+    t_phase = time.perf_counter()
+    cfg = build_config("tinyllama_1_1b", reduced=False, cache_ratio=0.25, elitekv=False)
+    L, G, nkv, dh, theta = (cfg.num_layers, cfg.q_group, cfg.n_kv_heads, cfg.head_dim,
+                            cfg.rope_theta)
+    params, buffers = lm.init(cfg, seed=0, device=dev)
+    calib = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, CALIB)).to(dev)
+    pos = torch.arange(CALIB[1], device=dev)
+    times = {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    caps = lm.capture_attn_inputs(params, buffers, cfg, calib)
+    torch.cuda.synchronize()
+    times["capture"] = time.perf_counter() - t0
+    sets, per_layer = {}, []
+    for li, x in enumerate(caps):
+        t0 = time.perf_counter()
+        q, k = ropelite.layer_qk(params["layers"][li]["attn"], x)
+        sets[li] = ropelite.greedy_search_layer(q, k, pos, theta, G, ELITE_R)
+        torch.cuda.synchronize()
+        per_layer.append(time.perf_counter() - t0)
+    launches = {k: v for k, v in ops.launches().items() if v}
+    print(f"conversion search launches: {launches} (capture and search, {L} layers)")
+    if launches != {"rope_elite": 2 * L}:
+        raise AssertionError(f"conversion search: launches {launches}, expected "
+                             f"{{'rope_elite': {2 * L}}}")
+    times["search"] = sum(per_layer)
+    print(f"[{card}] capture of {CALIB[0]} x {CALIB[1]} calibration tokens, {L} layers: "
+          f"{times['capture']:.3f} s; greedy search r={ELITE_R} per layer (s): "
+          + " ".join(f"{t:.3f}" for t in per_layer), flush=True)
+    # (a) layers 0 and L-1 again on the CPU
+    ties = 0
+    for li in (0, L - 1):
+        q, k = ropelite.layer_qk(params["layers"][li]["attn"], caps[li])
+        t0 = time.perf_counter()
+        cpu = ropelite.greedy_search_layer(q.cpu(), k.cpu(), pos.cpu(), theta, G, ELITE_R)
+        times[f"cpu search layer {li}"] = time.perf_counter() - t0
+        ties += compare_sets(f"search layer {li} card vs CPU", sets[li], cpu, q, k, theta,
+                             G, report=lambda m: print(f"[{card}] {m}", flush=True))
+    print(f"[{card}] greedy sets of layers 0 and {L - 1}: card == CPU apart from {ties} "
+          f"float64 ties; CPU search {times['cpu search layer 0']:.2f} s and "
+          f"{times[f'cpu search layer {L - 1}']:.2f} s per layer", flush=True)
+    # (c) the three selection methods' distances, layer by layer
+    uniform = ropelite.uniform_selection(dh // 2, ELITE_R, nkv, dev)
+    dists = []
+    for li, x in enumerate(caps):
+        q, k = ropelite.layer_qk(params["layers"][li]["attn"], x)
+        by = {"greedy": sets[li], "uniform": uniform,
+              "contribution": ropelite.contribution_selection(q, k, G, ELITE_R)}
+        dists.append({m: float(ropelite.score_distance(q, k, pos, theta, G, s).sum())
+                      for m, s in by.items()})
+    print(f"[{card}] score_distance per layer, greedy / uniform / contribution: " + "; ".join(
+        f"L{li} {d['greedy']:.4e}/{d['uniform']:.4e}/{d['contribution']:.4e}"
+        for li, d in enumerate(dists)), flush=True)
+    d0 = dists[0]
+    if not (d0["greedy"] <= d0["uniform"] * 1.001 and
+            d0["greedy"] <= d0["contribution"] * 1.001):
+        raise AssertionError(f"layer 0: greedy {d0} is not <= the baselines x 1.001")
+    del caps
+    # conversion at a quarter cache and at exact rank
+    e64 = convert.pick_dims(cfg, 0.25)
+    exact = EliteKVConfig(enabled=True, elite_r=ELITE_R,
+                          d_ckv=nkv * (dh - 2 * ELITE_R) + nkv * dh)
+    assert (e64.elite_r, e64.d_ckv, exact.d_ckv) == (ELITE_R, 64, 448), (e64, exact)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cp, cb, ccfg = convert.convert_model(params, buffers, cfg, sets, e64)
+    torch.cuda.synchronize()
+    times["convert d_ckv=64"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xp, xb, xcfg = convert.convert_model(params, buffers, cfg, sets, exact)
+    torch.cuda.synchronize()
+    times["convert d_ckv=448"] = time.perf_counter() - t0
+    # (b) exact rank == the partial-RoPE baseline
+    V = cfg.vocab_size
+    toks = calib[:2, :256]
+    want = subset_rope_logits(params, cfg, sets, toks)[..., :V]
+    got = lm.apply_train(xp, xb, xcfg, toks)[..., :V]
+    B, S = toks.shape
+    pool = PagedKVPool(xcfg, B * -(-S // 16), 16, device=dev)
+    for b in range(B):
+        pool.ensure_capacity(b, S)
+    sm = np.stack([pool.prefill_slot_mapping(b, 0, S, S) for b in range(B)])
+    ops.reset_launches()
+    paged = lm.apply_prefill_paged(xp, xb, xcfg, toks, pool.pages, torch.from_numpy(sm))
+    torch.cuda.synchronize()
+    plaunch = {k: v for k, v in ops.launches().items() if v}
+    if plaunch != {"flash_prefill": L, "rope_elite": L}:
+        raise AssertionError(f"exact-rank paged prefill launches {plaunch}")
+    errs = {}
+    for label, x in (("apply_train", got), ("paged prefill", paged[..., :V])):
+        errs[label] = float((x - want).abs().max())
+        if not torch.allclose(x, want, atol=EXACT_TOL, rtol=EXACT_TOL):
+            raise AssertionError(f"exact-rank {label}: max |logits diff| {errs[label]} past "
+                                 f"{EXACT_TOL} + {EXACT_TOL}·|want|")
+    print(f"[{card}] exact-rank (d_ckv=448) converted TinyLlama-1.1B vs the baseline with "
+          f"RoPE on the elite sets, {B} x {S} tokens: max |logits diff| apply_train "
+          f"{errs['apply_train']:.3e}, paged prefill through the kernels "
+          f"{errs['paged prefill']:.3e} (launches {plaunch}); tolerance {EXACT_TOL} abs + "
+          f"rel", flush=True)
+    del xp, xb, pool, want, got, paged
+    # (d) the d_ckv = 64 model serves
+    n_new = 64
+    prompts = np.random.default_rng(13).integers(0, V, (8, 256)).astype(np.int32)
+    reqs = [serve_loop.Request(uid=i, prompt=prompts[i], max_new_tokens=n_new)
+            for i in range(8)]
+    scfg = serve_loop.SchedulerConfig(max_slots=8, block_size=16, num_blocks=8 * 24,
+                                      max_new_tokens=n_new, max_len=1024,
+                                      prefill_chunk_tokens=256, prefill_batch_lanes=8)
+    rep, _, _, sched = serve_run("converted TinyLlama-1.1B d_ckv=64, 8 requests", cp, cb,
+                                 ccfg, scfg, reqs, card)
+    out, _, _, _, _ = generate_run(
+        "converted TinyLlama-1.1B generate", cp, cb, ccfg, prompts, n_new,
+        {"elite_decode": L * (n_new - 1), "flash_prefill": L, "rope_elite": L * n_new}, card)
+    compare_streams("converted: Scheduler vs lockstep generate",
+                    [(r.uid, r.prompt, r.generated, out[r.uid]) for r in sched.finished],
+                    cp, cb, ccfg, dev, card, against="generate's")
+    del cp, cb, params, buffers
+    times["phase"] = time.perf_counter() - t_phase
+    times["conversion"] = (times["capture"] + times["search"] + times["convert d_ckv=64"])
+    times["step_ms p50"] = rep.step_ms_p50
+    print(f"[{card}] conversion times (s): capture {times['capture']:.3f}, search "
+          f"{times['search']:.3f} ({times['search'] / L:.3f} per layer), SVDs and surgery "
+          f"d_ckv=64 {times['convert d_ckv=64']:.3f}, d_ckv=448 "
+          f"{times['convert d_ckv=448']:.3f}; capture + search + convert "
+          f"{times['conversion']:.3f}; the whole phase {times['phase']:.1f}", flush=True)
+    return times
+
+
+def tied_model(dev, card: str) -> dict:
+    """Phase 3j: MiniCPM-2B (tied embeddings, 36/36 heads of 64, vocab
+    122,880) with EliteKV at a quarter cache (r = 8, d_ckv = 512) at full
+    width, MINICPM_LAYERS layers of seeded random weights: 6 greedy requests
+    plain, then k = 4 speculation with the full-rank draft on the same
+    requests; each run launches its kernels MINICPM_LAYERS times per forward
+    and nothing else, and the streams must be equal apart from near-ties.
+    → the runs' numbers."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import EliteKVConfig, get_config
+    from repro_torch.launch.serve import make_stream
+    from repro_torch.models import lm
+    from repro_torch.runtime import serve_loop
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("minicpm_2b"), num_layers=MINICPM_LAYERS,
+                              elitekv=EliteKVConfig(enabled=True, elite_r=8, d_ckv=512))
+    t0 = time.perf_counter()
+    params, buffers = lm.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    if "lm_head" in params:
+        raise AssertionError("a tied model built an lm_head")
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    print(f"[{card}] MiniCPM-2B EliteKV r=8 d_ckv=512, {cfg.num_layers} of 40 layers, tied "
+          f"embeddings, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}: "
+          f"{nbytes / 2**30:.2f} GiB of f32 weights, init {t_init:.2f} s", flush=True)
+    base = dict(max_slots=8, block_size=16, num_blocks=8 * 40, max_new_tokens=64,
+                max_len=1024, prefill_chunk_tokens=256, prefill_batch_lanes=8)
+    stream = lambda: make_stream(cfg, 6, rate=0.5, prompt_len=512, new_tokens=64, seed=14,
+                                 prompt_min=256, new_min=64)
+    prep, _, _, psched = serve_run("MiniCPM-2B plain 6 requests", params, buffers, cfg,
+                                   serve_loop.SchedulerConfig(**base), stream(), card)
+    srep, _, _, ssched = serve_run(
+        "MiniCPM-2B spec k=4 r=full 6 requests", params, buffers, cfg,
+        serve_loop.SchedulerConfig(**base, speculate_k=4, draft_rank=0), stream(), card)
+    compare_streams("MiniCPM-2B spec k=4 r=full", sched_streams(psched, ssched), params,
+                    buffers, cfg, dev, card)
+    if not srep.acceptance_rate >= 0.99:
+        raise AssertionError(f"MiniCPM-2B full-rank draft acceptance {srep.acceptance_rate}")
+    del params, buffers
+    wall = time.perf_counter() - t_phase
+    print(f"[{card}] MiniCPM-2B: plain step_ms p50/p95={prep.step_ms_p50:.2f}/"
+          f"{prep.step_ms_p95:.2f} tok/s={prep.tok_per_s:.1f}; spec k=4 step_ms p50="
+          f"{srep.step_ms_p50:.2f} acceptance={srep.acceptance_rate:.3f} tokens/forward="
+          f"{srep.tokens_per_forward:.2f} tok/s={srep.tok_per_s:.1f}; phase {wall:.1f} s",
+          flush=True)
+    return {"plain": prep, "spec": srep, "wall": wall, "init": t_init}
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1475,6 +1859,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -1511,6 +1896,13 @@ def main() -> int:
                           f"{p.heads} kv heads ({w * G * p.heads} query rows) per CTA, "
                           f"{p.stages} stages, {p.smem} B/CTA, {p.splits} splits of "
                           f"{p.tiles_per_split} tiles, {p.ctas} CTAs")
+    cuts = arch_plans(limit, sms)
+    print(f"  {len(cuts)} of those plans cut the window (one kv head's rows of it do not "
+          f"fit): {cuts}")
+    for want in (("llama2_13b", 0.5, "J-LRD", "f32", 5), ("llama2_13b", 0.5, "J-LRD", "int8", 5),
+                 ("llama2_7b", 0.5, "J-LRD", "f32", 9)):
+        if not any(c[:5] == want for c in cuts):
+            raise AssertionError(f"the plan of {want} did not cut the window")
     for body in fp.BODIES:
         for dh in fp.HEAD_DIMS:
             want, built = fp.smem_bytes(body, dh), fp.smem_bytes_built(body, dh)
@@ -1622,10 +2014,26 @@ def main() -> int:
     for entry, cases, kernel, plain in (
             ("rope_elite", rope_cases(dev, seed=40), re_k.rope_elite, ref.rope_elite_ref),
             ("rope_elite_qk", rope_pair_cases(dev, seed=41), re_k.rope_elite_qk,
-             ref.rope_elite_qk_ref)):
+             ref.rope_elite_qk_ref),
+            ("rope_elite_qk", rope_pair_cases(dev, seed=42, cases=ARCH_ROPE_PAIR_CASES),
+             re_k.rope_elite_qk, ref.rope_elite_qk_ref)):
         for label, a in cases.items():
             errs["rope_elite"] = max(errs["rope_elite"], rope_check(
                 f"{entry} {label}", kernel(*a), plain(*a), card))
+    # the other dense architectures' widths: decode and verify (LLaMA2-13B at
+    # half cache cuts its verify windows), and flash_prefill at 40/40 heads
+    t0 = time.perf_counter()
+    arch_parity(dev, card, errs)
+    for label, x in {"40/40 dh=128": random_prefill(dev, 40, 40, 128, seed=90),
+                     **{f"40/40 dh=128 {k}": v for k, v in flash_cases(
+                         dev, 40, 40, 128, seed=91).items()}}.items():
+        got = run_prefill(x)
+        errs["flash_prefill"] = max(errs["flash_prefill"], check(
+            f"flash_prefill {label}", max_err(got, run_prefill(x, plain=True)), card))
+        if float(got[3].abs().max()) != 0.0:
+            raise AssertionError("a kv_len = 0 lane did not give exact zeros")
+    print(f"[{card}] phase 2 at the other dense architectures' widths: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 3. the main paths at full width ------------------------------------
     cfg = build_config("tinyllama_1_1b", reduced=False, cache_ratio=0.25)
@@ -1732,6 +2140,11 @@ def main() -> int:
             cfg, 16, rate=0.5, prompt_len=256, new_tokens=128, seed=11, prompt_min=64,
             new_min=64, shared_prefix=256, temperature=0.8, top_p=0.95, sample_seed=200),
             feats["streams prefix on"], feats["prefix on"])})
+
+    # i. conversion of the baseline TinyLlama-1.1B, and the converted model
+    # served; j. MiniCPM-2B (tied embeddings) served plain and speculative
+    conv = conversion(dev, card)
+    tied = tied_model(dev, card)
 
     # each decode and verify kernel again, on the busiest recorded main-path inputs
     busiest = {}
@@ -2096,6 +2509,9 @@ def main() -> int:
               f"({nbytes / t_in / 1e6:.2f} GB/s), host clock, median of 5", flush=True)
 
     # -- 5. result lines -----------------------------------------------------
+    print(f"[{card}] phases 3i (conversion) {conv['phase']:.1f} s and 3j (MiniCPM-2B) "
+          f"{tied['wall']:.1f} s; the whole script {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Model configuration for the PyTorch port: EliteKV hyper-parameters and the
 decoder-only architecture description, plus the ``--arch`` registry.
 
-Counterpart of ``repro/configs/base.py``, cut to what the port's serving
-paths read: untied attention + SwiGLU-MLP stacks (no MoE, SSM,
-frontend or tied-embedding fields, no shape cells or dry-run input specs).
+Counterpart of ``repro/configs/base.py``, cut to what the port's dense
+architectures read: attention + SwiGLU-MLP stacks, with the LM head tied to
+the embedding table or not (no MoE, SSM or frontend fields, no shape cells
+or dry-run input specs).
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ class ModelConfig:
     d_head: Optional[int] = None     # explicit head dim; default d_model // n_heads
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    tie_embeddings: bool = False     # logits = h @ embed.table^T, no lm_head
     dtype: Any = torch.float32
     elitekv: EliteKVConfig = dataclasses.field(default_factory=EliteKVConfig)
 
@@ -92,7 +94,8 @@ class ModelConfig:
         return dataclasses.replace(self, **base)
 
 
-ARCH_IDS = ("tinyllama_1_1b", "llama2_7b")
+ARCH_IDS = ("tinyllama_1_1b", "llama2_7b", "llama2_13b", "yi_6b", "granite_3_2b",
+            "minicpm_2b")
 
 
 def get_config(arch: str) -> ModelConfig:

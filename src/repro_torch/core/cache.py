@@ -223,6 +223,11 @@ class BlockAllocator:
     def free(self, blocks: Sequence[int]) -> None:
         self._free.extend(blocks)
 
+    def reset(self) -> None:
+        """Every block free again, in the fresh allocator's order (the
+        lifetime counters are kept)."""
+        self._free = list(range(self.num_blocks - 1, -1, -1))
+
 
 @dataclasses.dataclass
 class PoolStats:
@@ -422,6 +427,18 @@ class PagedKVPool:
         self._release_blocks(self._tables.pop(seq_id, []), seq_id, reason="release")
         self._lengths.pop(seq_id, None)
 
+    def reset(self) -> None:
+        """Forget every sequence: all blocks free, no chains, lengths or
+        refcounts, a fresh prefix cache if there is one.  The pages keep
+        their contents (nothing reads a slot before it is written again)."""
+        self.allocator.reset()
+        self._tables.clear()
+        self._lengths.clear()
+        self._refcount.clear()
+        self.cow_copies = 0
+        if self.prefix is not None:
+            self.prefix = PrefixCache()
+
     def length(self, seq_id: int) -> int:
         return self._lengths.get(seq_id, 0)
 
@@ -476,6 +493,11 @@ class PagedKVPool:
         return out
 
     # -- accounting ---------------------------------------------------------
+    def floats_per_token(self) -> int:
+        """Cache elements per token over the model's layers (the formula,
+        whatever the pool's dtype)."""
+        return model_cache_floats_per_token(self.cfg)
+
     def bytes_per_token(self) -> int:
         """Pool bytes per token slot, summed over every page leaf: int8 rows
         and their f32 scales in a quantized pool, and the block summaries

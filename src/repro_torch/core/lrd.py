@@ -1,15 +1,92 @@
-"""Rank truncation of the joint low-rank factors, for the draft model of
-self-speculative decode.
+"""Low-rank decomposition of the KV projections (paper §3.2), and the rank
+truncation of the joint factors for the draft model of self-speculative
+decode.
 
-Counterpart of the JAX package's ``core/lrd.py::truncate_joint_rank`` (the
-rest of that module, J-LRD/S-LRD conversion, is ROADMAP Queue 1 item 13).
-Plain numpy in float64, as in the reference.
+J-LRD (the paper's choice): jointly factorize
+    W^kv = [W^k_nonelite(all heads), W^v(all heads)]  ≈  A^kv · B^kv,
+    B^kv = [B^k_J, B^v_J]
+so K-up and V-up share one latent — cache/token/layer = 2·r·n_kv + d_ckv.
+S-LRD (ablation): factorize W^k_nonelite and W^v separately with ranks
+(d_ck, d_cv); ``optimal_slrd_split`` picks the error-minimizing split of a
+cache budget from the two singular spectra.
+
+Counterpart of the JAX package's ``core/lrd.py``.  Plain numpy in float64,
+as in the reference: the weights come to the host for the SVD (a torch
+tensor on any device is accepted), and the factors return as float32 numpy
+arrays, which ``core/convert.py`` puts on the model's device.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
+
+
+def _f64(w) -> np.ndarray:
+    """A numpy float64 copy of ``w`` (numpy array or tensor on any device)."""
+    if isinstance(w, torch.Tensor):
+        w = w.detach().cpu().numpy()
+    return np.asarray(w, np.float64)
+
+
+def svd_lowrank(W, rank: int) -> Tuple[np.ndarray, np.ndarray]:
+    """W [m,n] ≈ A [m,rank] @ B [rank,n]   (A = U, B = Σ Vᵀ as in paper §2.3)."""
+    U, s, Vt = np.linalg.svd(_f64(W), full_matrices=False)
+    return U[:, :rank].astype(np.float32), (s[:rank, None] * Vt[:rank, :]).astype(np.float32)
+
+
+def jlrd(wk_ne, wv, d_ckv: int):
+    """Joint factorization.
+
+    wk_ne [d, n_kv, d_nope]; wv [d, n_kv, d_h]
+    → a_kv [d, d_ckv], bk [d_ckv, n_kv, d_nope], bv [d_ckv, n_kv, d_h]
+    """
+    wk_ne, wv = _f64(wk_ne), _f64(wv)
+    d, nkv, d_nope = wk_ne.shape
+    dh = wv.shape[2]
+    W = np.concatenate([wk_ne.reshape(d, nkv * d_nope), wv.reshape(d, nkv * dh)], axis=1)
+    A, B = svd_lowrank(W, d_ckv)
+    return (A, B[:, :nkv * d_nope].reshape(d_ckv, nkv, d_nope),
+            B[:, nkv * d_nope:].reshape(d_ckv, nkv, dh))
+
+
+def slrd(wk_ne, wv, d_ck: int, d_cv: int):
+    """Separate factorizations → (a_k [d, d_ck], a_v [d, d_cv],
+    bk [d_ck, n_kv, d_nope], bv [d_cv, n_kv, d_h])."""
+    wk_ne, wv = _f64(wk_ne), _f64(wv)
+    d, nkv, d_nope = wk_ne.shape
+    dh = wv.shape[2]
+    a_k, Bk = svd_lowrank(wk_ne.reshape(d, nkv * d_nope), d_ck)
+    a_v, Bv = svd_lowrank(wv.reshape(d, nkv * dh), d_cv)
+    return a_k, a_v, Bk.reshape(d_ck, nkv, d_nope), Bv.reshape(d_cv, nkv, dh)
+
+
+def reconstruction_error(W, A, B) -> float:
+    """‖W − A·B‖_F / ‖W‖_F, in float64."""
+    W = _f64(W)
+    R = W - _f64(A) @ _f64(B)
+    return float(np.linalg.norm(R) / max(np.linalg.norm(W), 1e-12))
+
+
+def optimal_slrd_split(wk_ne, wv, budget: int, align: int = 1) -> Tuple[int, int]:
+    """Best (d_ck, d_cv) with d_ck + d_cv = budget, minimizing the total
+    squared reconstruction error  Σ_{i>d_ck} σ_k,i² + Σ_{i>d_cv} σ_v,i²."""
+    wk_ne, wv = _f64(wk_ne), _f64(wv)
+    d = wk_ne.shape[0]
+    sk = np.linalg.svd(wk_ne.reshape(d, -1), compute_uv=False)
+    sv = np.linalg.svd(wv.reshape(d, -1), compute_uv=False)
+    tail = lambda s, r: float(np.sum(s[r:] ** 2))
+    best, best_err = None, np.inf
+    for ck in range(align, budget, align):
+        cv = budget - ck
+        if cv < 1 or ck > len(sk) or cv > len(sv):
+            continue
+        err = tail(sk, ck) + tail(sv, cv)
+        if err < best_err:
+            best, best_err = (ck, cv), err
+    assert best is not None
+    return best
 
 
 def truncate_joint_rank(bk: np.ndarray, bv: np.ndarray, rank: int

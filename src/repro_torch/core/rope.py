@@ -9,13 +9,14 @@ Conventions (same as the JAX package):
   (``elite_freqs`` — theta values, not indices; projection columns are
   permuted so elite chunks occupy the first ``2r`` dims).
 
-Angles are computed in f32.  Both rotations are one function, the
+Angles are computed in f32.  All rotations are one function, the
 ``rope_elite`` kernel's: the full RoPE is the elite rotation with
-``chunk_freqs`` shared by all heads.  A layer rotates its q and k in one
-call (``apply_rope_qk``; EliteKV's attention calls
-``kernels.ops.rope_elite_qk`` itself), which launches the kernel for a CUDA
-tensor and runs the plain math (``kernels/ref.py``: ``cos_sin``,
-``rotate``) for a CPU one.
+``chunk_freqs`` shared by all heads, and the RoPElite search's masked
+rotation (``apply_rope_subset``) the same with masked frequencies set to
+0.  A layer rotates its q and k in one call (``apply_rope_qk``; EliteKV's
+attention calls ``kernels.ops.rope_elite_qk`` itself), which launches the
+kernel for a CUDA tensor and runs the plain math (``kernels/ref.py``:
+``cos_sin``, ``rotate``) for a CPU one.
 """
 from __future__ import annotations
 
@@ -45,6 +46,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     H, D = x.shape[-2:]
     f = _full_freqs(D, float(theta), x.device)
     return ops.rope_elite(x, positions, f.expand(H, D // 2))
+
+
+def apply_rope_subset(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                      chunk_mask: torch.Tensor) -> torch.Tensor:
+    """RoPE applied only where ``chunk_mask`` is True (per-head masks
+    allowed); the other chunks pass through unrotated (the RoPElite
+    "linear" dims).  x: [B, S, H, D]; chunk_mask: [C] or [H, C] booleans;
+    positions: [B, S] or [S].
+
+    One ``rope_elite`` call with each head's frequencies times its mask: a
+    zero frequency gives the angle 0, so cos = 1 and sin = 0 exactly, which
+    is the reference's masked rotation ``cos·m + (1 − m)``, ``sin·m``."""
+    H, D = x.shape[-2:]
+    f = _full_freqs(D, float(theta), x.device)
+    m = chunk_mask.to(device=x.device, dtype=torch.float32)
+    return ops.rope_elite(x, positions, (f * m).expand(H, D // 2).contiguous())
 
 
 def apply_rope_qk(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,

@@ -27,13 +27,15 @@ def _layer(tree, i: int, device):
 def from_reference(params: Dict, buffers: Dict, cfg, device="cuda") -> Tuple[Dict, Dict]:
     """Reference (params, buffers) of numpy arrays → the port's layout on
     ``device``.  Only single-position superblocks (attention + MLP stacks)
-    with an untied LM head exist in the port."""
+    exist in the port; ``lm_head`` is carried where the model has one (a
+    tied model has none)."""
     blocks, bufs = params["blocks"], buffers["blocks"]
     if set(blocks) != {"p0"}:
         raise ValueError(f"expected one layer position, got {sorted(blocks)}")
     n = cfg.num_layers
-    out = {"embed": {"table": _tensor(params["embed"]["table"], device)},
-           "lm_head": {"w": _tensor(params["lm_head"]["w"], device)},
-           "final_norm": {"scale": _tensor(params["final_norm"]["scale"], device)},
-           "layers": [_layer(blocks["p0"], i, device) for i in range(n)]}
+    out = {"embed": {"table": _tensor(params["embed"]["table"], device)}}
+    if "lm_head" in params:
+        out["lm_head"] = {"w": _tensor(params["lm_head"]["w"], device)}
+    out.update(final_norm={"scale": _tensor(params["final_norm"]["scale"], device)},
+               layers=[_layer(blocks["p0"], i, device) for i in range(n)])
     return out, {"layers": [_layer(bufs["p0"], i, device) for i in range(n)]}

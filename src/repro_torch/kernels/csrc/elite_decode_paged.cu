@@ -63,6 +63,11 @@
 //     decode, 160 at W = 5), so a latent tile is staged once per head group
 //     instead of once per kv head.  gh is the largest divisor of n_kv whose
 //     shared memory fits the card's opt-in limit (the host chooses it).
+//     Where one kv head's rows of the whole window do not fit (LLaMA2-13B
+//     at half cache, W = 5), the host cuts the window into parts of wc
+//     positions, each part its own CTAs (grid y = parts * head groups), so
+//     a CTA holds R = wc*G*gh rows; the walk, the ranges and every row's
+//     arithmetic are the uncut call's.
 //   * Asynchronous staging.  cp.async (16 B where the rows allow, else 4 B)
 //     brings the query rows with the first tile and double-buffers the next
 //     tile while the current one is scored; where two stages do not fit
@@ -305,17 +310,21 @@ template <typename T, typename Walk>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
     const float* __restrict__ q_e, const float* __restrict__ q_lat, Pages<T> pg,
     Walk walk, const int* __restrict__ q_off, float* __restrict__ out,
-    float* __restrict__ partials, int* __restrict__ counters, int nw, int nkv, int G,
-    int r2, int dc, float scale, int gh, int tps, int stages, bool shared_cv) {
-  const int s_idx = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
-  const int splits = gridDim.x, n_groups = gridDim.y;
+    float* __restrict__ partials, int* __restrict__ counters, int nw, int wc, int nkv,
+    int G, int r2, int dc, float scale, int gh, int tps, int stages, bool shared_cv) {
+  // blockIdx.y = window part * head groups + head group
+  const int s_idx = blockIdx.x, b = blockIdx.z;
+  const int splits = gridDim.x, n_units = gridDim.y, n_groups = nkv / gh;
+  const int grp = blockIdx.y % n_groups, w0 = blockIdx.y / n_groups * wc;
   const int tid = threadIdx.x;
   const int bs = walk.bs;
   const int nh = nkv * G;
   const int RG = gh * G;      // query rows per window position
-  const int R = nw * RG;      // row r: window position r / RG, head grp*RG + r % RG
+  const int RW = wc * RG;     // rows of a full window part: the layout's and the partials'
+  const int R = min(wc, nw - w0) * RG;   // row r: window position w0 + r / RG,
+                                         // head grp*RG + r % RG
   const int E4 = r2 / 4, DC4 = dc / 4;
-  const Layout L = make_layout(R, gh, bs, r2, dc, shared_cv, sizeof(T) == 1, stages);
+  const Layout L = make_layout(RW, gh, bs, r2, dc, shared_cv, sizeof(T) == 1, stages);
   extern __shared__ __align__(16) float smem[];
   float* qe = smem + L.qe;
   float* ql = smem + L.ql;
@@ -326,14 +335,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   float* als = smem + L.alpha;
   int* flag = reinterpret_cast<int*>(smem + L.flag);
 
-  // the group's query rows: nw runs of RG contiguous heads each, copied
-  // asynchronously with the first tile
+  // the group's query rows of this window part: R / RG runs of RG
+  // contiguous heads each, copied asynchronously with the first tile
+  const long q0 = ((long)b * nw + w0) * nh + grp * RG;
   copy_rows(reinterpret_cast<char*>(qe), RG * r2 * 4,
-            reinterpret_cast<const char*>(q_e + ((long)b * nw * nh + grp * RG) * r2),
-            (long)nh * r2 * 4, nw, RG * r2 * 4);
+            reinterpret_cast<const char*>(q_e + q0 * r2), (long)nh * r2 * 4, R / RG,
+            RG * r2 * 4);
   copy_rows(reinterpret_cast<char*>(ql), RG * dc * 4,
-            reinterpret_cast<const char*>(q_lat + ((long)b * nw * nh + grp * RG) * dc),
-            (long)nh * dc * 4, nw, RG * dc * 4);
+            reinterpret_cast<const char*>(q_lat + q0 * dc), (long)nh * dc * 4, R / RG,
+            RG * dc * 4);
   for (int i = tid; i < R * DC4; i += kThreads) acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int r = tid; r < R; r += kThreads) {
     ms[r] = kMasked;
@@ -343,7 +353,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   int len = 0;
   const int n_steps = walk.steps(b, len);
   const int j0 = s_idx * tps, j1 = min(j0 + tps, n_steps);
-  const int qo = q_off ? q_off[b] : 0;   // the window's first position
+  const int qo = q_off ? q_off[b] + w0 : 0;   // the window part's first position
   const int h0 = grp * gh;
   int lpr = 1;                           // lanes per row: one per token of a tile
   while (lpr < bs) lpr *= 2;
@@ -459,17 +469,18 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
 
   cp_async_wait_all();                   // no copy in flight (a CTA with no tile)
 
-  // this split's partial: acc [R, dc] (only if it visited a row), m and l [R]
-  const long bg = (long)b * n_groups + grp;
-  const long acc_region = (long)gridDim.z * n_groups * splits * R * dc;
+  // this split's partial: acc [R, dc] (only if it visited a row), m and l
+  // [R], in slots of RW rows
+  const long bg = (long)b * n_units + blockIdx.y;
+  const long acc_region = (long)gridDim.z * n_units * splits * RW * dc;
   float4* pacc = reinterpret_cast<float4*>(partials);
-  float* pm = partials + acc_region;     // [B * groups * splits][2][R]
+  float* pm = partials + acc_region;     // [B * units * splits][2][RW]
   if (any)
     for (int i = tid; i < R * DC4; i += kThreads)
-      pacc[(bg * splits + s_idx) * R * DC4 + i] = acc4[i];
+      pacc[(bg * splits + s_idx) * RW * DC4 + i] = acc4[i];
   for (int r = tid; r < R; r += kThreads) {
-    pm[((bg * splits + s_idx) * 2) * R + r] = ms[r];
-    pm[((bg * splits + s_idx) * 2 + 1) * R + r] = ls[r];
+    pm[((bg * splits + s_idx) * 2) * RW + r] = ms[r];
+    pm[((bg * splits + s_idx) * 2 + 1) * RW + r] = ls[r];
   }
   __threadfence();
   __syncthreads();
@@ -492,8 +503,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   float* den = smem + L.p;                // [R]
   for (int i = tid; i < R * splits; i += kThreads) {
     const int r = i / splits, s = i - r * splits;
-    wsm[i] = __ldcg(pm + ((bg * splits + s) * 2) * R + r);
-    lsm[i] = __ldcg(pm + ((bg * splits + s) * 2 + 1) * R + r);
+    wsm[i] = __ldcg(pm + ((bg * splits + s) * 2) * RW + r);
+    lsm[i] = __ldcg(pm + ((bg * splits + s) * 2 + 1) * RW + r);
   }
   __syncthreads();
   for (int r = tid; r < R; r += kThreads) {
@@ -518,7 +529,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       // loaded unconditionally so that loads overlap; an empty partial's
       // acc was never written, and its weight 0 keeps it out
       const float w = wsm[r * splits + s];
-      const float4 v = __ldcg(pacc + (bg * splits + s) * R * DC4 + i);
+      const float4 v = __ldcg(pacc + (bg * splits + s) * RW * DC4 + i);
       if (w > 0.f) {
         o.x = fmaf(v.x, w, o.x);
         o.y = fmaf(v.y, w, o.y);
@@ -528,7 +539,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     }
     const float dn = den[r];
     const int w = r / RG, hh = r - w * RG;
-    float4* dst = reinterpret_cast<float4*>(out + (((long)b * nw + w) * nh + grp * RG + hh) * dc);
+    float4* dst =
+        reinterpret_cast<float4*>(out + (((long)b * nw + w0 + w) * nh + grp * RG + hh) * dc);
     dst[d4] = make_float4(o.x / dn, o.y / dn, o.z / dn, o.w / dn);
   }
 }
@@ -537,20 +549,24 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
 // `stream` and returns cudaGetLastError() (0 on success).  c_k and c_v (and
 // their scales) may be the same pointer (J-LRD), in which case the latent
 // rows are staged once.  q_off == nullptr is decode (nw must be 1).  The
-// plan (gh kv heads per CTA, splits of tps tiles, stages) comes from the
-// host; partials holds B * (nkv / gh) * splits * R * (dc + 2) floats and
-// counters B * (nkv / gh) zeros.
+// plan (gh kv heads per CTA, splits of tps tiles, stages, and wc window
+// positions per CTA) comes from the host: a window that one kv head per
+// CTA cannot hold is cut into parts of wc positions, each its own CTAs
+// (grid y = parts * head groups), which changes no row's arithmetic.
+// partials holds B * units * splits * wc * G * gh * (dc + 2) floats and
+// counters B * units zeros, units = ceil(nw / wc) * (nkv / gh).
 template <typename T, typename Walk>
 int launch(const float* q_e, const float* q_lat, Pages<T> pg, Walk walk, const int* q_off,
            float* out, float* partials, int* counters, int B, int nw, int nkv, int G,
-           int r2, int dc, float scale, int gh, int splits, int tps, int stages,
+           int r2, int dc, float scale, int gh, int splits, int tps, int stages, int wc,
            void* stream) {
   if (gh < 1 || nkv % gh || r2 % 4 || dc % 4 || walk.bs < 1 || walk.bs > 32 ||
-      splits < 1 || splits > dc || tps < 1 || (stages != 1 && stages != 2))
+      splits < 1 || splits > dc || tps < 1 || (stages != 1 && stages != 2) || wc < 1 ||
+      wc > nw)
     return (int)cudaErrorInvalidValue;
   auto kernel = decode_kernel<T, Walk>;
   const bool shared_cv = pg.c_k == pg.c_v && pg.ck_s == pg.cv_s;
-  const Layout L = make_layout(nw * G * gh, gh, walk.bs, r2, dc, shared_cv, sizeof(T) == 1,
+  const Layout L = make_layout(wc * G * gh, gh, walk.bs, r2, dc, shared_cv, sizeof(T) == 1,
                                stages);
   const size_t bytes = (size_t)L.total * sizeof(float);
   if (bytes > 48 * 1024) {
@@ -559,9 +575,10 @@ int launch(const float* q_e, const float* q_lat, Pages<T> pg, Walk walk, const i
                                          (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<dim3(splits, nkv / gh, B), kThreads, bytes, (cudaStream_t)stream>>>(
-      q_e, q_lat, pg, walk, q_off, out, partials, counters, nw, nkv, G, r2, dc, scale, gh,
-      tps, stages, shared_cv);
+  const int parts = (nw + wc - 1) / wc;
+  kernel<<<dim3(splits, parts * (nkv / gh), B), kThreads, bytes, (cudaStream_t)stream>>>(
+      q_e, q_lat, pg, walk, q_off, out, partials, counters, nw, wc, nkv, G, r2, dc, scale,
+      gh, tps, stages, shared_cv);
   return (int)cudaGetLastError();
 }
 
@@ -573,11 +590,12 @@ int launch(const float* q_e, const float* q_lat, Pages<T> pg, Walk walk, const i
 // [n_slots] per stream.  The chain entries take block_tables [B, mb] and
 // lengths [B]; the verify entries also q_offsets [B]; the sparse entries
 // sel_tables and sel_counts [B, W]; all int32.  Every entry then takes the
-// partials and counters scratch and the plan (gh, splits, tps, stages).
+// partials and counters scratch and the plan (gh, splits, tps, stages, wc;
+// wc = 1 for decode, the window positions per CTA for verify).
 
-// Shared memory per CTA of a call with window nw (1 for decode) and gh kv
-// heads per CTA, and the card's opt-in limit for one block: the wrapper
-// refuses a call above it.
+// Shared memory per CTA of a call with nw window positions per CTA (1 for
+// decode; wc for a cut window) and gh kv heads per CTA, and the card's
+// opt-in limit for one block: the wrapper plans by them.
 extern "C" long elite_decode_smem_bytes(int nw, int G, int gh, int bs, int r2, int dc,
                                         int shared_cv, int q8, int stages) {
   return (long)make_layout(nw * G * gh, gh, bs, r2, dc, shared_cv != 0, q8 != 0, stages)
@@ -599,10 +617,10 @@ extern "C" int elite_decode(const float* q_e, const float* q_lat, const float* k
                             const float* c_k, const float* c_v, const int* lengths,
                             float* out, float* partials, int* counters, int B, int S,
                             int nkv, int G, int r2, int dc, int bs, int gh, int splits,
-                            int tps, int stages, float scale, void* stream) {
+                            int tps, int stages, int wc, float scale, void* stream) {
   return launch(q_e, q_lat, Pages<float>{k_e, c_k, c_v, nullptr, nullptr, nullptr},
                 ContigWalk{lengths, S, bs}, nullptr, out, partials, counters, B, 1, nkv,
-                G, r2, dc, scale, gh, splits, tps, stages, stream);
+                G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }
 
 extern "C" int elite_decode_paged(const float* q_e, const float* q_lat, const float* k_e,
@@ -610,10 +628,10 @@ extern "C" int elite_decode_paged(const float* q_e, const float* q_lat, const fl
                                   const int* block_tables, const int* lengths, float* out,
                                   float* partials, int* counters, int B, int nkv, int G,
                                   int r2, int dc, int bs, int mb, int gh, int splits,
-                                  int tps, int stages, float scale, void* stream) {
+                                  int tps, int stages, int wc, float scale, void* stream) {
   return launch(q_e, q_lat, Pages<float>{k_e, c_k, c_v, nullptr, nullptr, nullptr},
                 ChainWalk{block_tables, lengths, mb, bs}, nullptr, out, partials,
-                counters, B, 1, nkv, G, r2, dc, scale, gh, splits, tps, stages, stream);
+                counters, B, 1, nkv, G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }
 
 extern "C" int elite_decode_paged_q8(const float* q_e, const float* q_lat,
@@ -623,11 +641,11 @@ extern "C" int elite_decode_paged_q8(const float* q_e, const float* q_lat,
                                      const int* block_tables, const int* lengths,
                                      float* out, float* partials, int* counters, int B,
                                      int nkv, int G, int r2, int dc, int bs, int mb,
-                                     int gh, int splits, int tps, int stages, float scale,
-                                     void* stream) {
+                                     int gh, int splits, int tps, int stages, int wc,
+                                     float scale, void* stream) {
   return launch(q_e, q_lat, Pages<int8_t>{k_e, c_k, c_v, k_s, ck_s, cv_s},
                 ChainWalk{block_tables, lengths, mb, bs}, nullptr, out, partials,
-                counters, B, 1, nkv, G, r2, dc, scale, gh, splits, tps, stages, stream);
+                counters, B, 1, nkv, G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }
 
 extern "C" int elite_decode_sparse_paged(const float* q_e, const float* q_lat,
@@ -636,11 +654,11 @@ extern "C" int elite_decode_sparse_paged(const float* q_e, const float* q_lat,
                                          const int* sel_counts, float* out,
                                          float* partials, int* counters, int B, int nkv,
                                          int G, int r2, int dc, int bs, int W, int gh,
-                                         int splits, int tps, int stages, float scale,
-                                         void* stream) {
+                                         int splits, int tps, int stages, int wc,
+                                         float scale, void* stream) {
   return launch(q_e, q_lat, Pages<float>{k_e, c_k, c_v, nullptr, nullptr, nullptr},
                 SelWalk{sel_tables, sel_counts, W, bs}, nullptr, out, partials, counters,
-                B, 1, nkv, G, r2, dc, scale, gh, splits, tps, stages, stream);
+                B, 1, nkv, G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }
 
 extern "C" int elite_decode_sparse_paged_q8(
@@ -648,10 +666,10 @@ extern "C" int elite_decode_sparse_paged_q8(
     const int8_t* c_v, const float* k_s, const float* ck_s, const float* cv_s,
     const int* sel_tables, const int* sel_counts, float* out, float* partials,
     int* counters, int B, int nkv, int G, int r2, int dc, int bs, int W, int gh,
-    int splits, int tps, int stages, float scale, void* stream) {
+    int splits, int tps, int stages, int wc, float scale, void* stream) {
   return launch(q_e, q_lat, Pages<int8_t>{k_e, c_k, c_v, k_s, ck_s, cv_s},
                 SelWalk{sel_tables, sel_counts, W, bs}, nullptr, out, partials, counters,
-                B, 1, nkv, G, r2, dc, scale, gh, splits, tps, stages, stream);
+                B, 1, nkv, G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }
 
 extern "C" int elite_verify_paged(const float* q_e, const float* q_lat, const float* k_e,
@@ -660,10 +678,10 @@ extern "C" int elite_verify_paged(const float* q_e, const float* q_lat, const fl
                                   const int* lengths, float* out, float* partials,
                                   int* counters, int B, int W, int nkv, int G, int r2,
                                   int dc, int bs, int mb, int gh, int splits, int tps,
-                                  int stages, float scale, void* stream) {
+                                  int stages, int wc, float scale, void* stream) {
   return launch(q_e, q_lat, Pages<float>{k_e, c_k, c_v, nullptr, nullptr, nullptr},
                 ChainWalk{block_tables, lengths, mb, bs}, q_offsets, out, partials,
-                counters, B, W, nkv, G, r2, dc, scale, gh, splits, tps, stages, stream);
+                counters, B, W, nkv, G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }
 
 extern "C" int elite_verify_paged_q8(
@@ -671,8 +689,8 @@ extern "C" int elite_verify_paged_q8(
     const int8_t* c_v, const float* k_s, const float* ck_s, const float* cv_s,
     const int* block_tables, const int* q_offsets, const int* lengths, float* out,
     float* partials, int* counters, int B, int W, int nkv, int G, int r2, int dc, int bs,
-    int mb, int gh, int splits, int tps, int stages, float scale, void* stream) {
+    int mb, int gh, int splits, int tps, int stages, int wc, float scale, void* stream) {
   return launch(q_e, q_lat, Pages<int8_t>{k_e, c_k, c_v, k_s, ck_s, cv_s},
                 ChainWalk{block_tables, lengths, mb, bs}, q_offsets, out, partials,
-                counters, B, W, nkv, G, r2, dc, scale, gh, splits, tps, stages, stream);
+                counters, B, W, nkv, G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }

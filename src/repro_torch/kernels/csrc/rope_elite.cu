@@ -37,8 +37,12 @@
 // - a 3-D block: x = a vector of VEC pairs within a row (VEC = 2: 16-byte
 //   loads and stores; VEC = 1: 8-byte, for inputs whose rows or strides are
 //   not 16-byte aligned), y = (frequency row, head subset), z = tokens of one
-//   lane; grid (token blocks, lanes).  All index math is 32-bit, and the
-//   only division splits y into row and subset;
+//   lane; grid (token blocks, lanes, row blocks).  All index math is
+//   32-bit, and the only division splits y into row and subset.  A token
+//   whose rows need more threads than a CTA holds (40 rows of 32 pairs for
+//   LLaMA2-13B at half cache, or the RoPElite search's per-head masked
+//   frequencies) has its rows cut into row blocks of rpc rows each, one
+//   block per grid z; every element's arithmetic is the same;
 // - a thread computes the VEC sincos of its (token, row, vector) once and
 //   applies them to up to kMaxVectors heads of the row (its q heads, then
 //   its k heads).  A row read by more heads (the full RoPE's 32 + 4) is
@@ -63,7 +67,7 @@ struct Args {
   const float* freqs;
   float* q_out;
   float* k_out;
-  int S, r, subsets, per_sub, q_per_row, k_per_row, Hq, Hk;
+  int S, r, rows, rpc, subsets, per_sub, q_per_row, k_per_row, Hq, Hk;
   int q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, pos_sb, f_sr;
 };
 
@@ -100,11 +104,12 @@ template <int VEC, typename P>
 __global__ void __launch_bounds__(kMaxThreads) rope_qk_kernel(const Args a) {
   using V = typename VecOf<VEC>::T;
   const int s = blockIdx.x * blockDim.z + threadIdx.z;
-  if (s >= a.S) return;
+  const int ly = threadIdx.y / a.subsets;
+  const int row = blockIdx.z * a.rpc + ly;
+  if (s >= a.S || row >= a.rows) return;
   const int b = blockIdx.y;
   const int pair = threadIdx.x * VEC;
-  const int row = threadIdx.y / a.subsets;
-  const int sub = threadIdx.y - row * a.subsets;
+  const int sub = threadIdx.y - ly * a.subsets;
 
   // heads [i0, i1) of the row's list: its q heads, then its k heads
   const int n = a.q_per_row + a.k_per_row;
@@ -160,23 +165,25 @@ void launch(const Args& a, bool pos64, dim3 grid, dim3 block, cudaStream_t strea
 // q_out, k_out: contiguous f32 [B, S, H, 2r].  vec: pairs per access (2:
 // every q and k row start 16-byte aligned and r even; 1: 8-byte aligned).
 // A thread handles per_sub heads of one of a row's `subsets` head subsets;
-// tz tokens per CTA.  Every offset must fit in 32 bits.  Needs B, S, r >= 1.
+// tz tokens and rpc rows per CTA.  Every offset must fit in 32 bits.  Needs
+// B, S, r >= 1.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a plan the kernel cannot run.
 extern "C" int rope_elite_qk(const float* q, const float* k, const void* pos, int pos64,
                              const float* freqs, float* q_out, float* k_out, int vec,
                              int B, int S, int r, int rows, int q_per_row, int k_per_row,
-                             int subsets, int per_sub, int tz, int q_sb, int q_ss,
+                             int subsets, int per_sub, int tz, int rpc, int q_sb, int q_ss,
                              int q_sh, int k_sb, int k_ss, int k_sh, int pos_sb, int f_sr,
                              void* stream) {
   if ((vec != 1 && vec != 2) || r % vec || per_sub < 1 || per_sub > kMaxVectors ||
-      subsets * per_sub < q_per_row + k_per_row || tz < 1 ||
-      (r / vec) * rows * subsets * tz > kMaxThreads)
+      subsets * per_sub < q_per_row + k_per_row || tz < 1 || rpc < 1 || rpc > rows ||
+      (r / vec) * rpc * subsets * tz > kMaxThreads)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, pos, freqs, q_out, k_out, S, r, subsets, per_sub, q_per_row,
-               k_per_row, rows * q_per_row, rows * k_per_row, q_sb, q_ss, q_sh, k_sb,
-               k_ss, k_sh, pos_sb, f_sr};
-  const dim3 grid((S + tz - 1) / tz, B), block(r / vec, rows * subsets, tz);
+  const Args a{q, k, pos, freqs, q_out, k_out, S, r, rows, rpc, subsets, per_sub,
+               q_per_row, k_per_row, rows * q_per_row, rows * k_per_row, q_sb, q_ss, q_sh,
+               k_sb, k_ss, k_sh, pos_sb, f_sr};
+  const dim3 grid((S + tz - 1) / tz, B, (rows + rpc - 1) / rpc),
+      block(r / vec, rpc * subsets, tz);
   if (vec == 2)
     launch<2>(a, pos64 != 0, grid, block, (cudaStream_t)stream);
   else

@@ -37,10 +37,12 @@ or the walk's width, so nothing is read back from the card and a lane's
 bits do not depend on the other lanes); the kernel merges the ranges'
 partials itself, in the last CTA of each (lane, head group), using
 per-device scratch that the wrapper allocates once and grows.  Calls on
-one device are ordered by their stream.  A call that one kv head per CTA
-cannot fit in the card's opt-in shared memory raises ``ValueError`` before
-launching; ``ref.split_call_ref`` is the plan's arithmetic in plain
-PyTorch.
+one device are ordered by their stream.  A verify window whose rows for one
+kv head do not fit the card's opt-in shared memory is cut into parts of
+fewer window positions, each part its own CTAs in the same launch, with the
+uncut call's walk, ranges and per-row arithmetic; only a window of which
+one position does not fit raises ``ValueError`` before launching.
+``ref.split_call_ref`` is the plan's arithmetic in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -120,7 +122,9 @@ def sm_count(device) -> int:
 
 class Plan(NamedTuple):
     """How one call is cut: ``heads`` kv heads per CTA in ``groups`` head
-    groups, ``stages`` tiles in flight, each lane's walk of ``n_tiles``
+    groups, ``stages`` tiles in flight, the window in ``parts`` parts of
+    ``part`` positions (1 and 1 for decode; one part unless one kv head's
+    rows of the whole window do not fit), each lane's walk of ``n_tiles``
     tiles in ``splits`` ranges of ``tiles_per_split``; ``ctas`` CTAs of
     ``smem`` bytes of shared memory."""
     heads: int
@@ -130,23 +134,53 @@ class Plan(NamedTuple):
     tiles_per_split: int
     ctas: int
     smem: int
+    part: int = 1
+    parts: int = 1
 
 
 def head_group(window: int, q_group: int, nkv: int, block_size: int, r2: int, dc: int,
-               shared_cv: bool, q8: bool, limit: int, symbol: str = "elite_decode"):
-    """(kv heads per CTA, stages, bytes): the largest divisor of ``nkv`` whose
-    CTA fits ``limit`` bytes with two tiles in flight, else with one.  A
-    call that one kv head per CTA cannot fit raises ``ValueError``."""
+               shared_cv: bool, q8: bool, limit: int):
+    """(kv heads per CTA, stages, bytes) for CTAs of ``window`` positions:
+    the largest divisor of ``nkv`` whose CTA fits ``limit`` bytes with two
+    tiles in flight, else with one; None if one kv head does not fit."""
     heads = [h for h in range(nkv, 0, -1) if nkv % h == 0]
     for stages in (2, 1):
         for h in heads:
             need = smem_bytes(window, q_group, h, block_size, r2, dc, shared_cv, q8, stages)
             if need <= limit:
                 return h, stages, need
-    need = smem_bytes(window, q_group, 1, block_size, r2, dc, shared_cv, q8, 1)
-    raise ValueError(f"{symbol}: {need} B of shared memory per CTA (window {window}, "
-                     f"G={q_group}, one kv head, 2r={r2}, d_c={dc}, block_size="
-                     f"{block_size}) exceeds the card's opt-in limit of {limit} B")
+    return None
+
+
+def window_parts(window: int, q_group: int, nkv: int, block_size: int, r2: int, dc: int,
+                 shared_cv: bool, q8: bool, limit: int, symbol: str = "elite_decode",
+                 part: int = 0):
+    """(kv heads per CTA, stages, bytes, window positions per CTA).  The
+    whole window when one kv head's rows of it fit (``head_group``); else
+    the window cut into the fewest parts of ``ceil(window / n)`` positions
+    that fit, heads and stages sized again for a part.  ``part`` forces a
+    cut of an uncut call into parts of that many positions, with the uncut
+    call's heads and stages (so its ranges, and its bits, are the uncut
+    call's).  A window of which one position of one kv head does not fit
+    raises ``ValueError``."""
+    fit = head_group(window, q_group, nkv, block_size, r2, dc, shared_cv, q8, limit)
+    if fit is not None:
+        heads, stages, need = fit
+        if not 0 < part < window:
+            return heads, stages, need, window
+        return heads, stages, smem_bytes(part, q_group, heads, block_size, r2, dc,
+                                         shared_cv, q8, stages), part
+    sizes = [part] if part else sorted({-(-window // n) for n in range(2, window + 1)},
+                                       reverse=True)
+    for size in sizes:
+        fit = head_group(size, q_group, nkv, block_size, r2, dc, shared_cv, q8, limit)
+        if fit is not None:
+            return (*fit, size)
+    need = smem_bytes(1, q_group, 1, block_size, r2, dc, shared_cv, q8, 1)
+    raise ValueError(f"{symbol}: a window of {window} positions cannot be cut to fit: "
+                     f"{need} B of shared memory per CTA for one position (G={q_group}, "
+                     f"one kv head, 2r={r2}, d_c={dc}, block_size={block_size}) exceeds "
+                     f"the card's opt-in limit of {limit} B")
 
 
 def split_plan(groups: int, n_tiles: int, target_ctas: int, max_splits: int):
@@ -169,28 +203,31 @@ def split_plan(groups: int, n_tiles: int, target_ctas: int, max_splits: int):
 @functools.lru_cache(maxsize=None)
 def plan(B: int, window: int, q_group: int, nkv: int, block_size: int, r2: int, dc: int,
          shared_cv: bool, q8: bool, n_tiles: int, sms: int, limit: int,
-         symbol: str = "elite_decode") -> Plan:
-    """The plan of one call: head groups by shared memory, then the walk's
-    width (``mb``, the selection's ``W`` or ``ceil(S / 16)``) cut into
-    ranges sized for ``CTAS_PER_SM`` CTAs per SM on the reference load, at
-    most ``dc`` splits (``split_plan``: the range size does not depend on
-    ``B`` or the width).  Raises ``ValueError`` for widths the
-    kernel does not take.  Memoized: a serving step asks for the same few
-    plans in every layer."""
+         symbol: str = "elite_decode", part: int = 0) -> Plan:
+    """The plan of one call: head groups (and window parts, where one kv
+    head's rows of the whole window do not fit) by shared memory
+    (``window_parts``), then the walk's width (``mb``, the selection's
+    ``W`` or ``ceil(S / 16)``) cut into ranges sized for ``CTAS_PER_SM``
+    CTAs per SM on the reference load, at most ``dc`` splits
+    (``split_plan``: the range size depends on neither ``B``, the width nor
+    the window's parts).  ``part`` forces a cut (see ``window_parts``).
+    Raises ``ValueError`` for widths the kernel does not take.  Memoized: a
+    serving step asks for the same few plans in every layer."""
     if r2 % 4 or dc % 4 or not 1 <= block_size <= 32:
         raise ValueError(f"{symbol}: needs 2r and d_c multiples of 4 and a tile of at most "
                          f"32 rows, got 2r={r2} d_c={dc} block_size={block_size}")
-    heads, stages, need = head_group(window, q_group, nkv, block_size, r2, dc, shared_cv,
-                                     q8, limit, symbol)
-    groups = nkv // heads
+    heads, stages, need, size = window_parts(window, q_group, nkv, block_size, r2, dc,
+                                             shared_cv, q8, limit, symbol, part)
+    groups, parts = nkv // heads, -(-window // size)
     splits, tps = split_plan(groups, n_tiles, sms * CTAS_PER_SM, dc)
-    return Plan(heads, groups, stages, splits, tps, B * groups * splits, need)
+    return Plan(heads, groups, stages, splits, tps, B * groups * parts * splits, need,
+                size, parts)
 
 
-def plan_for(name: str, args, sms: int, limit: int) -> Plan:
+def plan_for(name: str, args, sms: int, limit: int, part: int = 0) -> Plan:
     """The plan of the call ``ops.<name>(*args)`` (a decode or verify entry)
     on a card of ``sms`` SMs and ``limit`` bytes of opt-in shared memory per
-    block."""
+    block; ``part`` forces a verify window's cut."""
     q_e, _, k_e, c_k, c_v = args[:5]
     q8 = name.endswith("_q8")
     scales = args[5:8] if q8 else ()
@@ -204,17 +241,19 @@ def plan_for(name: str, args, sms: int, limit: int) -> Plan:
         B, nkv, G, bs = q_e.shape[0], k_e.shape[1], args[-3], args[-1]
         window = q_e.shape[1] if "verify" in name else 1
         n_tiles = args[8 if q8 else 5].shape[-1]
-    return plan(B, window, G, nkv, bs, r2, dc, shared_cv, q8, n_tiles, sms, limit, name)
+    return plan(B, window, G, nkv, bs, r2, dc, shared_cv, q8, n_tiles, sms, limit, name,
+                part)
 
 
 def _launch(symbol: str, q_e, q_lat, pages, scales, table, rows, q_group: int,
-            scale: float, block_size: int, q_offsets=None) -> torch.Tensor:
+            scale: float, block_size: int, q_offsets=None, part: int = 0) -> torch.Tensor:
     """Check every argument and launch entry ``symbol``.  ``pages`` is
     (k_e, c_k, c_v); ``scales`` () for f32 pages or the three [n_slots] f32
     scales of int8 pages; ``table`` [B, W] int32 and ``rows`` either
     ``lengths`` [B] (chain walk) or ``sel_counts`` [B, W] (selection).
     ``q_offsets`` [B] int32 makes it a verify call, whose q_e/q_lat and
-    output carry a window axis: [B, W, nh, ·]."""
+    output carry a window axis: [B, W, nh, ·]; ``part`` forces its window
+    cut into parts of that many positions."""
     dev = q_e.device
     if dev.type != "cuda":
         raise ValueError(f"{symbol} kernel needs CUDA tensors, got {dev}")
@@ -251,34 +290,34 @@ def _launch(symbol: str, q_e, q_lat, pages, scales, table, rows, q_group: int,
     shared_cv = c_k.data_ptr() == c_v.data_ptr() and (
         not scales or scales[1].data_ptr() == scales[2].data_ptr())
     p = plan(B, window, q_group, nkv, block_size, r2, dc, shared_cv, bool(scales), width,
-             sm_count(dev), smem_optin_limit(dev), symbol)
+             sm_count(dev), smem_optin_limit(dev), symbol, part)
     out = torch.empty(lead + (nh, dc), dtype=f32, device=dev)
     ints = (B, window, nkv, q_group, r2, dc, block_size, width) if verify else \
         (B, nkv, q_group, r2, dc, block_size, width)
     _call(symbol, (q_e, q_lat, k_e, c_k, c_v, *scales, *walk, out), ints, scale, p,
-          window * q_group * p.heads, dc)
+          p.part * q_group * p.heads, dc)
     return out
 
 
 def _call(symbol: str, ptrs, ints, scale: float, p: Plan, R: int, dc: int) -> None:
-    """Launch entry ``symbol`` by the plan ``p`` (``R`` query rows per CTA)
-    with the tensors ``ptrs``, the scratch, the ints ``ints`` and the plan
-    on the current stream."""
+    """Launch entry ``symbol`` by the plan ``p`` (``R`` query rows in a
+    CTA's part of the window) with the tensors ``ptrs``, the scratch, the
+    ints ``ints`` and the plan on the current stream."""
     dev = ptrs[0].device
     for t in ptrs:
         if t.data_ptr() % 4:
             raise ValueError(f"{symbol}: a {t.dtype} argument is not 4-byte aligned")
     B = ints[0]
-    part, cnt = build.scratch(dev, "elite_decode", B * p.groups * p.splits * R * (dc + 2),
-                              B * p.groups)
+    units = B * p.groups * p.parts
+    partials, cnt = build.scratch(dev, "elite_decode", units * p.splits * R * (dc + 2), units)
     fn = _ENTRIES.get(symbol)
     if fn is None:
-        argtypes = [ctypes.c_void_p] * (len(ptrs) + 2) + [ctypes.c_int] * (len(ints) + 4) + [
+        argtypes = [ctypes.c_void_p] * (len(ptrs) + 2) + [ctypes.c_int] * (len(ints) + 5) + [
             ctypes.c_float, ctypes.c_void_p]
         fn = _ENTRIES[symbol] = build.load(symbol, argtypes, source=_SOURCE)
-    build.launch(symbol, fn, (*(t.data_ptr() for t in ptrs), part.data_ptr(),
+    build.launch(symbol, fn, (*(t.data_ptr() for t in ptrs), partials.data_ptr(),
                               cnt.data_ptr(), *ints, p.heads, p.splits,
-                              p.tiles_per_split, p.stages, scale), ptrs[0])
+                              p.tiles_per_split, p.stages, p.part, scale), ptrs[0])
 
 
 def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
@@ -365,14 +404,16 @@ def elite_decode_sparse_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
 
 def elite_verify_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                        block_tables, q_offsets, lengths, q_group: int,
-                       scale: float, block_size: int) -> torch.Tensor:
+                       scale: float, block_size: int, part: int = 0) -> torch.Tensor:
     """Speculative verify: q_e [B,W,nh,2r], q_lat [B,W,nh,dc] f32, pages as
     in ``elite_decode_paged``, block_tables [B,mb], q_offsets [B] (position
     of each lane's window row 0) and lengths [B] (live length including the
     window) int32.  Row ``w`` sees positions ``<= q_offsets + w`` and
-    ``< lengths``.  → o [B,W,nh,dc] f32; length-0 lanes give zeros."""
+    ``< lengths``.  → o [B,W,nh,dc] f32; length-0 lanes give zeros.
+    ``part`` (a check's knob) forces the window's cut into parts of that
+    many positions; the plan cuts by itself where it must."""
     out = _launch("elite_verify_paged", q_e, q_lat, (k_e_pages, c_k_pages, c_v_pages),
-                  (), block_tables, lengths, q_group, scale, block_size, q_offsets)
+                  (), block_tables, lengths, q_group, scale, block_size, q_offsets, part)
     elite_verify_paged.launches += 1
     return out
 
@@ -380,11 +421,11 @@ def elite_verify_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
 def elite_verify_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                           k_e_scale, c_k_scale, c_v_scale, block_tables, q_offsets,
                           lengths, q_group: int, scale: float,
-                          block_size: int) -> torch.Tensor:
+                          block_size: int, part: int = 0) -> torch.Tensor:
     """``elite_verify_paged`` over int8 pages and their f32 scales → f32."""
     out = _launch("elite_verify_paged_q8", q_e, q_lat,
                   (k_e_pages, c_k_pages, c_v_pages), (k_e_scale, c_k_scale, c_v_scale),
-                  block_tables, lengths, q_group, scale, block_size, q_offsets)
+                  block_tables, lengths, q_group, scale, block_size, q_offsets, part)
     elite_verify_paged_q8.launches += 1
     return out
 

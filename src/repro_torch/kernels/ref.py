@@ -255,12 +255,15 @@ def split_merge_ref(q_e, q_lat, k_e, c_k, c_v, valid, q_group: int, scale: float
     return o / torch.clamp(lsum, min=1e-30)[..., None]
 
 
-def split_call_ref(name: str, args, tiles_per_split: int, tile: int = 16) -> torch.Tensor:
+def split_call_ref(name: str, args, tiles_per_split: int, tile: int = 16,
+                   part: int = 0) -> torch.Tensor:
     """The call ``ops.<name>(*args)`` of a decode or verify entry, split by a
     plan of ``tiles_per_split`` tiles and merged as the kernel merges:
     each lane's walk gathered to contiguous rows (a chain block, a selected
     block or ``tile`` rows of a contiguous cache per tile), int8 pages
-    dequantized first."""
+    dequantized first.  ``part`` cuts a verify window into parts of that
+    many positions, each scored on its own with its offsets shifted, as the
+    kernel's CTAs of a cut window score them."""
     if name.endswith("_q8"):
         args = (*args[:2], *dequantize_pages(*args[2:8]), *args[8:])
         name = name[:-3]
@@ -284,9 +287,15 @@ def split_call_ref(name: str, args, tiles_per_split: int, tile: int = 16) -> tor
         valid = _sparse_valid(args[6], bs)
     elif name == "elite_verify_paged":
         offs, lengths = args[6], args[7]
-        w = torch.arange(q_e.shape[1], device=dev)[None, :, None]
-        valid = (pos <= offs[:, None, None] + w) & (pos < lengths[:, None, None])
-        return split_merge_ref(q_e, q_lat, *rows, valid, G, scale, bs, tiles_per_split)
+        W = q_e.shape[1]
+        outs = []
+        for w0 in range(0, W, part or W):
+            w = torch.arange(w0, min(w0 + (part or W), W), device=dev)[None, :, None]
+            valid = (pos <= offs[:, None, None] + w) & (pos < lengths[:, None, None])
+            sl = slice(w0, w0 + w.shape[1])
+            outs.append(split_merge_ref(q_e[:, sl], q_lat[:, sl], *rows, valid, G, scale,
+                                        bs, tiles_per_split))
+        return torch.cat(outs, 1)
     else:
         raise ValueError(f"no split reference for {name}")
     return split_merge_ref(q_e[:, None], q_lat[:, None], *rows, valid, G, scale, bs,

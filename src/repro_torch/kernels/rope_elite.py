@@ -17,9 +17,11 @@ picks between them by the device of the query.
 ``plan`` chooses the launch from shapes and alignment: 16-byte accesses
 where every row start and stride allows them, else 8-byte ones; head
 subsets of at most ``MAX_VECTORS`` heads per thread; a CTA of about
-``CTA_THREADS`` threads over the tokens of one lane.  A CUDA tensor the
-kernel cannot take (a row start not 8-byte aligned, an offset past 32
-bits, a token needing more than ``MAX_THREADS`` threads) raises.
+``CTA_THREADS`` threads over the tokens of one lane, its frequency rows cut
+into row blocks where one token's rows need more than ``MAX_THREADS``
+threads.  A CUDA tensor the kernel cannot take (a row start not 8-byte
+aligned, an offset past 32 bits, one row needing more than
+``MAX_THREADS`` threads) raises.
 """
 from __future__ import annotations
 
@@ -37,31 +39,37 @@ CTA_THREADS = 256      # what a CTA aims at: tokens per CTA = this // per token
 MAX_TOKENS_PER_CTA = 64          # blockDim.z's limit
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-             + [ctypes.c_int] * 18 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 19 + [ctypes.c_void_p])
 
 
 class Plan(NamedTuple):
     vec: int               # pairs per access: 2 (16 bytes) or 1 (8 bytes)
     subsets: int           # threads that share one (token, row, vector)
     per_sub: int           # heads per thread
-    block: Tuple[int, int, int]   # (vectors per row, rows x subsets, tokens)
+    block: Tuple[int, int, int]   # (vectors per row, rows per CTA x subsets, tokens)
     grid: Tuple[int, int]         # (token blocks, lanes)
+    row_blocks: int = 1           # grid z: a token's rows cut across CTAs
 
 
 @functools.lru_cache(maxsize=256)
 def plan(B: int, S: int, r: int, rows: int, heads_per_row: int, aligned16: bool) -> Plan:
     """The launch for B lanes of S tokens, ``rows`` frequency rows of r
     pairs, each read by ``heads_per_row`` heads (q and k together).
-    ``aligned16``: every input row start and stride is 16-byte aligned."""
+    ``aligned16``: every input row start and stride is 16-byte aligned.
+    A token's rows share one CTA when their threads fit in ``MAX_THREADS``,
+    else they are cut into the fewest even row blocks that fit."""
     vec = 2 if aligned16 and r % 2 == 0 else 1
     subsets = -(-heads_per_row // MAX_VECTORS)
     per_sub = -(-heads_per_row // subsets)
-    per_token = (r // vec) * rows * subsets
-    if per_token > MAX_THREADS:
-        raise ValueError(f"rope_elite: {per_token} threads per token (r={r}, {rows} rows "
-                         f"x {subsets} subsets) exceed the CTA's {MAX_THREADS}")
-    tz = max(1, min(MAX_TOKENS_PER_CTA, CTA_THREADS // per_token, S))
-    return Plan(vec, subsets, per_sub, (r // vec, rows * subsets, tz), (-(-S // tz), B))
+    per_row = (r // vec) * subsets
+    if per_row > MAX_THREADS:
+        raise ValueError(f"rope_elite: {per_row} threads per token and row (r={r}, "
+                         f"{subsets} subsets) exceed the CTA's {MAX_THREADS}")
+    row_blocks = -(-rows // (MAX_THREADS // per_row))
+    rpc = -(-rows // row_blocks)
+    tz = max(1, min(MAX_TOKENS_PER_CTA, CTA_THREADS // (per_row * rpc), S))
+    return Plan(vec, subsets, per_sub, (r // vec, rpc * subsets, tz), (-(-S // tz), B),
+                row_blocks)
 
 
 def access_bytes(*tensors) -> int:
@@ -140,6 +148,7 @@ def _launch(q, k, positions, freqs, q_per_row: int, k_per_row: int):
                   int(positions.dtype == torch.int64), freqs.data_ptr(), q_out.data_ptr(),
                   0 if k_out is None else k_out.data_ptr(), p.vec, B, S, r, rows,
                   q_per_row, k_per_row, p.subsets, p.per_sub, p.block[2],
+                  p.block[1] // p.subsets,
                   *q.stride()[:3], *kst, S if positions.dim() == 2 else 0,
                   freqs.stride(0)), q)
     rope_elite.launches += 1

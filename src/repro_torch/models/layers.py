@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, SwiGLU MLP, embeddings, init helpers."""
+"""Shared layers: RMSNorm, SwiGLU MLP, embeddings (and the tied LM head),
+init helpers."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -46,3 +47,8 @@ def mlp(params, x: torch.Tensor) -> torch.Tensor:
 
 def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return params["table"].to(dtype)[tokens]
+
+
+def unembed(params, x: torch.Tensor) -> torch.Tensor:
+    """The tied LM head: x @ table^T, logits in f32."""
+    return x.float() @ params["table"].float().T

@@ -10,6 +10,9 @@ loop where JAX uses ``lax.scan``:
                "layers": [{"attn_norm", "attn", "ffn_norm", "ffn"}, ...]}
     buffers = {"layers": [{"elite_freqs"}, ...]}   ({} per layer for GQA)
 
+(no ``lm_head`` when ``cfg.tie_embeddings``: the logits are then
+``h @ embed.table^T``).
+
 Entry points over the block-paged pool (EliteKV only):
   * ``apply_prefill_paged`` — prefill prompts (or per-lane chunks) into the pool.
   * ``apply_decode_paged``  — one token per serving lane against the pool.
@@ -21,6 +24,8 @@ Entry points over a contiguous cache (EliteKV or baseline, lockstep):
   * ``apply_decode``  — one token per lane at position ``cache["index"]``.
   * ``apply_train``   — the whole-sequence forward without a cache (forward
     only: the oracle of cache-on == cache-off; no loss, no backward).
+  * ``capture_attn_inputs`` — each layer's normed attention input of a
+    baseline forward, which the RoPElite search reads.
 All return f32 logits over the padded vocab (padding columns = -1e30) and
 write the pool pages or the cache in place.  ``make_draft_params`` derives
 the rank-truncated draft model of self-speculative decode.
@@ -34,7 +39,7 @@ import torch
 from repro_torch.core import elite_attention, lrd
 from repro_torch.models import attention
 from repro_torch.models.layers import (dense_init, embed, mlp, mlp_init, rmsnorm,
-                                       rmsnorm_init)
+                                       rmsnorm_init, unembed)
 
 
 def init(cfg, seed: int = 0, device="cuda") -> Tuple[Dict, Dict]:
@@ -45,9 +50,10 @@ def init(cfg, seed: int = 0, device="cuda") -> Tuple[Dict, Dict]:
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     d, Vp = cfg.d_model, cfg.padded_vocab
-    params = {"embed": {"table": dense_init((Vp, d), g, device, scale=0.02)},
-              "lm_head": {"w": dense_init((d, Vp), g, device, scale=0.02)},
-              "final_norm": rmsnorm_init(d, device), "layers": []}
+    params = {"embed": {"table": dense_init((Vp, d), g, device, scale=0.02)}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": dense_init((d, Vp), g, device, scale=0.02)}
+    params.update(final_norm=rmsnorm_init(d, device), layers=[])
     buffers = {"layers": []}
     for _ in range(cfg.num_layers):
         if cfg.elitekv.enabled:
@@ -63,7 +69,10 @@ def init(cfg, seed: int = 0, device="cuda") -> Tuple[Dict, Dict]:
 
 
 def _logits(params, cfg, h):
-    out = h.float() @ params["lm_head"]["w"].float()
+    if cfg.tie_embeddings:
+        out = unembed(params["embed"], h)
+    else:
+        out = h.float() @ params["lm_head"]["w"].float()
     if cfg.padded_vocab != cfg.vocab_size:   # mask the vocab padding
         pad = torch.arange(out.shape[-1], device=out.device) >= cfg.vocab_size
         out = out.masked_fill(pad, -1e30)
@@ -121,7 +130,8 @@ def _contiguous_attention(cfg, buffers, mode: str, positions, cache, index):
     return lambda pa, hn: attention.apply_decode(pa, cfg, hn, index, cache)
 
 
-def _forward_contiguous(params, buffers, cfg, tokens, mode: str, cache=None):
+def _forward_contiguous(params, buffers, cfg, tokens, mode: str, cache=None,
+                        captures=None):
     device = params["embed"]["table"].device
     h = embed(params["embed"], tokens, cfg.dtype)
     # decode takes its position from the cache index
@@ -129,15 +139,37 @@ def _forward_contiguous(params, buffers, cfg, tokens, mode: str, cache=None):
     index = cache["index"] if cache is not None else 0
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
         layer_cache = None if cache is None else _layer_pages(cache["blocks"], i)
-        h = _run_layer(p, cfg, h, _contiguous_attention(cfg, b, mode, positions,
-                                                        layer_cache, index))
+        attend = _contiguous_attention(cfg, b, mode, positions, layer_cache, index)
+        if captures is not None:
+            attend = _capturing(attend, captures)
+        h = _run_layer(p, cfg, h, attend)
+    if captures is not None:
+        return None
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h)
+
+
+def _capturing(attend, captures: list):
+    """``attend`` that first appends its normed input to ``captures``."""
+    def run(pa, hn):
+        captures.append(hn)
+        return attend(pa, hn)
+    return run
 
 
 def apply_train(params, buffers, cfg, tokens):
     """Whole-sequence forward, no cache: tokens [B,S] → logits [B,S,Vp] f32."""
     return _forward_contiguous(params, buffers, cfg, tokens, "train")
+
+
+def capture_attn_inputs(params, buffers, cfg, tokens):
+    """The normed attention input of every layer of the whole-sequence
+    forward of ``tokens`` [B,S] (what the RoPElite search projects to q and
+    k): a list over layers of [B,S,d].  The reference returns the same
+    arrays stacked as ``{"p0": [n_layers, B, S, d]}``."""
+    captures: list = []
+    _forward_contiguous(params, buffers, cfg, tokens, "train", captures=captures)
+    return captures
 
 
 def apply_prefill(params, buffers, cfg, tokens, cache):

@@ -863,3 +863,109 @@ def test_tracing_adds_no_sync_to_a_decode_step(cuda, monkeypatch):
     untraced = one_decode_step(None)
     traced = one_decode_step(obs.Tracer())
     assert traced == untraced
+
+
+# LLaMA2-13B under EliteKV at half cache (r = 32, d_ckv = 2560): one kv head's
+# rows of a W = 5 window (f32) or W = 3 window (int8) do not fit a CTA, so
+# the plan cuts the window
+LLAMA2_13B_HALF = (40, 40, 64, 2560, 128)
+
+
+@pytest.mark.parametrize("part", [1, 2, 3])
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("separate", [False, True], ids=["jlrd", "slrd"])
+def test_forced_window_cut_gives_the_uncut_bits(separate, q8, part, cuda):
+    """At LLaMA2-7B widths, where the uncut W = 5 call fits, a window cut
+    into parts of ``part`` positions gives the uncut call's bits, row for
+    row, and the count goes up once per call."""
+    from repro_torch.kernels import elite_decode as ed
+    nh, nkv, r2, dc, dh = WIDTHS["llama2_7b"]
+    x, G, bs = _verify_inputs(cuda, nh, nkv, r2, dc, separate, 5, seed=17)
+    pages = _quantize(x) if q8 else [x["k_e"], x["c_k"], x["c_v"]]
+    name = "elite_verify_paged" + ("_q8" if q8 else "")
+    args = (x["q_e"], x["q_lat"], *pages, x["bt"], x["offs"], x["lengths"], G,
+            dh ** -0.5, bs)
+    fn = getattr(ed, name)
+    whole = fn(*args)
+    before = fn.launches
+    cut = fn(*args, part=part)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(cut, whole)
+
+
+@pytest.mark.parametrize("W,q8", [(5, False), (9, False), (3, True), (5, True)],
+                         ids=["f32-W5", "f32-W9", "int8-W3", "int8-W5"])
+def test_cut_verify_window_matches_plain_at_llama2_13b_widths(W, q8, cuda):
+    from repro_torch.kernels import elite_decode as ed
+    nh, nkv, r2, dc, dh = LLAMA2_13B_HALF
+    x, G, bs = _verify_inputs(cuda, nh, nkv, r2, dc, False, W, seed=W)
+    pages = _quantize(x) if q8 else [x["k_e"], x["c_k"], x["c_v"]]
+    name = "elite_verify_paged" + ("_q8" if q8 else "")
+    args = (x["q_e"], x["q_lat"], *pages, x["bt"], x["offs"], x["lengths"], G,
+            dh ** -0.5, bs)
+    p = ed.plan_for(name, args, ed.sm_count(cuda), ed.smem_optin_limit(cuda))
+    assert p.parts > 1 and p.part < W
+    before = ops.launches()[name]
+    got = getattr(ops, name)(*args)
+    want = getattr(ref, name + "_ref")(*args)
+    torch.cuda.synchronize()
+    assert ops.launches()[name] == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+    assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("variant", ["elite_decode_paged", "elite_decode_paged_q8"])
+def test_decode_matches_plain_at_llama2_13b_widths(variant, cuda):
+    nh, nkv, r2, dc, dh = LLAMA2_13B_HALF
+    x, G, bs = _decode_inputs(cuda, nh, nkv, r2, dc, False)
+    pages = _quantize(x) if variant.endswith("q8") else [x["k_e"], x["c_k"], x["c_v"]]
+    args = (x["q_e"], x["q_lat"], *pages, x["bt"], x["lengths"], G, dh ** -0.5, bs)
+    got = getattr(ops, variant)(*args)
+    want = getattr(ref, variant + "_ref")(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("case", ["elite_llama2_13b", "full_dh128_40", "elite_minicpm"])
+def test_rope_pair_kernel_with_row_blocks_matches_plain(case, cuda):
+    """Rows that do not fit one CTA (LLaMA2-13B at half cache: 40 rows of 32
+    pairs) are cut into row blocks; every head still matches the plain
+    version, and MiniCPM-2B's 36 one-head rows too."""
+    Hq, Hk, rows, r2 = {"elite_llama2_13b": (40, 40, 40, 64), "full_dh128_40": (40, 40, 1, 128),
+                        "elite_minicpm": (36, 36, 36, 32)}[case]
+    B, S = 3, 257
+    g = torch.Generator(device=cuda).manual_seed(9)
+    freqs = (rope.chunk_freqs(r2, 10000.0, device=cuda)[None] if rows == 1 else
+             torch.exp(-4 * torch.rand(rows, r2 // 2, generator=g, device=cuda)))
+    q = torch.randn(B, S, Hq, r2, generator=g, device=cuda)
+    k = torch.randn(B, S, Hk, r2, generator=g, device=cuda)
+    pos = torch.randint(0, 4097, (S,), generator=g, device=cuda)
+    args = (q, k, pos, freqs, Hq // rows, Hk // rows)
+    if case == "elite_llama2_13b":
+        assert re_k.plan_for(*args).row_blocks == 2
+    got = ops.rope_elite_qk(*args)
+    want = ref.rope_elite_qk_ref(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **ROPE_TOL)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_masked_rope_matches_plain(dh, cuda):
+    """``rope.apply_rope_subset`` (the RoPElite search's rotation, one
+    frequency row per head, masked chunks at frequency 0) through the
+    kernel: equal to the plain version, masked pairs passed through
+    exactly."""
+    B, S, H = 2, 300, 32
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(B, S, H, dh, generator=g, device=cuda)
+    mask = torch.rand(H, dh // 2, generator=g, device=cuda) < 0.3
+    pos = torch.arange(S, device=cuda)
+    got = rope.apply_rope_subset(x, pos, 10000.0, mask)
+    freqs = rope.chunk_freqs(dh, 10000.0, device=cuda) * mask.float()
+    want = ref.rope_elite_ref(x, pos, freqs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **ROPE_TOL)
+    keep = ~mask.repeat_interleave(2, dim=1)
+    assert torch.equal(got[:, :, keep], x[:, :, keep])

@@ -254,3 +254,51 @@ def test_int8_preempted_equals_undisturbed(port):
     tight, rep = _port_streams(port, prefill_chunk_tokens=4, num_blocks=9)
     assert calm_rep.preemptions == 0 and rep.preemptions > 0
     assert tight == calm
+
+
+# the reference's quality wall (tests/test_quant.py): teacher-forced top-1
+# agreement of the int8 pool with the f32 pool, and the bytes it saves
+TOP1_AGREEMENT_MIN = 0.95
+BYTES_RATIO_MAX = 0.55
+
+
+def test_int8_top1_agreement_and_footprint():
+    """The int8 pool's trade on a random ``lm.init`` model of the port:
+    teacher-forced per-position argmax over the int8 pool agrees with the
+    f32 pool on at least 95% of positions while bytes per token drop to at
+    most 0.55 of f32's.  Both pools score the same f32-greedy streams, so
+    every position is an independent comparison."""
+    cfg = dataclasses.replace(get_config("tinyllama_1_1b").reduced(
+        num_layers=2, vocab_size=128), elitekv=EliteKVConfig(enabled=True, elite_r=4,
+                                                              d_ckv=64))
+    params, buffers = lm.init(cfg, seed=0, device="cpu")
+    B, P, new = 4, 16, 12
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
+
+    def gen(dtype):
+        scfg = serve_loop.SchedulerConfig(max_slots=B, max_new_tokens=new, max_len=32,
+                                          num_blocks=48, block_size=8, cache_dtype=dtype)
+        return serve_loop.generate_paged(params, buffers, cfg, prompts, new, scfg,
+                                         device="cpu")
+
+    out_f, rep_f = gen("float32")
+    _, rep_q = gen("int8")
+    assert rep_q.pool_dtype == "int8" and rep_f.pool_dtype == "float32"
+    assert rep_q.pool_bytes_per_token / rep_f.pool_bytes_per_token <= BYTES_RATIO_MAX
+    assert rep_q.pool_allocated_bytes_peak < rep_f.pool_allocated_bytes_peak
+    full = torch.from_numpy(np.concatenate([prompts, out_f], axis=1).astype(np.int64))
+    n = full.shape[1]
+
+    def forced_logits(dtype):
+        pool = PagedKVPool(cfg, num_blocks=4 * B, block_size=8, device="cpu", dtype=dtype)
+        sms = []
+        for b in range(B):
+            pool.ensure_capacity(b, n)
+            sms.append(pool.prefill_slot_mapping(b, 0, n, n))
+        logits = lm.apply_prefill_paged(params, buffers, cfg, full, pool.pages,
+                                        torch.from_numpy(np.stack(sms)))
+        return logits[:, P - 1:n - 1].numpy()
+
+    l_f, l_q = forced_logits("float32"), forced_logits("int8")
+    assert (l_f.argmax(-1) == out_f).all()     # the metric is sound
+    assert float((l_f.argmax(-1) == l_q.argmax(-1)).mean()) >= TOP1_AGREEMENT_MIN

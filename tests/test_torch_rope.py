@@ -256,6 +256,26 @@ def test_plan_of_the_main_shapes():
         re_k.plan(1, 1, 512, 1, 36, False)
 
 
+@pytest.mark.parametrize("B,S,r,rows,heads", [
+    (8, 1024, 32, 40, 2),      # LLaMA2-13B EliteKV at half cache: 40 rows of 32 pairs
+    (4, 512, 64, 40, 1),       # the RoPElite search's masked rotation, one row per head
+    (4, 512, 64, 32, 1),       # the same at LLaMA2-7B widths
+    (2, 3, 32, 36, 2)])        # MiniCPM-2B at half cache
+def test_plan_cuts_rows_that_do_not_fit_one_cta(B, S, r, rows, heads):
+    """A token whose rows need more than ``MAX_THREADS`` threads has them
+    cut into the fewest even row blocks that fit (grid z); a token whose
+    rows fit keeps one block, as before."""
+    p = re_k.plan(B, S, r, rows, heads, True)
+    per_row = (r // p.vec) * p.subsets
+    vx, vy, tz = p.block
+    rpc = vy // p.subsets
+    assert vx * vy * tz <= re_k.MAX_THREADS
+    assert p.row_blocks * rpc >= rows > (p.row_blocks - 1) * rpc
+    assert (p.row_blocks > 1) == (rows * per_row > re_k.MAX_THREADS)
+    assert p.row_blocks == -(-rows * per_row // re_k.MAX_THREADS)
+    assert p.grid[1] == B and p.grid[0] * tz >= S > (p.grid[0] - 1) * tz
+
+
 def test_kernel_entries_refuse_cpu_tensors():
     q_wide, k, pos, freqs, qpr, kpr, r = _pair_case("elite_G4_r4", False, False)
     with pytest.raises(ValueError, match="CUDA"):

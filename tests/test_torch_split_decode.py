@@ -271,3 +271,101 @@ def test_split_verify_matches_pallas():
     got = ref.split_call_ref("elite_verify_paged", args, 2)
     np.testing.assert_allclose(got.numpy(), want, **JAX_TOL)
     assert float(got[0].abs().max()) == 0.0
+
+
+def _cut_widths():
+    """(arch, ratio, lrd, G, nkv, 2r, d_c) of every dense architecture at
+    ratios 0.5, 0.25 and 0.125 (``pick_dims``), J-LRD (d_c = d_ckv) and
+    S-LRD (two streams of d_ckv / 2)."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.core.convert import pick_dims
+    out = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for ratio in (0.5, 0.25, 0.125):
+            e = pick_dims(cfg, ratio)
+            for sep in (False, True):
+                out.append((arch, ratio, "S" if sep else "J", cfg.q_group, cfg.n_kv_heads,
+                            2 * e.elite_r, e.d_ckv // (2 if sep else 1)))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "llama2_7b", "llama2_13b", "yi_6b",
+                                  "granite_3_2b", "minicpm_2b"])
+def test_window_cut_only_where_one_head_does_not_fit(arch):
+    """Every decode and verify width of the dense architectures plans
+    (W = 1, 3, 5, 9, f32 and int8): the window is cut only where one kv
+    head's rows of the whole window do not fit, into the fewest parts that
+    do, and the cut leaves the ranges as ``split_plan`` gives them for the
+    plan's head groups.  A forced cut of a call that fits keeps its heads,
+    stages and ranges, so the card can hold its bits to the uncut call's.
+    LLaMA2-13B at half cache cuts f32 at W = 5 and int8 at W = 3."""
+    cuts = set()
+    for (a, ratio, lrd, G, nkv, r2, dc) in _cut_widths():
+        if a != arch:
+            continue
+        shared = lrd == "J"
+        for q8 in (False, True):
+            for W in (1, 3, 5, 9):
+                p = ed.plan(8, W, G, nkv, 16, r2, dc, shared, q8, 72, SMS, LIMIT)
+                whole = ed.head_group(W, G, nkv, 16, r2, dc, shared, q8, LIMIT)
+                assert p.smem <= LIMIT
+                assert (p.splits, p.tiles_per_split) == ed.split_plan(
+                    p.groups, 72, ed.CTAS_PER_SM * SMS, dc)
+                assert p.ctas == 8 * p.groups * p.parts * p.splits
+                if whole is not None:
+                    assert (p.part, p.parts) == (W, 1)
+                    assert (p.heads, p.stages, p.smem) == whole
+                    if W > 1:
+                        f = ed.plan(8, W, G, nkv, 16, r2, dc, shared, q8, 72, SMS, LIMIT,
+                                    part=1)
+                        assert (f.heads, f.stages, f.splits, f.tiles_per_split) == \
+                            (p.heads, p.stages, p.splits, p.tiles_per_split)
+                        assert (f.part, f.parts) == (1, W) and f.smem <= p.smem
+                    continue
+                cuts.add((ratio, lrd, q8, W))
+                assert W > 1 and p.parts == -(-W // p.part) > 1
+                assert ed.head_group(p.part, G, nkv, 16, r2, dc, shared, q8, LIMIT) == \
+                    (p.heads, p.stages, p.smem)
+                # the next larger part size does not fit
+                bigger = [-(-W // n) for n in range(1, p.parts) if -(-W // n) > p.part]
+                assert all(ed.head_group(s, G, nkv, 16, r2, dc, shared, q8, LIMIT) is None
+                           for s in bigger)
+    if arch == "llama2_13b":
+        assert {(0.5, "J", False, 5), (0.5, "J", True, 3), (0.5, "S", True, 3)} <= cuts
+    if arch in ("tinyllama_1_1b", "yi_6b", "granite_3_2b", "minicpm_2b"):
+        assert not cuts
+
+
+def test_window_of_one_position_too_wide_raises_naming_the_window():
+    """Only a window of which one position of one kv head does not fit is
+    refused, and the message names the window."""
+    with pytest.raises(ValueError, match="window of 5 positions.*opt-in limit"):
+        ed.plan(1, 5, 4, 1, 16, 32, 4096, True, False, 1, SMS, LIMIT, "elite_verify_paged")
+
+
+@pytest.mark.parametrize("part", [1, 2, 3])
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "int8"])
+def test_cut_window_arithmetic_matches_uncut(part, q8):
+    """A window cut into parts of ``part`` positions, each scored on its
+    own with shifted offsets (``ref.split_call_ref(part=...)``), gives the
+    uncut split-and-merge row for row within 2e-6, and the unsplit plain
+    version's rows likewise; a dead lane stays exact zeros."""
+    nkv, G, r2, dc, bs, mb, W = 2, 2, 8, 32, 4, 6, 5
+    x = _pool(13 + part, 5, nkv, G, r2, dc, bs, mb, True, window=W)
+    offs = torch.tensor([0, 0, 4, 11, 19], dtype=torch.int32)
+    lens = torch.tensor([0, 3, 9, 16, 24], dtype=torch.int32)
+    pages = (x["k_e"], x["c_k"], x["c_v"])
+    name = "elite_verify_paged"
+    if q8:
+        (k, ks), (ck, cks), (cv, cvs) = (quant.quantize_rows(t) for t in pages)
+        pages = (k, ck, cv, ks, cks, cvs)
+        name += "_q8"
+    args = (x["q_e"], x["q_lat"], *pages, x["bt"], offs, lens, G, 0.3, bs)
+    plain = getattr(ref, name + "_ref")(*args)
+    for tps in (1, 2):
+        whole = ref.split_call_ref(name, args, tps)
+        cut = ref.split_call_ref(name, args, tps, part=part)
+        torch.testing.assert_close(cut, whole, **TOL)
+        torch.testing.assert_close(cut, plain, **TOL)
+        assert float(cut[0].abs().max()) == 0.0
