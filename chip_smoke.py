@@ -132,6 +132,22 @@ non-zero:
       within 1e-3; the d_ckv = 64 model serves 8 greedy requests through
       the ``Scheduler``, its streams equal to lockstep ``generate``'s apart
       from near-ties; the times of capture, search per layer and SVDs.
+   k. training (runs after i, before j): the rotation's backward (the
+      ``rope_elite`` kernel in its transpose mode, under
+      ``torch.autograd``) against autograd through the plain version, at
+      TinyLlama-1.1B widths with q a strided slice of its projection, at
+      LLaMA2-13B half cache (row blocks) and for the baseline's full RoPE,
+      bitwise share printed; a 2-layer full-width TinyLlama-1.1B EliteKV
+      (B 2 x S 256): every leaf's gradient on the card against the port on
+      the CPU, ``wk_e``'s not zero; i's converted model (d_ckv = 64)
+      uptrained 8 AdamW steps at B 8 x S 512, lr 1e-5 constant, full remat
+      (the rotation launched 44 times forward and 22 backward per step,
+      nothing else; losses finite and falling; step ms, tokens/s, peak
+      memory, model-FLOP share; the same run at lr 3e-4 and 1e-4 printed,
+      unchecked); 4 steps with a checkpoint at step 4 and a
+      restart to 8, losses within 1e-4 relative of the uninterrupted run's;
+      the uptrained weights serving 8 x (256 + 64) greedy requests, the
+      ``Scheduler``'s streams equal to ``generate``'s apart from near-ties.
    j. MiniCPM-2B with tied embeddings at full width (40 layers, 36/36
       heads of 64, vocab 122,880; EliteKV r = 8, d_ckv = 512; ~10 GiB of
       f32 weights): 6 greedy requests plain, then k = 4 speculation with
@@ -157,7 +173,8 @@ non-zero:
    one token at a time.  ``rope_elite_qk`` is timed at four recorded
    inputs, ``generate``'s prefill and decode q and k, EliteKV and baseline
    (full RoPE), beside two launches of the one-tensor entry on the same
-   inputs, its bound, launches and plain time.
+   inputs, its bound, launches and plain time; its backward (transpose)
+   mode at the uptraining step's gradient shapes and strides.
    ``flash_prefill`` is timed at three recorded inputs: the f32 run's
    busiest prefill chunk, ``generate``'s 8 x 1024 prefill and the
    baseline's busiest decode call (one query row per lane), each beside
@@ -1639,7 +1656,8 @@ def conversion(dev, card: str) -> dict:
     the partial-RoPE baseline's within 1e-3; (d) the d_ckv = 64 model
     serves 8 greedy requests through the ``Scheduler`` (its kernels 22
     times per forward, nothing else) and its streams equal lockstep
-    ``generate``'s apart from near-ties.  → (e) the times, s."""
+    ``generate``'s apart from near-ties.  → ((e) the times, s, and the
+    d_ckv = 64 model (params, buffers, cfg), which phase 3k uptrains)."""
     import numpy as np
     import torch
     from repro_torch.configs import EliteKVConfig
@@ -1768,7 +1786,7 @@ def conversion(dev, card: str) -> dict:
     compare_streams("converted: Scheduler vs lockstep generate",
                     [(r.uid, r.prompt, r.generated, out[r.uid]) for r in sched.finished],
                     cp, cb, ccfg, dev, card, against="generate's")
-    del cp, cb, params, buffers
+    del params, buffers
     times["phase"] = time.perf_counter() - t_phase
     times["conversion"] = (times["capture"] + times["search"] + times["convert d_ckv=64"])
     times["step_ms p50"] = rep.step_ms_p50
@@ -1777,7 +1795,274 @@ def conversion(dev, card: str) -> dict:
           f"d_ckv=64 {times['convert d_ckv=64']:.3f}, d_ckv=448 "
           f"{times['convert d_ckv=448']:.3f}; capture + search + convert "
           f"{times['conversion']:.3f}; the whole phase {times['phase']:.1f}", flush=True)
-    return times
+    return times, (cp, cb, ccfg)
+
+
+# -- training (phase 3k) -----------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 8
+# the checked run's lr, and the larger ones printed beside it: random
+# weights under Adam's sign-like first steps spike at the paper's 3e-4 with
+# no warmup (PERF.md, PR 22), which a converted pretrained model would not
+TRAIN_LR, LR_SWEEP = 1e-5, (3e-4, 1e-4)
+RESUME_AT = 4
+RESUME_RTOL = 1e-4          # resumed vs uninterrupted losses (atomics reorder sums)
+GRAD_RTOL = 1e-4            # card vs CPU gradient, of the leaf's largest (f32 orders)
+# the rotation's backward at the uptraining path's widths, (query heads, key
+# heads, frequency rows, 2r, projection width, B, S, per-lane positions):
+# TinyLlama-1.1B EliteKV (q_e a slice of the projection), LLaMA2-13B at half
+# cache (40 rows of 32 pairs: row blocks), TinyLlama's baseline full RoPE
+ROPE_BWD_CASES = {"TinyLlama EliteKV q[..., :16] of 64": (32, 4, 4, 16, 64, 8, 512, False),
+                  "LLaMA2-13B half cache, row blocks": (40, 40, 40, 64, 128, 2, 257, True),
+                  "TinyLlama baseline full RoPE": (32, 4, 1, 64, 64, 8, 512, False)}
+
+
+def rope_backward_parity(dev, card: str) -> float:
+    """Phase 3k (a): the gradient through ``ops.rope_elite_qk`` on the card
+    (its backward one launch of the kernel's transpose mode) against
+    autograd through the plain version on the same inputs, into the
+    projection a strided q was sliced from; tolerance ``ROPE_ATOL`` +
+    ``ROPE_RTOL``·|plain|, bitwise-equal share printed.  → max abs error."""
+    import torch
+    from repro_torch.core import rope
+    from repro_torch.kernels import ops, ref
+    worst = 0.0
+    for label, (Hq, Hk, rows, r2, wide, B, S, per_lane) in ROPE_BWD_CASES.items():
+        g = torch.Generator(device=dev).manual_seed(60)
+        if rows == 1:
+            freqs = rope.chunk_freqs(r2, 10000.0, device=dev)[None]
+        else:
+            freqs = torch.exp(-4 * torch.rand(rows, r2 // 2, generator=g, device=dev))
+            freqs[:, 0] = 1.0
+        proj = torch.randn(B, S, Hq, wide, generator=g, device=dev)
+        k0 = torch.randn(B, S, Hk, r2, generator=g, device=dev)
+        gq = torch.randn(B, S, Hq, r2, generator=g, device=dev)
+        gk = torch.randn(B, S, Hk, r2, generator=g, device=dev)
+        pos = torch.randint(0, S, (B, S) if per_lane else (S,), generator=g, device=dev)
+        grads = {}
+        for name, fn in (("kernel", ops.rope_elite_qk), ("plain", ref.rope_elite_qk_ref)):
+            p, k = proj.clone().requires_grad_(True), k0.clone().requires_grad_(True)
+            before = ops.launches()["rope_elite_backward"]
+            qo, ko = fn(p[..., :r2], k, pos, freqs, Hq // rows, Hk // rows)
+            d_p, d_k = torch.autograd.grad((qo * gq).sum() + (ko * gk).sum(), (p, k))
+            torch.cuda.synchronize()
+            if ops.launches()["rope_elite_backward"] != before + (name == "kernel"):
+                raise AssertionError(f"rope backward {label}: {name} launched "
+                                     f"{ops.launches()['rope_elite_backward'] - before}")
+            if d_p[..., r2:].any():
+                raise AssertionError(f"rope backward {label}: gradient outside the slice")
+            grads[name] = (d_p[..., :r2], d_k)
+        e, bad, same = rope_err(grads["kernel"], grads["plain"])
+        print(f"[{card}] parity rope_elite_qk backward {label} (q {Hq} x {r2} of {wide}, "
+              f"k {Hk}, {rows} rows, B={B} S={S}, pos {'[B,S]' if per_lane else '[S]'}): "
+              f"max_abs_err={e:.3e}, {bad} outside {ROPE_ATOL:.0e} + "
+              f"{ROPE_RTOL:.0e}·|plain|, bitwise equal {100 * same:.2f}%", flush=True)
+        if bad:
+            raise AssertionError(f"rope backward {label}: {bad} elements past the tolerance")
+        worst = max(worst, e)
+    return worst
+
+
+def card_vs_cpu_gradients(dev, card: str) -> None:
+    """Phase 3k (b): a 2-layer TinyLlama-1.1B EliteKV at full width (r 8,
+    d_ckv 64), B 2 x S 256: every leaf's loss gradient on the card (through
+    the rotary kernel forward and backward) against the port's on the CPU
+    (plain versions) within ``GRAD_RTOL`` of the leaf's largest + 1e-7;
+    ``wk_e`` must get a gradient that is not zero."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models import lm
+    from repro_torch.tree import items, map_tree
+    cfg = dataclasses.replace(build_config("tinyllama_1_1b", reduced=False,
+                                           cache_ratio=0.25), num_layers=2)
+    params, buffers = lm.init(cfg, seed=5, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(15).integers(0, cfg.vocab_size, (2, 257)))
+    grads = {}
+    for where in ("cpu", dev):
+        p = map_tree(lambda t: t.detach().to(where).requires_grad_(True), params)
+        b = map_tree(lambda t: t.to(where), buffers)
+        t0 = time.perf_counter()
+        loss, _ = lm.loss_fn(p, b, cfg, {"tokens": toks[:, :-1].to(where),
+                                         "labels": toks[:, 1:].to(where)})
+        names, leaves = zip(*items(p))
+        grads[str(where)] = dict(zip(names, (g.cpu() for g in
+                                             torch.autograd.grad(loss, leaves))))
+        print(f"[{card}] 2-layer full-width loss and gradient on {where}: loss "
+              f"{float(loss.detach()):.6f}, {time.perf_counter() - t0:.2f} s", flush=True)
+    worst = (0.0, "")
+    for name, want in grads["cpu"].items():
+        got = grads[str(dev)][name]
+        ratio = float((got - want).abs().max()) / (float(want.abs().max()) + 1e-30)
+        worst = max(worst, (ratio, name))
+        if float((got - want).abs().max()) > GRAD_RTOL * float(want.abs().max()) + 1e-7:
+            raise AssertionError(f"gradient {name}: card vs CPU {ratio:.3e} of its largest")
+    wk = grads[str(dev)]["layers/0/attn/wk_e"]
+    if not float(wk.abs().max()) > 0:
+        raise AssertionError("wk_e got no gradient on the card")
+    print(f"[{card}] 2-layer full-width gradients, card vs CPU, {len(grads['cpu'])} leaves: "
+          f"worst max|Δ| / max|g| {worst[0]:.3e} ({worst[1]}), tolerance {GRAD_RTOL}; "
+          f"wk_e max|g| {float(wk.abs().max()):.3e}", flush=True)
+
+
+def model_flops(params, cfg, B: int, S: int) -> int:
+    """Model FLOPs of one training step (forward and backward, no remat):
+    6 per weight that multiplies (all but the embedding table) per token,
+    and the attention scores and mix, 12·S²·nh·dh per layer and lane."""
+    from repro_torch.tree import leaves
+    n = sum(t.numel() for t in leaves(params)) - params["embed"]["table"].numel()
+    return 6 * n * B * S + 12 * cfg.num_layers * B * S * S * cfg.n_heads * cfg.head_dim
+
+
+def training(dev, card: str, params, buffers, cfg) -> dict:
+    """Phase 3k: (a) the rotation's backward kernel against the plain
+    autograd; (b) card vs CPU gradients of a 2-layer full-width model; (c)
+    the converted 22-layer TinyLlama-1.1B of phase 3i uptrained for
+    ``TRAIN_STEPS`` AdamW steps at B 8 x S 512, lr ``TRAIN_LR`` constant,
+    full remat (and printed beside it, unchecked, at the larger
+    ``LR_SWEEP``): each step must launch the rotation 2 x 22 times forward (forward
+    and recompute) and 22 times backward and nothing else, the loss must
+    stay finite and end below where it began; step ms, tokens/s, peak
+    memory and the model-FLOP share of 67 TFLOP/s are printed; (d) 4 steps
+    with a checkpoint at step 4 and a restart to 8, whose losses must equal
+    the uninterrupted run's within ``RESUME_RTOL``; (e) the uptrained weights
+    serve 8 x (256 + 64) greedy through the ``Scheduler``, streams equal to
+    lockstep ``generate``'s apart from near-ties.  → the numbers and the
+    backward's recorded inputs."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rope_elite as re_k
+    from repro_torch.runtime import serve_loop, train_loop
+    t_phase = time.perf_counter()
+    out = {"rope_err": rope_backward_parity(dev, card)}
+    card_vs_cpu_gradients(dev, card)
+    L = cfg.num_layers
+    assert (L, cfg.d_model, cfg.elitekv.elite_r, cfg.elitekv.d_ckv) == (NUM_LAYERS, 2048, 8, 64)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                    batch_size=TRAIN_B, seed=21), device=dev)
+    t0 = time.perf_counter()
+    batches = [next(pipe) for _ in range(TRAIN_STEPS)]
+    print(f"[{card}] {TRAIN_STEPS} batches of {TRAIN_B} x {TRAIN_S} synthetic tokens made in "
+          f"{time.perf_counter() - t0:.2f} s (host, before the timed runs)", flush=True)
+    per_step = {"rope_elite": 2 * L, "rope_elite_backward": L}
+
+    def run(label, num_steps, lr=TRAIN_LR, **kw):
+        losses, stamps, seen = {}, [], {}
+
+        def cb(step, metrics):
+            losses[step] = float(metrics["loss"])          # waits for the step
+            stamps.append(time.perf_counter())
+            n = ops.launches()
+            got = {k: n[k] - seen.get(k, 0) for k in n if n[k] - seen.get(k, 0)}
+            seen.update(n)
+            if got != per_step:
+                raise AssertionError(f"{label} step {step}: launches {got}, "
+                                     f"expected {per_step}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        stamps.append(time.perf_counter())
+        p, _, _ = train_loop.train(params, buffers, cfg, train_loop.TrainConfig(lr=lr),
+                                   iter(batches), num_steps, log_every=0, callback=cb, **kw)
+        launches = {k: v for k, v in ops.launches().items() if v}
+        return p, losses, np.diff(stamps) * 1e3, launches
+
+    # c. the uninterrupted run, keeping the first rotation's arguments
+    first, rotate = [], ops.rope_elite_qk
+    ops.rope_elite_qk = lambda *a: (first.append(a) if not first else None, rotate(*a))[1]
+    try:
+        up, losses, step_ms, launches = run("uptraining", TRAIN_STEPS)
+    finally:
+        ops.rope_elite_qk = rotate
+    peak = torch.cuda.max_memory_allocated(dev)
+    vals = [losses[s] for s in range(TRAIN_STEPS)]
+    if not (np.isfinite(vals).all() and vals[-1] < vals[0]):
+        raise AssertionError(f"uptraining losses {vals}: not finite or not falling")
+    p50 = float(np.percentile(step_ms[1:], 50))
+    flops = model_flops(params, cfg, TRAIN_B, TRAIN_S)
+    out.update(losses=vals, step_ms=step_ms, step_ms_p50=p50, peak_bytes=peak,
+               launches=launches, flops=flops,
+               tok_s=TRAIN_B * TRAIN_S / (p50 / 1e3), mfu=flops / (p50 / 1e3) / PEAK_F32_FLOPS)
+    print(f"[{card}] uptraining converted TinyLlama-1.1B (r 8, d_ckv 64, 22 layers), B "
+          f"{TRAIN_B} x S {TRAIN_S}, AdamW f32 lr {TRAIN_LR} constant, full remat, TF32 off: "
+          f"losses " + " ".join(f"{v:.4f}" for v in vals), flush=True)
+    print(f"[{card}] uptraining step ms: " + " ".join(f"{t:.1f}" for t in step_ms)
+          + f"; p50 (steps 1-{TRAIN_STEPS - 1}) {p50:.1f} ms, {out['tok_s']:.0f} tokens/s, "
+          f"peak memory {peak / 2**30:.2f} GiB, model FLOPs {flops:.4e} per step = "
+          f"{100 * out['mfu']:.1f}% of 67 TFLOP/s at the p50; rotation launches per step "
+          f"{per_step} (total {launches})", flush=True)
+    for lr in LR_SWEEP:
+        _, sweep, sweep_ms, _ = run(f"uptraining at lr {lr}", TRAIN_STEPS, lr=lr)
+        print(f"[{card}] the same run at lr {lr} (not checked): losses "
+              + " ".join(f"{sweep[s]:.4f}" for s in range(TRAIN_STEPS)) + "; step ms p50 "
+              f"{float(np.percentile(sweep_ms[1:], 50)):.1f}", flush=True)
+    # the backward's inputs at the main path's shapes and strides: q's
+    # gradient is the slice [..., :2r] of the [B, S, nh, dh] gradient of
+    # [q_e | q_ne], k's a contiguous [B, S, nkv, 2r]; positions and freqs
+    # from a recorded rotation of the run
+    q, k, pos, freqs, qpr, kpr = first.pop()
+    g = torch.Generator(device=dev).manual_seed(61)
+    gq = torch.randn(q.shape[:3] + (cfg.head_dim,), generator=g, device=dev)[..., :q.shape[-1]]
+    gk = torch.randn(tuple(k.shape), generator=g, device=dev)
+    out["bwd_args"] = a = (gq, gk, pos, freqs, qpr, kpr)
+    del q, k
+    e, bad, same = rope_err(re_k.rope_elite_backward(*a),
+                            ref.rope_elite_qk_ref(*a, transpose=True))
+    print(f"[{card}] parity rope_elite_backward at the uptraining step's shapes (g_q "
+          f"{tuple(gq.shape)} stride {gq.stride()}, g_k {tuple(gk.shape)}) against "
+          f"rope_elite_qk_ref(transpose=True): max_abs_err={e:.3e}, {bad} outside the "
+          f"tolerance, bitwise equal {100 * same:.2f}%", flush=True)
+    if bad:
+        raise AssertionError(f"rope_elite_backward: {bad} elements past the tolerance")
+    out["rope_err"] = max(out["rope_err"], e)
+    # d. a checkpoint at step RESUME_AT and a restart
+    ck_dir = ROOT / "build" / "ckpt_3k"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck = Checkpointer(str(ck_dir), keep_last=1)
+    t0 = time.perf_counter()
+    run("until the checkpoint", RESUME_AT, checkpointer=ck, ckpt_every=RESUME_AT)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, resumed, _, _ = run("resumed", TRAIN_STEPS, checkpointer=ck, ckpt_every=0)
+    t_resume = time.perf_counter() - t0
+    ck_bytes = sum(f.stat().st_size for f in ck_dir.rglob("*") if f.is_file())
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    for s in range(RESUME_AT, TRAIN_STEPS):
+        if not abs(resumed[s] - losses[s]) <= RESUME_RTOL * abs(losses[s]):
+            raise AssertionError(f"resumed step {s}: loss {resumed[s]} vs uninterrupted "
+                                 f"{losses[s]}")
+    print(f"[{card}] checkpoint at step {RESUME_AT} ({ck_bytes / 2**30:.2f} GiB on disk; "
+          f"4 steps and the save {t_save:.1f} s) and a restart to {TRAIN_STEPS} (restore "
+          f"and 4 steps {t_resume:.1f} s): losses "
+          + " ".join(f"{resumed[s]:.6f}" for s in range(RESUME_AT, TRAIN_STEPS))
+          + f" vs uninterrupted " + " ".join(f"{losses[s]:.6f}"
+                                              for s in range(RESUME_AT, TRAIN_STEPS))
+          + f", within {RESUME_RTOL} relative", flush=True)
+    # e. the uptrained weights served
+    n_new = 64
+    prompts = np.random.default_rng(16).integers(0, cfg.vocab_size, (8, 256)).astype(np.int32)
+    reqs = [serve_loop.Request(uid=i, prompt=prompts[i], max_new_tokens=n_new)
+            for i in range(8)]
+    scfg = serve_loop.SchedulerConfig(max_slots=8, block_size=16, num_blocks=8 * 24,
+                                      max_new_tokens=n_new, max_len=1024,
+                                      prefill_chunk_tokens=256, prefill_batch_lanes=8)
+    _, _, _, sched = serve_run("uptrained TinyLlama-1.1B, 8 requests", up, buffers, cfg,
+                               scfg, reqs, card)
+    gen, _, _, _, _ = generate_run(
+        "uptrained TinyLlama-1.1B generate", up, buffers, cfg, prompts, n_new,
+        {"elite_decode": L * (n_new - 1), "flash_prefill": L, "rope_elite": L * n_new}, card)
+    compare_streams("uptrained: Scheduler vs lockstep generate",
+                    [(r.uid, r.prompt, r.generated, gen[r.uid]) for r in sched.finished],
+                    up, buffers, cfg, dev, card, against="generate's")
+    out["phase"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 3k (training) {out['phase']:.1f} s", flush=True)
+    return out
 
 
 def tied_model(dev, card: str) -> dict:
@@ -2142,8 +2427,11 @@ def main() -> int:
             feats["streams prefix on"], feats["prefix on"])})
 
     # i. conversion of the baseline TinyLlama-1.1B, and the converted model
-    # served; j. MiniCPM-2B (tied embeddings) served plain and speculative
-    conv = conversion(dev, card)
+    # served; k. that model uptrained, resumed and served; j. MiniCPM-2B
+    # (tied embeddings) served plain and speculative
+    conv, converted = conversion(dev, card)
+    train3k = training(dev, card, *converted)
+    del converted
     tied = tied_model(dev, card)
 
     # each decode and verify kernel again, on the busiest recorded main-path inputs
@@ -2397,6 +2685,28 @@ def main() -> int:
               f"{r['plain_ms']:.4f} ms, bound {r_bound:.6f} ms ({r_by}: {r_bytes} B, "
               f"{r_flops} flop), {100 * r_bound / r['ms']:.1f}% of the bound; launches "
               f"{rope_launches[label.split()[1]]} per generate run", flush=True)
+    # the rotation's backward (transpose mode) at the uptraining step's
+    # inputs: q's gradient a [8, 512, 32, 16] slice of [..., 64], k's
+    # [8, 512, 4, 16]; bound: the gradients read and written once
+    a = train3k["bwd_args"]
+    b_bytes, b_flops = rope_cost(a)
+    b_bound, b_by = bound(b_bytes, b_flops)
+    rows.append(dict(
+        name="rope_elite_backward", route="cuda",
+        source="src/repro_torch/kernels/csrc/rope_elite.cu",
+        replaces=TPU_LINES["rope_elite"], launches=train3k["launches"]["rope_elite_backward"],
+        max_abs_err=train3k["rope_err"],
+        ms=time_ms(lambda: re_k.rope_elite_backward(*a), flush=flush),
+        plain_ms=time_ms(lambda: ref.rope_elite_qk_ref(*a, transpose=True), flush=flush),
+        bound_ms=b_bound, bound_by=b_by, library_ms=None))
+    r = rows[-1]
+    print(f"[{card}] rope_elite_qk backward (transpose mode) at the uptraining step's "
+          f"gradients: g_q={tuple(a[0].shape)} stride={a[0].stride()} g_k="
+          f"{tuple(a[1].shape)} {re_k.plan_for(*a)}: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {b_bound:.6f} ms ({b_by}: {b_bytes} B, {b_flops} "
+          f"flop), {100 * b_bound / r['ms']:.1f}% of the bound; launches "
+          f"{r['launches']} in the {TRAIN_STEPS}-step uptraining run ({NUM_LAYERS} per "
+          f"step)", flush=True)
     by = {r["name"]: r for r in rows}
     dec = by["elite_decode"]
     print(f"[{card}] target elite_decode faster than SDPA: {dec['ms']:.4f} vs "
@@ -2509,9 +2819,14 @@ def main() -> int:
               f"({nbytes / t_in / 1e6:.2f} GB/s), host clock, median of 5", flush=True)
 
     # -- 5. result lines -----------------------------------------------------
-    print(f"[{card}] phases 3i (conversion) {conv['phase']:.1f} s and 3j (MiniCPM-2B) "
-          f"{tied['wall']:.1f} s; the whole script {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+    t = train3k
+    print(f"[{card}] uptraining (3k): step_ms p50 {t['step_ms_p50']:.1f}, tokens/s "
+          f"{t['tok_s']:.0f}, peak memory {t['peak_bytes'] / 2**30:.2f} GiB, model-FLOP share "
+          f"{100 * t['mfu']:.1f}% of 67 TFLOP/s, losses {t['losses'][0]:.4f} -> "
+          f"{t['losses'][-1]:.4f}", flush=True)
+    print(f"[{card}] phases 3i (conversion) {conv['phase']:.1f} s, 3k (training) "
+          f"{t['phase']:.1f} s and 3j (MiniCPM-2B) {tied['wall']:.1f} s; the whole script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

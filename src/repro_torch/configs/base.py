@@ -3,8 +3,9 @@ decoder-only architecture description, plus the ``--arch`` registry.
 
 Counterpart of ``repro/configs/base.py``, cut to what the port's dense
 architectures read: attention + SwiGLU-MLP stacks, with the LM head tied to
-the embedding table or not (no MoE, SSM or frontend fields, no shape cells
-or dry-run input specs).
+the embedding table or not, and the training knobs (query-chunked
+attention, sequence-chunked loss, layer remat); no MoE, SSM or frontend
+fields, no shape cells or dry-run input specs.
 """
 from __future__ import annotations
 
@@ -57,6 +58,10 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False     # logits = h @ embed.table^T, no lm_head
+    attn_chunk_q: Optional[int] = None   # training attention: None = chunk at S >= 4096
+    loss_chunk: int = 0                  # seq-chunked CE (never the whole [B,S,V] logits)
+    remat: bool = True                   # recompute layers in the backward
+    remat_policy: str = "full"           # full (recompute the layer) | dots | none
     dtype: Any = torch.float32
     elitekv: EliteKVConfig = dataclasses.field(default_factory=EliteKVConfig)
 

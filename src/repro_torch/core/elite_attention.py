@@ -46,13 +46,16 @@ The contiguous half (``apply_full``, ``init_cache``, ``apply_prefill``,
 ``apply_decode``) keeps the reference's ``[B, max_len, ...]`` cache leaves,
 f32 only, written in place at rows ``[0, S)`` by prefill and at row
 ``index`` by decode.  ``apply_full`` attends through the plain ``_attend``
-(the reference's XLA path) and is the oracle of cache-on == cache-off;
+(the reference's XLA path, query-chunked at ``cfg.attn_chunk_q``) and is
+the training forward and the oracle of cache-on == cache-off;
 prefill attends its own K/V through ``flash_prefill`` with offset 0, and
 decode is the absorbed path through the ``elite_decode`` kernel with
 ``lengths = index + 1`` (the reference's ``use_kernel=False`` einsum branch
 is that kernel's plain version, ``ref.elite_decode_ref``).  Every forward
 of every path projects q_e and k_e first and rotates them together in one
-``rope_elite`` launch per layer (``_project``, ``core/rope.py``).
+``rope_elite`` launch per layer (``_project``, ``core/rope.py``).  Under
+grad that launch is differentiable on the card (``kernels/ops.py``), so
+``wk_e`` and the elite columns of ``wq`` get their gradients through it.
 
 Prefill routing differs from the reference, which attends through XLA
 (``_attend`` for fresh chunks, ``_attend_resumed`` over a gathered prefix):
@@ -165,7 +168,7 @@ def _materialized(params, cfg, buffers, x, positions):
 def apply_full(params, cfg, buffers, x, positions) -> torch.Tensor:
     """Whole-sequence causal forward, no cache.  → out [B,S,d]."""
     q, k, v, *_ = _materialized(params, cfg, buffers, x, positions)
-    o = _attend(q, k, v, cfg.q_group, cfg.head_dim ** -0.5)
+    o = _attend(q, k, v, cfg.q_group, cfg.head_dim ** -0.5, chunk_q=cfg.attn_chunk_q)
     return torch.einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
 
 

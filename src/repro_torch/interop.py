@@ -1,10 +1,12 @@
-"""Carry the JAX package's weights into the port.
+"""Carry the JAX package's weights and optimizer state into the port.
 
-The JAX model's ``(params, buffers)`` arrive as nested dicts of **numpy**
-arrays (a caller holding JAX arrays maps ``np.asarray`` over them first), so
-the port never sees a JAX type.  The reference stacks layers along a leading
-``n_super`` axis under ``params["blocks"]["p0"]``; the port keeps one dict
-per layer, so that axis is unstacked here.  Leaf names are unchanged.
+The JAX model's ``(params, buffers)`` and AdamW state arrive as nested dicts
+of **numpy** arrays (a caller holding JAX arrays maps ``np.asarray`` over
+them first), so the port never sees a JAX type; a bf16 array arrives as
+2-byte records, which is what numpy makes of one, and becomes a bf16
+tensor.  The reference stacks layers along a leading ``n_super`` axis under
+``params["blocks"]["p0"]``; the port keeps one dict per layer, so that axis
+is unstacked here.  Leaf names are unchanged.
 """
 from __future__ import annotations
 
@@ -14,14 +16,41 @@ import numpy as np
 import torch
 
 
-def _tensor(a, device) -> torch.Tensor:
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """A numpy array (2-byte records: bf16) → a tensor on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:       # bf16 (as 2-byte records)
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def _layer(tree, i: int, device):
     if isinstance(tree, dict):
         return {k: _layer(v, i, device) for k, v in tree.items()}
-    return _tensor(tree[i], device)
+    return tensor_from_numpy(tree[i], device)
+
+
+def _whole(tree, device):
+    if isinstance(tree, dict):
+        return {k: _whole(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)
+
+
+def _blocks(tree):
+    if set(tree["blocks"]) != {"p0"}:
+        raise ValueError(f"expected one layer position, got {sorted(tree['blocks'])}")
+    return tree["blocks"]["p0"]
+
+
+def params_tree_from_reference(tree: Dict, cfg, device="cuda") -> Dict:
+    """A tree of the reference params' structure (the params themselves,
+    their grads, or an AdamW moment, whose leaves may be int8 ``{"q", "s"}``
+    pairs) → the port's layout: the stacked ``blocks/p0`` axis unstacked
+    into ``layers``, every other entry carried whole."""
+    out = {k: _whole(v, device) for k, v in tree.items() if k != "blocks"}
+    p0 = _blocks(tree)
+    out["layers"] = [_layer(p0, i, device) for i in range(cfg.num_layers)]
+    return out
 
 
 def from_reference(params: Dict, buffers: Dict, cfg, device="cuda") -> Tuple[Dict, Dict]:
@@ -29,13 +58,18 @@ def from_reference(params: Dict, buffers: Dict, cfg, device="cuda") -> Tuple[Dic
     ``device``.  Only single-position superblocks (attention + MLP stacks)
     exist in the port; ``lm_head`` is carried where the model has one (a
     tied model has none)."""
-    blocks, bufs = params["blocks"], buffers["blocks"]
-    if set(blocks) != {"p0"}:
-        raise ValueError(f"expected one layer position, got {sorted(blocks)}")
-    n = cfg.num_layers
-    out = {"embed": {"table": _tensor(params["embed"]["table"], device)}}
-    if "lm_head" in params:
-        out["lm_head"] = {"w": _tensor(params["lm_head"]["w"], device)}
-    out.update(final_norm={"scale": _tensor(params["final_norm"]["scale"], device)},
-               layers=[_layer(blocks["p0"], i, device) for i in range(n)])
-    return out, {"layers": [_layer(bufs["p0"], i, device) for i in range(n)]}
+    p0 = _blocks(buffers)
+    return (params_tree_from_reference(params, cfg, device),
+            {"layers": [_layer(p0, i, device) for i in range(cfg.num_layers)]})
+
+
+def opt_state_from_reference(opt_state: Dict, cfg, device="cuda") -> Dict:
+    """The reference's AdamW state (``adamw.init``/``train_loop``'s:
+    ``step``, moments ``m``/``v`` as f32, bf16 or int8 ``{"q", "s"}``
+    leaves, and ``err`` with gradient compression) of numpy arrays → the
+    port's, with the params' unstacking."""
+    out = {"step": tensor_from_numpy(opt_state["step"], device).to(torch.int32)}
+    for name in ("m", "v", "err"):
+        if name in opt_state:
+            out[name] = params_tree_from_reference(opt_state[name], cfg, device)
+    return out

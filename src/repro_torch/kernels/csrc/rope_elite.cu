@@ -10,10 +10,14 @@
 //     out[.., 2c+1] = x[.., 2c] * sin(ang) + x[.., 2c+1] * cos(ang)
 // which is core/rope.py's interleaved rotation, with row = h / q_per_row for
 // a query head and h / k_per_row for a key head (freqs [R, r], Hq = R *
-// q_per_row, Hk = R * k_per_row).  EliteKV: R = n_kv, q_per_row = q_group,
-// k_per_row = 1.  The full RoPE: R = 1, freqs = chunk_freqs, q_per_row =
-// n_heads, k_per_row = n_kv.  The TPU contract (one tensor, freqs [H, r]) is
-// the same body with k_per_row = 0.  Beyond it, for the port's callers:
+// q_per_row, Hk = R * k_per_row).  The backward is the same body with
+// transpose = 1, which negates sin after the sincosf: the rotation by -ang
+// is the rotation's transpose, so on the output's gradient (g_e, g_o) it
+// gives the input's, g_e * cos + g_o * sin and -g_e * sin + g_o * cos.  The
+// negation is exact and does not rely on sincosf being odd.  EliteKV: R =
+// n_kv, q_per_row = q_group, k_per_row = 1.  The full RoPE: R = 1, freqs =
+// chunk_freqs, q_per_row = n_heads, k_per_row = n_kv.  The TPU contract
+// (one tensor, freqs [H, r]) is the same body with k_per_row = 0.  Beyond it, for the port's callers:
 // positions are [S] (lane stride 0) or per lane [B, S] (lane stride S),
 // int32 or int64; q and k are read through their own (b, s, h) strides
 // with a unit last stride, so the q_e slice q[..., :2r] of the query
@@ -69,6 +73,7 @@ struct Args {
   float* k_out;
   int S, r, rows, rpc, subsets, per_sub, q_per_row, k_per_row, Hq, Hk;
   int q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, pos_sb, f_sr;
+  int transpose;   // 1: rotate by -ang (the backward), by negating sin
 };
 
 __device__ __forceinline__ void rotate(float e, float o, float c, float s, float& re,
@@ -133,6 +138,7 @@ __global__ void __launch_bounds__(kMaxThreads) rope_qk_kernel(const Args a) {
   for (int j = 0; j < VEC; ++j) {
     const float ang = __fmul_rn(p, __ldg(a.freqs + row * a.f_sr + pair + j));
     sincosf(ang, &sn[j], &cs[j]);
+    if (a.transpose) sn[j] = -sn[j];
   }
 
   const int token = b * a.S + s;
@@ -167,6 +173,7 @@ void launch(const Args& a, bool pos64, dim3 grid, dim3 block, cudaStream_t strea
 // A thread handles per_sub heads of one of a row's `subsets` head subsets;
 // tz tokens and rpc rows per CTA.  Every offset must fit in 32 bits.  Needs
 // B, S, r >= 1.
+// transpose: 1 rotates by -ang (the backward of the rotation), else 0.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a plan the kernel cannot run.
 extern "C" int rope_elite_qk(const float* q, const float* k, const void* pos, int pos64,
@@ -174,14 +181,14 @@ extern "C" int rope_elite_qk(const float* q, const float* k, const void* pos, in
                              int B, int S, int r, int rows, int q_per_row, int k_per_row,
                              int subsets, int per_sub, int tz, int rpc, int q_sb, int q_ss,
                              int q_sh, int k_sb, int k_ss, int k_sh, int pos_sb, int f_sr,
-                             void* stream) {
+                             int transpose, void* stream) {
   if ((vec != 1 && vec != 2) || r % vec || per_sub < 1 || per_sub > kMaxVectors ||
       subsets * per_sub < q_per_row + k_per_row || tz < 1 || rpc < 1 || rpc > rows ||
       (r / vec) * rpc * subsets * tz > kMaxThreads)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, pos, freqs, q_out, k_out, S, r, rows, rpc, subsets, per_sub,
                q_per_row, k_per_row, rows * q_per_row, rows * k_per_row, q_sb, q_ss, q_sh,
-               k_sb, k_ss, k_sh, pos_sb, f_sr};
+               k_sb, k_ss, k_sh, pos_sb, f_sr, transpose != 0};
   const dim3 grid((S + tz - 1) / tz, B, (rows + rpc - 1) / rpc),
       block(r / vec, rpc * subsets, tz);
   if (vec == 2)

@@ -11,6 +11,19 @@ reads; both rotary entries launch one body and count in
 plain torch selection on either device, as the reference runs it in plain
 jnp.
 
+Gradients.  On the card the two rotary entries run inside
+``torch.autograd.Function``s when an input requires grad under grad mode:
+forward launches the kernel as above, backward launches it in its
+transpose mode on the outputs' gradients (``rope_elite.rope_elite_backward``,
+counted in ``rope_elite_backward.launches``), so the gradient reaches q
+and k, and through a strided ``q[..., :2r]`` view the projection it was
+sliced from.  Positions and frequencies are buffers and get none.  The
+decode, verify and ``flash_prefill`` kernels have no backward: a CUDA
+input that requires grad under grad mode makes them raise, naming the
+kernel, rather than give an output that silently drops the gradient
+(serving runs under ``torch.no_grad()``).  On the CPU the plain versions
+are differentiable as they are.
+
 ``set_kernel_tracer`` (the reference's, ``kernels/ops.py``) arms spans on
 the ``kernel`` track of a tracer, one per call, named after the entry
 (``rope_elite_qk`` for the two-tensor rotary) with the first tensor's
@@ -40,7 +53,8 @@ LAUNCHERS = {"elite_decode": _ed.elite_decode,
              "elite_verify_paged": _ed.elite_verify_paged,
              "elite_verify_paged_q8": _ed.elite_verify_paged_q8,
              "flash_prefill": _fp.flash_prefill,
-             "rope_elite": _re.rope_elite}
+             "rope_elite": _re.rope_elite,
+             "rope_elite_backward": _re.rope_elite_backward}
 
 select_topk_blocks = ref.select_topk_blocks
 
@@ -68,6 +82,56 @@ def _plain(name: str, fn, *args):
         return fn(*args)
 
 
+def _no_backward(name: str, *args) -> None:
+    """Raise if autograd would record ``name``'s kernel, which has no
+    backward: grad mode is on and a tensor argument requires grad."""
+    if torch.is_grad_enabled() and any(torch.is_tensor(a) and a.requires_grad for a in args):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward, and an input "
+                           f"requires grad; call it under torch.no_grad()")
+
+
+def _grad_view(g: torch.Tensor) -> torch.Tensor:
+    """An output's gradient as the rotary kernel reads it: a unit last
+    stride and 8-byte aligned rows, else a contiguous copy."""
+    if g.stride(-1) != 1 or g.data_ptr() % 8 or any(st % 2 for st in g.stride()[:-1]):
+        return g.contiguous()
+    return g
+
+
+class _RopeQK(torch.autograd.Function):
+    """``rope_elite_qk`` on the card with its kernel backward.  Grads that
+    autograd does not have arrive as zeros (materialized)."""
+
+    @staticmethod
+    def forward(ctx, q, k, positions, freqs, q_per_row: int, k_per_row: int):
+        ctx.save_for_backward(positions, freqs)
+        ctx.per_row = (q_per_row, k_per_row)
+        return _re.rope_elite_qk(q, k, positions, freqs, q_per_row, k_per_row)
+
+    @staticmethod
+    def backward(ctx, g_q, g_k):
+        positions, freqs = ctx.saved_tensors
+        d_q, d_k = _re.rope_elite_backward(_grad_view(g_q), _grad_view(g_k), positions,
+                                           freqs, *ctx.per_row)
+        return d_q, d_k, None, None, None, None
+
+
+class _Rope(torch.autograd.Function):
+    """``rope_elite`` (one tensor) on the card with its kernel backward."""
+
+    @staticmethod
+    def forward(ctx, x, positions, freqs):
+        ctx.save_for_backward(positions, freqs)
+        return _re.rope_elite(x, positions, freqs)
+
+    @staticmethod
+    def backward(ctx, g):
+        positions, freqs = ctx.saved_tensors
+        g = _grad_view(g)
+        rows, per_row = _re.one_tensor_rows(g, freqs)
+        return _re.rope_elite_backward(g, None, positions, rows, per_row, 0)[0], None, None
+
+
 def launches() -> Dict[str, int]:
     return {name: fn.launches for name, fn in LAUNCHERS.items()}
 
@@ -82,6 +146,7 @@ def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
     """Absorbed decode over a contiguous cache; see ``ref.elite_decode_ref``."""
     args = (q_e, q_lat, k_e, c_k, c_v, lengths, q_group, scale)
     if q_e.is_cuda:
+        _no_backward("elite_decode", *args)
         return _ed.elite_decode(*args)
     return _plain("elite_decode", ref.elite_decode_ref, *args)
 
@@ -93,6 +158,7 @@ def elite_decode_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, block_tables, lengths,
             q_group, scale, block_size)
     if q_e.is_cuda:
+        _no_backward("elite_decode_paged", *args)
         return _ed.elite_decode_paged(*args)
     return _plain("elite_decode_paged", ref.elite_decode_paged_ref, *args)
 
@@ -104,6 +170,7 @@ def elite_decode_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
             c_v_scale, block_tables, lengths, q_group, scale, block_size)
     if q_e.is_cuda:
+        _no_backward("elite_decode_paged_q8", *args)
         return _ed.elite_decode_paged_q8(*args)
     return _plain("elite_decode_paged_q8", ref.elite_decode_paged_q8_ref, *args)
 
@@ -115,6 +182,7 @@ def elite_decode_sparse_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, sel_tables, sel_counts,
             q_group, scale, block_size)
     if q_e.is_cuda:
+        _no_backward("elite_decode_sparse_paged", *args)
         return _ed.elite_decode_sparse_paged(*args)
     return _plain("elite_decode_sparse_paged", ref.elite_decode_sparse_paged_ref, *args)
 
@@ -128,6 +196,7 @@ def elite_decode_sparse_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
             c_v_scale, sel_tables, sel_counts, q_group, scale, block_size)
     if q_e.is_cuda:
+        _no_backward("elite_decode_sparse_paged_q8", *args)
         return _ed.elite_decode_sparse_paged_q8(*args)
     return _plain("elite_decode_sparse_paged_q8", ref.elite_decode_sparse_paged_q8_ref,
                   *args)
@@ -140,6 +209,7 @@ def elite_verify_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, block_tables, q_offsets,
             lengths, q_group, scale, block_size)
     if q_e.is_cuda:
+        _no_backward("elite_verify_paged", *args)
         return _ed.elite_verify_paged(*args)
     return _plain("elite_verify_paged", ref.elite_verify_paged_ref, *args)
 
@@ -152,6 +222,7 @@ def elite_verify_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
             c_v_scale, block_tables, q_offsets, lengths, q_group, scale, block_size)
     if q_e.is_cuda:
+        _no_backward("elite_verify_paged_q8", *args)
         return _ed.elite_verify_paged_q8(*args)
     return _plain("elite_verify_paged_q8", ref.elite_verify_paged_q8_ref, *args)
 
@@ -161,6 +232,7 @@ def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,
     """Causal GQA attention with per-lane offsets; see ``ref.flash_prefill_ref``."""
     args = (q, k, v, q_group, scale, q_offsets, kv_lens)
     if q.is_cuda:
+        _no_backward("flash_prefill", *args)
         return _fp.flash_prefill(*args)
     return _plain("flash_prefill", ref.flash_prefill_ref, *args)
 
@@ -168,6 +240,9 @@ def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,
 def rope_elite(x, positions, freqs) -> torch.Tensor:
     """Per-head rotary of packed elite dims; see ``ref.rope_elite_ref``."""
     if x.is_cuda:
+        if torch.is_grad_enabled() and x.requires_grad:
+            _no_backward("rope_elite (positions, freqs)", positions, freqs)
+            return _Rope.apply(x, positions, freqs)
         return _re.rope_elite(x, positions, freqs)
     return _plain("rope_elite", ref.rope_elite_ref, x, positions, freqs)
 
@@ -176,5 +251,8 @@ def rope_elite_qk(q, k, positions, freqs, q_per_row: int, k_per_row: int):
     """q and k of a layer rotated in one launch; see ``ref.rope_elite_qk_ref``."""
     args = (q, k, positions, freqs, q_per_row, k_per_row)
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+            _no_backward("rope_elite_qk (positions, freqs)", positions, freqs)
+            return _RopeQK.apply(*args)
         return _re.rope_elite_qk(*args)
     return _plain("rope_elite_qk", ref.rope_elite_qk_ref, *args)

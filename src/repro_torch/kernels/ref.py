@@ -385,23 +385,27 @@ def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tenso
     return out.to(orig_dtype)
 
 
-def rope_elite_ref(x, positions, freqs) -> torch.Tensor:
+def rope_elite_ref(x, positions, freqs, transpose: bool = False) -> torch.Tensor:
     """Per-head rotary on packed elite dims.
 
     x [B,S,H,2r], positions [S] or [B,S], freqs [H,r] → rotated x.
+    ``transpose`` rotates by the negated angles (sin negated): the
+    rotation's transpose, which maps the output's gradient to the input's.
     """
     B, S, H, r2 = x.shape
     assert tuple(freqs.shape) == (H, r2 // 2), (tuple(freqs.shape), (H, r2 // 2))
     cos, sin = cos_sin(positions, freqs)       # [S,H,r] or [B,S,H,r]
-    return rotate(x, cos, sin)
+    return rotate(x, cos, -sin if transpose else sin)
 
 
-def rope_elite_qk_ref(q, k, positions, freqs, q_per_row: int, k_per_row: int):
+def rope_elite_qk_ref(q, k, positions, freqs, q_per_row: int, k_per_row: int,
+                      transpose: bool = False):
     """q and k rotated at the same positions: query head h with freqs row
     ``h // q_per_row``, key head h with row ``h // k_per_row``.
 
     q [B,S,Hq,2r], k [B,S,Hk,2r], positions [S] or [B,S], freqs [R,r] with
-    Hq = R·q_per_row and Hk = R·k_per_row → (q_rot, k_rot).
+    Hq = R·q_per_row and Hk = R·k_per_row → (q_rot, k_rot); ``transpose``
+    as in ``rope_elite_ref`` (the kernel's backward mode).
     """
-    return (rope_elite_ref(q, positions, freqs.repeat_interleave(q_per_row, 0)),
-            rope_elite_ref(k, positions, freqs.repeat_interleave(k_per_row, 0)))
+    return (rope_elite_ref(q, positions, freqs.repeat_interleave(q_per_row, 0), transpose),
+            rope_elite_ref(k, positions, freqs.repeat_interleave(k_per_row, 0), transpose))

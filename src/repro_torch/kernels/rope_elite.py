@@ -14,6 +14,12 @@ with what bounds it, is ``csrc/rope_elite.cu``; the plain versions are
 ``ref.rope_elite_ref`` and ``ref.rope_elite_qk_ref``.  ``kernels.ops``
 picks between them by the device of the query.
 
+``rope_elite_backward`` is the same kernel in its transpose mode: it
+rotates the outputs' gradients by the negated angles, which gives the
+inputs' gradients (``ops`` wraps both entries in ``torch.autograd``
+functions whose backward launches it).  It counts its launches apart, in
+``rope_elite_backward.launches``.
+
 ``plan`` chooses the launch from shapes and alignment: 16-byte accesses
 where every row start and stride allows them, else 8-byte ones; head
 subsets of at most ``MAX_VECTORS`` heads per thread; a CTA of about
@@ -39,7 +45,7 @@ CTA_THREADS = 256      # what a CTA aims at: tokens per CTA = this // per token
 MAX_TOKENS_PER_CTA = 64          # blockDim.z's limit
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-             + [ctypes.c_int] * 19 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 20 + [ctypes.c_void_p])
 
 
 class Plan(NamedTuple):
@@ -109,8 +115,10 @@ def _check(name, t, shape, dev) -> None:
         raise ValueError(f"{name}: offsets past 32 bits")
 
 
-def _launch(q, k, positions, freqs, q_per_row: int, k_per_row: int):
-    """Check and launch; k is None for the one-tensor entry.  → (q_rot, k_rot)."""
+def _launch(q, k, positions, freqs, q_per_row: int, k_per_row: int,
+            transpose: bool = False):
+    """Check and launch; k is None for the one-tensor entry; ``transpose``
+    rotates by the negated angles (the backward).  → (q_rot, k_rot)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"rope_elite kernel needs CUDA tensors, got {dev}")
@@ -143,15 +151,19 @@ def _launch(q, k, positions, freqs, q_per_row: int, k_per_row: int):
     p = plan_for(q, k, positions, freqs, q_per_row, k_per_row)
     kst = k.stride()[:3] if k is not None else (0, 0, 0)
     fn = build.load("rope_elite_qk", _ARGTYPES, source="rope_elite")
-    build.launch("rope_elite" if k is None else "rope_elite_qk", fn,
+    name = ("rope_elite" if k is None else "rope_elite_qk") + ("_backward" if transpose else "")
+    build.launch(name, fn,
                  (q.data_ptr(), 0 if k is None else k.data_ptr(), positions.data_ptr(),
                   int(positions.dtype == torch.int64), freqs.data_ptr(), q_out.data_ptr(),
                   0 if k_out is None else k_out.data_ptr(), p.vec, B, S, r, rows,
                   q_per_row, k_per_row, p.subsets, p.per_sub, p.block[2],
                   p.block[1] // p.subsets,
                   *q.stride()[:3], *kst, S if positions.dim() == 2 else 0,
-                  freqs.stride(0)), q)
-    rope_elite.launches += 1
+                  freqs.stride(0), int(transpose)), q)
+    if transpose:
+        rope_elite_backward.launches += 1
+    else:
+        rope_elite.launches += 1
     return q_out, k_out
 
 
@@ -169,6 +181,16 @@ def rope_elite_qk(q, k, positions, freqs, q_per_row: int, k_per_row: int):
     return _launch(q, k, positions, freqs, q_per_row, k_per_row)
 
 
+def one_tensor_rows(x, freqs):
+    """(frequency rows, heads per row) of the one-tensor entry: freqs
+    [H, r] whose head stride is 0 broadcast one row, which all H heads
+    read; else one row per head."""
+    if x.dim() == 4 and freqs.dim() == 2 and freqs.shape[0] == x.shape[2] > 1 \
+            and freqs.stride(0) == 0:
+        return freqs[:1], x.shape[2]
+    return freqs, 1
+
+
 def rope_elite(x, positions, freqs) -> torch.Tensor:
     """Launch the CUDA kernel on one tensor (the TPU contract).
 
@@ -177,10 +199,21 @@ def rope_elite(x, positions, freqs) -> torch.Tensor:
     stride 0 broadcasts one row, whose sincos the heads then share); all on
     one CUDA device.  → contiguous [B,S,H,2r] f32.
     """
-    if x.dim() == 4 and freqs.dim() == 2 and freqs.shape[0] == x.shape[2] > 1 \
-            and freqs.stride(0) == 0:
-        return _launch(x, None, positions, freqs[:1], x.shape[2], 0)[0]
-    return _launch(x, None, positions, freqs, 1, 0)[0]
+    rows, per_row = one_tensor_rows(x, freqs)
+    return _launch(x, None, positions, rows, per_row, 0)[0]
+
+
+def rope_elite_backward(g_q, g_k, positions, freqs, q_per_row: int, k_per_row: int):
+    """Launch the kernel in its transpose mode: the gradients of the
+    rotation's inputs from those of its outputs, g_q [B,S,Hq,2r] and g_k
+    [B,S,Hk,2r] (None with ``k_per_row = 0``: the one-tensor entry, whose
+    freqs come through ``one_tensor_rows``), under ``rope_elite_qk``'s
+    contract.  → (g_q_in, g_k_in), contiguous f32.  Counts one launch in
+    ``rope_elite_backward.launches``."""
+    if (g_k is None) != (k_per_row == 0):
+        raise ValueError(f"k_per_row {k_per_row}: expected 0 exactly when g_k is None")
+    return _launch(g_q, g_k, positions, freqs, q_per_row, k_per_row, transpose=True)
 
 
 rope_elite.launches = 0
+rope_elite_backward.launches = 0

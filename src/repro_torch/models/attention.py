@@ -9,18 +9,23 @@ a contiguous cache:
   * ``apply_decode``  — one token per lane against the cache.
 
 ``apply_full`` attends through ``_attend``, the plain masked softmax (the
-reference's XLA path; no query chunking at the port's sizes), and is the
-oracle the cached modes are held to.  Prefill and decode attend through the
-``flash_prefill`` kernel (``kernels.ops``): prefill with ``q_offsets = 0``
-and ``kv_lens = S``, decode as one query row per lane with
-``q_offsets = index`` and ``kv_lens = index + 1`` over the whole
-``[B, max_len, nkv, dh]`` cache.  The cache is written in place.
+reference's XLA path, which training differentiates), and is the oracle
+the cached modes are held to.  Long sequences (S >= 4096, or
+``cfg.attn_chunk_q``) attend in query chunks, as the reference does, so the
+[S, S] scores never exist whole; under grad each chunk is recomputed in the
+backward (``torch.utils.checkpoint``), so only the chunk outputs persist.
+Prefill and decode attend through the ``flash_prefill`` kernel
+(``kernels.ops``): prefill with ``q_offsets = 0`` and ``kv_lens = S``,
+decode as one query row per lane with ``q_offsets = index`` and
+``kv_lens = index + 1`` over the whole ``[B, max_len, nkv, dh]`` cache.
+The cache is written in place.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import rope as rope_lib
 from repro_torch.kernels import ops
@@ -40,16 +45,40 @@ def init(cfg, generator: torch.Generator, device) -> Dict[str, torch.Tensor]:
     }
 
 
-def _attend(q, k, v, q_group: int, scale: float, q_offset: int = 0) -> torch.Tensor:
-    """Causal attention.  q [B,Sq,nh,dh]; k,v [B,Sk,nkv,dh]; key j visible
-    to query i iff ``j <= i + q_offset``.  → [B,Sq,nh,dh]."""
-    if q_group > 1:
-        k = torch.repeat_interleave(k, q_group, dim=2)
-        v = torch.repeat_interleave(v, q_group, dim=2)
+def _auto_chunk(Sq: int, chunk_q: Optional[int]) -> Optional[int]:
+    """The query chunk: ``chunk_q`` where it divides Sq and is shorter, else
+    1024 from Sq = 4096 on (multiples of 1024), else None (no chunks)."""
+    if chunk_q is not None:
+        return chunk_q if Sq > chunk_q and Sq % chunk_q == 0 else None
+    if Sq >= 4096 and Sq % 1024 == 0:
+        return 1024
+    return None
+
+
+def _block(q, k, v, scale: float, q_offset: int) -> torch.Tensor:
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     s = s + causal_mask(q.shape[1], k.shape[1], q_offset, device=q.device)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _attend(q, k, v, q_group: int, scale: float, q_offset: int = 0,
+            chunk_q: Optional[int] = None) -> torch.Tensor:
+    """Causal attention.  q [B,Sq,nh,dh]; k,v [B,Sk,nkv,dh]; key j visible
+    to query i iff ``j <= i + q_offset``.  → [B,Sq,nh,dh].  Queries go in
+    chunks of ``_auto_chunk(Sq, chunk_q)`` rows, each recomputed in the
+    backward under grad."""
+    if q_group > 1:
+        k = torch.repeat_interleave(k, q_group, dim=2)
+        v = torch.repeat_interleave(v, q_group, dim=2)
+    cq = _auto_chunk(q.shape[1], chunk_q)
+    if cq is None:
+        return _block(q, k, v, scale, q_offset)
+    remat = torch.is_grad_enabled()
+    outs = [checkpoint(_block, q[:, i:i + cq], k, v, scale, q_offset + i, use_reentrant=False)
+            if remat else _block(q[:, i:i + cq], k, v, scale, q_offset + i)
+            for i in range(0, q.shape[1], cq)]
+    return torch.cat(outs, dim=1)
 
 
 def causal_mask(Sq: int, Sk: int, offset: int = 0, dtype=torch.float32,
@@ -72,7 +101,7 @@ def _qkv(params, cfg, x, positions):
 
 def apply_full(params, cfg, x, positions) -> torch.Tensor:
     q, k, v = _qkv(params, cfg, x, positions)
-    o = _attend(q, k, v, cfg.q_group, cfg.head_dim ** -0.5)
+    o = _attend(q, k, v, cfg.q_group, cfg.head_dim ** -0.5, chunk_q=cfg.attn_chunk_q)
     return torch.einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
 
 

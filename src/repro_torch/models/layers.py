@@ -1,5 +1,5 @@
 """Shared layers: RMSNorm, SwiGLU MLP, embeddings (and the tied LM head),
-init helpers."""
+the cross-entropy loss, init helpers."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -52,3 +52,16 @@ def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
 def unembed(params, x: torch.Tensor) -> torch.Tensor:
     """The tied LM head: x @ table^T, logits in f32."""
     return x.float() @ params["table"].float().T
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32.  logits [B,S,V], labels [B,S]
+    (int64), mask [B,S] (the mean is over its sum, at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -22,24 +22,39 @@ Entry points over a contiguous cache (EliteKV or baseline, lockstep):
   * ``init_cache``    — the f32 cache ``{"index", "blocks": {"p0": ...}}``.
   * ``apply_prefill`` — prompts from position 0, filling the cache.
   * ``apply_decode``  — one token per lane at position ``cache["index"]``.
-  * ``apply_train``   — the whole-sequence forward without a cache (forward
-    only: the oracle of cache-on == cache-off; no loss, no backward).
+  * ``apply_train``   — the whole-sequence forward without a cache: the
+    training forward (differentiable on either device) and the oracle of
+    cache-on == cache-off.
+  * ``loss_fn``       — mean next-token cross-entropy of ``apply_train``
+    (sequence-chunked at ``cfg.loss_chunk``), what training differentiates.
   * ``capture_attn_inputs`` — each layer's normed attention input of a
     baseline forward, which the RoPElite search reads.
 All return f32 logits over the padded vocab (padding columns = -1e30) and
 write the pool pages or the cache in place.  ``make_draft_params`` derives
 the rank-truncated draft model of self-speculative decode.
+
+Under grad the training forward recomputes its layers in the backward as
+``cfg.remat``/``cfg.remat_policy`` say (the reference's ``jax.checkpoint``
+of a layer): "full" keeps only each layer's input, "dots" also the matmul
+outputs (a selective checkpoint), "none" keeps everything.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core import elite_attention, lrd
 from repro_torch.models import attention
-from repro_torch.models.layers import (dense_init, embed, mlp, mlp_init, rmsnorm,
-                                       rmsnorm_init, unembed)
+from repro_torch.models.layers import (cross_entropy, dense_init, embed, mlp, mlp_init,
+                                       rmsnorm, rmsnorm_init, unembed)
+
+# what the "dots" remat policy saves (the reference's dots_saveable)
+_MATMULS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
 
 
 def init(cfg, seed: int = 0, device="cuda") -> Tuple[Dict, Dict]:
@@ -130,23 +145,43 @@ def _contiguous_attention(cfg, buffers, mode: str, positions, cache, index):
     return lambda pa, hn: attention.apply_decode(pa, cfg, hn, index, cache)
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg):
+    """How a training layer runs under grad: ``fn(*args)`` wrapped in a
+    checkpoint per ``cfg.remat_policy``, or None (no recompute)."""
+    if not (cfg.remat and torch.is_grad_enabled()) or cfg.remat_policy == "none":
+        return None
+    if cfg.remat_policy == "full":
+        return functools.partial(checkpoint, use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        return functools.partial(checkpoint, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls))
+    raise ValueError(f"remat_policy {cfg.remat_policy!r}: expected full, dots or none")
+
+
 def _forward_contiguous(params, buffers, cfg, tokens, mode: str, cache=None,
-                        captures=None):
+                        captures=None, return_hidden=False):
     device = params["embed"]["table"].device
     h = embed(params["embed"], tokens, cfg.dtype)
     # decode takes its position from the cache index
     positions = None if mode == "decode" else torch.arange(tokens.shape[1], device=device)
     index = cache["index"] if cache is not None else 0
+    wrap = _remat(cfg) if mode == "train" and captures is None else None
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
         layer_cache = None if cache is None else _layer_pages(cache["blocks"], i)
         attend = _contiguous_attention(cfg, b, mode, positions, layer_cache, index)
         if captures is not None:
             attend = _capturing(attend, captures)
-        h = _run_layer(p, cfg, h, attend)
+        h = _run_layer(p, cfg, h, attend) if wrap is None else wrap(_run_layer, p, cfg, h,
+                                                                    attend)
     if captures is not None:
         return None
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return _logits(params, cfg, h)
+    return h if return_hidden else _logits(params, cfg, h)
 
 
 def _capturing(attend, captures: list):
@@ -157,9 +192,49 @@ def _capturing(attend, captures: list):
     return run
 
 
-def apply_train(params, buffers, cfg, tokens):
-    """Whole-sequence forward, no cache: tokens [B,S] → logits [B,S,Vp] f32."""
-    return _forward_contiguous(params, buffers, cfg, tokens, "train")
+def apply_train(params, buffers, cfg, tokens, return_hidden: bool = False):
+    """Whole-sequence forward, no cache: tokens [B,S] → logits [B,S,Vp] f32
+    (the final normed hidden states [B,S,d] if ``return_hidden``).
+    Differentiable: on the card the rotation's backward is its kernel's
+    transpose mode; layers recompute in the backward per ``cfg.remat``."""
+    return _forward_contiguous(params, buffers, cfg, tokens, "train",
+                               return_hidden=return_hidden)
+
+
+def _chunk_nll(params, cfg, h, labels, mask):
+    """(Σ masked nll, Σ mask) of one sequence chunk's hidden states."""
+    logits = _logits(params, cfg, h).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def loss_fn(params, buffers, cfg, batch, aux_weight: float = 0.01):
+    """Training loss of ``batch`` {"tokens" [B,S], "labels" [B,S] int64,
+    optional "loss_mask" [B,S] f32}: mean next-token cross-entropy in f32
+    plus ``aux_weight`` times the MoE balance loss (0 for these dense
+    stacks).  Where ``cfg.loss_chunk`` divides S the CE goes chunk by chunk
+    of the sequence, each chunk's logits recomputed in the backward under
+    grad, so the whole [B,S,V] logits never exist.  → (loss, {"ce", "aux"})."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    mask = batch.get("loss_mask")
+    ck = cfg.loss_chunk
+    if ck and labels.shape[1] % ck == 0:
+        h = apply_train(params, buffers, cfg, tokens, return_hidden=True)
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+        nll = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        remat = torch.is_grad_enabled()
+        for i in range(0, labels.shape[1], ck):
+            args = (params, cfg, h[:, i:i + ck], labels[:, i:i + ck], mask[:, i:i + ck])
+            n_c, c_c = (checkpoint(_chunk_nll, *args, use_reentrant=False) if remat
+                        else _chunk_nll(*args))
+            nll, cnt = nll + n_c, cnt + c_c
+        ce = nll / torch.clamp(cnt, min=1.0)
+    else:
+        ce = cross_entropy(apply_train(params, buffers, cfg, tokens), labels, mask)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def capture_attn_inputs(params, buffers, cfg, tokens):
@@ -307,8 +382,8 @@ def make_draft_params(params, cfg, draft_rank: int):
     layers = []
     for layer in params["layers"]:
         attn = dict(layer["attn"])
-        bk, bv = lrd.truncate_joint_rank(attn["bk"].cpu().numpy(),
-                                         attn["bv"].cpu().numpy(), draft_rank)
+        bk, bv = lrd.truncate_joint_rank(attn["bk"].detach().cpu().numpy(),
+                                         attn["bv"].detach().cpu().numpy(), draft_rank)
         attn["bk"] = torch.from_numpy(bk).to(layer["attn"]["bk"].device)
         attn["bv"] = torch.from_numpy(bv).to(layer["attn"]["bv"].device)
         layers.append({**layer, "attn": attn})

@@ -29,6 +29,11 @@ step or a preemption that served it.  The noise follows the sorted
 position, so a draw can move when two near-equal logits swap order under
 a rounding-level change.
 
+Every forward of both tiers runs under ``torch.no_grad()`` (``generate``,
+``Scheduler.step``): parameters that still require grad (weights taken
+in the middle of training) build no autograd graph here, and the pool's and cache's in-place
+writes carry no history.
+
 ``prefix_cache=True`` shares full prompt blocks across requests: admission
 probes the content-addressed cache (``BlockManager.lookup_prefix``) and
 prefill resumes at the first miss, freshly prefilled blocks are registered
@@ -131,6 +136,7 @@ class ServeStats:
     step_ms: List[float] = dataclasses.field(default_factory=list)
 
 
+@torch.no_grad()
 def generate(params, buffers, cfg: ModelConfig, prompts, max_new_tokens: int,
              device="cuda") -> Tuple[np.ndarray, ServeStats]:
     """Greedy generation for a batch of equal-length prompts over a
@@ -1010,6 +1016,7 @@ class Scheduler:
                            reason=req.finish_reason, tokens=len(req.generated))
 
     # -- one scheduler iteration ---------------------------------------------
+    @torch.no_grad()
     def step(self) -> bool:
         """Admit + prefill + decode once.  Returns False when drained."""
         self._try_admit()

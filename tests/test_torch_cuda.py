@@ -14,7 +14,11 @@ bits exactly, and so must a verify window of one token at
 ``q_offsets = lengths - 1``, and the contiguous ``elite_decode`` over the
 same rows seen as identity-table pages.  ``rope_elite`` rotates each pair
 once with no reduction, through its one-tensor entry and its q-and-k entry:
-2e-6 relative (1e-6 absolute near zero).
+2e-6 relative (1e-6 absolute near zero); so does its backward (the kernel
+in transpose mode under autograd) against autograd through the plain
+version.  Training gradients on the card against the CPU's: 1e-4 of each
+leaf's largest (f32 matmuls summed in another order).  The attention
+kernels have no backward and must raise when asked for one.
 """
 import numpy as np
 import pytest
@@ -969,3 +973,129 @@ def test_masked_rope_matches_plain(dh, cuda):
     torch.testing.assert_close(got, want, **ROPE_TOL)
     keep = ~mask.repeat_interleave(2, dim=1)
     assert torch.equal(got[:, :, keep], x[:, :, keep])
+
+
+# -- the rotation's backward (the kernel's transpose mode) and training --------
+
+# PAIR_CASES and LLaMA2-13B at half cache: 40 rows of 32 pairs, whose
+# threads exceed one CTA's, so the rows go in row blocks
+BWD_CASES = {**PAIR_CASES, "elite_llama2_13b_half": (40, 40, 40, 64, 128, 0)}
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+@pytest.mark.parametrize("per_lane", [False, True], ids=["pos_S", "pos_BS"])
+def test_rope_backward_kernel_matches_plain_autograd(case, per_lane, cuda):
+    """The gradient through ``ops.rope_elite_qk`` on the card (its backward
+    is the kernel in transpose mode, one launch) equals autograd through the
+    plain version, into the projection a strided q was sliced from."""
+    Hq, Hk, rows, r2, wide, start = BWD_CASES[case]
+    B, S = 3, 257
+    g = torch.Generator(device=cuda).manual_seed(9)
+    if rows == 1:
+        freqs = rope.chunk_freqs(r2, 10000.0, device=cuda)[None]
+    else:
+        freqs = torch.exp(-4 * torch.rand(rows, r2 // 2, generator=g, device=cuda))
+        freqs[:, 0] = 1.0
+    proj = torch.randn(B, S, Hq, wide + start, generator=g, device=cuda)
+    k0 = torch.randn(B, S, Hk, r2, generator=g, device=cuda)
+    gq = torch.randn(B, S, Hq, r2, generator=g, device=cuda)
+    gk = torch.randn(B, S, Hk, r2, generator=g, device=cuda)
+    pos = torch.randint(0, 4097, (B, S) if per_lane else (S,), generator=g, device=cuda)
+    grads = {}
+    for name, fn in (("kernel", ops.rope_elite_qk), ("plain", ref.rope_elite_qk_ref)):
+        p, k = proj.clone().requires_grad_(True), k0.clone().requires_grad_(True)
+        before = ops.launches()["rope_elite_backward"]
+        qo, ko = fn(p[..., start:start + r2], k, pos, freqs, Hq // rows, Hk // rows)
+        grads[name] = torch.autograd.grad((qo * gq).sum() + (ko * gk).sum(), (p, k))
+        torch.cuda.synchronize()
+        assert ops.launches()["rope_elite_backward"] == before + (name == "kernel")
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(got, want, **ROPE_TOL)
+    assert not grads["kernel"][0][..., :start].any()
+    assert not grads["kernel"][0][..., start + r2:].any()
+
+
+def test_rope_one_tensor_backward_kernel_matches_plain_autograd(cuda):
+    """The one-tensor entry (the full RoPE's broadcast frequency row) under
+    autograd: one backward launch, the plain version's gradient."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x0 = torch.randn(2, 300, 8, 64, generator=g, device=cuda)
+    gy = torch.randn(2, 300, 8, 64, generator=g, device=cuda)
+    pos = torch.arange(300, device=cuda)
+    freqs = rope.chunk_freqs(64, 10000.0, device=cuda).expand(8, 32)
+    out = {}
+    for name, fn in (("kernel", ops.rope_elite), ("plain", ref.rope_elite_ref)):
+        x = x0.clone().requires_grad_(True)
+        before = ops.launches()["rope_elite_backward"]
+        out[name], = torch.autograd.grad((fn(x, pos, freqs) * gy).sum(), (x,))
+        torch.cuda.synchronize()
+        assert ops.launches()["rope_elite_backward"] == before + (name == "kernel")
+    torch.testing.assert_close(out["kernel"], out["plain"], **ROPE_TOL)
+
+
+@pytest.mark.parametrize("entry", ["elite_decode_paged", "elite_decode_paged_q8",
+                                   "elite_decode_sparse_paged",
+                                   "elite_decode_sparse_paged_q8", "elite_verify_paged",
+                                   "elite_verify_paged_q8", "elite_decode", "flash_prefill"])
+def test_kernels_without_backward_raise_under_grad(entry, cuda):
+    """A CUDA input that requires grad under grad mode makes a kernel that
+    has no backward raise, naming it; under no_grad it runs."""
+    nh, nkv, r2, dc, dh = WIDTHS["tinyllama_1_1b"]
+    if entry == "flash_prefill":
+        args = _flash_case(cuda, nh, nkv, dh, 4, 8, 16, seed=1)
+    elif entry == "elite_decode":
+        g = torch.Generator(device=cuda).manual_seed(2)
+        f = lambda *s: torch.randn(s, generator=g, device=cuda)
+        c = f(2, 64, dc)
+        args = (f(2, nh, r2), f(2, nh, dc), f(2, 64, nkv, r2), c, c,
+                torch.tensor([5, 64], dtype=torch.int32, device=cuda), nh // nkv, dh ** -0.5)
+    else:
+        verify = "verify" in entry
+        x, G, bs = (_verify_inputs(cuda, nh, nkv, r2, dc, False, 3) if verify
+                    else _decode_inputs(cuda, nh, nkv, r2, dc, False))
+        pages = _quantize(x) if entry.endswith("_q8") else [x["k_e"], x["c_k"], x["c_v"]]
+        walk = (_selection(x, bs, 4, 3) if "sparse" in entry else
+                (x["bt"], x["offs"], x["lengths"]) if verify else (x["bt"], x["lengths"]))
+        args = (x["q_e"], x["q_lat"], *pages, *walk, G, dh ** -0.5, bs)
+    leaf = args[0].detach().clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match=entry):
+        getattr(ops, entry)(leaf, *args[1:])
+    with torch.no_grad():
+        getattr(ops, entry)(leaf, *args[1:])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["jlrd", "baseline"])
+def test_training_gradients_on_card_match_cpu(kind, cuda):
+    """A reduced model's loss gradient on the card, through the rotary
+    kernel forward and backward (2 forward launches per layer under full
+    remat, 1 backward), equals the CPU's plain-rotation gradient for every
+    leaf (1e-4 of the leaf's largest, f32 summed in another order); wk_e
+    gets one."""
+    cfg = get_config("tinyllama_1_1b").reduced(vocab_size=128)
+    if kind == "jlrd":
+        cfg = cfg.with_elitekv(elite_r=4, d_ckv=64)
+    params, buffers = lm.init(cfg, seed=0, device="cpu")
+    move = lambda t: {k: move(v) for k, v in t.items()} if isinstance(t, dict) else \
+        [move(v) for v in t] if isinstance(t, list) else t.to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, 128, (2, 65)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    from repro_torch.tree import items
+    grads = {}
+    for where, (p, b) in (("cpu", (params, buffers)), ("cuda", (move(params), move(buffers)))):
+        names, leaves = zip(*items(p))
+        for t in leaves:
+            t.requires_grad_(True)
+        ops.reset_launches()
+        loss, _ = lm.loss_fn(p, b, cfg, {k: v.to(where) for k, v in batch.items()})
+        grads[where] = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        if where == "cuda":
+            torch.cuda.synchronize()
+            n = {k: v for k, v in ops.launches().items() if v}
+            assert n == {"rope_elite": 2 * cfg.num_layers,
+                         "rope_elite_backward": cfg.num_layers}, n
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name].cpu()
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-7, name
+    if kind == "jlrd":
+        assert float(grads["cuda"]["layers/0/attn/wk_e"].abs().max()) > 0
