@@ -13,8 +13,9 @@ non-zero:
    body) and the decode and verify plans at both model widths (kv heads
    and query rows per CTA, stages, shared memory, splits, CTAs), whose
    shared memory must be the kernel source's layout; then the plans of
-   LLaMA2-7B (half cache), LLaMA2-13B, Yi-6B, Granite-3.0-2B and
-   MiniCPM-2B at half and a quarter cache, J- and S-LRD, f32 and int8,
+   LLaMA2-7B (half cache), LLaMA2-13B, Yi-6B, Granite-3.0-2B, MiniCPM-2B
+   and the attention layers of Qwen3-MoE-235B (G = 16), Jamba-v0.1 and
+   Arctic (G = 7) at half and a quarter cache, J- and S-LRD, f32 and int8,
    W = 1, 5 and 9, the verify windows that one kv head per CTA cannot hold
    cut into parts of fewer positions (LLaMA2-13B f32 at W = 5 must cut).
 2. Hold each kernel against its plain PyTorch version on the card at
@@ -44,13 +45,17 @@ non-zero:
    ``elite_verify_paged`` beside short lanes, beside a 600-row lane and
    with a wider table, and through ``flash_prefill``'s decode body beside
    lanes of other kv_len and at a larger Sk, all equal bit for bit.
-   At the other dense architectures' widths: every decode entry and both
+   At the other architectures' widths: every decode entry and both
    verify entries (W = 1, 3, 5, 9; LLaMA2-13B's windows cut) at LLaMA2-13B
-   half cache (40 kv heads, G = 1, 2r = 64, d_c = 2560) and MiniCPM-2B
-   quarter cache (36 kv heads, 2r = 16, d_c = 512), J- and S-LRD; a
-   forced cut at LLaMA2-7B quarter cache giving the uncut call's bits;
-   ``rope_elite_qk`` at 40/40 and 36/36 heads (full and elite) and with
-   Yi-6B's base 5e6; ``flash_prefill`` at 40/40 heads of 128.
+   half cache (40 kv heads, G = 1, 2r = 64, d_c = 2560), MiniCPM-2B
+   quarter cache (36 kv heads, 2r = 16, d_c = 512) and at a quarter cache
+   Qwen3-MoE (4 kv heads of 16 queries, 2r = 32, d_c = 128), Jamba (8 of
+   4, d_c = 256) and Arctic (8 of 7, d_c = 256), J- and S-LRD; a forced
+   cut at LLaMA2-7B quarter cache giving the uncut call's bits;
+   ``rope_elite_qk`` at 40/40 and 36/36 heads (full and elite), with
+   Yi-6B's base 5e6, and at Qwen3-MoE (64/4, base 1e6), Jamba (32/8) and
+   Arctic (56/8); ``flash_prefill`` at 40/40, 64/4, 32/8 and 56/8 heads
+   of 128.
 3. Serve TinyLlama-1.1B at full width (22 layers, d 2048, EliteKV r=8,
    d_ckv=64) with random weights from a seeded ``torch.Generator`` — not
    the reference's weights, since the card has no JAX.  Each run sets the
@@ -153,6 +158,31 @@ non-zero:
       f32 weights): 6 greedy requests plain, then k = 4 speculation with
       the full-rank draft, streams equal apart from near-ties, kernels 40
       times per forward.
+   l. MoE, Mamba and hybrid stacks at full width (after the narrow-model
+      checks below; every earlier model freed, each of these freed before
+      the next is made), each run's kernels launched once per attention
+      layer and forward and nothing else:
+      Qwen3-MoE-235B, 4 of its 94 layers (128 experts top-8, 64/4 heads of
+      128, vocab 151,936; EliteKV r = 16, d_ckv = 128: 4,096 B of cache
+      per token against 16,384; 44.7 GB of f32 weights) serving 3a's 24
+      requests through the paged ``Scheduler``, every token's logits row
+      against ``generate`` of its request alone within LOGIT_TOL (a
+      request is excused only where ``generate``'s routers came within
+      1e-6 of another expert choice, ``tests/routing_margins.py``; a
+      stream may part where rows agree only at a near-tie), one
+      group-size sync per MoE layer and forward, and a profiler window;
+      Jamba-v0.1, one whole period (7 Mamba layers, EliteKV attention at
+      position 3 with r = 16, d_ckv = 256, 4 MoE layers of 16 experts
+      top-2, 4 MLPs; 53.2 GB) through ``generate`` at 8 x (1024 + 128),
+      then cache on == cache off (prefill + decode logits against
+      ``apply_train`` within LOGIT_TOL) and a profiler window;
+      Falcon-Mamba-7B whole (64 layers, 29.1 GB) through ``generate`` at
+      8 x (1024 + 128), launching no kernel.  Card against CPU on the same
+      weights: one Qwen3-MoE and one Jamba MoE FFN on 64 tokens, one Mamba
+      layer's prefill output and state and 16 decode steps (1e-5 of the
+      largest magnitude); ``elite_decode_paged`` and ``flash_prefill`` at
+      Qwen3-MoE's recorded inputs and ``elite_decode`` and
+      ``flash_prefill`` at Jamba's, timed with their bounds.
    Every kernel is re-run on the busiest inputs recorded from its run and
    held against its plain version, twice, with identical bits; a torch.profiler window over 10 steady
    decode steps of 8 lanes, on the f32 pool, on the int8 pool with sparse
@@ -587,7 +617,11 @@ ARCH_ROPE_PAIR_CASES = {"EliteKV 40/40 2r=64": (40, 40, 40, 64, 128, 0),
                         "EliteKV 36/36 2r=16": (36, 36, 36, 16, 64, 0),
                         "full dh=64 36/36": (36, 36, 1, 64, 64, 0),
                         "Yi-6B EliteKV 32/4 2r=32 theta 5e6": (32, 4, 4, 32, 128, 0, 5e6),
-                        "Yi-6B full dh=128 32/4 theta 5e6": (32, 4, 1, 128, 128, 0, 5e6)}
+                        "Yi-6B full dh=128 32/4 theta 5e6": (32, 4, 1, 128, 128, 0, 5e6),
+                        "Qwen3-MoE EliteKV 64/4 2r=32 theta 1e6": (64, 4, 4, 32, 128, 0, 1e6),
+                        "Qwen3-MoE full dh=128 64/4 theta 1e6": (64, 4, 1, 128, 128, 0, 1e6),
+                        "Jamba EliteKV 32/8 2r=32": (32, 8, 8, 32, 128, 0),
+                        "Arctic EliteKV 56/8 2r=32": (56, 8, 8, 32, 128, 0)}
 
 
 def rope_pair_cases(dev, seed, cases=ROPE_PAIR_CASES):
@@ -778,18 +812,17 @@ def check(name: str, err: float, card: str) -> float:
 
 
 def profile_decode(params, buffers, cfg, dev, card: str, label: str, steps: int = 10,
-                   tracer=None, **pool):
+                   tracer=None, stats=None, **pool):
     """Device time by kernel and the card's busy share over ``steps`` steady
     decode steps of 8 lanes (prompts of 512 tokens, prefilled first) on a
     pool configured by ``pool`` (SchedulerConfig fields); a speculative
     config's step is one draft/verify macro-step.  With a ``tracer`` the
     scheduler records into it and the kernel tracer is armed for the
-    window (the tracer holds only the window's events).
+    window (the tracer holds only the window's events).  ``stats`` (a dict)
+    gets the window's wall and busy ms, device events and MoE group-size
+    syncs per step.
     → [(profiler key, device ms, count)] of the window's device rows."""
     import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.runtime import serve_loop
     scfg = serve_loop.SchedulerConfig(
@@ -806,29 +839,48 @@ def profile_decode(params, buffers, cfg, dev, card: str, label: str, steps: int 
     ops.set_kernel_tracer(tracer, device=dev)
     if tracer is not None:
         tracer.clear()
-    torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                sched.step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        kind = "macro-steps" if pool.get("speculate_k") else "decode steps"
+        return profile_window(sched.step, steps, card, f"{label}: {steps} {kind} x 8 lanes",
+                              stats)
     finally:
         ops.set_kernel_tracer(None)
+
+
+def profile_window(step, steps: int, card: str, label: str, stats=None):
+    """torch.profiler over ``steps`` calls of ``step()``: prints the wall
+    time, the device's busy share, device events and MoE group-size syncs
+    per step and the 8 busiest device rows; fills ``stats`` (a dict) with
+    those numbers.  → [(profiler key, device ms, count)] of the device rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import moe
+    torch.cuda.synchronize()
+    syncs = moe.group_size_syncs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    syncs = moe.group_size_syncs - syncs
     # device-side events only (kernels, copies, sets): a CPU op's row repeats
     # the time of the kernels it launched
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in rows)
-    kind = "macro-steps" if pool.get("speculate_k") else "decode steps"
-    print(f"[{card}] profile {label}: {steps} {kind} x 8 lanes: wall {wall_ms:.2f} ms, "
+    events = sum(c for *_, c in rows) / steps
+    print(f"[{card}] profile {label}: wall {wall_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-          f"idle {100 * (1 - busy_ms / wall_ms):.1f}%, "
-          f"{sum(c for *_, c in rows) / steps:.0f} device events per step")
+          f"idle {100 * (1 - busy_ms / wall_ms):.1f}%, {events:.0f} device events per step"
+          + (f", {syncs / steps:.1f} MoE group-size syncs per step" if syncs else ""))
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"[{card}]   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:<6d} {key[:90]}")
+    if stats is not None:
+        stats.update(wall_ms=wall_ms / steps, busy_ms=busy_ms / steps, events=events,
+                     syncs=syncs / steps)
     return rows
 
 
@@ -843,7 +895,7 @@ class Recorder:
 
     def __init__(self, n_layers: int, names=NAMES):
         from repro_torch.core import elite_attention
-        self.ops, self.n = elite_attention.ops, n_layers
+        self.ops, self.n = elite_attention.ops, max(1, n_layers)
         self.orig = {k: getattr(self.ops, k) for k in names}
         self.calls = {k: [] for k in names}
         counts = dict.fromkeys(names, 0)
@@ -865,8 +917,9 @@ class Recorder:
 
 
 def path_kernels(scfg, rep, n_layers: int):
-    """{kernel: launches} a run with this config must have made: its decode
-    kernel once per layer and decode forward (per draft forward, and the
+    """{kernel: launches} a run with this config must have made over
+    ``n_layers`` attention layers: its decode kernel once per attention
+    layer and decode forward (per draft forward, and the
     verify kernel per verify forward, when speculating), ``flash_prefill``
     once per layer and prefill forward, ``rope_elite`` once per layer and
     forward of any kind (q and k together)."""
@@ -886,7 +939,7 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, card: str, setup=None, dr
               tracer=None, metrics=None):
     """Serve ``reqs`` with the counts set to 0 just before and read just
     after; check outputs and that the path's kernels (``path_kernels``) ran
-    22 times per forward and nothing else launched.  ``setup(scheduler)``
+    once per attention layer and forward and nothing else launched.  ``setup(scheduler)``
     runs before the requests are served; ``draws`` (a dict) gets every
     sampled draw (``record_draws``).  With a ``tracer`` the scheduler
     records into it (and meters into ``metrics``) and the kernel tracer is
@@ -896,7 +949,8 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, card: str, setup=None, dr
     import torch
     from repro_torch.kernels import ops
     from repro_torch.runtime import serve_loop
-    rec = Recorder(cfg.num_layers)
+    L = cfg.n_attn_layers
+    rec = Recorder(L)
     dev = params["embed"]["table"].device
     sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=dev, tracer=tracer,
                                  metrics=metrics)
@@ -918,14 +972,14 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, card: str, setup=None, dr
     fwd = (f"{rep.draft_forwards} draft + {rep.decode_steps} verify" if scfg.speculate_k
            else f"{rep.decode_steps} decode")
     print(f"{label} launches: { {k: v for k, v in launches.items() if v} } over {fwd} "
-          f"and {rep.prefill_chunks} prefill forwards x {cfg.num_layers} layers")
+          f"and {rep.prefill_chunks} prefill forwards x {L} attention layers")
     if rep.completed != len(reqs):
         raise AssertionError(f"{label}: {rep.completed}/{len(reqs)} requests finished")
     for r in sched.finished:
         toks = np.asarray(r.generated)
         if len(toks) != r.max_new_tokens or toks.min() < 0 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"{label} request {r.uid}: bad output {toks[:8]}...")
-    want = path_kernels(scfg, rep, cfg.num_layers)
+    want = path_kernels(scfg, rep, L)
     for name, n in want.items():
         if not launches[name] == n > 0:
             raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
@@ -1302,10 +1356,10 @@ def generate_run(label, params, buffers, cfg, prompts, new_tokens: int, want, ca
     ``rope_elite_qk``.  → (tokens, stats, wall_s, recorder, launches)."""
     import numpy as np
     import torch
-    from repro_torch.core.cache import model_cache_floats_per_token
+    from repro_torch.core.cache import model_cache_floats_per_token, ssm_state_floats
     from repro_torch.kernels import ops
     from repro_torch.runtime import serve_loop
-    rec = Recorder(cfg.num_layers, names=tuple(ENTRY.get(k, k) for k in want))
+    rec = Recorder(cfg.n_attn_layers, names=tuple(ENTRY.get(k, k) for k in want))
     dev = params["embed"]["table"].device
     ops.reset_launches()
     try:
@@ -1323,7 +1377,9 @@ def generate_run(label, params, buffers, cfg, prompts, new_tokens: int, want, ca
           f"decode tok/s={stats.decoded_tokens / wall:.1f}, prefill step "
           f"{stats.step_ms[0]:.2f} ms, decode step_ms p50/p95="
           f"{np.percentile(dec, 50):.2f}/{np.percentile(dec, 95):.2f}, measured cache "
-          f"{stats.cache_bytes / 2**20:.2f} MiB ({stats.cache_bytes} B)", flush=True)
+          f"{stats.cache_bytes / 2**20:.2f} MiB ({stats.cache_bytes} B)"
+          + (f", Mamba state {stats.ssm_bytes / 2**20:.2f} MiB ({stats.ssm_bytes} B)"
+             if stats.ssm_bytes else ""), flush=True)
     got = {k: v for k, v in launches.items() if v}
     print(f"{label} launches: {got}")
     if got != want:
@@ -1333,6 +1389,9 @@ def generate_run(label, params, buffers, cfg, prompts, new_tokens: int, want, ca
     cache_want = 4 * model_cache_floats_per_token(cfg) * B * (Sp + new_tokens)
     if stats.cache_bytes != cache_want:
         raise AssertionError(f"{label}: cache {stats.cache_bytes} B, expected {cache_want}")
+    if stats.ssm_bytes != 4 * ssm_state_floats(cfg, B):
+        raise AssertionError(f"{label}: Mamba state {stats.ssm_bytes} B, expected "
+                             f"{4 * ssm_state_floats(cfg, B)}")
     return out, stats, wall, rec, got
 
 
@@ -1522,11 +1581,15 @@ def serving_features(params, buffers, cfg, dev, card: str, base: dict) -> dict:
 # the architectures beyond phase 1's two widths whose decode and verify plans
 # phase 1 prints, at half and a quarter cache (LLaMA2-7B at half only: its
 # quarter is above)
-PLAN_ARCHS = ("llama2_7b", "llama2_13b", "yi_6b", "granite_3_2b", "minicpm_2b")
+PLAN_ARCHS = ("llama2_7b", "llama2_13b", "yi_6b", "granite_3_2b", "minicpm_2b",
+              "qwen3_moe_235b", "jamba_v0_1_52b", "arctic_480b")
 # (arch, ratio) whose decode and verify kernels phase 2 holds to the plain
-# versions: 40 kv heads at 2r = 64, d_c = 2560 (verify cuts its window), and
-# 36 kv heads at 2r = 16, d_c = 512
-PARITY_ARCHS = (("llama2_13b", 0.5), ("minicpm_2b", 0.25))
+# versions: 40 kv heads at 2r = 64, d_c = 2560 (verify cuts its window), 36
+# kv heads at 2r = 16, d_c = 512, and the MoE/hybrid attention widths at a
+# quarter cache: Qwen3-MoE (4 kv heads of 16 queries, 2r = 32, d_c = 128),
+# Jamba (8 of 4, d_c = 256) and Arctic (8 of 7, d_c = 256)
+PARITY_ARCHS = (("llama2_13b", 0.5), ("minicpm_2b", 0.25), ("qwen3_moe_235b", 0.25),
+                ("jamba_v0_1_52b", 0.25), ("arctic_480b", 0.25))
 
 
 def arch_widths(arch: str, ratio: float):
@@ -2115,6 +2178,423 @@ def tied_model(dev, card: str) -> dict:
     return {"plain": prep, "spec": srep, "wall": wall, "init": t_init}
 
 
+# -- MoE, Mamba and hybrid stacks at full width (phase 3l) -----------------------
+
+QWEN_LAYERS = 4             # of Qwen3-MoE-235B's 94 (one layer per period)
+JAMBA_LAYERS = 8            # one whole period of Jamba-v0.1's 32
+MODULE_TOL = 1e-5           # card vs CPU, of the output's largest magnitude (f32)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_vs_cpu(label: str, p, cfg, dev, card: str, seed: int) -> dict:
+    """One MoE FFN (``moe.apply``, ragged) on 64 tokens on the card against
+    the same params and tokens on the CPU: every token's output within
+    MODULE_TOL of the CPU output's largest magnitude, or excused where the
+    CPU router's k-th/(k+1)-th gap is under ROUTE_GAP; the balance loss
+    within 1e-5 relative unless a token was excused.  → numbers printed."""
+    import torch
+    from repro_torch.models import moe
+    from routing_margins import ROUTE_GAP, recorded_gaps
+    x = torch.randn(1, 64, cfg.d_model, generator=torch.Generator().manual_seed(seed))
+    pc = _to(p, "cpu")
+    with recorded_gaps([]) as calls:
+        want, want_aux = moe.apply(pc, cfg, x)
+    del pc
+    got, aux = moe.apply(p, cfg, x.to(dev))
+    d = (got.cpu() - want).abs().amax(-1)[0]
+    tol = MODULE_TOL * float(want.abs().max())
+    near = calls[0] < ROUTE_GAP
+    excused, bad = int(((d > tol) & near).sum()), int(((d > tol) & ~near).sum())
+    aux_rel = abs(float(aux) - float(want_aux)) / float(want_aux)
+    print(f"[{card}] card vs CPU {label} (64 tokens, {cfg.n_experts} experts top-"
+          f"{cfg.top_k}): max |diff| {float(d.max()):.3e} against tol {tol:.3e}, "
+          f"{excused} tokens excused (router gap < {ROUTE_GAP:.0e}; least gap "
+          f"{float(calls[0].min()):.3e}), balance loss rel diff {aux_rel:.2e}", flush=True)
+    if bad or (not excused and aux_rel > 1e-5):
+        raise AssertionError(f"{label}: {bad} tokens past {tol:.3e} with router gaps "
+                             f">= {ROUTE_GAP}, balance loss rel diff {aux_rel}")
+    return dict(max_d=float(d.max()), excused=excused)
+
+
+def mamba_vs_cpu(label: str, p, cfg, dev, card: str, seed: int) -> None:
+    """One Mamba layer on the card against the CPU on the same params: the
+    prefill output and final (conv, ssm) state of 2 x 256 tokens (two scan
+    chunks), then 16 decode steps from that state, each output and the
+    last state within MODULE_TOL of the CPU's largest magnitude."""
+    import torch
+    from repro_torch.models import mamba
+    x = torch.randn(2, 256 + 16, cfg.d_model, generator=torch.Generator().manual_seed(seed))
+    pc = _to(p, "cpu")
+    errs = {}
+
+    def cmp(name, got, want):
+        e = float((got.cpu() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    want, (wc, ws) = mamba.apply_full(pc, cfg, x[:, :256], return_state=True)
+    got, (gc, gs) = mamba.apply_full(p, cfg, x[:, :256].to(dev), return_state=True)
+    cmp("prefill out", got, want)
+    cmp("conv state", gc, wc)
+    cmp("ssm state", gs, ws)
+    ws_, gs_ = {"conv": wc, "ssm": ws}, {"conv": gc, "ssm": gs}
+    for t in range(256, 256 + 16):
+        want, ws_ = mamba.apply_decode(pc, cfg, x[:, t:t + 1], ws_)
+        got, gs_ = mamba.apply_decode(p, cfg, x[:, t:t + 1].to(dev), gs_)
+        cmp("decode out", got, want)
+    cmp("ssm state after decode", gs_["ssm"], ws_["ssm"])
+    print(f"[{card}] card vs CPU {label}: relative max |diff| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {MODULE_TOL:.0e})",
+          flush=True)
+    if max(errs.values()) > MODULE_TOL:
+        raise AssertionError(f"{label}: card vs CPU {errs} past {MODULE_TOL}")
+
+
+def record_greedy_rows(sched, rows: dict):
+    """Keep the logits row every greedy token of ``sched`` is taken from, in
+    ``rows`` under (uid, token index): the row after a completed prefill and
+    each decode step's rows of the decode-ready lanes.  → undo."""
+    from repro_torch.models import lm
+    real, real_first = lm.apply_decode_paged, sched._sample_prefill_token
+
+    def decode(*a, **k):
+        logits = real(*a, **k)
+        for i, req in enumerate(sched.slots):
+            if req is not None and sched._decode_ready(req):
+                rows[req.uid, len(req.generated)] = logits[i, -1].clone()
+        return logits
+
+    def first(req, last_row):
+        rows[req.uid, len(req.generated)] = last_row.clone()
+        return real_first(req, last_row)
+
+    lm.apply_decode_paged, sched._sample_prefill_token = decode, first
+    return lambda: setattr(lm, "apply_decode_paged", real)
+
+
+def generate_rows(params, buffers, cfg, prompt, n_new: int, dev):
+    """``generate`` of one prompt, keeping each token's logits row and the
+    least router gap over the positions its forward routed, prompt included
+    (the running minimum).  → (tokens, rows [n_new, Vp], gaps [n_new])."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.runtime import serve_loop
+    from routing_margins import recorded_gaps
+    rows = []
+    real_p, real_d = lm.apply_prefill, lm.apply_decode
+
+    def keep(fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            rows.append(out[0, -1].clone())
+            return out
+        return run
+
+    lm.apply_prefill, lm.apply_decode = keep(real_p), keep(real_d)
+    try:
+        with recorded_gaps([]) as calls:
+            out, _ = serve_loop.generate(params, buffers, cfg, prompt[None], n_new, device=dev)
+    finally:
+        lm.apply_prefill, lm.apply_decode = real_p, real_d
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+    per_forward = [float(torch.stack([c.min() for c in calls[i:i + n_moe]]).min())
+                   for i in range(0, len(calls), n_moe)]
+    gaps, least = [], float("inf")
+    for g in per_forward:                   # row t comes from forward t
+        least = min(least, g)
+        gaps.append(least)
+    return out[0], torch.stack(rows), gaps
+
+
+def compare_greedy_rows(label: str, sched, rows: dict, params, buffers, cfg, dev,
+                        card: str) -> dict:
+    """The ``Scheduler``'s greedy streams against ``generate`` of each
+    request alone, through the logits row of every token.  Up to where a
+    stream parts, rows must agree within LOGIT_TOL (max abs); a row past it
+    is excused only where ``generate``'s routers came within ROUTE_GAP of
+    another expert choice on that token's context (then the request is
+    compared no further), and a stream may part at a token whose rows agree
+    only where the reference row's top-2 margin is within twice their
+    difference (a near-tie the difference can flip).  Anything else fails,
+    after every request is checked.  → counts."""
+    import torch
+    from routing_margins import ROUTE_GAP
+    st = dict(tokens=0, bitwise=0, max_d=0.0, routing=0, near_tie=0)
+    bad = []
+    for req in sorted(sched.finished, key=lambda r: r.uid):
+        want, grows, gaps = generate_rows(params, buffers, cfg, req.prompt,
+                                          req.max_new_tokens, dev)
+        got = list(req.generated)
+        R = torch.stack([rows[req.uid, t] for t in range(len(got))])
+        d = (grows.double() - R.double()).abs().amax(-1).cpu().numpy()
+        part = [t for t in range(len(got)) if got[t] != int(want[t]) or d[t] > LOGIT_TOL]
+        n = part[0] + 1 if part else len(got)
+        st["tokens"] += n
+        st["bitwise"] += int((d[:n] == 0).sum())
+        st["max_d"] = max(st["max_d"], float(d[:n][d[:n] <= LOGIT_TOL].max(initial=0.0)))
+        if not part:
+            continue
+        t = part[0]
+        if d[t] > LOGIT_TOL:
+            if gaps[t] < ROUTE_GAP:
+                st["routing"] += 1
+                print(f"[{card}] {label} request {req.uid}: rows differ by {d[t]:.3e} at "
+                      f"token {t}, excused: least router gap {gaps[t]:.3e}", flush=True)
+            else:
+                bad.append(f"request {req.uid}: rows differ by {d[t]:.3e} > {LOGIT_TOL} at "
+                           f"token {t}, least router gap {gaps[t]:.3e}")
+            continue
+        top = torch.topk(grows[t].double(), 2).values
+        margin = float(top[0] - top[1])
+        st["near_tie"] += 1
+        print(f"[{card}] {label} request {req.uid}: token {t} is {got[t]} against "
+              f"{int(want[t])}; rows differ by {d[t]:.3e}, reference margin {margin:.3e}",
+              flush=True)
+        if not margin <= 2 * d[t] + FLIP_SLACK * float(grows[t].abs().max()):
+            bad.append(f"request {req.uid}: parted at token {t} with margin {margin:.3e}")
+    print(f"[{card}] {label}: {st['tokens']} tokens' rows compared with generate's: bitwise "
+          f"equal {st['bitwise']}, max |logits difference| {st['max_d']:.3e} (limit "
+          f"{LOGIT_TOL}); {st['routing']} requests excused by routing, {st['near_tie']} "
+          f"parted at near-ties", flush=True)
+    if bad:
+        raise AssertionError(f"{label}: " + "; ".join(bad))
+    return st
+
+
+def profile_lockstep(params, buffers, cfg, dev, card: str, label: str, stats: dict,
+                     B: int = 8, prompt: int = 512, steps: int = 10) -> None:
+    """A profiler window over ``steps`` lockstep decode steps of ``B`` lanes
+    after a ``prompt``-token prefill and 3 decode steps (``lm.apply_prefill``
+    / ``apply_decode`` over ``init_cache``, as ``generate`` runs them)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    cache = lm.init_cache(cfg, B, prompt + steps + 4, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (B, prompt))).to(dev)
+    with torch.no_grad():
+        nxt = lm.apply_prefill(params, buffers, cfg, toks, cache)[:, -1].argmax(-1)
+        state = {"nxt": nxt}
+
+        def step():
+            state["nxt"] = lm.apply_decode(params, buffers, cfg, state["nxt"][:, None],
+                                           cache)[:, -1].argmax(-1)
+        for _ in range(3):
+            step()
+        profile_window(step, steps, card, f"{label}: {steps} decode steps x {B} lanes",
+                       stats)
+
+
+def kernel_subrow(label: str, name: str, a, launches: int, card: str, flush) -> dict:
+    """One kernel at a recorded 3l input: held to its plain version
+    (``check``), timed beside it, its bound (``flash_prefill``'s prefill
+    body at the 3xTF32 rate, as phase 4) and (flash_prefill) SDPA's time."""
+    from repro_torch.kernels import elite_decode as ed
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ref
+    lib, peak = None, PEAK_F32_FLOPS
+    if name == "flash_prefill":
+        x = dict(q=a[0], k=a[1], v=a[2], G=a[3], scale=a[4], offs=a[5], lens=a[6])
+        nbytes, flops = prefill_cost(x)
+        if fp.plan_for(*a).body == "prefill":
+            peak = PEAK_3XTF32_FLOPS
+        fn, plain = (lambda: run_prefill(x)), (lambda: run_prefill(x, plain=True))
+        lib = time_ms(sdpa_call(x), flush=flush)
+        shape = f"q={tuple(x['q'].shape)} k={tuple(x['k'].shape)}"
+    elif name == "elite_decode":
+        nbytes, flops = contig_decode_cost(a)
+        fn, plain = (lambda: ed.elite_decode(*a)), (lambda: ref.elite_decode_ref(*a))
+        shape = f"q_e={tuple(a[0].shape)} k_e={tuple(a[2].shape)} rows {int(a[5].sum())}"
+    else:
+        nbytes, flops = decode_cost(name, a)
+        fn, plain = (lambda: run_decode(name, a)), (lambda: run_decode(name, a, plain=True))
+        shape = f"q_e={tuple(a[0].shape)} visited rows {visited_rows(name, a)}"
+    err = check(f"{name} at {label}", max_err(fn(), plain()), card)
+    t_bound, by = bound(nbytes, flops, peak)
+    r = dict(name=name, at=label, launches=launches, max_abs_err=err,
+             ms=time_ms(fn, flush=flush), plain_ms=time_ms(plain, flush=flush),
+             bound_ms=t_bound, bound_by=by, library_ms=lib)
+    print(f"[{card}] 3l kernel {name} at {label} ({shape}): {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {t_bound:.5f} ms ({by}: {nbytes} B, {flops} flop), "
+          f"SDPA {'n/a' if lib is None else f'{lib:.4f} ms'}, launches {launches}",
+          flush=True)
+    return r
+
+
+def moe_mamba_hybrid(dev, card: str) -> dict:
+    """Phase 3l: Qwen3-MoE (4 full-width layers) through the paged
+    ``Scheduler``, one full-width period of Jamba-v0.1 and the whole of
+    Falcon-Mamba-7B through ``generate``, card vs CPU module checks, and
+    the kernels at the new attention shapes.  → numbers for the summary."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.cache import model_cache_floats_per_token
+    from repro_torch.launch.serve import build_config, make_stream
+    from repro_torch.models import lm, moe
+    from repro_torch.runtime import serve_loop
+    t_phase = time.perf_counter()
+    flush = torch.empty(64 * 2**20 // 4, device=dev).zero_       # > the 50 MB L2
+    _free_card()
+    # what the earlier phases still hold (recorded kernel inputs, pools):
+    # part of every peak below
+    out = {"subrows": [], "held": torch.cuda.memory_allocated()}
+    print(f"[{card}] 3l: {out['held'] / 2**30:.2f} GiB allocated on the card before the "
+          f"first model (earlier phases' recorded inputs and pools)", flush=True)
+
+    def weights(params):
+        return sum(t.numel() * t.element_size() for t in _tensors(params))
+
+    # a. Qwen3-MoE-235B, 4 of 94 layers, through the paged Scheduler
+    cfg = dataclasses.replace(build_config("qwen3_moe_235b", reduced=False, cache_ratio=0.25),
+                              num_layers=QWEN_LAYERS)
+    e = cfg.elitekv
+    base_cfg = dataclasses.replace(cfg, elitekv=dataclasses.replace(e, enabled=False))
+    per_tok, base_tok = (4 * model_cache_floats_per_token(c) for c in (cfg, base_cfg))
+    assert (cfg.d_model, cfg.n_experts, cfg.top_k, e.elite_r, e.d_ckv, cfg.n_attn_layers,
+            per_tok, base_tok) == (4096, 128, 8, 16, 128, 4, 4096, 16384), cfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, buffers = lm.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"[{card}] 3l a. Qwen3-MoE-235B, {QWEN_LAYERS} of 94 layers at full width: "
+          f"{weights(params) / 1e9:.2f} GB of f32 weights made in "
+          f"{time.perf_counter() - t0:.1f} s; EliteKV r={e.elite_r} d_ckv={e.d_ckv}: cache "
+          f"{per_tok} B per token over the {QWEN_LAYERS} layers against {base_tok} for the "
+          f"baseline", flush=True)
+    scfg = serve_loop.SchedulerConfig(max_slots=8, block_size=16, num_blocks=8 * 64,
+                                      max_new_tokens=128, max_len=1024,
+                                      prefill_chunk_tokens=256, prefill_batch_lanes=8)
+    reqs = make_stream(cfg, 24, rate=0.5, prompt_len=768, new_tokens=128, seed=0,
+                       prompt_min=64, new_min=32)
+    rows, undo = {}, []
+    syncs = moe.group_size_syncs
+    try:
+        rep, launches, rec, sched = serve_run(
+            "3l Qwen3-MoE f32 24 requests", params, buffers, cfg, scfg, reqs, card,
+            setup=lambda s: undo.append(record_greedy_rows(s, rows)))
+    finally:
+        for u in undo:
+            u()
+    syncs = moe.group_size_syncs - syncs
+    forwards = rep.decode_steps + rep.prefill_chunks
+    if syncs != QWEN_LAYERS * forwards:
+        raise AssertionError(f"Qwen3-MoE: {syncs} group-size syncs over {forwards} forwards")
+    a = dict(rep=rep, peak=torch.cuda.max_memory_allocated(), syncs=syncs / forwards,
+             launches=launches)
+    a["cmp"] = compare_greedy_rows("3l Qwen3-MoE Scheduler vs generate", sched, rows,
+                                   params, buffers, cfg, dev, card)
+    del rows, sched
+    a["profile"] = {}
+    profile_decode(params, buffers, cfg, dev, card, "3l Qwen3-MoE f32", stats=a["profile"])
+    moe_vs_cpu("Qwen3-MoE FFN, layer 0", params["layers"][0]["ffn"], cfg, dev, card, 11)
+    calls = rec.calls["elite_decode_paged"]
+    busy = max(calls, key=lambda c: visited_rows("elite_decode_paged", c))
+    chunk = max(rec.calls["flash_prefill"], key=lambda c: int(c[6].sum()))
+    del params, buffers, rec
+    _free_card()
+    out["subrows"] += [
+        kernel_subrow("Qwen3-MoE busiest decode", "elite_decode_paged", busy,
+                      launches["elite_decode_paged"], card, flush),
+        kernel_subrow("Qwen3-MoE busiest prefill chunk", "flash_prefill", chunk,
+                      launches["flash_prefill"], card, flush)]
+    del busy, chunk, calls
+    out["qwen"] = a
+
+    # b. Jamba-v0.1, one whole period (8 of 32 layers), through generate
+    cfg = dataclasses.replace(build_config("jamba_v0_1_52b", reduced=False, cache_ratio=0.25),
+                              num_layers=JAMBA_LAYERS)
+    e = cfg.elitekv
+    kinds = [(cfg.layer_kind(i), cfg.ffn_kind(i)) for i in range(JAMBA_LAYERS)]
+    assert (cfg.attn_layer_indices, e.elite_r, e.d_ckv, cfg.n_experts, cfg.top_k) == \
+        ((3,), 16, 256, 16, 2), cfg
+    assert [k for k, _ in kinds].count("ssm") == 7 and \
+        [f for _, f in kinds].count("moe") == 4 == [f for _, f in kinds].count("mlp")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, buffers = lm.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"[{card}] 3l b. Jamba-v0.1, one period ({JAMBA_LAYERS} of 32 layers: {kinds}) at "
+          f"full width: {weights(params) / 1e9:.2f} GB of f32 weights made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    B, P, N = 8, 1024, 128
+    prompts = np.random.default_rng(12).integers(0, cfg.vocab_size, (B, P))
+    syncs = moe.group_size_syncs
+    _, gstats, gwall, grec, glaunches = generate_run(
+        "3l generate Jamba period", params, buffers, cfg, prompts, N,
+        {"elite_decode": N - 1, "flash_prefill": 1, "rope_elite": N}, card)
+    syncs = moe.group_size_syncs - syncs
+    if syncs != 4 * N:
+        raise AssertionError(f"Jamba: {syncs} group-size syncs over {N} forwards")
+    b = dict(stats=gstats, wall=gwall, peak=torch.cuda.max_memory_allocated(), syncs=syncs / N)
+    # cache on == cache off on a short prompt
+    toks = torch.from_numpy(np.random.default_rng(13).integers(0, cfg.vocab_size,
+                                                               (2, 68))).to(dev)
+    from routing_margins import ROUTE_GAP, min_gap_per_token, recorded_gaps
+    with torch.no_grad():
+        with recorded_gaps([]) as calls:
+            full = lm.apply_train(params, buffers, cfg, toks)
+        least = float(min_gap_per_token([c.cpu() for c in calls], 2 * 68).min())
+        cache = lm.init_cache(cfg, 2, 68, device=dev)
+        d = [float((lm.apply_prefill(params, buffers, cfg, toks[:, :64], cache)
+                    - full[:, :64]).abs().max())]
+        for t in range(64, 68):
+            d.append(float((lm.apply_decode(params, buffers, cfg, toks[:, t:t + 1], cache)
+                            - full[:, t:t + 1]).abs().max()))
+    del full, cache
+    print(f"[{card}] 3l Jamba cache on == cache off, 2 x (64 prefill + 4 decode): max |logits "
+          f"difference| prefill {d[0]:.3e}, decode {max(d[1:]):.3e} (limit {LOGIT_TOL}); "
+          f"least router gap {least:.3e}", flush=True)
+    if max(d) > LOGIT_TOL and not least < ROUTE_GAP:
+        raise AssertionError(f"Jamba cache on != cache off: {d}")
+    b["cache_d"] = max(d)
+    b["profile"] = {}
+    profile_lockstep(params, buffers, cfg, dev, card, "3l Jamba period", b["profile"])
+    moe_vs_cpu("Jamba MoE FFN, layer 1", params["layers"][1]["ffn"], cfg, dev, card, 14)
+    mamba_vs_cpu("Jamba Mamba layer 0", params["layers"][0]["attn"], cfg, dev, card, 15)
+    dec = max(grec.calls["elite_decode"], key=lambda c: int(c[5].sum()))
+    pre = grec.calls["flash_prefill"][0]
+    del params, buffers, grec
+    _free_card()
+    out["subrows"] += [
+        kernel_subrow("Jamba generate decode", "elite_decode", dec,
+                      glaunches["elite_decode"], card, flush),
+        kernel_subrow("Jamba generate prefill", "flash_prefill", pre,
+                      glaunches["flash_prefill"], card, flush)]
+    del dec, pre
+    out["jamba"] = b
+
+    # c. Falcon-Mamba-7B, all 64 layers, through generate: no kernel runs
+    cfg = build_config("falcon_mamba_7b", reduced=False, cache_ratio=0.25)
+    assert (cfg.num_layers, cfg.n_attn_layers, cfg.d_inner, cfg.elitekv.enabled) == \
+        (64, 0, 8192, False), cfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, buffers = lm.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"[{card}] 3l c. Falcon-Mamba-7B, all 64 layers: {weights(params) / 1e9:.2f} GB of "
+          f"f32 weights made in {time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = np.random.default_rng(16).integers(0, cfg.vocab_size, (B, P))
+    _, fstats, fwall, _, _ = generate_run("3l generate Falcon-Mamba", params, buffers, cfg,
+                                          prompts, N, {}, card)
+    out["falcon"] = dict(stats=fstats, wall=fwall, peak=torch.cuda.max_memory_allocated())
+    del params, buffers
+    _free_card()
+    out["wall"] = time.perf_counter() - t_phase
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2305,19 +2785,25 @@ def main() -> int:
         for label, a in cases.items():
             errs["rope_elite"] = max(errs["rope_elite"], rope_check(
                 f"{entry} {label}", kernel(*a), plain(*a), card))
-    # the other dense architectures' widths: decode and verify (LLaMA2-13B at
-    # half cache cuts its verify windows), and flash_prefill at 40/40 heads
+    # the other architectures' widths: decode and verify (LLaMA2-13B at half
+    # cache cuts its verify windows), and flash_prefill at 40/40 heads and at
+    # Qwen3-MoE's 64/4, Jamba's 32/8 and Arctic's 56/8 heads of 128
     t0 = time.perf_counter()
     arch_parity(dev, card, errs)
-    for label, x in {"40/40 dh=128": random_prefill(dev, 40, 40, 128, seed=90),
-                     **{f"40/40 dh=128 {k}": v for k, v in flash_cases(
-                         dev, 40, 40, 128, seed=91).items()}}.items():
+    wide = {}
+    for i, (tag, nh, nkv) in enumerate((("40/40", 40, 40), ("Qwen3-MoE 64/4", 64, 4),
+                                        ("Jamba 32/8", 32, 8), ("Arctic 56/8", 56, 8))):
+        wide[f"{tag} dh=128"] = random_prefill(dev, nh, nkv, 128, seed=90 + 2 * i)
+        wide.update({f"{tag} dh=128 {k}": v for k, v in flash_cases(
+            dev, nh, nkv, 128, seed=91 + 2 * i).items()})
+    for label, x in wide.items():
         got = run_prefill(x)
         errs["flash_prefill"] = max(errs["flash_prefill"], check(
             f"flash_prefill {label}", max_err(got, run_prefill(x, plain=True)), card))
         if float(got[3].abs().max()) != 0.0:
             raise AssertionError("a kv_len = 0 lane did not give exact zeros")
-    print(f"[{card}] phase 2 at the other dense architectures' widths: "
+    del wide, got
+    print(f"[{card}] phase 2 at the other architectures' widths: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 3. the main paths at full width ------------------------------------
@@ -2570,6 +3056,10 @@ def main() -> int:
                                  f"{got.tolist()} != CPU tokens {want.tolist()}")
         print(f"narrow model generate {label}: card tokens == CPU tokens", flush=True)
 
+    # l. MoE, Mamba and hybrid stacks at full width, each model freed before
+    # the next is made (every earlier phase's model is gone by now)
+    hyb = moe_mamba_hybrid(dev, card)
+
     # -- 4. times at the main paths' shapes ----------------------------------
     scratch = torch.empty(64 * 2**20 // 4, device=dev)      # > the 50 MB L2
     flush = scratch.zero_
@@ -2818,6 +3308,39 @@ def main() -> int:
               f"{t_out:.3f} ms ({nbytes / t_out / 1e6:.2f} GB/s), in {t_in:.3f} ms "
               f"({nbytes / t_in / 1e6:.2f} GB/s), host clock, median of 5", flush=True)
 
+    # phase 3l's numbers
+    q, jb, fm = hyb["qwen"], hyb["jamba"], hyb["falcon"]
+    r = q["rep"]
+    print(f"[{card}] 3l Qwen3-MoE 4 layers, Scheduler f32 24 requests: decode tok/s="
+          f"{r.tok_per_s:.1f} ttft_ms p50/p95={r.ttft_wall_p50_ms:.1f}/{r.ttft_wall_p95_ms:.1f} "
+          f"step_ms p50/p95={r.step_ms_p50:.2f}/{r.step_ms_p95:.2f} wall_s={r.wall_s:.2f}, "
+          f"peak memory {q['peak'] / 2**30:.2f} GiB ({hyb['held'] / 2**30:.2f} held "
+          f"before), pool {r.pool_bytes_per_token} B per "
+          f"token (attention), SSM 0 B, group-size syncs {q['syncs']:.1f} per forward; "
+          f"profile: {q['profile']['wall_ms']:.2f} ms per decode step, "
+          f"{q['profile']['events']:.0f} device events and {q['profile']['syncs']:.1f} "
+          f"syncs per step, device busy {q['profile']['busy_ms']:.2f} ms per step",
+          flush=True)
+    for label, x in (("Jamba period", jb), ("Falcon-Mamba 64 layers", fm)):
+        st = x["stats"]
+        dec = np.asarray(st.step_ms[1:])
+        prof = x.get("profile")
+        print(f"[{card}] 3l {label}, generate 8 x (1024 + 128): decode tok/s="
+              f"{st.decoded_tokens / x['wall']:.1f} prefill_ms={st.step_ms[0]:.2f} step_ms "
+              f"p50/p95={np.percentile(dec, 50):.2f}/{np.percentile(dec, 95):.2f} "
+              f"wall_s={x['wall']:.2f}, peak memory {x['peak'] / 2**30:.2f} GiB "
+              f"({hyb['held'] / 2**30:.2f} held before), attention "
+              f"cache {st.cache_bytes} B, SSM state {st.ssm_bytes} B"
+              + (f", group-size syncs {x['syncs']:.1f} per decode step; profile: "
+                 f"{prof['wall_ms']:.2f} ms per decode step, {prof['events']:.0f} device "
+                 f"events and {prof['syncs']:.1f} syncs per step, device busy "
+                 f"{prof['busy_ms']:.2f} ms per step" if prof else ""), flush=True)
+    for r in hyb["subrows"]:
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[{card}] 3l {r['name']} at {r['at']}: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+              f"SDPA {lib}, launches {r['launches']}", flush=True)
+
     # -- 5. result lines -----------------------------------------------------
     t = train3k
     print(f"[{card}] uptraining (3k): step_ms p50 {t['step_ms_p50']:.1f}, tokens/s "
@@ -2825,7 +3348,8 @@ def main() -> int:
           f"{100 * t['mfu']:.1f}% of 67 TFLOP/s, losses {t['losses'][0]:.4f} -> "
           f"{t['losses'][-1]:.4f}", flush=True)
     print(f"[{card}] phases 3i (conversion) {conv['phase']:.1f} s, 3k (training) "
-          f"{t['phase']:.1f} s and 3j (MiniCPM-2B) {tied['wall']:.1f} s; the whole script "
+          f"{t['phase']:.1f} s, 3j (MiniCPM-2B) {tied['wall']:.1f} s and 3l (MoE, Mamba, "
+          f"hybrid) {hyb['wall']:.1f} s; the whole script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))

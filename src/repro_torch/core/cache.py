@@ -4,7 +4,9 @@ admission/eviction policy.
 Counterpart of the JAX package's ``core/cache.py``, for a pool on one
 device.  Size formulas (paper §3.2), per token per attention layer, in
 floats: ``2 · n_kv · d_h`` for the baseline, ``2 · r · n_kv + d_ckv`` under
-RoPElite + J-LRD (``+ d_ck + d_cv`` under S-LRD).  ``PagedKVPool`` stores
+RoPElite + J-LRD (``+ d_ck + d_cv`` under S-LRD); Mamba layers hold a
+per-sequence state instead (``ssm_state_floats``).  ``PagedKVPool`` pages
+attention-only stacks (dense or MoE) and refuses any other: it stores
 the compressed ``(k_e, c)`` streams of every attention layer in fixed-size
 token blocks shared across sequences;
 sequences own ragged chains of blocks through per-sequence block tables,
@@ -169,8 +171,17 @@ def attn_cache_floats_per_token(cfg: ModelConfig) -> int:
 
 
 def model_cache_floats_per_token(cfg: ModelConfig) -> int:
-    """Every layer of the port's stacks is an attention layer."""
-    return cfg.num_layers * attn_cache_floats_per_token(cfg)
+    """Cache floats per token over the attention layers (Mamba layers keep
+    no per-token cache)."""
+    return cfg.n_attn_layers * attn_cache_floats_per_token(cfg)
+
+
+def ssm_state_floats(cfg: ModelConfig, batch: int) -> int:
+    """Floats of Mamba state for ``batch`` sequences, whatever their length:
+    each SSM layer's conv window and ``d_inner × N`` state."""
+    n_ssm = sum(1 for i in range(cfg.num_layers) if cfg.layer_kind(i) == "ssm")
+    per = (cfg.ssm_conv - 1) * cfg.d_inner + cfg.d_inner * cfg.ssm_state
+    return n_ssm * per * batch
 
 
 def cache_ratio(cfg_elite: ModelConfig, cfg_base: ModelConfig) -> float:
@@ -182,11 +193,17 @@ def cache_ratio(cfg_elite: ModelConfig, cfg_base: ModelConfig) -> float:
 
 def measured_cache_bytes(cache, batch: int, max_len: int) -> Dict[str, int]:
     """Bytes held by a live contiguous cache (``lm.init_cache``), split
-    attention vs SSM state as the reference reports them (the port has no
-    SSM layers, so ``ssm_bytes`` is 0)."""
-    attn = sum(t.numel() * t.element_size()
-               for layer in cache["blocks"].values() for t in layer.values())
-    return {"attn_bytes": attn, "ssm_bytes": 0,
+    attention rows vs Mamba ``conv``/``ssm`` state as the reference reports
+    them."""
+    attn = ssm = 0
+    for layer in cache["blocks"].values():
+        for name, t in layer.items():
+            nbytes = t.numel() * t.element_size()
+            if name in ("conv", "ssm"):
+                ssm += nbytes
+            else:
+                attn += nbytes
+    return {"attn_bytes": attn, "ssm_bytes": ssm,
             "attn_bytes_per_token": attn // (batch * max_len)}
 
 
@@ -255,6 +272,8 @@ class PagedKVPool:
     ``n_slots = num_blocks · block_size``; token ``t`` of block ``b`` lives at
     flat slot ``b · block_size + t``.  ``dtype`` is ``"float32"`` or
     ``"int8"`` (or the torch dtype).  ``tracer`` receives the pool events.
+    Only attention-only stacks of one layer position page (dense, or MoE
+    in every layer); any other is a ``ValueError``.
     """
 
     def __init__(self, cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -262,6 +281,12 @@ class PagedKVPool:
                  tracer=None):
         if not cfg.elitekv.enabled:
             raise ValueError("the paged pool stores EliteKV compressed streams only")
+        if cfg.n_attn_layers != cfg.num_layers:
+            raise ValueError("paged serving supports attention-only stacks: "
+                             f"{cfg.name} has Mamba layers (serve it with generate)")
+        if cfg.block_period != 1:
+            raise ValueError(f"the paged pool holds one layer position; {cfg.name} "
+                             f"repeats every {cfg.block_period} layers")
         quantized = quant.is_int8(dtype)
         if not quantized and dtype not in ("float32", torch.float32):
             raise ValueError(f"pool dtype {dtype!r}: expected 'float32' or 'int8'")

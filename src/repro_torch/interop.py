@@ -4,9 +4,13 @@ The JAX model's ``(params, buffers)`` and AdamW state arrive as nested dicts
 of **numpy** arrays (a caller holding JAX arrays maps ``np.asarray`` over
 them first), so the port never sees a JAX type; a bf16 array arrives as
 2-byte records, which is what numpy makes of one, and becomes a bf16
-tensor.  The reference stacks layers along a leading ``n_super`` axis under
-``params["blocks"]["p0"]``; the port keeps one dict per layer, so that axis
-is unstacked here.  Leaf names are unchanged.
+tensor.  The reference groups layers into superblocks of ``P =
+cfg.block_period`` positions and stacks position ``pos`` of every
+superblock along a leading ``n_super`` axis under
+``params["blocks"]["p{pos}"]``; the port keeps one dict per layer in
+absolute order, so reference ``p{pos}`` entry ``s`` becomes port layer
+``s·P + pos`` (attention or Mamba mixer, MLP or MoE FFN alike; a position's
+buffers are ``{}`` where it holds no attention).  Leaf names are unchanged.
 """
 from __future__ import annotations
 
@@ -36,31 +40,34 @@ def _whole(tree, device):
     return tensor_from_numpy(tree, device)
 
 
-def _blocks(tree):
-    if set(tree["blocks"]) != {"p0"}:
-        raise ValueError(f"expected one layer position, got {sorted(tree['blocks'])}")
-    return tree["blocks"]["p0"]
+def _layers(tree, cfg, device):
+    """The stacked ``blocks/p{pos}`` entries → one dict per layer, in
+    absolute layer order."""
+    P = cfg.block_period
+    want = {f"p{pos}" for pos in range(P)}
+    if set(tree["blocks"]) != want:
+        raise ValueError(f"expected layer positions {sorted(want)}, got "
+                         f"{sorted(tree['blocks'])}")
+    return [_layer(tree["blocks"][f"p{i % P}"], i // P, device)
+            for i in range(cfg.num_layers)]
 
 
 def params_tree_from_reference(tree: Dict, cfg, device="cuda") -> Dict:
     """A tree of the reference params' structure (the params themselves,
     their grads, or an AdamW moment, whose leaves may be int8 ``{"q", "s"}``
-    pairs) → the port's layout: the stacked ``blocks/p0`` axis unstacked
-    into ``layers``, every other entry carried whole."""
+    pairs) → the port's layout: the stacked ``blocks/p{pos}`` axes
+    unstacked into ``layers``, every other entry carried whole."""
     out = {k: _whole(v, device) for k, v in tree.items() if k != "blocks"}
-    p0 = _blocks(tree)
-    out["layers"] = [_layer(p0, i, device) for i in range(cfg.num_layers)]
+    out["layers"] = _layers(tree, cfg, device)
     return out
 
 
 def from_reference(params: Dict, buffers: Dict, cfg, device="cuda") -> Tuple[Dict, Dict]:
     """Reference (params, buffers) of numpy arrays → the port's layout on
-    ``device``.  Only single-position superblocks (attention + MLP stacks)
-    exist in the port; ``lm_head`` is carried where the model has one (a
-    tied model has none)."""
-    p0 = _blocks(buffers)
+    ``device``; ``lm_head`` is carried where the model has one (a tied
+    model has none)."""
     return (params_tree_from_reference(params, cfg, device),
-            {"layers": [_layer(p0, i, device) for i in range(cfg.num_layers)]})
+            {"layers": _layers(buffers, cfg, device)})
 
 
 def opt_state_from_reference(opt_state: Dict, cfg, device="cuda") -> Dict:

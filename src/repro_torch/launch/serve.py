@@ -9,7 +9,17 @@ stream through the paged EliteKV scheduler.
 
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels instead (``--reduced`` shrinks the model for that).
-Weights are random, from ``--seed``.
+Weights are random, from ``--seed``.  ``--arch`` takes the dense
+architectures, the MoE stacks ``qwen3_moe_235b`` and ``arctic_480b``, the
+attention/Mamba hybrid ``jamba_v0_1_52b`` and the pure Mamba
+``falcon_mamba_7b``; ``--elitekv`` compresses the attention layers and is
+ignored for a stack without any.  ``--stream`` needs an attention-only
+stack: a stack with Mamba layers serves in batch mode only:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_235b \
+        --reduced --elitekv --stream --device cpu --requests 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v0_1_52b \
+        --reduced --elitekv --device cpu --batch 2 --prompt-len 12 --new-tokens 6
 
 Without ``--stream`` (batch mode) ``generate`` decodes ``--batch`` random
 prompts of ``--prompt-len`` tokens greedily for ``--new-tokens`` steps and
@@ -225,7 +235,8 @@ def serve_batch(params, buffers, cfg, base, args):
           f"{np.percentile(decode_ms, 50):.2f}/{np.percentile(decode_ms, 95):.2f}")
     print(f"cache floats/token: {elite_floats} vs baseline {base_floats} "
           f"→ ratio {elite_floats / max(base_floats, 1):.3f}")
-    print(f"measured attention cache: {stats.cache_bytes / 2**20:.2f} MiB")
+    print(f"measured attention cache: {stats.cache_bytes / 2**20:.2f} MiB"
+          + (f", Mamba state {stats.ssm_bytes / 2**20:.2f} MiB" if stats.ssm_bytes else ""))
     for b in range(min(2, args.batch)):
         print(f"  req{b}: {out[b, :16].tolist()} ...")
     return out, stats
@@ -233,11 +244,12 @@ def serve_batch(params, buffers, cfg, base, args):
 
 def build_config(arch: str, reduced: bool, cache_ratio: float, elitekv: bool = True):
     """The arch's config (``reduced`` for the CPU), with EliteKV dims picked
-    for ``cache_ratio`` unless ``elitekv`` is False (the baseline)."""
+    for ``cache_ratio`` unless ``elitekv`` is False (the baseline) or the
+    stack has no attention layer."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    if not elitekv:
+    if not elitekv or not cfg.n_attn_layers:
         return cfg
     return dataclasses.replace(cfg, elitekv=pick_dims(cfg, cache_ratio, align=16))
 
@@ -323,6 +335,9 @@ def main(argv=None):
     if args.stream and not args.elitekv:
         ap.error("--stream requires --elitekv (the paged pool stores the "
                  "compressed streams)")
+    if args.stream and get_config(args.arch).ssm_state:
+        ap.error(f"--stream needs an attention-only stack; {args.arch} has Mamba "
+                 "layers (serve it in batch mode)")
     if not args.stream and min(args.batch, args.prompt_len, args.new_tokens) < 1:
         ap.error("--batch, --prompt-len and --new-tokens must be >= 1")
     if args.rate <= 0:

@@ -1,33 +1,40 @@
-"""Decoder-only LM (attention + SwiGLU MLP; EliteKV or baseline GQA
-attention).
+"""Decoder-only LM: EliteKV or baseline GQA attention, or Mamba, as each
+layer's mixer; a SwiGLU MLP, a mixture of experts, or nothing as its FFN.
 
-Counterpart of the JAX package's ``models/lm.py`` for attention-only
-stacks.  Parameters are nested dicts of tensors; the JAX package's stacked
-``n_super`` layer axis becomes a list of per-layer dicts, driven by a Python
+Counterpart of the JAX package's ``models/lm.py``.  Parameters are nested
+dicts of tensors; the JAX package's superblocks (``block_period`` layer
+positions ``p0, p1, ...``, each stacked over ``n_super`` superblocks) become
+one list of per-layer dicts in absolute layer order, driven by a Python
 loop where JAX uses ``lax.scan``:
 
     params  = {"embed": {"table"}, "lm_head": {"w"}, "final_norm": {"scale"},
                "layers": [{"attn_norm", "attn", "ffn_norm", "ffn"}, ...]}
-    buffers = {"layers": [{"elite_freqs"}, ...]}   ({} per layer for GQA)
+    buffers = {"layers": [{"elite_freqs"}, ...]}   ({} per GQA or Mamba layer)
 
-(no ``lm_head`` when ``cfg.tie_embeddings``: the logits are then
-``h @ embed.table^T``).
+Layer ``i``'s ``attn`` holds its mixer's params (attention, or Mamba where
+``cfg.layer_kind(i) == "ssm"``); ``ffn``/``ffn_norm`` are absent where
+``cfg.ffn_kind(i) == "none"`` (Falcon-Mamba) and hold a ``models/moe.py``
+FFN where it is "moe".  No ``lm_head`` when ``cfg.tie_embeddings``: the
+logits are then ``h @ embed.table^T``.  MoE layers dispatch "ragged"
+(``models/moe.py``); ``apply_train`` also takes the "dense" oracle.
 
-Entry points over the block-paged pool (EliteKV only):
+Entry points over the block-paged pool (EliteKV, attention-only stacks:
+dense or MoE; a stack with Mamba layers raises ``ValueError``):
   * ``apply_prefill_paged`` — prefill prompts (or per-lane chunks) into the pool.
   * ``apply_decode_paged``  — one token per serving lane against the pool.
   * ``apply_verify_paged``  — a speculative window of ``W`` tokens per lane
     against the pool, in one forward.
 Entry points over a contiguous cache (EliteKV or baseline, lockstep):
-  * ``init_cache``    — the f32 cache ``{"index", "blocks": {"p0": ...}}``.
+  * ``init_cache``    — the f32 cache ``{"index", "blocks": {"p0": ...}}``:
+    attention rows and Mamba ``(conv, ssm)`` states.
   * ``apply_prefill`` — prompts from position 0, filling the cache.
   * ``apply_decode``  — one token per lane at position ``cache["index"]``.
   * ``apply_train``   — the whole-sequence forward without a cache: the
     training forward (differentiable on either device) and the oracle of
-    cache-on == cache-off.
+    cache-on == cache-off; ``return_aux`` adds the summed MoE balance loss.
   * ``loss_fn``       — mean next-token cross-entropy of ``apply_train``
     (sequence-chunked at ``cfg.loss_chunk``), what training differentiates.
-  * ``capture_attn_inputs`` — each layer's normed attention input of a
+  * ``capture_attn_inputs`` — each attention layer's normed input of a
     baseline forward, which the RoPElite search reads.
 All return f32 logits over the padded vocab (padding columns = -1e30) and
 write the pool pages or the cache in place.  ``make_draft_params`` derives
@@ -48,7 +55,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core import elite_attention, lrd
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba, moe
 from repro_torch.models.layers import (cross_entropy, dense_init, embed, mlp, mlp_init,
                                        rmsnorm, rmsnorm_init, unembed)
 
@@ -59,8 +66,12 @@ _MATMULS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 
 def init(cfg, seed: int = 0, device="cuda") -> Tuple[Dict, Dict]:
     """Random (params, buffers) from a seeded ``torch.Generator`` on
-    ``device``: EliteKV attention when ``cfg.elitekv.enabled``, else the
-    baseline GQA attention (no buffers)."""
+    ``device``: per layer EliteKV attention when ``cfg.elitekv.enabled``,
+    else the baseline GQA attention (no buffers), or Mamba; then its MLP or
+    MoE FFN, if any."""
+    if cfg.num_layers % cfg.block_period:
+        raise ValueError(f"{cfg.num_layers} layers are not whole periods of "
+                         f"{cfg.block_period}")
     device = torch.device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -70,15 +81,21 @@ def init(cfg, seed: int = 0, device="cuda") -> Tuple[Dict, Dict]:
         params["lm_head"] = {"w": dense_init((d, Vp), g, device, scale=0.02)}
     params.update(final_norm=rmsnorm_init(d, device), layers=[])
     buffers = {"layers": []}
-    for _ in range(cfg.num_layers):
-        if cfg.elitekv.enabled:
+    for i in range(cfg.num_layers):
+        buf = {}
+        if cfg.layer_kind(i) == "ssm":
+            attn = mamba.init(cfg, g, device)
+        elif cfg.elitekv.enabled:
             attn, buf = elite_attention.init(cfg, g, device)
         else:
-            attn, buf = attention.init(cfg, g, device), {}
-        params["layers"].append({
-            "attn_norm": rmsnorm_init(d, device), "attn": attn,
-            "ffn_norm": rmsnorm_init(d, device),
-            "ffn": mlp_init(d, cfg.d_ff, g, device)})
+            attn = attention.init(cfg, g, device)
+        layer = {"attn_norm": rmsnorm_init(d, device), "attn": attn}
+        ffn = cfg.ffn_kind(i)
+        if ffn != "none":
+            layer["ffn_norm"] = rmsnorm_init(d, device)
+            layer["ffn"] = (moe.init(cfg, g, device) if ffn == "moe"
+                            else mlp_init(d, cfg.d_ff, g, device))
+        params["layers"].append(layer)
         buffers["layers"].append(buf)
     return params, buffers
 
@@ -94,21 +111,36 @@ def _logits(params, cfg, h):
     return out
 
 
-def _layer_pages(pages, i: int):
+def _layer_pages(pages, cfg, i: int):
     """Layer ``i``'s views ``{name: [...]}`` of the stacked pool pages (or
-    cache leaves)."""
-    return {name: arr[i] for name, arr in pages["p0"].items()}
+    cache leaves): position ``p{i % P}``, superblock ``i // P``."""
+    P = cfg.block_period
+    return {name: arr[i // P] for name, arr in pages[f"p{i % P}"].items()}
 
 
 def _n_slots(pages) -> int:
     return pages["p0"]["k_e"].shape[1]
 
 
-def _run_layer(p, cfg, h, attend):
-    """One pre-norm attention + SwiGLU layer; ``attend(attn_params, hn)`` is
-    the mode's attention."""
-    h = h + attend(p["attn"], rmsnorm(p["attn_norm"], h, cfg.norm_eps))
-    return h + mlp(p["ffn"], rmsnorm(p["ffn_norm"], h, cfg.norm_eps))
+def _run_layer(p, cfg, i: int, h, mix, moe_impl: str):
+    """Layer ``i``: pre-norm mixer, then its FFN (MLP, MoE or none);
+    ``mix(mixer_params, hn)`` is the mode's attention or Mamba.
+    → (h, the MoE balance loss or None)."""
+    h = h + mix(p["attn"], rmsnorm(p["attn_norm"], h, cfg.norm_eps))
+    kind = cfg.ffn_kind(i)
+    if kind == "none":
+        return h, None
+    hn = rmsnorm(p["ffn_norm"], h, cfg.norm_eps)
+    if kind == "moe":
+        f, aux = moe.apply(p["ffn"], cfg, hn, impl=moe_impl)
+        return h + f, aux
+    return h + mlp(p["ffn"], hn), None
+
+
+def _check_paged(cfg) -> None:
+    if cfg.n_attn_layers != cfg.num_layers:
+        raise ValueError("paged serving supports attention-only stacks: "
+                         f"{cfg.name} has Mamba layers (serve it with generate)")
 
 
 # ---------------------------------------------------------------------------
@@ -116,21 +148,49 @@ def _run_layer(p, cfg, h, attend):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):
-    """Contiguous f32 cache: ``{"index": 0, "blocks": {"p0": {name:
-    [n_layers, batch, max_len, ...]}}}`` with the reference's leaf names
-    (``k_e`` and ``c`` or ``c_k``/``c_v`` for EliteKV, ``k``/``v`` for the
-    baseline).  ``index`` is the next position to decode, a Python int."""
+    """Contiguous f32 cache ``{"index": 0, "blocks": {"p{pos}": {name:
+    [n_super, ...]}}}`` with the reference's keys and leaf names: per
+    attention position ``[n_super, batch, max_len, ...]`` rows (``k_e`` and
+    ``c`` or ``c_k``/``c_v`` for EliteKV, ``k``/``v`` for the baseline), per
+    Mamba position ``conv`` [n_super, batch, K-1, d_inner] and ``ssm``
+    [n_super, batch, d_inner, N].  ``index`` is the next position to
+    decode, a Python int."""
+    P = cfg.block_period
     mod = elite_attention if cfg.elitekv.enabled else attention
-    one = mod.init_cache(cfg, batch, max_len, device="meta")
-    leaves = {name: torch.zeros((cfg.num_layers,) + tuple(t.shape), device=device)
-              for name, t in one.items()}
-    return {"index": 0, "blocks": {"p0": leaves}}
+    blocks = {}
+    for pos in range(P):
+        one = (mod.init_cache(cfg, batch, max_len, device="meta")
+               if cfg.layer_kind(pos) == "attn" else mamba.init_state(cfg, batch, "meta"))
+        blocks[f"p{pos}"] = {
+            name: torch.zeros((cfg.num_layers // P,) + tuple(t.shape), dtype=t.dtype,
+                              device=device)
+            for name, t in one.items()}
+    return {"index": 0, "blocks": blocks}
+
+
+def _mamba_mixer(cfg, mode: str, state):
+    """A Mamba layer's ``mix(params, hn)``: prefill writes the final
+    ``(conv, ssm)`` state into ``state``'s views, decode advances it in
+    place."""
+    if mode == "train":
+        return lambda pm, hn: mamba.apply_full(pm, cfg, hn)
+
+    def run(pm, hn):
+        if mode == "prefill":
+            out, (conv, ssm) = mamba.apply_full(pm, cfg, hn, return_state=True)
+        else:
+            out, new = mamba.apply_decode(pm, cfg, hn, state)
+            conv, ssm = new["conv"], new["ssm"]
+        state["conv"].copy_(conv)
+        state["ssm"].copy_(ssm)
+        return out
+    return run
 
 
 def _contiguous_attention(cfg, buffers, mode: str, positions, cache, index):
-    """One layer's ``attend(attn_params, hn)`` in a contiguous mode
-    ("train", "prefill" or "decode"): EliteKV or baseline attention, as the
-    reference's ``_run_layer`` dispatches."""
+    """One attention layer's ``attend(attn_params, hn)`` in a contiguous
+    mode ("train", "prefill" or "decode"): EliteKV or baseline attention, as
+    the reference's ``_run_layer`` dispatches."""
     if cfg.elitekv.enabled:
         if mode == "train":
             return lambda pa, hn: elite_attention.apply_full(pa, cfg, buffers, hn, positions)
@@ -164,24 +224,31 @@ def _remat(cfg):
 
 
 def _forward_contiguous(params, buffers, cfg, tokens, mode: str, cache=None,
-                        captures=None, return_hidden=False):
+                        captures=None, return_hidden=False, moe_impl="ragged"):
+    """→ (logits or final hidden states, summed MoE balance loss or None)."""
     device = params["embed"]["table"].device
     h = embed(params["embed"], tokens, cfg.dtype)
     # decode takes its position from the cache index
     positions = None if mode == "decode" else torch.arange(tokens.shape[1], device=device)
     index = cache["index"] if cache is not None else 0
     wrap = _remat(cfg) if mode == "train" and captures is None else None
+    aux_sum = None
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
-        layer_cache = None if cache is None else _layer_pages(cache["blocks"], i)
-        attend = _contiguous_attention(cfg, b, mode, positions, layer_cache, index)
-        if captures is not None:
-            attend = _capturing(attend, captures)
-        h = _run_layer(p, cfg, h, attend) if wrap is None else wrap(_run_layer, p, cfg, h,
-                                                                    attend)
+        layer_cache = None if cache is None else _layer_pages(cache["blocks"], cfg, i)
+        if cfg.layer_kind(i) == "ssm":
+            mix = _mamba_mixer(cfg, mode, layer_cache)
+        else:
+            mix = _contiguous_attention(cfg, b, mode, positions, layer_cache, index)
+            if captures is not None:
+                mix = _capturing(mix, captures)
+        h, aux = (_run_layer(p, cfg, i, h, mix, moe_impl) if wrap is None
+                  else wrap(_run_layer, p, cfg, i, h, mix, moe_impl))
+        if aux is not None:
+            aux_sum = aux if aux_sum is None else aux_sum + aux
     if captures is not None:
-        return None
+        return None, None
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return h if return_hidden else _logits(params, cfg, h)
+    return (h if return_hidden else _logits(params, cfg, h)), aux_sum
 
 
 def _capturing(attend, captures: list):
@@ -192,13 +259,21 @@ def _capturing(attend, captures: list):
     return run
 
 
-def apply_train(params, buffers, cfg, tokens, return_hidden: bool = False):
+def apply_train(params, buffers, cfg, tokens, return_hidden: bool = False,
+                moe_impl: str = "ragged", return_aux: bool = False):
     """Whole-sequence forward, no cache: tokens [B,S] → logits [B,S,Vp] f32
-    (the final normed hidden states [B,S,d] if ``return_hidden``).
-    Differentiable: on the card the rotation's backward is its kernel's
-    transpose mode; layers recompute in the backward per ``cfg.remat``."""
-    return _forward_contiguous(params, buffers, cfg, tokens, "train",
-                               return_hidden=return_hidden)
+    (the final normed hidden states [B,S,d] if ``return_hidden``); with
+    ``return_aux`` the pair (that, the MoE balance loss summed over the MoE
+    layers, a f32 scalar, 0 without any), as the reference's
+    ``apply_train`` returns.  Differentiable: on the card the rotation's
+    backward is its kernel's transpose mode; layers recompute in the
+    backward per ``cfg.remat``."""
+    out, aux = _forward_contiguous(params, buffers, cfg, tokens, "train",
+                                   return_hidden=return_hidden, moe_impl=moe_impl)
+    if not return_aux:
+        return out
+    return out, (torch.zeros((), dtype=torch.float32, device=out.device) if aux is None
+                 else aux)
 
 
 def _chunk_nll(params, cfg, h, labels, mask):
@@ -212,15 +287,16 @@ def _chunk_nll(params, cfg, h, labels, mask):
 def loss_fn(params, buffers, cfg, batch, aux_weight: float = 0.01):
     """Training loss of ``batch`` {"tokens" [B,S], "labels" [B,S] int64,
     optional "loss_mask" [B,S] f32}: mean next-token cross-entropy in f32
-    plus ``aux_weight`` times the MoE balance loss (0 for these dense
-    stacks).  Where ``cfg.loss_chunk`` divides S the CE goes chunk by chunk
+    plus ``aux_weight`` times the MoE balance loss (0 for a stack without
+    MoE layers).  Where ``cfg.loss_chunk`` divides S the CE goes chunk by chunk
     of the sequence, each chunk's logits recomputed in the backward under
     grad, so the whole [B,S,V] logits never exist.  → (loss, {"ce", "aux"})."""
     tokens, labels = batch["tokens"], batch["labels"]
     mask = batch.get("loss_mask")
     ck = cfg.loss_chunk
     if ck and labels.shape[1] % ck == 0:
-        h = apply_train(params, buffers, cfg, tokens, return_hidden=True)
+        h, aux = apply_train(params, buffers, cfg, tokens, return_hidden=True,
+                             return_aux=True)
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
         nll = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -232,16 +308,17 @@ def loss_fn(params, buffers, cfg, batch, aux_weight: float = 0.01):
             nll, cnt = nll + n_c, cnt + c_c
         ce = nll / torch.clamp(cnt, min=1.0)
     else:
-        ce = cross_entropy(apply_train(params, buffers, cfg, tokens), labels, mask)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        logits, aux = apply_train(params, buffers, cfg, tokens, return_aux=True)
+        ce = cross_entropy(logits, labels, mask)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def capture_attn_inputs(params, buffers, cfg, tokens):
-    """The normed attention input of every layer of the whole-sequence
-    forward of ``tokens`` [B,S] (what the RoPElite search projects to q and
-    k): a list over layers of [B,S,d].  The reference returns the same
-    arrays stacked as ``{"p0": [n_layers, B, S, d]}``."""
+    """The normed attention input of every attention layer of the
+    whole-sequence forward of ``tokens`` [B,S] (what the RoPElite search
+    projects to q and k): a list over those layers of [B,S,d].  The
+    reference returns the same arrays stacked as ``{"p0": [n_layers, B, S,
+    d]}``."""
     captures: list = []
     _forward_contiguous(params, buffers, cfg, tokens, "train", captures=captures)
     return captures
@@ -249,18 +326,18 @@ def capture_attn_inputs(params, buffers, cfg, tokens):
 
 def apply_prefill(params, buffers, cfg, tokens, cache):
     """Prefill prompts tokens [B,S] from position 0: writes cache rows
-    [0, S) of every layer in place and sets ``cache["index"] = S``.
-    → logits [B,S,Vp] f32."""
-    logits = _forward_contiguous(params, buffers, cfg, tokens, "prefill", cache)
+    [0, S) of every attention layer and every Mamba layer's final state in
+    place and sets ``cache["index"] = S``.  → logits [B,S,Vp] f32."""
+    logits, _ = _forward_contiguous(params, buffers, cfg, tokens, "prefill", cache)
     cache["index"] = tokens.shape[1]
     return logits
 
 
 def apply_decode(params, buffers, cfg, tokens, cache):
     """One token per lane, tokens [B,1] at position ``cache["index"]``:
-    writes that cache row of every layer in place and advances the index.
-    → logits [B,1,Vp] f32."""
-    logits = _forward_contiguous(params, buffers, cfg, tokens, "decode", cache)
+    writes that cache row of every attention layer and advances every Mamba
+    state in place, and advances the index.  → logits [B,1,Vp] f32."""
+    logits, _ = _forward_contiguous(params, buffers, cfg, tokens, "decode", cache)
     cache["index"] += 1
     return logits
 
@@ -285,6 +362,7 @@ def apply_prefill_paged(params, buffers, cfg, tokens, pages, slot_mapping,
     are never read.
     → logits [B,S,Vp] f32; ``pages`` written in place.
     """
+    _check_paged(cfg)
     device = params["embed"]["table"].device
     n_slots = _n_slots(pages)
     h = embed(params["embed"], tokens, cfg.dtype)
@@ -302,8 +380,8 @@ def apply_prefill_paged(params, buffers, cfg, tokens, pages, slot_mapping,
                   kv_lens=torch.as_tensor(prefix_lens, **i32) + n_valid.to(**i32),
                   block_size=block_size)
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
-        h = _run_layer(p, cfg, h, lambda pa, hn: elite_attention.apply_prefill_paged(
-            pa, cfg, b, hn, positions, _layer_pages(pages, i), writes, **kw))
+        h, _ = _run_layer(p, cfg, i, h, lambda pa, hn: elite_attention.apply_prefill_paged(
+            pa, cfg, b, hn, positions, _layer_pages(pages, cfg, i), writes, **kw), "ragged")
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h)
 
@@ -321,6 +399,7 @@ def apply_decode_paged(params, buffers, cfg, tokens, pages, slot_mapping,
     summaries).
     → logits [B,1,Vp] f32; ``pages`` written in place.
     """
+    _check_paged(cfg)
     device = params["embed"]["table"].device
     i32 = dict(dtype=torch.int32, device=device)
     h = embed(params["embed"], tokens, cfg.dtype)
@@ -328,9 +407,9 @@ def apply_decode_paged(params, buffers, cfg, tokens, pages, slot_mapping,
     block_tables = torch.as_tensor(block_tables, **i32)
     lengths = torch.as_tensor(lengths, **i32)
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
-        h = _run_layer(p, cfg, h, lambda pa, hn: elite_attention.apply_decode_paged(
-            pa, cfg, b, hn, _layer_pages(pages, i), writes, block_tables, lengths,
-            block_size, sparse_topk, sparse_recent))
+        h, _ = _run_layer(p, cfg, i, h, lambda pa, hn: elite_attention.apply_decode_paged(
+            pa, cfg, b, hn, _layer_pages(pages, cfg, i), writes, block_tables, lengths,
+            block_size, sparse_topk, sparse_recent), "ragged")
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h)
 
@@ -350,6 +429,7 @@ def apply_verify_paged(params, buffers, cfg, tokens, pages, slot_mapping,
     the proposals, row ``k`` gives the bonus token.
     → logits [B,W,Vp] f32; ``pages`` written in place.
     """
+    _check_paged(cfg)
     device = params["embed"]["table"].device
     i32 = dict(dtype=torch.int32, device=device)
     h = embed(params["embed"], tokens, cfg.dtype)
@@ -358,9 +438,9 @@ def apply_verify_paged(params, buffers, cfg, tokens, pages, slot_mapping,
     q_offsets = torch.as_tensor(q_offsets, **i32)
     lengths = torch.as_tensor(lengths, **i32)
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
-        h = _run_layer(p, cfg, h, lambda pa, hn: elite_attention.apply_verify_paged(
-            pa, cfg, b, hn, _layer_pages(pages, i), writes, block_tables, q_offsets,
-            lengths, block_size))
+        h, _ = _run_layer(p, cfg, i, h, lambda pa, hn: elite_attention.apply_verify_paged(
+            pa, cfg, b, hn, _layer_pages(pages, cfg, i), writes, block_tables, q_offsets,
+            lengths, block_size), "ragged")
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h)
 
@@ -373,7 +453,7 @@ def make_draft_params(params, cfg, draft_rank: int):
     ``draft_rank <= 0`` or ``>= d_ckv`` returns ``params`` itself (the
     full-rank draft).  Otherwise a shallow copy in which only each layer's
     ``attn.bk``/``attn.bv`` are new tensors on the params' device; every
-    other tensor is shared."""
+    other tensor is shared (Mamba layers whole)."""
     assert cfg.elitekv.enabled, "speculative decode requires an EliteKV cache"
     if draft_rank <= 0 or draft_rank >= cfg.elitekv.d_ckv:
         return params
@@ -381,6 +461,9 @@ def make_draft_params(params, cfg, draft_rank: int):
         "draft truncation targets the joint low-rank factors"
     layers = []
     for layer in params["layers"]:
+        if "bk" not in layer["attn"]:           # a Mamba layer
+            layers.append(layer)
+            continue
         attn = dict(layer["attn"])
         bk, bv = lrd.truncate_joint_rank(attn["bk"].detach().cpu().numpy(),
                                          attn["bv"].detach().cpu().numpy(), draft_rank)

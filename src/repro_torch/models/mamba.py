@@ -1,0 +1,162 @@
+"""Mamba-1 block (selective SSM): Falcon-Mamba's and Jamba's mixer.
+
+Counterpart of the JAX package's ``models/mamba.py``.  The scan is chunked
+as the reference's is: ``cfg.ssm_chunk`` steps at a time (the tail chunk
+zero-padded), the state carried from chunk to chunk, so at most
+``B × chunk × d_inner × d_state`` f32 of the state expansion is live.
+Inside a chunk the linear recurrence ``h_t = a_t · h_{t-1} + b_t`` runs as a
+Hillis–Steele scan over the ``(a, b)`` pairs: ``log2(chunk)`` out-of-place
+rounds, each combining every element with the one ``2^j`` before it, where
+a per-step loop would issue ``chunk`` rounds of small kernels (128 per chunk
+and layer; 64 layers × 8 chunks of a 1024-token prefill is ~10^5 launches
+on the card).  The products of ``a = exp(Δ·A)`` stay in (0, 1] and at worst
+underflow to 0; no log-space cumulative sum is taken, which would overflow
+f32 within a chunk.  The scan is plain PyTorch: the reference computes it
+outside any Pallas kernel too.
+
+Decode is the reference's one-token recurrence over ``(conv, ssm)``, term
+for term: the conv window's last ``K-1`` pre-activation inputs and the f32
+``[B, d_inner, N]`` state.  There is no KV cache, which is why EliteKV does
+not apply to these layers.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init
+
+
+def _dt_rank(cfg) -> int:
+    return cfg.dt_rank or -(-cfg.d_model // 16)
+
+
+def init(cfg, generator: torch.Generator, device) -> Dict[str, torch.Tensor]:
+    """Random params for one layer: S4D-real ``A``, the Δ bias the inverse
+    softplus of a log-uniform Δ in [1e-3, 1e-1]."""
+    d, di, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    dtr = _dt_rank(cfg)
+    g = generator
+    A = torch.arange(1, N + 1, dtype=torch.float32, device=device)[None, :].repeat(di, 1)
+    params = {
+        "in_proj": dense_init((d, 2 * di), g, device),
+        "conv_w": dense_init((K, di), g, device, scale=K ** -0.5),
+        "conv_b": torch.zeros(di, device=device),
+        "x_proj": dense_init((di, dtr + 2 * N), g, device),
+        "dt_w": dense_init((dtr, di), g, device, scale=dtr ** -0.5),
+    }
+    u = torch.rand(di, generator=g, device=device)
+    dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    params.update(dt_b=dt_init + torch.log(-torch.expm1(-dt_init)), A_log=torch.log(A),
+                  D=torch.ones(di, device=device),
+                  out_proj=dense_init((di, d), g, device))
+    return params
+
+
+def _conv_causal(xs: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d, unrolled over the K taps.  xs [B,S,di],
+    w [K,di]."""
+    K, S = w.shape[0], xs.shape[1]
+    pad = F.pad(xs, (0, 0, K - 1, 0))
+    out = torch.zeros_like(xs)
+    for t in range(K):
+        out = out + pad[:, t:t + S, :] * w[t][None, None, :]
+    return out + b.to(xs.dtype)[None, None, :]
+
+
+def _ssm_params(params, cfg, xs):
+    """Per-token Δ, B, C from the conv output xs [B,S,di] (after silu), and
+    A = -exp(A_log) [di,N] f32."""
+    dt_ = xs.dtype
+    dtr, N = _dt_rank(cfg), cfg.ssm_state
+    proj = xs @ params["x_proj"].to(dt_)                       # [B,S,dtr+2N]
+    dt_low, Bm, Cm = torch.split(proj, [dtr, N, N], dim=-1)
+    dt = F.softplus(dt_low @ params["dt_w"].to(dt_) + params["dt_b"].to(dt_))
+    A = -torch.exp(params["A_log"].float())
+    return dt, Bm, Cm, A
+
+
+def _scan_chunk(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of ``(a, b)`` pairs along axis 1 under the reference's
+    combine ``(a1, b1), (a2, b2) → (a2·a1, a2·b1 + b2)``: element ``t``
+    becomes ``(Π_{s<=t} a_s, h_t from h = 0)``.  Hillis–Steele rounds, each
+    out of place from the previous round's values."""
+    L, s = a.shape[1], 1
+    while s < L:
+        b = torch.cat([b[:, :s], a[:, s:] * b[:, :-s] + b[:, s:]], dim=1)
+        a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
+        s *= 2
+    return a, b
+
+
+def ssm_scan(dt, xs, Bm, Cm, A, D, h0=None, chunk: int = 128):
+    """Selective scan.  dt, xs [B,S,di]; Bm, Cm [B,S,N]; A [di,N]; D [di].
+    → y [B,S,di] (xs's dtype) and the final state h [B,di,N] f32."""
+    B, S, di = xs.shape
+    N = Bm.shape[-1]
+    chunk = min(chunk, S)
+    n_pad = (-S) % chunk
+    if n_pad:
+        dt, xs, Bm, Cm = (F.pad(t, (0, 0, 0, n_pad)) for t in (dt, xs, Bm, Cm))
+    h = (torch.zeros((B, di, N), dtype=torch.float32, device=xs.device) if h0 is None
+         else h0.float())
+    A, D = A.float(), D.float()
+    ys = []
+    for i in range(0, S + n_pad, chunk):
+        dtk = dt[:, i:i + chunk].float()
+        xk = xs[:, i:i + chunk].float()
+        dA = torch.exp(dtk[..., None] * A[None, None])                     # [B,ck,di,N]
+        dBx = (dtk * xk)[..., None] * Bm[:, i:i + chunk].float()[:, :, None, :]
+        aprod, bacc = _scan_chunk(dA, dBx)
+        h_ts = aprod * h[:, None] + bacc                                   # [B,ck,di,N]
+        y = torch.einsum("bsdn,bsn->bsd", h_ts, Cm[:, i:i + chunk].float())
+        ys.append((y + D[None, None] * xk).to(xs.dtype))
+        h = h_ts[:, -1]
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+def apply_full(params, cfg, x, return_state: bool = False):
+    """x [B,S,d] → y [B,S,d]; with ``return_state`` also (conv_state
+    [B,K-1,di], ssm_state [B,di,N] f32) for a prefill: the last K-1 conv
+    inputs (zero rows before the sequence when S < K-1) and the final
+    state."""
+    dt_ = x.dtype
+    xs, z = torch.chunk(x @ params["in_proj"].to(dt_), 2, dim=-1)
+    xs_act = F.silu(_conv_causal(xs, params["conv_w"].to(dt_), params["conv_b"]))
+    dt, Bm, Cm, A = _ssm_params(params, cfg, xs_act)
+    y, h_fin = ssm_scan(dt, xs_act, Bm, Cm, A, params["D"], chunk=cfg.ssm_chunk)
+    out = (y * F.silu(z)) @ params["out_proj"].to(dt_)
+    if not return_state:
+        return out
+    K = cfg.ssm_conv
+    conv_state = F.pad(xs, (0, 0, K - 1, 0))[:, xs.shape[1]:] if K > 1 else xs[:, :0]
+    return out, (conv_state, h_fin)
+
+
+def init_state(cfg, batch: int, device, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """One layer's decode state: ``conv`` [B,K-1,di] and ``ssm`` [B,di,N] f32."""
+    K, di, N = cfg.ssm_conv, cfg.d_inner, cfg.ssm_state
+    return {"conv": torch.zeros((batch, K - 1, di), dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, di, N), dtype=torch.float32, device=device)}
+
+
+def apply_decode(params, cfg, x, state) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token recurrent step, x [B,1,d] → (y [B,1,d], new state)."""
+    dt_ = x.dtype
+    xs, z = torch.chunk(x @ params["in_proj"].to(dt_), 2, dim=-1)     # [B,1,di]
+    window = torch.cat([state["conv"].to(dt_), xs], dim=1)            # [B,K,di]
+    xc = torch.einsum("bkd,kd->bd", window, params["conv_w"].to(dt_)) + params["conv_b"].to(dt_)
+    xc = F.silu(xc)[:, None, :]                                       # [B,1,di]
+    dt, Bm, Cm, A = _ssm_params(params, cfg, xc)
+    dt32 = dt[:, 0].float()                                           # [B,di]
+    dA = torch.exp(dt32[..., None] * A[None])                         # [B,di,N]
+    dBx = (dt32 * xc[:, 0].float())[..., None] * Bm[:, 0].float()[:, None, :]
+    h = dA * state["ssm"] + dBx
+    y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())
+    y = y + params["D"].float()[None] * xc[:, 0].float()
+    y = (y.to(dt_) * F.silu(z[:, 0]))[:, None, :]
+    out = y @ params["out_proj"].to(dt_)
+    return out, {"conv": window[:, 1:, :].to(state["conv"].dtype), "ssm": h}

@@ -4,12 +4,14 @@ batching over the paged compressed cache.
 Counterpart of the JAX package's ``runtime/serve_loop.py``.  Two tiers:
 
 * ``generate`` — lockstep batched greedy decoding of equal-length prompts
-  over a contiguous cache (``lm.init_cache``), EliteKV or baseline GQA; the
-  argmax stays on the device.
-* ``Scheduler`` (EliteKV only) — requests queue with arrival times (in
-  scheduler steps), are admitted into free *slots* mid-flight, prefill
-  their prompts — whole at admission (``prefill_chunk_tokens=0``) or in
-  fixed-size chunks, up to ``prefill_batch_lanes`` lanes' chunks packed
+  over a contiguous cache (``lm.init_cache``), EliteKV or baseline GQA
+  attention, Mamba state or both (every family); the argmax stays on the
+  device.
+* ``Scheduler`` (EliteKV, attention-only stacks: dense or MoE) — requests
+  queue with arrival times (in scheduler steps), are admitted into free
+  *slots* mid-flight, prefill their prompts — whole at admission
+  (``prefill_chunk_tokens=0``) or in fixed-size chunks, up to
+  ``prefill_batch_lanes`` lanes' chunks packed
   into one forward — interleaved with one decode step over all
   ``max_slots`` lanes (idle lanes masked by length 0), and retire on EOS or
   token budget, recycling their pool blocks at once.  With
@@ -126,6 +128,8 @@ class ServeStats:
     ``decoded_tokens``  — tokens produced (batch × new tokens).
     ``cache_bytes``     — measured bytes of the attention KV cache allocated
                           for the run (the paper's compression shows here).
+    ``ssm_bytes``       — measured bytes of the Mamba ``(conv, ssm)`` states
+                          beside it (per sequence, not per token).
     ``step_ms``         — the port's own: host-clock ms of the prefill
                           step, then of each decode step, each ending in a
                           device synchronisation.
@@ -133,6 +137,7 @@ class ServeStats:
     prefill_tokens: int = 0
     decoded_tokens: int = 0
     cache_bytes: int = 0
+    ssm_bytes: int = 0
     step_ms: List[float] = dataclasses.field(default_factory=list)
 
 
@@ -167,7 +172,8 @@ def generate(params, buffers, cfg: ModelConfig, prompts, max_new_tokens: int,
         outs.append(nxt)
     sync()
     stats.step_ms.append((time.perf_counter() - t0) * 1e3)
-    stats.cache_bytes = measured_cache_bytes(cache, B, max_len)["attn_bytes"]
+    measured = measured_cache_bytes(cache, B, max_len)
+    stats.cache_bytes, stats.ssm_bytes = measured["attn_bytes"], measured["ssm_bytes"]
     return torch.stack(outs, dim=1).cpu().numpy().astype(np.int32), stats
 
 

@@ -40,10 +40,15 @@ def _one_thread():
 
 
 def test_arch_ids_are_the_dense_architectures():
-    assert ARCH_IDS == DENSE
+    """The dense architectures, then the MoE, hybrid and Mamba stacks
+    (``tests/test_torch_hybrid.py``); the frontends are not ported."""
+    assert ARCH_IDS[:len(DENSE)] == DENSE
+    assert ARCH_IDS[len(DENSE):] == ("qwen3_moe_235b", "arctic_480b", "jamba_v0_1_52b",
+                                     "falcon_mamba_7b")
+    assert all(get_config(a).family == "dense" for a in DENSE)
     assert get_config("granite-3-2b").name == "granite_3_2b"
     with pytest.raises(KeyError):
-        get_config("jamba_v0_1_52b")
+        get_config("internvl2_2b")
 
 
 @pytest.mark.parametrize("arch", DENSE)

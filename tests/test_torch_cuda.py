@@ -1099,3 +1099,89 @@ def test_training_gradients_on_card_match_cpu(kind, cuda):
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-7, name
     if kind == "jlrd":
         assert float(grads["cuda"]["layers/0/attn/wk_e"].abs().max()) > 0
+
+
+def _to_card(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_card(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_card(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _rel_close(got, want, tol=1e-5):
+    """|got - want| <= tol · max|want| (f32 matmuls summed in another order)."""
+    got = got.cpu()
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b", "arctic_480b", "jamba_v0_1_52b"])
+def test_moe_on_card_matches_cpu(arch, cuda):
+    """A reduced MoE FFN (ragged, one group-size read per call) on the card
+    against the CPU on the same params and tokens, where no router comes
+    within ``ROUTE_GAP`` of another choice: 1e-5 of the output's largest."""
+    from repro_torch.models import moe
+    from routing_margins import ROUTE_GAP, recorded_gaps
+    cfg = get_config(arch).reduced()
+    p = moe.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    x = torch.randn(2, 24, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    with recorded_gaps([]) as calls:
+        want, want_aux = moe.apply(p, cfg, x)
+    assert float(calls[0].min()) > ROUTE_GAP
+    moe.group_size_syncs = 0
+    got, aux = moe.apply(_to_card(p, cuda), cfg, x.to(cuda))
+    assert moe.group_size_syncs == 1
+    _rel_close(got, want)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * float(want_aux)
+
+
+def test_mamba_on_card_matches_cpu(cuda):
+    """A reduced Mamba layer (chunk 8: three chunks, the tail padded): the
+    prefill output and final state, then 4 decode steps, card vs CPU."""
+    from repro_torch.models import mamba
+    cfg = get_config("falcon_mamba_7b").reduced(ssm_chunk=8)
+    p = mamba.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    pc = _to_card(p, cuda)
+    x = torch.randn(2, 24, cfg.d_model, generator=torch.Generator().manual_seed(2))
+    want, (wc, ws) = mamba.apply_full(p, cfg, x[:, :20], return_state=True)
+    got, (gc, gs) = mamba.apply_full(pc, cfg, x[:, :20].to(cuda), return_state=True)
+    for g, w in ((got, want), (gc, wc), (gs, ws)):
+        _rel_close(g, w)
+    wst, gst = {"conv": wc, "ssm": ws}, {"conv": gc, "ssm": gs}
+    for t in range(20, 24):
+        want, wst = mamba.apply_decode(p, cfg, x[:, t:t + 1], wst)
+        got, gst = mamba.apply_decode(pc, cfg, x[:, t:t + 1].to(cuda), gst)
+        _rel_close(got, want)
+    _rel_close(gst["ssm"], wst["ssm"])
+
+
+@pytest.mark.parametrize("arch,layers", [("jamba_v0_1_52b", 8), ("falcon_mamba_7b", 2),
+                                         ("qwen3_moe_235b", 2)])
+def test_hybrid_generate_on_card_matches_cpu(arch, layers, cuda):
+    """Reduced stacks through ``generate`` (EliteKV on where there is
+    attention: the contiguous decode, ``flash_prefill`` and the rotation,
+    once per attention layer and forward): the card's greedy tokens are
+    the CPU's; Qwen3-MoE also through the paged ``Scheduler``."""
+    cfg = get_config(arch).reduced(num_layers=layers)
+    if cfg.n_attn_layers:
+        cfg = cfg.with_elitekv()
+    params, buffers = lm.init(cfg, seed=3, device="cpu")
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (3, 20))
+    want, _ = serve_loop.generate(params, buffers, cfg, prompts, 8, device="cpu")
+    cp, cb = _to_card(params, cuda), _to_card(buffers, cuda)
+    ops.reset_launches()
+    got, stats = serve_loop.generate(cp, cb, cfg, prompts, 8, device=cuda)
+    torch.cuda.synchronize()
+    n = {k: v for k, v in ops.launches().items() if v}
+    L = cfg.n_attn_layers
+    assert n == ({"elite_decode": 7 * L, "flash_prefill": L, "rope_elite": 8 * L} if L
+                 else {}), n
+    np.testing.assert_array_equal(got, want)
+    if arch == "qwen3_moe_235b":
+        scfg = serve_loop.SchedulerConfig(max_slots=3, block_size=8, num_blocks=32,
+                                          max_len=64, prefill_chunk_tokens=16)
+        want, _ = serve_loop.generate_paged(params, buffers, cfg, prompts, 8, scfg,
+                                            device="cpu")
+        got, _ = serve_loop.generate_paged(cp, cb, cfg, prompts, 8, scfg, device=cuda)
+        np.testing.assert_array_equal(got, want)

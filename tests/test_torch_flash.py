@@ -34,7 +34,10 @@ def _case(seed, B, Sq, Sk, nkv, G, dh, offs, lens):
 
 @pytest.mark.parametrize("B,Sq,Sk,nkv,G", [
     (8, 1, 1152, 4, 8), (8, 2, 1152, 4, 8), (8, 3, 1152, 4, 8), (4, 16, 300, 32, 1),
-    (4, 17, 300, 32, 1), (8, 256, 768, 4, 8), (2, 1024, 1024, 32, 1), (3, 1, 0, 2, 4)])
+    (4, 17, 300, 32, 1), (8, 256, 768, 4, 8), (2, 1024, 1024, 32, 1), (3, 1, 0, 2, 4),
+    # Qwen3-MoE (4 kv heads of 16 queries), Jamba (8 of 4), Arctic (8 of 7)
+    (8, 1, 1152, 4, 16), (8, 2, 1152, 4, 16), (8, 256, 768, 4, 16), (8, 1024, 1024, 8, 4),
+    (8, 4, 1152, 8, 4), (8, 2, 900, 8, 7), (8, 3, 900, 8, 7)])
 def test_plan_reads_shapes_only(B, Sq, Sk, nkv, G):
     """The body (decode up to 16 query rows per kv head) and the decode
     body's ranges come from the shapes: other offsets and kv_lens give the

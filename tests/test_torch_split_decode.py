@@ -274,14 +274,16 @@ def test_split_verify_matches_pallas():
 
 
 def _cut_widths():
-    """(arch, ratio, lrd, G, nkv, 2r, d_c) of every dense architecture at
-    ratios 0.5, 0.25 and 0.125 (``pick_dims``), J-LRD (d_c = d_ckv) and
-    S-LRD (two streams of d_ckv / 2)."""
+    """(arch, ratio, lrd, G, nkv, 2r, d_c) of every architecture with
+    attention layers at ratios 0.5, 0.25 and 0.125 (``pick_dims``), J-LRD
+    (d_c = d_ckv) and S-LRD (two streams of d_ckv / 2)."""
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.core.convert import pick_dims
     out = []
     for arch in ARCH_IDS:
         cfg = get_config(arch)
+        if not cfg.n_attn_layers:
+            continue
         for ratio in (0.5, 0.25, 0.125):
             e = pick_dims(cfg, ratio)
             for sep in (False, True):
@@ -291,9 +293,11 @@ def _cut_widths():
 
 
 @pytest.mark.parametrize("arch", ["tinyllama_1_1b", "llama2_7b", "llama2_13b", "yi_6b",
-                                  "granite_3_2b", "minicpm_2b"])
+                                  "granite_3_2b", "minicpm_2b", "qwen3_moe_235b",
+                                  "jamba_v0_1_52b", "arctic_480b"])
 def test_window_cut_only_where_one_head_does_not_fit(arch):
-    """Every decode and verify width of the dense architectures plans
+    """Every decode and verify width of the architectures with attention
+    (dense, MoE: G = 16 and 7, and Jamba's attention layers) plans
     (W = 1, 3, 5, 9, f32 and int8): the window is cut only where one kv
     head's rows of the whole window do not fit, into the fewest parts that
     do, and the cut leaves the ranges as ``split_plan`` gives them for the
