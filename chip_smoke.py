@@ -182,7 +182,31 @@ non-zero:
       layer's prefill output and state and 16 decode steps (1e-5 of the
       largest magnitude); ``elite_decode_paged`` and ``flash_prefill`` at
       Qwen3-MoE's recorded inputs and ``elite_decode`` and
-      ``flash_prefill`` at Jamba's, timed with their bounds.
+      ``flash_prefill`` at Jamba's, timed with their bounds (and SDPA's
+      time: over prebuilt operands for ``elite_decode``, as phase 4).
+   m. the vision and audio frontends at full width and depth, from the
+      reference's batch inputs (after l, each model freed before the
+      next): InternVL2-2B (24 layers, 16/8 heads of 128, vocab 92,672) and
+      MusicGen-large (48 layers, 32/32 heads of 64, frames in, no
+      embedding table), each a seeded baseline converted at
+      ``pick_dims(cfg, 0.25, align=16)`` (r 16, d_ckv 256; r 8, d_ckv 512)
+      by ``ropelite.search_model`` and ``convert.convert_model`` on a
+      calibration batch (4 x (256 patch embeddings + 256 tokens); 2 x 512
+      frames; ``rope_elite`` twice per layer, nothing else).  InternVL2: 8
+      lanes of 256 patches + 256 tokens through ``apply_prefill_paged``,
+      64 greedy steps of ``apply_decode_paged`` (its kernels once per
+      layer and forward, nothing else), every logits row against
+      ``apply_train`` over the whole sequence within 1e-4; 8 text
+      requests through the ``Scheduler`` against ``generate``
+      (``compare_greedy_rows``); 4 uptraining steps (f32 moments) at B 2 x
+      (256 + 256), the rotation 2 x 24 forward and 24 backward per step;
+      the converted model's first 2 layers' gradients on the card against
+      the CPU.  MusicGen: 4 x 512 frames prefilled into the pool and 32
+      decode steps of seeded frames, every row against ``apply_train``
+      within 1e-4; one training step on frames and labels (int8 moments:
+      f32 ones would not fit the functional update beside 3.0 B weights).
+      ``elite_decode_paged`` and ``flash_prefill`` at each model's
+      recorded inputs, held to their plain versions, then timed.
    Every kernel is re-run on the busiest inputs recorded from its run and
    held against its plain version, twice, with identical bits; a torch.profiler window over 10 steady
    decode steps of 8 lanes, on the f32 pool, on the int8 pool with sparse
@@ -718,6 +742,25 @@ def flash_cases(dev, nh, nkv, dh, seed):
     return out
 
 
+def contig_sdpa_call(a):
+    """The contiguous decode's SDPA yardstick: one call over the same
+    scores with prebuilt [q_e | q_lat] and [K_e | C_k] (the latent broadcast
+    to the kv heads), values C_v and a boolean length mask; only the call
+    is timed, not the builds."""
+    import torch
+    import torch.nn.functional as F
+    q_e, q_lat, k_e, c_k, c_v, lens, G, sc = a
+    B, S = k_e.shape[:2]
+    nkv, dc = k_e.shape[2], c_k.shape[-1]
+    qs = torch.cat([q_e, q_lat], -1)[:, :, None]                      # [B,nh,1,2r+dc]
+    ks = torch.cat([k_e.transpose(1, 2),
+                    c_k[:, None].expand(B, nkv, S, dc)], -1).contiguous()
+    vs = c_v[:, None].expand(B, nkv, S, dc).contiguous()
+    lmask = (torch.arange(S, device=q_e.device)[None, :] < lens[:, None])[:, None, None]
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=lmask, scale=sc,
+                                                  enable_gqa=True)
+
+
 def sdpa_call(x):
     """One ``scaled_dot_product_attention`` call that computes flash_prefill
     on x (boolean mask, ``enable_gqa``), its inputs built beforehand."""
@@ -948,10 +991,11 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, card: str, setup=None, dr
     import numpy as np
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.models import lm
     from repro_torch.runtime import serve_loop
     L = cfg.n_attn_layers
     rec = Recorder(L)
-    dev = params["embed"]["table"].device
+    dev = lm.params_device(params)
     sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=dev, tracer=tracer,
                                  metrics=metrics)
     if setup is not None:
@@ -1358,9 +1402,10 @@ def generate_run(label, params, buffers, cfg, prompts, new_tokens: int, want, ca
     import torch
     from repro_torch.core.cache import model_cache_floats_per_token, ssm_state_floats
     from repro_torch.kernels import ops
+    from repro_torch.models import lm
     from repro_torch.runtime import serve_loop
     rec = Recorder(cfg.n_attn_layers, names=tuple(ENTRY.get(k, k) for k in want))
-    dev = params["embed"]["table"].device
+    dev = lm.params_device(params)
     ops.reset_launches()
     try:
         t0 = time.perf_counter()
@@ -1928,31 +1973,39 @@ def rope_backward_parity(dev, card: str) -> float:
 
 def card_vs_cpu_gradients(dev, card: str) -> None:
     """Phase 3k (b): a 2-layer TinyLlama-1.1B EliteKV at full width (r 8,
-    d_ckv 64), B 2 x S 256: every leaf's loss gradient on the card (through
-    the rotary kernel forward and backward) against the port's on the CPU
-    (plain versions) within ``GRAD_RTOL`` of the leaf's largest + 1e-7;
-    ``wk_e`` must get a gradient that is not zero."""
+    d_ckv 64), B 2 x S 256, through ``grads_card_vs_cpu``."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.launch.serve import build_config
     from repro_torch.models import lm
-    from repro_torch.tree import items, map_tree
     cfg = dataclasses.replace(build_config("tinyllama_1_1b", reduced=False,
                                            cache_ratio=0.25), num_layers=2)
     params, buffers = lm.init(cfg, seed=5, device=dev)
     toks = torch.from_numpy(np.random.default_rng(15).integers(0, cfg.vocab_size, (2, 257)))
+    grads_card_vs_cpu("2-layer full-width", params, buffers, cfg,
+                      {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, dev, card)
+
+
+def grads_card_vs_cpu(label: str, params, buffers, cfg, batch, dev, card: str) -> None:
+    """Every leaf's loss gradient of ``batch`` (CPU tensors) on the card
+    (through the rotary kernel forward and backward) against the port's on
+    the CPU (plain versions) within ``GRAD_RTOL`` of the leaf's largest +
+    1e-7; ``wk_e`` must get a gradient that is not zero."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.tree import items, map_tree
     grads = {}
     for where in ("cpu", dev):
         p = map_tree(lambda t: t.detach().to(where).requires_grad_(True), params)
         b = map_tree(lambda t: t.to(where), buffers)
         t0 = time.perf_counter()
-        loss, _ = lm.loss_fn(p, b, cfg, {"tokens": toks[:, :-1].to(where),
-                                         "labels": toks[:, 1:].to(where)})
+        loss, _ = lm.loss_fn(p, b, cfg, {k: v.to(where) for k, v in batch.items()})
         names, leaves = zip(*items(p))
         grads[str(where)] = dict(zip(names, (g.cpu() for g in
                                              torch.autograd.grad(loss, leaves))))
-        print(f"[{card}] 2-layer full-width loss and gradient on {where}: loss "
+        del p, b
+        print(f"[{card}] {label} loss and gradient on {where}: loss "
               f"{float(loss.detach()):.6f}, {time.perf_counter() - t0:.2f} s", flush=True)
     worst = (0.0, "")
     for name, want in grads["cpu"].items():
@@ -1964,7 +2017,7 @@ def card_vs_cpu_gradients(dev, card: str) -> None:
     wk = grads[str(dev)]["layers/0/attn/wk_e"]
     if not float(wk.abs().max()) > 0:
         raise AssertionError("wk_e got no gradient on the card")
-    print(f"[{card}] 2-layer full-width gradients, card vs CPU, {len(grads['cpu'])} leaves: "
+    print(f"[{card}] {label} gradients, card vs CPU, {len(grads['cpu'])} leaves: "
           f"worst max|Δ| / max|g| {worst[0]:.3e} ({worst[1]}), tolerance {GRAD_RTOL}; "
           f"wk_e max|g| {float(wk.abs().max()):.3e}", flush=True)
 
@@ -2308,6 +2361,8 @@ def generate_rows(params, buffers, cfg, prompt, n_new: int, dev):
     finally:
         lm.apply_prefill, lm.apply_decode = real_p, real_d
     n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.num_layers))
+    if not n_moe:                           # no router: nothing to excuse
+        return out[0], torch.stack(rows), [float("inf")] * len(rows)
     per_forward = [float(torch.stack([c.min() for c in calls[i:i + n_moe]]).min())
                    for i in range(0, len(calls), n_moe)]
     gaps, least = [], float("inf")
@@ -2396,10 +2451,13 @@ def profile_lockstep(params, buffers, cfg, dev, card: str, label: str, stats: di
                        stats)
 
 
-def kernel_subrow(label: str, name: str, a, launches: int, card: str, flush) -> dict:
-    """One kernel at a recorded 3l input: held to its plain version
+def kernel_subrow(label: str, name: str, a, launches: int, card: str, flush,
+                  phase: str = "3l") -> dict:
+    """One kernel at a recorded 3l (or 3m) input: held to its plain version
     (``check``), timed beside it, its bound (``flash_prefill``'s prefill
-    body at the 3xTF32 rate, as phase 4) and (flash_prefill) SDPA's time."""
+    body at the 3xTF32 rate, as phase 4) and SDPA's time where one call
+    computes the function (``flash_prefill``; ``elite_decode`` over
+    prebuilt operands, as phase 4)."""
     from repro_torch.kernels import elite_decode as ed
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import ref
@@ -2415,6 +2473,7 @@ def kernel_subrow(label: str, name: str, a, launches: int, card: str, flush) -> 
     elif name == "elite_decode":
         nbytes, flops = contig_decode_cost(a)
         fn, plain = (lambda: ed.elite_decode(*a)), (lambda: ref.elite_decode_ref(*a))
+        lib = time_ms(contig_sdpa_call(a), flush=flush)
         shape = f"q_e={tuple(a[0].shape)} k_e={tuple(a[2].shape)} rows {int(a[5].sum())}"
     else:
         nbytes, flops = decode_cost(name, a)
@@ -2425,7 +2484,7 @@ def kernel_subrow(label: str, name: str, a, launches: int, card: str, flush) -> 
     r = dict(name=name, at=label, launches=launches, max_abs_err=err,
              ms=time_ms(fn, flush=flush), plain_ms=time_ms(plain, flush=flush),
              bound_ms=t_bound, bound_by=by, library_ms=lib)
-    print(f"[{card}] 3l kernel {name} at {label} ({shape}): {r['ms']:.4f} ms, plain "
+    print(f"[{card}] {phase} kernel {name} at {label} ({shape}): {r['ms']:.4f} ms, plain "
           f"{r['plain_ms']:.4f} ms, bound {t_bound:.5f} ms ({by}: {nbytes} B, {flops} flop), "
           f"SDPA {'n/a' if lib is None else f'{lib:.4f} ms'}, launches {launches}",
           flush=True)
@@ -2595,6 +2654,325 @@ def moe_mamba_hybrid(dev, card: str) -> dict:
     return out
 
 
+# -- the vision and audio frontends at full width (phase 3m) ----------------------
+
+FRONT_PATCHES, FRONT_TEXT = 256, 256   # InternVL2: patch embeddings, then text tokens
+FRONT_LANES, FRONT_DECODE = 8, 64      # paged prefill lanes and greedy decode steps
+MUSIC_LANES, MUSIC_FRAMES, MUSIC_DECODE = 4, 512, 32
+FRONT_TRAIN_STEPS = 4
+
+
+def seeded_embeds(shape, seed: int, dev):
+    """The stub frontends' patch or frame embeddings: 0.02 x a standard
+    normal from a seeded generator on the card (the reference's
+    ``make_inputs`` scale)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev) * 0.02
+
+
+def paged_vs_full(label: str, params, buffers, cfg, batch, n_steps: int, step_input,
+                  dev, card: str):
+    """``batch`` (B lanes of patches + text, or of frames) prefilled into a
+    pool through ``apply_prefill_paged``, then ``n_steps`` steps of
+    ``apply_decode_paged``, step ``t`` fed ``step_input(t, last logits
+    row)`` (the greedy token, or a seeded frame).  The counts are set to 0
+    just before and read just after: ``flash_prefill`` L, ``elite_decode_paged``
+    L x n_steps, ``rope_elite`` L x (1 + n_steps), nothing else.  Every
+    logits row taken (the prefill's last and each step's) must agree with
+    ``apply_train`` over the whole sequence (cache off) within LOGIT_TOL.
+    → (launches, recorder, max |difference|, wall s of prefill + decode)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cache import PagedKVPool
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    L, bs = cfg.num_layers, 16
+    key = "frames" if cfg.frontend == "audio" else "tokens"
+    nv = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    B, P = batch[key].shape[0], nv + batch[key].shape[1]
+    mb = -(-(P + n_steps) // bs)
+    pool = PagedKVPool(cfg, B * mb, bs, device=dev)
+    lanes = list(range(B))
+    for b in lanes:
+        pool.ensure_capacity(b, P + n_steps)
+    bt = pool.block_table_array(lanes, mb)
+    sm = np.stack([pool.prefill_slot_mapping(b, 0, P, P) for b in lanes])
+    rec = Recorder(L)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    try:
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            rows = [lm.apply_prefill_paged(params, buffers, cfg, batch, pool.pages,
+                                           torch.from_numpy(sm))[:, -1].clone()]
+            fed = []
+            for t in range(n_steps):
+                fed.append(step_input(t, rows[-1]))
+                n = P + t + 1
+                rows.append(lm.apply_decode_paged(
+                    params, buffers, cfg, {key: fed[-1]}, pool.pages,
+                    torch.from_numpy(pool.slot_mapping(lanes, [n - 1] * B)), bt,
+                    np.full(B, n, np.int32), bs)[:, -1].clone())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.launches().items() if v}
+    finally:
+        rec.close()
+    want = {"flash_prefill": L, "elite_decode_paged": L * n_steps,
+            "rope_elite": L * (1 + n_steps)}
+    print(f"{label} launches: {launches}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    del pool
+    full = dict(batch, **{key: torch.cat([batch[key]] + fed, dim=1)})
+    with torch.no_grad():
+        ref_rows = lm.apply_train(params, buffers, cfg, full)[:, P - 1:]
+    got = torch.stack(rows, dim=1)
+    d = (got - ref_rows).abs().amax(dim=(0, 2))                 # per position
+    print(f"[{card}] {label}: {B} lanes x ({P} prefilled + {n_steps} decode steps) in "
+          f"{wall:.3f} s; every logits row against apply_train over all {P + n_steps} "
+          f"positions: max |difference| prefill row {float(d[0]):.3e}, decode rows "
+          f"{float(d[1:].max()):.3e} (limit {LOGIT_TOL})", flush=True)
+    if not float(d.max()) <= LOGIT_TOL:
+        raise AssertionError(f"{label}: cache on != cache off, max |difference| "
+                             f"{float(d.max())} at row {int(d.argmax())}")
+    return launches, rec, float(d.max()), wall
+
+
+def frontend_training(label: str, params, buffers, cfg, batches, tc, dev, card: str) -> dict:
+    """``train_loop.train`` over ``batches`` with the counts set to 0
+    before: every step must launch the rotation 2 x L times forward (full
+    remat) and L times backward and nothing else; losses finite.  → losses,
+    step ms (host clock, the loss read each step), peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import train_loop
+    L = cfg.num_layers
+    per_step = {"rope_elite": 2 * L, "rope_elite_backward": L}
+    losses, stamps, seen = [], [], {}
+
+    def cb(step, metrics):
+        losses.append(float(metrics["loss"]))          # waits for the step
+        stamps.append(time.perf_counter())
+        n = ops.launches()
+        got = {k: n[k] - seen.get(k, 0) for k in n if n[k] - seen.get(k, 0)}
+        seen.update(n)
+        if got != per_step:
+            raise AssertionError(f"{label} step {step}: launches {got}, expected {per_step}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    stamps.append(time.perf_counter())
+    p, _, _ = train_loop.train(params, buffers, cfg, tc, iter(batches), len(batches),
+                               log_every=0, callback=cb)
+    del p
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = np.diff(stamps) * 1e3
+    print(f"[{card}] {label}: losses " + " ".join(f"{v:.4f}" for v in losses)
+          + "; step ms " + " ".join(f"{t:.1f}" for t in step_ms)
+          + f"; peak memory {peak / 2**30:.2f} GiB; rotation launches per step {per_step}",
+          flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses}")
+    return dict(losses=losses, step_ms=step_ms, peak=peak)
+
+
+def convert_timed(label: str, params, buffers, cfg, calib, e, dev, card: str):
+    """``ropelite.search_model`` and ``convert.convert_model`` on the
+    calibration batch (what ``convert.elitekv_from_baseline`` runs), timed
+    apart, with the counts set to 0 before: ``rope_elite`` once per layer
+    in the capture and once in the search, nothing else.  → (converted
+    params, buffers, cfg, times)."""
+    import torch
+    from repro_torch.core import convert, ropelite
+    from repro_torch.kernels import ops
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sets = ropelite.search_model(params, buffers, cfg, calib, e.elite_r)
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.launches().items() if v}
+    if launches != {"rope_elite": 2 * L}:
+        raise AssertionError(f"{label} search: launches {launches}, expected "
+                             f"{{'rope_elite': {2 * L}}}")
+    t0 = time.perf_counter()
+    cp, cb, ccfg = convert.convert_model(params, buffers, cfg, sets, e)
+    torch.cuda.synchronize()
+    t_convert = time.perf_counter() - t0
+    shape = {k: tuple(v.shape) for k, v in calib.items()}
+    print(f"[{card}] {label}: RoPElite capture + greedy search r={e.elite_r} over {L} layers "
+          f"on {shape} {t_search:.2f} s ({t_search / L:.3f} s per layer; launches "
+          f"{launches}), J-LRD SVDs and surgery d_ckv={e.d_ckv} {t_convert:.2f} s "
+          f"({t_convert / L:.3f} s per layer); layer 0's elite chunks of kv head 0: "
+          f"{sets[0][0].tolist()}", flush=True)
+    return cp, cb, ccfg, dict(search=t_search, convert=t_convert)
+
+
+def frontends(dev, card: str) -> dict:
+    """Phase 3m: InternVL2-2B (24 layers) and MusicGen-large (48 layers) at
+    full width, each converted from a seeded baseline at a quarter cache,
+    served and trained on the card through the reference's batch inputs
+    (``patch_embeds``, ``tokens``, ``frames``), each freed before the next;
+    then the kernels at their busiest 3m inputs.  → numbers for the
+    summary."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.convert import pick_dims
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import serve_loop, train_loop
+    from repro_torch.tree import leaves
+    t_phase = time.perf_counter()
+    flush = torch.empty(64 * 2**20 // 4, device=dev).zero_       # > the 50 MB L2
+    _free_card()
+    out = {"subrows": [], "held": torch.cuda.memory_allocated()}
+    print(f"[{card}] 3m: {out['held'] / 2**30:.2f} GiB allocated on the card before the "
+          f"first model (earlier phases' recorded inputs and pools)", flush=True)
+    weights = lambda p: sum(t.numel() * t.element_size() for t in leaves(p))
+
+    # a. InternVL2-2B: converted, paged prefill with patches, Scheduler, uptraining
+    cfg = build_config("internvl2_2b", reduced=False, cache_ratio=0.25, elitekv=False)
+    e = pick_dims(cfg, 0.25, align=16)
+    assert (cfg.num_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.padded_vocab, cfg.n_frontend_tokens, e.elite_r, e.d_ckv) == \
+        (24, 2048, 16, 8, 128, 92672, FRONT_PATCHES, 16, 256), (cfg, e)
+    L, V = cfg.num_layers, cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    params, buffers = lm.init(cfg, seed=0, device=dev)
+    print(f"[{card}] 3m a. InternVL2-2B baseline, 24 layers at full width: "
+          f"{weights(params) / 1e9:.2f} GB of f32 weights; EliteKV r={e.elite_r} "
+          f"d_ckv={e.d_ckv}: {2 * e.elite_r * cfg.n_kv_heads + e.d_ckv} floats per token "
+          f"and layer against {2 * cfg.n_kv_heads * cfg.head_dim}", flush=True)
+    ids = lambda shape, seed: torch.from_numpy(np.random.default_rng(seed).integers(
+        0, V, shape)).to(dev)
+    calib = {"patch_embeds": seeded_embeds((4, FRONT_PATCHES, cfg.d_model), 21, dev),
+             "tokens": ids((4, FRONT_TEXT), 22)}
+    cp, cb, ccfg, a = convert_timed("3m InternVL2-2B conversion", params, buffers, cfg,
+                                    calib, e, dev, card)
+    del params, buffers, calib
+    _free_card()
+    batch = {"patch_embeds": seeded_embeds((FRONT_LANES, FRONT_PATCHES, cfg.d_model), 23,
+                                           dev),
+             "tokens": ids((FRONT_LANES, FRONT_TEXT), 24)}
+    launches, rec, a["paged_d"], a["paged_wall"] = paged_vs_full(
+        "3m InternVL2-2B paged prefill (patches + text) and greedy decode", cp, cb, ccfg,
+        batch, FRONT_DECODE, lambda t, row: row.argmax(-1)[:, None], dev, card)
+    busy = max(rec.calls["elite_decode_paged"],
+               key=lambda c: visited_rows("elite_decode_paged", c))
+    pre = rec.calls["flash_prefill"][0]
+    del rec, batch
+    # text-only requests through the Scheduler, held to generate row by row
+    prompts = np.random.default_rng(25).integers(0, V, (8, FRONT_TEXT)).astype(np.int32)
+    reqs = [serve_loop.Request(uid=i, prompt=prompts[i], max_new_tokens=FRONT_DECODE)
+            for i in range(8)]
+    scfg = serve_loop.SchedulerConfig(max_slots=8, block_size=16, num_blocks=8 * 24,
+                                      max_new_tokens=FRONT_DECODE, max_len=1024,
+                                      prefill_chunk_tokens=256, prefill_batch_lanes=8)
+    rows, undo = {}, []
+    try:
+        rep, _, _, sched = serve_run(
+            "3m InternVL2-2B Scheduler, 8 text requests", cp, cb, ccfg, scfg, reqs, card,
+            setup=lambda s: undo.append(record_greedy_rows(s, rows)))
+    finally:
+        for u in undo:
+            u()
+    a["rep"] = rep
+    a["cmp"] = compare_greedy_rows("3m InternVL2-2B Scheduler vs generate", sched, rows,
+                                   cp, cb, ccfg, dev, card)
+    del rows, sched
+    # uptraining on batches with patch embeddings
+    batches = []
+    for s in range(FRONT_TRAIN_STEPS):
+        toks = ids((2, FRONT_TEXT + 1), 30 + s)
+        batches.append({"patch_embeds": seeded_embeds((2, FRONT_PATCHES, cfg.d_model),
+                                                      40 + s, dev),
+                        "tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    a["train"] = frontend_training(
+        f"3m InternVL2-2B uptraining, {FRONT_TRAIN_STEPS} AdamW steps (f32 moments, lr "
+        f"{TRAIN_LR}) at B 2 x ({FRONT_PATCHES} patches + {FRONT_TEXT} tokens)", cp, cb, ccfg,
+        batches, train_loop.TrainConfig(lr=TRAIN_LR), dev, card)
+    del batches
+    # card vs CPU gradients of the converted model's first 2 layers
+    toks = torch.from_numpy(np.random.default_rng(26).integers(0, V, (2, 129)))
+    grads_card_vs_cpu(
+        "3m InternVL2-2B, 2 of 24 layers", {**cp, "layers": cp["layers"][:2]},
+        {"layers": cb["layers"][:2]}, dataclasses.replace(ccfg, num_layers=2),
+        {"patch_embeds": seeded_embeds((2, 128, cfg.d_model), 27, dev).cpu(),
+         "tokens": toks[:, :-1], "labels": toks[:, 1:]}, dev, card)
+    a["launches"] = launches
+    a["peak"] = torch.cuda.max_memory_allocated()
+    del cp, cb
+    _free_card()
+    out["subrows"] += [
+        kernel_subrow("InternVL2-2B busiest paged decode", "elite_decode_paged", busy,
+                      launches["elite_decode_paged"], card, flush, phase="3m"),
+        kernel_subrow("InternVL2-2B paged prefill (256 patches + 256 tokens)",
+                      "flash_prefill", pre, launches["flash_prefill"], card, flush,
+                      phase="3m")]
+    del busy, pre
+    out["internvl"] = a
+
+    # b. MusicGen-large: frames in, an lm_head out, no embedding table
+    cfg = build_config("musicgen_large", reduced=False, cache_ratio=0.25, elitekv=False)
+    e = pick_dims(cfg, 0.25, align=16)
+    assert (cfg.num_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.padded_vocab, e.elite_r, e.d_ckv) == (48, 2048, 32, 32, 64, 2048, 8, 512), \
+        (cfg, e)
+    L, V = cfg.num_layers, cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    params, buffers = lm.init(cfg, seed=0, device=dev)
+    assert "embed" not in params and "lm_head" in params
+    print(f"[{card}] 3m b. MusicGen-large baseline, 48 layers at full width: "
+          f"{weights(params) / 1e9:.2f} GB of f32 weights, no embedding table; EliteKV "
+          f"r={e.elite_r} d_ckv={e.d_ckv}: {2 * e.elite_r * cfg.n_kv_heads + e.d_ckv} floats "
+          f"per token and layer against {2 * cfg.n_kv_heads * cfg.head_dim}", flush=True)
+    cp, cb, ccfg, b = convert_timed(
+        "3m MusicGen-large conversion", params, buffers, cfg,
+        {"frames": seeded_embeds((2, MUSIC_FRAMES, cfg.d_model), 51, dev)}, e, dev, card)
+    del params, buffers
+    _free_card()
+    frames = seeded_embeds((MUSIC_LANES, MUSIC_FRAMES + MUSIC_DECODE, cfg.d_model), 52, dev)
+    launches, rec, b["paged_d"], b["paged_wall"] = paged_vs_full(
+        "3m MusicGen-large paged prefill (frames) and decode of seeded frames", cp, cb, ccfg,
+        {"frames": frames[:, :MUSIC_FRAMES]}, MUSIC_DECODE,
+        lambda t, row: frames[:, MUSIC_FRAMES + t:MUSIC_FRAMES + t + 1], dev, card)
+    busy = max(rec.calls["elite_decode_paged"],
+               key=lambda c: visited_rows("elite_decode_paged", c))
+    pre = rec.calls["flash_prefill"][0]
+    del rec, frames
+    # one training step on frames and labels; int8 moments: the functional
+    # AdamW holds old and new weights and moments at once, which with f32
+    # moments would be ~96 GB for 3.0 B parameters
+    step = {"frames": seeded_embeds((2, MUSIC_FRAMES, cfg.d_model), 53, dev),
+            "labels": ids((2, MUSIC_FRAMES), 54)}
+    b["train"] = frontend_training(
+        f"3m MusicGen-large, one AdamW step (int8 moments, lr {TRAIN_LR}) at B 2 x "
+        f"{MUSIC_FRAMES} frames", cp, cb, ccfg, [step],
+        train_loop.TrainConfig(lr=TRAIN_LR, optimizer=AdamWConfig(moment_dtype="int8")),
+        dev, card)
+    b["launches"] = launches
+    b["peak"] = torch.cuda.max_memory_allocated()
+    del cp, cb, step
+    _free_card()
+    out["subrows"] += [
+        kernel_subrow("MusicGen-large busiest paged decode", "elite_decode_paged", busy,
+                      launches["elite_decode_paged"], card, flush, phase="3m"),
+        kernel_subrow("MusicGen-large paged prefill (512 frames)", "flash_prefill", pre,
+                      launches["flash_prefill"], card, flush, phase="3m")]
+    del busy, pre
+    out["musicgen"] = b
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 3m (frontends) {out['wall']:.1f} s", flush=True)
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2612,7 +2990,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
         return 2
     import numpy as np
-    import torch.nn.functional as F
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import elite_decode as ed
     from repro_torch.kernels import flash_prefill as fp
@@ -3059,6 +3436,8 @@ def main() -> int:
     # l. MoE, Mamba and hybrid stacks at full width, each model freed before
     # the next is made (every earlier phase's model is gone by now)
     hyb = moe_mamba_hybrid(dev, card)
+    # m. the vision and audio frontends at full width and depth
+    fronts = frontends(dev, card)
 
     # -- 4. times at the main paths' shapes ----------------------------------
     scratch = torch.empty(64 * 2**20 // 4, device=dev)      # > the 50 MB L2
@@ -3126,13 +3505,7 @@ def main() -> int:
     q_e, q_lat, k_e, c_k, c_v, lens, G, sc = a
     B, S = k_e.shape[:2]
     nkv, dc = k_e.shape[2], c_k.shape[-1]
-    qs = torch.cat([q_e, q_lat], -1)[:, :, None]                      # [B,nh,1,2r+dc]
-    ks = torch.cat([k_e.transpose(1, 2),
-                    c_k[:, None].expand(B, nkv, S, dc)], -1).contiguous()
-    vs = c_v[:, None].expand(B, nkv, S, dc).contiguous()
-    lmask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None]
-    sdpa_d = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=lmask, scale=sc,
-                                                    enable_gqa=True)
+    sdpa_d = contig_sdpa_call(a)
     print(f"[{card}] elite_decode vs its SDPA yardstick: max abs difference "
           f"{max_err(sdpa_d()[:, :, 0], ed.elite_decode(*a)):.3e}", flush=True)
     e_bytes, e_flops = contig_decode_cost(a)
@@ -3341,6 +3714,29 @@ def main() -> int:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
               f"SDPA {lib}, launches {r['launches']}", flush=True)
 
+    # phase 3m's numbers
+    for label, key, n in (("InternVL2-2B", "internvl", FRONT_TRAIN_STEPS),
+                          ("MusicGen-large", "musicgen", 1)):
+        x = fronts[key]
+        tr = x["train"]
+        print(f"[{card}] 3m {label}: search {x['search']:.2f} s, SVDs and surgery "
+              f"{x['convert']:.2f} s; paged prefill + decode {x['paged_wall']:.3f} s, rows "
+              f"within {x['paged_d']:.3e} of apply_train; {n} training step(s): losses "
+              + " ".join(f"{v:.4f}" for v in tr["losses"]) + ", step ms "
+              + " ".join(f"{t:.1f}" for t in tr["step_ms"])
+              + f", peak memory {tr['peak'] / 2**30:.2f} GiB ({fronts['held'] / 2**30:.2f} "
+              f"held before)", flush=True)
+    r = fronts["internvl"]["rep"]
+    print(f"[{card}] 3m InternVL2-2B Scheduler f32 8 text requests: decode tok/s="
+          f"{r.tok_per_s:.1f} ttft_ms p50/p95={r.ttft_wall_p50_ms:.1f}/{r.ttft_wall_p95_ms:.1f} "
+          f"step_ms p50/p95={r.step_ms_p50:.2f}/{r.step_ms_p95:.2f} wall_s={r.wall_s:.2f}, pool "
+          f"{r.pool_bytes_per_token} B per token", flush=True)
+    for r in fronts["subrows"]:
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[{card}] 3m {r['name']} at {r['at']}: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+              f"SDPA {lib}, launches {r['launches']}", flush=True)
+
     # -- 5. result lines -----------------------------------------------------
     t = train3k
     print(f"[{card}] uptraining (3k): step_ms p50 {t['step_ms_p50']:.1f}, tokens/s "
@@ -3348,8 +3744,9 @@ def main() -> int:
           f"{100 * t['mfu']:.1f}% of 67 TFLOP/s, losses {t['losses'][0]:.4f} -> "
           f"{t['losses'][-1]:.4f}", flush=True)
     print(f"[{card}] phases 3i (conversion) {conv['phase']:.1f} s, 3k (training) "
-          f"{t['phase']:.1f} s, 3j (MiniCPM-2B) {tied['wall']:.1f} s and 3l (MoE, Mamba, "
-          f"hybrid) {hyb['wall']:.1f} s; the whole script "
+          f"{t['phase']:.1f} s, 3j (MiniCPM-2B) {tied['wall']:.1f} s, 3l (MoE, Mamba, "
+          f"hybrid) {hyb['wall']:.1f} s and 3m (frontends) {fronts['wall']:.1f} s; the "
+          f"whole script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,2 +1,2 @@
 from repro_torch.configs.base import (ARCH_IDS, EliteKVConfig, ModelConfig,
-                                      get_config)
+                                      get_config, make_inputs)

@@ -8,14 +8,18 @@ layers and attention/Mamba hybrids (``ssm_state``, ``attn_period``), and the
 training knobs (query-chunked attention, sequence-chunked loss, layer
 remat).  Layer ``i``'s mixer is ``layer_kind(i)`` ("attn" or "ssm") and its
 FFN ``ffn_kind(i)`` ("mlp", "moe" or "none"); both repeat every
-``block_period`` layers.  No frontend fields, shape cells or dry-run input
+``block_period`` layers.  The frontends are stubs, as in the reference: a
+vision model (``frontend="vision"``) takes ``n_frontend_tokens`` precomputed
+patch embeddings before its text, an audio model (``"audio"``) takes
+precomputed frame embeddings and has no token embedding; ``make_inputs``
+draws the reference's seeded batches.  No shape cells or dry-run input
 specs yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +64,7 @@ class ModelConfig:
     n_kv_heads: int
     d_ff: int
     vocab_size: int
-    family: str = "dense"            # dense | moe | ssm | hybrid
+    family: str = "dense"            # dense | moe | ssm | hybrid | audio | vlm
     d_head: Optional[int] = None     # explicit head dim; default d_model // n_heads
 
     # --- MoE ---
@@ -78,6 +82,10 @@ class ModelConfig:
     attn_period: int = 1             # hybrid: layer i is attention iff i % attn_period == attn_offset
     attn_offset: int = 0             # (attn_period=1 → all-attention; 0 attn layers for pure ssm)
     dt_rank: Optional[int] = None    # mamba Δ rank (default ceil(d_model/16))
+
+    # --- frontends (stubs: precomputed embeddings) ---
+    frontend: str = "none"           # none | audio | vision
+    n_frontend_tokens: int = 0       # vision: number of patch tokens prepended
 
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
@@ -143,9 +151,12 @@ class ModelConfig:
         return len(self.attn_layer_indices)
 
     def param_count(self) -> int:
-        """Analytic parameter count (embeddings included once if tied)."""
+        """Analytic parameter count (embeddings included once if tied; an
+        audio model has no embedding table and always an LM head)."""
         d, dh = self.d_model, self.head_dim
-        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        n_vocab_mats = ((0 if self.frontend == "audio" else 1)
+                        + (1 if (self.frontend == "audio" or not self.tie_embeddings) else 0))
+        total = self.vocab_size * d * n_vocab_mats
         for i in range(self.num_layers):
             if self.layer_kind(i) == "attn":
                 e = self.elitekv
@@ -218,6 +229,7 @@ class ModelConfig:
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0,
             moe_dff=128 if self.n_experts else None,
+            n_frontend_tokens=min(self.n_frontend_tokens, 8),
             elitekv=dataclasses.replace(
                 self.elitekv, elite_r=4, d_ckv=64, d_ck=32, d_cv=32),
         )
@@ -225,9 +237,42 @@ class ModelConfig:
         return dataclasses.replace(self, **base)
 
 
+def make_inputs(cfg: ModelConfig, batch: int, seq: int, kind: str,
+                seed: int = 0) -> Dict[str, np.ndarray]:
+    """Small seeded inputs, drawn as the reference's ``make_inputs`` draws
+    them from ``np.random.default_rng(seed)`` (the same values; ids as
+    int64, embeddings f32), as numpy arrays: the caller moves them to
+    tensors.  ``seq`` counts every position: a vision batch holds
+    ``n_frontend_tokens`` patch embeddings and ``seq - n_frontend_tokens``
+    tokens; an audio batch holds ``frames`` [batch, seq, d_model].
+    ``kind == "train"`` adds ``labels`` for the text (or frame) positions."""
+    rng = np.random.default_rng(seed)
+    out: Dict[str, np.ndarray] = {}
+
+    def embeds(n):
+        return rng.standard_normal((batch, n, cfg.d_model), dtype=np.float32) * 0.02
+
+    def ids(n):
+        return rng.integers(0, cfg.vocab_size, (batch, n)).astype(np.int64)
+
+    if cfg.frontend == "audio":
+        out["frames"] = embeds(seq)
+        n_text = seq
+    elif cfg.frontend == "vision":
+        out["patch_embeds"] = embeds(cfg.n_frontend_tokens)
+        n_text = seq - cfg.n_frontend_tokens
+        out["tokens"] = ids(n_text)
+    else:
+        n_text = seq
+        out["tokens"] = ids(n_text)
+    if kind == "train":
+        out["labels"] = ids(n_text)
+    return out
+
+
 ARCH_IDS = ("tinyllama_1_1b", "llama2_7b", "llama2_13b", "yi_6b", "granite_3_2b",
             "minicpm_2b", "qwen3_moe_235b", "arctic_480b", "jamba_v0_1_52b",
-            "falcon_mamba_7b")
+            "falcon_mamba_7b", "internvl2_2b", "musicgen_large")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -7,7 +7,7 @@ Steps per attention layer (paper §3 pipeline):
      — query heads use their KV group's elite order (keys are shared).
   3. Slice W^k into the elite part (kept dense, rotated at runtime) and the
      non-elite remainder; J-LRD (or S-LRD) factorize [W^k_ne , W^v]
-     (``core/lrd.py``, numpy float64 on the host).
+     (``core/lrd.py``, a float64 SVD on the weights' device).
   4. Store the elite theta values as the buffer ``elite_freqs`` [n_kv, r],
      which the serving paths rotate by.
 
@@ -17,7 +17,7 @@ comparison baseline — and EliteKV dimension selection (paper App. C).
 Counterpart of the JAX package's ``core/convert.py`` on the port's layout:
 one dict per layer (``params["layers"][i]["attn"]``) where the reference
 stacks layers under ``params["blocks"]["p0"]``.  Weights stay on the
-baseline's device; only the factorization visits the host.
+baseline's device, the factorizations included (``core/lrd.py``).
 """
 from __future__ import annotations
 
@@ -71,12 +71,24 @@ def convert_layer(attn_params: Dict, cfg: ModelConfig, e: EliteKVConfig,
     return params, {"elite_freqs": t(freqs[elite_idx].astype(np.float32))}
 
 
+def check_attention_only(cfg) -> None:
+    """The search and the conversion index layers by attention ordinal: a
+    stack with Mamba layers is refused (ROADMAP item 16.2)."""
+    if cfg.n_attn_layers != cfg.num_layers:
+        raise ValueError(f"{cfg.name} has Mamba layers: the RoPElite search and the "
+                         "conversion take attention-only stacks (hybrid conversion is "
+                         "ROADMAP item 16.2)")
+
+
 def convert_model(params: Dict, buffers: Dict, cfg: ModelConfig, elite_sets: Dict,
                   elitekv: EliteKVConfig) -> Tuple[Dict, Dict, ModelConfig]:
-    """Whole-model conversion.  ``elite_sets``: {layer index: [nkv, r]}.
-    → (params, buffers, config) of the EliteKV model; the embedding, LM
-    head, norms and MLPs are the baseline's tensors (shared, not copied)."""
+    """Whole-model conversion of an attention-only baseline (a stack with
+    Mamba layers raises ``ValueError``).  ``elite_sets``: {layer index:
+    [nkv, r]}.  → (params, buffers, config) of the EliteKV model; the
+    embedding, LM head, norms and MLPs are the baseline's tensors (shared,
+    not copied)."""
     assert not cfg.elitekv.enabled
+    check_attention_only(cfg)
     new_cfg = dataclasses.replace(cfg, elitekv=dataclasses.replace(elitekv, enabled=True))
     layers, bufs = [], []
     for li, layer in enumerate(params["layers"]):
@@ -86,11 +98,12 @@ def convert_model(params: Dict, buffers: Dict, cfg: ModelConfig, elite_sets: Dic
     return {**params, "layers": layers}, {"layers": bufs}, new_cfg
 
 
-def elitekv_from_baseline(params, buffers, cfg, calib_tokens, elitekv: EliteKVConfig,
+def elitekv_from_baseline(params, buffers, cfg, calib_batch, elitekv: EliteKVConfig,
                           method: str = "greedy"):
-    """Search + convert in one call (the paper's full §3 pipeline)."""
+    """Search + convert in one call (the paper's full §3 pipeline) on a
+    calibration batch (``ropelite.search_model``'s)."""
     from repro_torch.core import ropelite
-    sets = ropelite.search_model(params, buffers, cfg, calib_tokens, elitekv.elite_r,
+    sets = ropelite.search_model(params, buffers, cfg, calib_batch, elitekv.elite_r,
                                  method=method)
     return convert_model(params, buffers, cfg, sets, elitekv)
 

@@ -10,10 +10,13 @@ S-LRD (ablation): factorize W^k_nonelite and W^v separately with ranks
 (d_ck, d_cv); ``optimal_slrd_split`` picks the error-minimizing split of a
 cache budget from the two singular spectra.
 
-Counterpart of the JAX package's ``core/lrd.py``.  Plain numpy in float64,
-as in the reference: the weights come to the host for the SVD (a torch
-tensor on any device is accepted), and the factors return as float32 numpy
-arrays, which ``core/convert.py`` puts on the model's device.
+Counterpart of the JAX package's ``core/lrd.py``.  The factorizations
+are float64 SVDs (``torch.linalg.svd``) on the weights' device: the
+card's where a model converts there (a [2048, 3584] MusicGen-large layer
+takes ~0.4 s there against ~4 s in numpy on the host), the host for numpy
+arrays and CPU tensors.  The factors return as float32 numpy arrays, which
+``core/convert.py`` puts on the model's device; the error measures and
+the S-LRD split stay numpy float64, as in the reference.
 """
 from __future__ import annotations
 
@@ -30,31 +33,48 @@ def _f64(w) -> np.ndarray:
     return np.asarray(w, np.float64)
 
 
+def _device(*ws) -> torch.device:
+    """The first tensor argument's device; the host if there is none."""
+    return next((w.device for w in ws if isinstance(w, torch.Tensor)), torch.device("cpu"))
+
+
+def _t64(w, device) -> torch.Tensor:
+    """``w`` (numpy array or tensor) as a float64 tensor on ``device``."""
+    if not isinstance(w, torch.Tensor):
+        w = torch.from_numpy(np.asarray(w))
+    return w.detach().to(device=device, dtype=torch.float64)
+
+
 def svd_lowrank(W, rank: int) -> Tuple[np.ndarray, np.ndarray]:
-    """W [m,n] ≈ A [m,rank] @ B [rank,n]   (A = U, B = Σ Vᵀ as in paper §2.3)."""
-    U, s, Vt = np.linalg.svd(_f64(W), full_matrices=False)
-    return U[:, :rank].astype(np.float32), (s[:rank, None] * Vt[:rank, :]).astype(np.float32)
+    """W [m,n] ≈ A [m,rank] @ B [rank,n]   (A = U, B = Σ Vᵀ as in paper §2.3),
+    a float64 SVD on W's device; float32 numpy factors."""
+    U, s, Vt = torch.linalg.svd(_t64(W, _device(W)), full_matrices=False)
+    return (U[:, :rank].float().cpu().numpy(),
+            (s[:rank, None] * Vt[:rank, :]).float().cpu().numpy())
 
 
 def jlrd(wk_ne, wv, d_ckv: int):
-    """Joint factorization.
+    """Joint factorization, on the device of the first tensor argument.
 
     wk_ne [d, n_kv, d_nope]; wv [d, n_kv, d_h]
     → a_kv [d, d_ckv], bk [d_ckv, n_kv, d_nope], bv [d_ckv, n_kv, d_h]
     """
-    wk_ne, wv = _f64(wk_ne), _f64(wv)
+    dev = _device(wk_ne, wv)
+    wk_ne, wv = _t64(wk_ne, dev), _t64(wv, dev)
     d, nkv, d_nope = wk_ne.shape
     dh = wv.shape[2]
-    W = np.concatenate([wk_ne.reshape(d, nkv * d_nope), wv.reshape(d, nkv * dh)], axis=1)
+    W = torch.cat([wk_ne.reshape(d, nkv * d_nope), wv.reshape(d, nkv * dh)], dim=1)
     A, B = svd_lowrank(W, d_ckv)
     return (A, B[:, :nkv * d_nope].reshape(d_ckv, nkv, d_nope),
             B[:, nkv * d_nope:].reshape(d_ckv, nkv, dh))
 
 
 def slrd(wk_ne, wv, d_ck: int, d_cv: int):
-    """Separate factorizations → (a_k [d, d_ck], a_v [d, d_cv],
-    bk [d_ck, n_kv, d_nope], bv [d_cv, n_kv, d_h])."""
-    wk_ne, wv = _f64(wk_ne), _f64(wv)
+    """Separate factorizations, on the device of the first tensor argument
+    → (a_k [d, d_ck], a_v [d, d_cv], bk [d_ck, n_kv, d_nope],
+    bv [d_cv, n_kv, d_h])."""
+    dev = _device(wk_ne, wv)
+    wk_ne, wv = _t64(wk_ne, dev), _t64(wv, dev)
     d, nkv, d_nope = wk_ne.shape
     dh = wv.shape[2]
     a_k, Bk = svd_lowrank(wk_ne.reshape(d, nkv * d_nope), d_ck)

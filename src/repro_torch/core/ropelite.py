@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import rope as rope_lib
+from repro_torch.core.convert import check_attention_only
 from repro_torch.models import lm
 
 
@@ -125,19 +126,23 @@ def layer_qk(layer_params, x: torch.Tensor):
     return q, k
 
 
-def search_model(params, buffers, cfg, tokens: torch.Tensor, r: int,
+def search_model(params, buffers, cfg, batch, r: int,
                  method: str = "greedy", causal: bool = True) -> Dict[int, torch.Tensor]:
     """Elite chunks for every attention layer of a *baseline* (non-elite)
-    model, from the calibration tokens [B,S].
+    attention-only model, from the calibration ``batch`` (the reference's
+    batch dict: tokens [B,S], with a vision model's patches before them or
+    an audio model's frames; a bare id tensor is the tokens).  Positions
+    run over every row of the embedded sequence, patches included.
 
     Returns {layer index: [n_kv, r] int32} (greedy order preserved), on the
     params' device.
     """
     assert not cfg.elitekv.enabled, "search runs on the baseline model"
+    check_attention_only(cfg)
     if method not in ("greedy", "uniform", "contribution"):
         raise ValueError(method)
-    caps = lm.capture_attn_inputs(params, buffers, cfg, tokens)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    caps = lm.capture_attn_inputs(params, buffers, cfg, batch)
+    positions = torch.arange(caps[0].shape[1], device=caps[0].device)
     out: Dict[int, torch.Tensor] = {}
     for li, x in enumerate(caps):
         if method == "uniform":

@@ -64,8 +64,8 @@ def params_tree_from_reference(tree: Dict, cfg, device="cuda") -> Dict:
 
 def from_reference(params: Dict, buffers: Dict, cfg, device="cuda") -> Tuple[Dict, Dict]:
     """Reference (params, buffers) of numpy arrays → the port's layout on
-    ``device``; ``lm_head`` is carried where the model has one (a tied
-    model has none)."""
+    ``device``; ``embed`` and ``lm_head`` are carried where the model has
+    them (a tied model has no ``lm_head``, an audio model no ``embed``)."""
     return (params_tree_from_reference(params, cfg, device),
             {"layers": _layers(buffers, cfg, device)})
 

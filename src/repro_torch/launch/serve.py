@@ -11,9 +11,12 @@ Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels instead (``--reduced`` shrinks the model for that).
 Weights are random, from ``--seed``.  ``--arch`` takes the dense
 architectures, the MoE stacks ``qwen3_moe_235b`` and ``arctic_480b``, the
-attention/Mamba hybrid ``jamba_v0_1_52b`` and the pure Mamba
-``falcon_mamba_7b``; ``--elitekv`` compresses the attention layers and is
-ignored for a stack without any.  ``--stream`` needs an attention-only
+attention/Mamba hybrid ``jamba_v0_1_52b``, the pure Mamba
+``falcon_mamba_7b`` and the vision model ``internvl2_2b``, which serves text
+prompts (no patches) in both modes; ``--elitekv`` compresses the attention
+layers and is ignored for a stack without any.  The audio model
+``musicgen_large`` takes frame embeddings, not token prompts, and is
+refused with ``ValueError`` (``models/lm.py``'s entry points serve it).  ``--stream`` needs an attention-only
 stack: a stack with Mamba layers serves in batch mode only:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_235b \
@@ -327,6 +330,10 @@ def main(argv=None):
                     help="write the metrics registry in Prometheus text "
                          "format to this path after the run")
     args = ap.parse_args(argv)
+    if get_config(args.arch).frontend == "audio":
+        raise ValueError(f"{args.arch} is an audio model with no token embedding: it "
+                         "takes frame embeddings through lm's entry points, not the "
+                         "token prompts this launcher serves")
     if (args.trace or args.metrics_out) and not args.stream:
         ap.error("--trace/--metrics-out instrument the paged scheduler; "
                  "add --stream")

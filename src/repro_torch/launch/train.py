@@ -10,7 +10,10 @@ The counterpart of the JAX package's ``launch/train.py`` on one device
 same-family config).  Weights are random from ``--seed``; with
 ``--elitekv`` the model is EliteKV at ``--cache-ratio``.  Checkpoints are
 committed atomically and a restart resumes from the newest committed step
-with the same data stream.  Matmuls stay out of TF32, as in serving.
+with the same data stream.  Matmuls stay out of TF32, as in serving.  The
+token pipeline feeds text: ``internvl2_2b`` trains on it without patches;
+the audio model ``musicgen_large`` has no token embedding and is refused
+with ``ValueError`` (``lm.loss_fn`` trains it on ``frames`` batches).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import time
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.launch.serve import build_config
 from repro_torch.models import lm
@@ -48,6 +52,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (cpu runs the kernels' plain versions)")
     args = ap.parse_args(argv)
+    if get_config(args.arch).frontend == "audio":
+        raise ValueError(f"{args.arch} is an audio model with no token embedding: it "
+                         "trains on frame embeddings through lm.loss_fn, not on the "
+                         "token pipeline this launcher feeds")
 
     # the reference is f32 end to end: keep matmuls out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False

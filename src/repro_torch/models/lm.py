@@ -18,6 +18,14 @@ FFN where it is "moe".  No ``lm_head`` when ``cfg.tie_embeddings``: the
 logits are then ``h @ embed.table^T``.  MoE layers dispatch "ragged"
 (``models/moe.py``); ``apply_train`` also takes the "dense" oracle.
 
+Every entry point takes the reference's ``batch`` dict (a bare id tensor
+stands for ``{"tokens": t}``): ``tokens`` [B,S] int64 for a text model; for
+a vision model (``cfg.frontend == "vision"``) optionally ``patch_embeds``
+[B,nv,d], which the whole-sequence entries put before the embedded text
+(positions run over all ``nv + S`` rows; decode and verify take tokens
+only); for an audio model ``frames`` [B,S,d], fed as they are: it has no
+``embed`` and always an ``lm_head``.
+
 Entry points over the block-paged pool (EliteKV, attention-only stacks:
 dense or MoE; a stack with Mamba layers raises ``ValueError``):
   * ``apply_prefill_paged`` — prefill prompts (or per-lane chunks) into the pool.
@@ -76,8 +84,9 @@ def init(cfg, seed: int = 0, device="cuda") -> Tuple[Dict, Dict]:
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     d, Vp = cfg.d_model, cfg.padded_vocab
-    params = {"embed": {"table": dense_init((Vp, d), g, device, scale=0.02)}}
-    if not cfg.tie_embeddings:
+    audio = cfg.frontend == "audio"
+    params = {} if audio else {"embed": {"table": dense_init((Vp, d), g, device, scale=0.02)}}
+    if audio or not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init((d, Vp), g, device, scale=0.02)}
     params.update(final_norm=rmsnorm_init(d, device), layers=[])
     buffers = {"layers": []}
@@ -100,8 +109,41 @@ def init(cfg, seed: int = 0, device="cuda") -> Tuple[Dict, Dict]:
     return params, buffers
 
 
+def _as_batch(batch) -> Dict:
+    """The reference's batch dict; a bare id tensor is ``{"tokens": t}``."""
+    return batch if isinstance(batch, dict) else {"tokens": batch}
+
+
+def params_device(params) -> torch.device:
+    """The params' device, from a leaf every model has."""
+    return params["final_norm"]["scale"].device
+
+
+def _embed_step(params, cfg, batch):
+    """Frames as they are for an audio model, else the embedded tokens
+    (every entry point; the reference's ``_embed_step``)."""
+    if cfg.frontend == "audio":
+        return batch["frames"].to(cfg.dtype)
+    return embed(params["embed"], batch["tokens"], cfg.dtype)
+
+
+def _embed_inputs(params, cfg, batch):
+    """``_embed_step``, with a vision batch's ``patch_embeds`` put before
+    the embedded text (the whole-sequence entries)."""
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        txt = embed(params["embed"], batch["tokens"], cfg.dtype)
+        return torch.cat([batch["patch_embeds"].to(cfg.dtype), txt], dim=1)
+    return _embed_step(params, cfg, batch)
+
+
+def _n_patches(cfg, batch) -> int:
+    """The patch rows a vision batch puts before its text (0 otherwise)."""
+    return (batch["patch_embeds"].shape[1]
+            if cfg.frontend == "vision" and "patch_embeds" in batch else 0)
+
+
 def _logits(params, cfg, h):
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and cfg.frontend != "audio":
         out = unembed(params["embed"], h)
     else:
         out = h.float() @ params["lm_head"]["w"].float()
@@ -223,13 +265,13 @@ def _remat(cfg):
     raise ValueError(f"remat_policy {cfg.remat_policy!r}: expected full, dots or none")
 
 
-def _forward_contiguous(params, buffers, cfg, tokens, mode: str, cache=None,
+def _forward_contiguous(params, buffers, cfg, batch, mode: str, cache=None,
                         captures=None, return_hidden=False, moe_impl="ragged"):
     """→ (logits or final hidden states, summed MoE balance loss or None)."""
-    device = params["embed"]["table"].device
-    h = embed(params["embed"], tokens, cfg.dtype)
+    h = (_embed_step if mode == "decode" else _embed_inputs)(params, cfg, batch)
     # decode takes its position from the cache index
-    positions = None if mode == "decode" else torch.arange(tokens.shape[1], device=device)
+    positions = (None if mode == "decode"
+                 else torch.arange(h.shape[1], device=params_device(params)))
     index = cache["index"] if cache is not None else 0
     wrap = _remat(cfg) if mode == "train" and captures is None else None
     aux_sum = None
@@ -259,16 +301,18 @@ def _capturing(attend, captures: list):
     return run
 
 
-def apply_train(params, buffers, cfg, tokens, return_hidden: bool = False,
+def apply_train(params, buffers, cfg, batch, return_hidden: bool = False,
                 moe_impl: str = "ragged", return_aux: bool = False):
-    """Whole-sequence forward, no cache: tokens [B,S] → logits [B,S,Vp] f32
-    (the final normed hidden states [B,S,d] if ``return_hidden``); with
+    """Whole-sequence forward, no cache: ``batch`` (tokens [B,S], with a
+    vision model's patches before them, or an audio model's frames) →
+    logits [B,nv+S,Vp] f32 over every position, patches included (the final
+    normed hidden states [B,nv+S,d] if ``return_hidden``); with
     ``return_aux`` the pair (that, the MoE balance loss summed over the MoE
     layers, a f32 scalar, 0 without any), as the reference's
     ``apply_train`` returns.  Differentiable: on the card the rotation's
     backward is its kernel's transpose mode; layers recompute in the
     backward per ``cfg.remat``."""
-    out, aux = _forward_contiguous(params, buffers, cfg, tokens, "train",
+    out, aux = _forward_contiguous(params, buffers, cfg, _as_batch(batch), "train",
                                    return_hidden=return_hidden, moe_impl=moe_impl)
     if not return_aux:
         return out
@@ -285,17 +329,22 @@ def _chunk_nll(params, cfg, h, labels, mask):
 
 
 def loss_fn(params, buffers, cfg, batch, aux_weight: float = 0.01):
-    """Training loss of ``batch`` {"tokens" [B,S], "labels" [B,S] int64,
-    optional "loss_mask" [B,S] f32}: mean next-token cross-entropy in f32
-    plus ``aux_weight`` times the MoE balance loss (0 for a stack without
-    MoE layers).  Where ``cfg.loss_chunk`` divides S the CE goes chunk by chunk
-    of the sequence, each chunk's logits recomputed in the backward under
-    grad, so the whole [B,S,V] logits never exist.  → (loss, {"ce", "aux"})."""
-    tokens, labels = batch["tokens"], batch["labels"]
+    """Training loss of ``batch`` {"tokens" [B,S] (a vision model's
+    "patch_embeds" [B,nv,d] before them, or an audio model's "frames"
+    [B,S,d] instead), "labels" [B,S] int64, optional "loss_mask" [B,S]
+    f32}: mean next-token cross-entropy in f32 over the text (or frame)
+    positions, the first ``nv`` logits rows dropped, plus ``aux_weight``
+    times the MoE balance loss (0 for a stack without MoE layers).  Where
+    ``cfg.loss_chunk`` divides S and no patches lead, the CE goes chunk by
+    chunk of the sequence, each chunk's logits recomputed in the backward
+    under grad, so the whole [B,S,V] logits never exist.  → (loss, {"ce",
+    "aux"})."""
+    labels = batch["labels"]
     mask = batch.get("loss_mask")
+    nv = _n_patches(cfg, batch)
     ck = cfg.loss_chunk
-    if ck and labels.shape[1] % ck == 0:
-        h, aux = apply_train(params, buffers, cfg, tokens, return_hidden=True,
+    if ck and labels.shape[1] % ck == 0 and nv == 0:
+        h, aux = apply_train(params, buffers, cfg, batch, return_hidden=True,
                              return_aux=True)
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
@@ -308,48 +357,55 @@ def loss_fn(params, buffers, cfg, batch, aux_weight: float = 0.01):
             nll, cnt = nll + n_c, cnt + c_c
         ce = nll / torch.clamp(cnt, min=1.0)
     else:
-        logits, aux = apply_train(params, buffers, cfg, tokens, return_aux=True)
-        ce = cross_entropy(logits, labels, mask)
+        logits, aux = apply_train(params, buffers, cfg, batch, return_aux=True)
+        ce = cross_entropy(logits[:, nv:], labels, mask)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
-def capture_attn_inputs(params, buffers, cfg, tokens):
+def capture_attn_inputs(params, buffers, cfg, batch):
     """The normed attention input of every attention layer of the
-    whole-sequence forward of ``tokens`` [B,S] (what the RoPElite search
-    projects to q and k): a list over those layers of [B,S,d].  The
-    reference returns the same arrays stacked as ``{"p0": [n_layers, B, S,
-    d]}``."""
+    whole-sequence forward of ``batch`` (tokens [B,S]; a vision model's
+    patches before them, or an audio model's frames) — what the RoPElite
+    search projects to q and k: a list over those layers of [B,nv+S,d].
+    The reference returns the same arrays stacked as ``{"p0": [n_layers,
+    B, S, d]}``."""
     captures: list = []
-    _forward_contiguous(params, buffers, cfg, tokens, "train", captures=captures)
+    _forward_contiguous(params, buffers, cfg, _as_batch(batch), "train", captures=captures)
     return captures
 
 
-def apply_prefill(params, buffers, cfg, tokens, cache):
-    """Prefill prompts tokens [B,S] from position 0: writes cache rows
-    [0, S) of every attention layer and every Mamba layer's final state in
-    place and sets ``cache["index"] = S``.  → logits [B,S,Vp] f32."""
-    logits, _ = _forward_contiguous(params, buffers, cfg, tokens, "prefill", cache)
-    cache["index"] = tokens.shape[1]
+def apply_prefill(params, buffers, cfg, batch, cache):
+    """Prefill prompts (``batch``: tokens [B,S], a vision model's patches
+    before them, or an audio model's frames) from position 0: writes cache
+    rows [0, nv+S) of every attention layer and every Mamba layer's final
+    state in place and sets ``cache["index"] = nv+S``.  → logits
+    [B,nv+S,Vp] f32."""
+    batch = _as_batch(batch)
+    logits, _ = _forward_contiguous(params, buffers, cfg, batch, "prefill", cache)
+    cache["index"] = logits.shape[1]
     return logits
 
 
-def apply_decode(params, buffers, cfg, tokens, cache):
-    """One token per lane, tokens [B,1] at position ``cache["index"]``:
-    writes that cache row of every attention layer and advances every Mamba
-    state in place, and advances the index.  → logits [B,1,Vp] f32."""
-    logits, _ = _forward_contiguous(params, buffers, cfg, tokens, "decode", cache)
+def apply_decode(params, buffers, cfg, batch, cache):
+    """One token (or an audio model's frame) per lane, tokens [B,1] (frames
+    [B,1,d]) at position ``cache["index"]``: writes that cache row of every
+    attention layer and advances every Mamba state in place, and advances
+    the index.  → logits [B,1,Vp] f32."""
+    logits, _ = _forward_contiguous(params, buffers, cfg, _as_batch(batch), "decode", cache)
     cache["index"] += 1
     return logits
 
 
-def apply_prefill_paged(params, buffers, cfg, tokens, pages, slot_mapping,
+def apply_prefill_paged(params, buffers, cfg, batch, pages, slot_mapping,
                         chunk_start=None, block_tables=None, prefix_lens=None,
                         block_size: int = 0):
     """Prefill sequences (or chunks of them) into the paged pool.
 
-    ``tokens`` [B,S]; ``pages`` the pool's page dict (``PagedKVPool.pages``);
-    ``slot_mapping`` [B,S] flat pool slots per token, with trailing padding
-    mapped to the pool's out-of-range sentinel (never written).
+    ``batch``: tokens [B,S] (a vision model's patches [B,nv,d] before them,
+    which take the first ``nv`` positions, or an audio model's frames
+    [B,S,d]); ``pages`` the pool's page dict (``PagedKVPool.pages``);
+    ``slot_mapping`` [B,nv+S] flat pool slots per position, with trailing
+    padding mapped to the pool's out-of-range sentinel (never written).
 
     One-shot mode (``chunk_start is None``): prompts start at position 0 and
     attend causally to themselves.
@@ -363,10 +419,10 @@ def apply_prefill_paged(params, buffers, cfg, tokens, pages, slot_mapping,
     → logits [B,S,Vp] f32; ``pages`` written in place.
     """
     _check_paged(cfg)
-    device = params["embed"]["table"].device
+    device = params_device(params)
     n_slots = _n_slots(pages)
-    h = embed(params["embed"], tokens, cfg.dtype)
-    B, S = tokens.shape
+    h = _embed_inputs(params, cfg, _as_batch(batch))
+    S = h.shape[1]
     writes = elite_attention.write_index(slot_mapping, n_slots, device)
     positions = torch.arange(S, device=device)
     kw = {}
@@ -386,23 +442,24 @@ def apply_prefill_paged(params, buffers, cfg, tokens, pages, slot_mapping,
     return _logits(params, cfg, h)
 
 
-def apply_decode_paged(params, buffers, cfg, tokens, pages, slot_mapping,
+def apply_decode_paged(params, buffers, cfg, batch, pages, slot_mapping,
                        block_tables, lengths, block_size: int,
                        sparse_topk: int = 0, sparse_recent: int = 0):
     """One decode step for every serving lane, reading and writing the pool.
 
-    ``tokens`` [B,1]; ``lengths`` [B] int32, the live length *including*
-    this token (0 = idle lane); ``slot_mapping`` [B] the write slot of the
-    new token (sentinel for idle lanes); ``block_tables`` [B,mb].
+    ``batch``: tokens [B,1] (an audio model's frames [B,1,d]); ``lengths``
+    [B] int32, the live length *including* this token (0 = idle lane);
+    ``slot_mapping`` [B] the write slot of the new token (sentinel for idle
+    lanes); ``block_tables`` [B,mb].
     ``sparse_topk > 0`` attends only the block-top-k selection plus the
     ``sparse_recent`` newest blocks in every layer (the pool needs block
     summaries).
     → logits [B,1,Vp] f32; ``pages`` written in place.
     """
     _check_paged(cfg)
-    device = params["embed"]["table"].device
+    device = params_device(params)
     i32 = dict(dtype=torch.int32, device=device)
-    h = embed(params["embed"], tokens, cfg.dtype)
+    h = _embed_step(params, cfg, _as_batch(batch))
     writes = elite_attention.write_index(slot_mapping, _n_slots(pages), device)
     block_tables = torch.as_tensor(block_tables, **i32)
     lengths = torch.as_tensor(lengths, **i32)
@@ -414,14 +471,15 @@ def apply_decode_paged(params, buffers, cfg, tokens, pages, slot_mapping,
     return _logits(params, cfg, h)
 
 
-def apply_verify_paged(params, buffers, cfg, tokens, pages, slot_mapping,
+def apply_verify_paged(params, buffers, cfg, batch, pages, slot_mapping,
                        block_tables, q_offsets, lengths, block_size: int):
     """Speculative-verify forward: score a window of ``W = k+1`` tokens per
     lane (the pending token and ``k`` draft proposals) against its paged
     prefix in one call, writing the window's full-model streams to the pool.
 
-    ``tokens`` [B,W]; ``q_offsets`` [B] the position of each lane's window
-    row 0 (its cached prefix length); ``lengths`` [B] its live length
+    ``batch``: tokens [B,W] (an audio model's frames [B,W,d]);
+    ``q_offsets`` [B] the position of each lane's window row 0 (its cached
+    prefix length); ``lengths`` [B] its live length
     including the window's valid tokens (0 = idle lane); ``slot_mapping``
     [B,W] flat write slots (padding → the pool's sentinel);
     ``block_tables`` [B,mb].  Logits row ``w`` is the full model's
@@ -430,9 +488,9 @@ def apply_verify_paged(params, buffers, cfg, tokens, pages, slot_mapping,
     → logits [B,W,Vp] f32; ``pages`` written in place.
     """
     _check_paged(cfg)
-    device = params["embed"]["table"].device
+    device = params_device(params)
     i32 = dict(dtype=torch.int32, device=device)
-    h = embed(params["embed"], tokens, cfg.dtype)
+    h = _embed_step(params, cfg, _as_batch(batch))
     writes = elite_attention.write_index(slot_mapping, _n_slots(pages), device)
     block_tables = torch.as_tensor(block_tables, **i32)
     q_offsets = torch.as_tensor(q_offsets, **i32)

@@ -7,7 +7,8 @@ Counterpart of the JAX package's ``runtime/serve_loop.py``.  Two tiers:
   over a contiguous cache (``lm.init_cache``), EliteKV or baseline GQA
   attention, Mamba state or both (every family); the argmax stays on the
   device.
-* ``Scheduler`` (EliteKV, attention-only stacks: dense or MoE) — requests
+* ``Scheduler`` (EliteKV, attention-only stacks: dense or MoE; a vision
+  model serves text prompts; an audio model is refused by both tiers) — requests
   queue with arrival times (in scheduler steps), are admitted into free
   *slots* mid-flight, prefill their prompts — whole at admission
   (``prefill_chunk_tokens=0``) or in fixed-size chunks, up to
@@ -141,6 +142,16 @@ class ServeStats:
     step_ms: List[float] = dataclasses.field(default_factory=list)
 
 
+def _check_text(cfg: ModelConfig) -> None:
+    """Both tiers serve token prompts: an audio model has no token
+    embedding (its entry points take frames), so it is refused here, where
+    the reference fails on the missing ``frames``."""
+    if cfg.frontend == "audio":
+        raise ValueError(f"{cfg.name} is an audio model with no token embedding: it "
+                         "takes frame embeddings through lm's entry points, not token "
+                         "prompts (the reference cannot serve it either)")
+
+
 @torch.no_grad()
 def generate(params, buffers, cfg: ModelConfig, prompts, max_new_tokens: int,
              device="cuda") -> Tuple[np.ndarray, ServeStats]:
@@ -148,8 +159,11 @@ def generate(params, buffers, cfg: ModelConfig, prompts, max_new_tokens: int,
     contiguous f32 cache of ``prompt + max_new_tokens`` rows.
 
     prompts [B, S_prompt] int → generated [B, max_new_tokens] int32.
-    ``params``/``buffers`` must live on ``device``.
+    ``params``/``buffers`` must live on ``device``.  Prompts are text: a
+    vision model serves them without patches; an audio model is refused
+    (``_check_text``).
     """
+    _check_text(cfg)
     prompts = np.asarray(prompts, np.int32)
     B, Sp = prompts.shape
     max_len = Sp + max_new_tokens
@@ -486,6 +500,7 @@ class Scheduler:
 
     def __init__(self, params, buffers, cfg: ModelConfig, scfg: SchedulerConfig,
                  device="cuda", tracer=None, metrics=None):
+        _check_text(cfg)
         if not cfg.elitekv.enabled:
             raise ValueError("paged serving requires an EliteKV config")
         if scfg.eviction not in ("recompute", "swap"):
@@ -509,8 +524,8 @@ class Scheduler:
                 "admission='watermark'): a recompute re-prefills densely and "
                 "cannot reproduce streams generated with sparse attention")
         self.device = torch.empty(0, device=device).device   # "cuda" → "cuda:0"
-        if params["embed"]["table"].device != self.device:
-            raise ValueError(f"params live on {params['embed']['table'].device}, "
+        if lm.params_device(params) != self.device:
+            raise ValueError(f"params live on {lm.params_device(params)}, "
                              f"scheduler device is {self.device}")
         self.params, self.buffers, self.cfg, self.scfg = params, buffers, cfg, scfg
         self.trace = tracer or NULL_TRACER

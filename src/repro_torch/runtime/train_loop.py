@@ -54,9 +54,11 @@ def _trainable(params):
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     """→ ``train_step(params, buffers, opt_state, batch)`` →
     (params, opt_state, metrics).  Inputs are left as they are; the new
-    params do not require grad.  ``batch``'s tensors split along their
-    first axis into ``tc.grad_accum`` microbatches, whose gradients add up
-    in the leaves' ``.grad`` and are then averaged."""
+    params do not require grad.  ``batch`` is ``lm.loss_fn``'s (tokens and
+    labels; a vision model's ``patch_embeds`` or an audio model's
+    ``frames`` pass through as they are); each of its tensors splits along
+    its first axis into ``tc.grad_accum`` microbatches, whose gradients add
+    up in the leaves' ``.grad`` and are then averaged."""
     sched = tc.schedule or (lambda s: torch.tensor(tc.lr, dtype=torch.float32))
     n = tc.grad_accum
 

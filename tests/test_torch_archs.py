@@ -41,14 +41,18 @@ def _one_thread():
 
 def test_arch_ids_are_the_dense_architectures():
     """The dense architectures, then the MoE, hybrid and Mamba stacks
-    (``tests/test_torch_hybrid.py``); the frontends are not ported."""
+    (``tests/test_torch_hybrid.py``), then the vision and audio frontends
+    (``tests/test_torch_frontends.py``): the reference's whole registry."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
     assert ARCH_IDS[:len(DENSE)] == DENSE
     assert ARCH_IDS[len(DENSE):] == ("qwen3_moe_235b", "arctic_480b", "jamba_v0_1_52b",
-                                     "falcon_mamba_7b")
+                                     "falcon_mamba_7b", "internvl2_2b", "musicgen_large")
+    assert sorted(ARCH_IDS) == sorted(JAX_ARCH_IDS)
     assert all(get_config(a).family == "dense" for a in DENSE)
+    assert [get_config(a).frontend for a in ARCH_IDS] == ["none"] * 10 + ["vision", "audio"]
     assert get_config("granite-3-2b").name == "granite_3_2b"
     with pytest.raises(KeyError):
-        get_config("internvl2_2b")
+        get_config("internvl2_8b")
 
 
 @pytest.mark.parametrize("arch", DENSE)

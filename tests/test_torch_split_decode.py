@@ -294,10 +294,12 @@ def _cut_widths():
 
 @pytest.mark.parametrize("arch", ["tinyllama_1_1b", "llama2_7b", "llama2_13b", "yi_6b",
                                   "granite_3_2b", "minicpm_2b", "qwen3_moe_235b",
-                                  "jamba_v0_1_52b", "arctic_480b"])
+                                  "jamba_v0_1_52b", "arctic_480b", "internvl2_2b",
+                                  "musicgen_large"])
 def test_window_cut_only_where_one_head_does_not_fit(arch):
     """Every decode and verify width of the architectures with attention
-    (dense, MoE: G = 16 and 7, and Jamba's attention layers) plans
+    (dense, MoE: G = 16 and 7, Jamba's attention layers, and the InternVL2
+    and MusicGen backbones) plans
     (W = 1, 3, 5, 9, f32 and int8): the window is cut only where one kv
     head's rows of the whole window do not fit, into the fewest parts that
     do, and the cut leaves the ranges as ``split_plan`` gives them for the
