@@ -207,6 +207,34 @@ non-zero:
       f32 ones would not fit the functional update beside 3.0 B weights).
       ``elite_decode_paged`` and ``flash_prefill`` at each model's
       recorded inputs, held to their plain versions, then timed.
+   n. training and conversion of MoE, Mamba and hybrid stacks at full
+      width (after m, each model freed before the next; every conversion
+      searches through the dense MoE oracle): (a) Qwen3-MoE-235B at 1 of
+      94 layers converted on 4 x 512 tokens (r 16, d_ckv 128), its loss
+      and backward at B 1 x 512 through ``ragged`` and ``dense`` (the
+      rotation 2 forward and 1 backward launch per attention layer, 2
+      group-size syncs per step under the layer remat), gradients within
+      1e-4 of each leaf's largest unless a router gap is under 1e-6, and
+      the functional AdamW's reckoning that rules the whole step out; (b)
+      Qwen3-MoE at 4 layers converted, ``generate`` 8 x (512 + 32), every
+      lane's every logits row against ``apply_train`` over the prompt and
+      generated tokens within 1e-4 (cache on == off; routing excused as
+      above); (c) one Jamba-v0.1 period converted (search and J-LRD at
+      its attention layer 3, Mamba layers passed through), ``generate`` 8
+      x (1024 + 128) with rows held the same way, then its layers 0-3
+      through the loss and backward at B 1 x 512; (d) Falcon-Mamba-7B at 8
+      of 64 layers, 4 AdamW steps (f32 moments) at B 8 x 512 (no kernel
+      runs), and one layer's loss and backward with the scan's per-chunk
+      recompute and with ``ssm_unroll``: peaks printed, gradients equal
+      bit for bit but the embedding table's (an accumulating index_put,
+      1e-6 of its largest); (e) one whole ``make_train_step`` (int8
+      moments, ragged) of reduced Qwen3-MoE and Jamba on the card against
+      the CPU, weights whose gradient is at least 1e-4 within 1e-5 of a
+      leaf's largest, the others within 2·lr; (b) and (c)'s rows: a stack
+      with Mamba layers is held to the reference's recurrence-against-scan
+      tolerance, 2e-4 + 2e-4·|want|; (f) the rotation's backward at
+      (a)'s and (c)'s recorded training inputs against its plain version,
+      timed with its bound (PERF.md rows 9q, 9j).
    Every kernel is re-run on the busiest inputs recorded from its run and
    held against its plain version, twice, with identical bits; a torch.profiler window over 10 steady
    decode steps of 8 lanes, on the f32 pool, on the int8 pool with sparse
@@ -1792,7 +1820,7 @@ def conversion(dev, card: str) -> dict:
     torch.cuda.synchronize()
     times["capture"] = time.perf_counter() - t0
     sets, per_layer = {}, []
-    for li, x in enumerate(caps):
+    for li, x in caps.items():
         t0 = time.perf_counter()
         q, k = ropelite.layer_qk(params["layers"][li]["attn"], x)
         sets[li] = ropelite.greedy_search_layer(q, k, pos, theta, G, ELITE_R)
@@ -1822,7 +1850,7 @@ def conversion(dev, card: str) -> dict:
     # (c) the three selection methods' distances, layer by layer
     uniform = ropelite.uniform_selection(dh // 2, ELITE_R, nkv, dev)
     dists = []
-    for li, x in enumerate(caps):
+    for li, x in caps.items():
         q, k = ropelite.layer_qk(params["layers"][li]["attn"], x)
         by = {"greedy": sets[li], "uniform": uniform,
               "contribution": ropelite.contribution_selection(q, k, G, ELITE_R)}
@@ -2781,15 +2809,16 @@ def frontend_training(label: str, params, buffers, cfg, batches, tc, dev, card: 
 
 
 def convert_timed(label: str, params, buffers, cfg, calib, e, dev, card: str):
-    """``ropelite.search_model`` and ``convert.convert_model`` on the
-    calibration batch (what ``convert.elitekv_from_baseline`` runs), timed
-    apart, with the counts set to 0 before: ``rope_elite`` once per layer
-    in the capture and once in the search, nothing else.  → (converted
-    params, buffers, cfg, times)."""
+    """``ropelite.search_model`` (MoE layers captured through the dense
+    oracle, its default) and ``convert.convert_model`` on the calibration
+    batch (what ``convert.elitekv_from_baseline`` runs), timed apart, with
+    the counts set to 0 before: ``rope_elite`` once per attention layer in
+    the capture and once in the search, nothing else.  → (converted params,
+    buffers, cfg, {"search", "convert" s, "sets"})."""
     import torch
     from repro_torch.core import convert, ropelite
     from repro_torch.kernels import ops
-    L = cfg.num_layers
+    L = cfg.n_attn_layers
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -2800,17 +2829,22 @@ def convert_timed(label: str, params, buffers, cfg, calib, e, dev, card: str):
     if launches != {"rope_elite": 2 * L}:
         raise AssertionError(f"{label} search: launches {launches}, expected "
                              f"{{'rope_elite': {2 * L}}}")
+    if list(sets) != list(cfg.attn_layer_indices):
+        raise AssertionError(f"{label}: sets for layers {list(sets)}, attention layers "
+                             f"{cfg.attn_layer_indices}")
     t0 = time.perf_counter()
     cp, cb, ccfg = convert.convert_model(params, buffers, cfg, sets, e)
     torch.cuda.synchronize()
     t_convert = time.perf_counter() - t0
     shape = {k: tuple(v.shape) for k, v in calib.items()}
-    print(f"[{card}] {label}: RoPElite capture + greedy search r={e.elite_r} over {L} layers "
-          f"on {shape} {t_search:.2f} s ({t_search / L:.3f} s per layer; launches "
-          f"{launches}), J-LRD SVDs and surgery d_ckv={e.d_ckv} {t_convert:.2f} s "
-          f"({t_convert / L:.3f} s per layer); layer 0's elite chunks of kv head 0: "
-          f"{sets[0][0].tolist()}", flush=True)
-    return cp, cb, ccfg, dict(search=t_search, convert=t_convert)
+    first = next(iter(sets))
+    print(f"[{card}] {label}: RoPElite capture + greedy search r={e.elite_r} over {L} "
+          f"attention layers {list(sets)} of {cfg.num_layers} on {shape} {t_search:.2f} s "
+          f"({t_search / L:.3f} s per attention layer; launches {launches}), J-LRD SVDs "
+          f"and surgery d_ckv={e.d_ckv} {t_convert:.2f} s ({t_convert / L:.3f} s per "
+          f"attention layer); layer {first}'s elite chunks of kv head 0: "
+          f"{sets[first][0].tolist()}", flush=True)
+    return cp, cb, ccfg, dict(search=t_search, convert=t_convert, sets=sets)
 
 
 def frontends(dev, card: str) -> dict:
@@ -2970,6 +3004,520 @@ def frontends(dev, card: str) -> dict:
     out["musicgen"] = b
     out["wall"] = time.perf_counter() - t_phase
     print(f"[{card}] phase 3m (frontends) {out['wall']:.1f} s", flush=True)
+    return out
+
+
+# -- training and conversion of MoE, Mamba and hybrid stacks (phase 3n) -----------
+
+CALIB_3N = (4, 512)          # calibration tokens of the 3n conversions
+MOE_TRAIN_S = 512            # Qwen3-MoE and Jamba loss and backward at B 1 x S 512
+JAMBA_TRAIN_LAYERS = 4       # Jamba's layers 0-3 (attention at 3): the backward's cut
+FALCON_TRAIN_LAYERS, FALCON_B, FALCON_STEPS = 8, 8, 4
+STEP_RTOL = 1e-5             # card vs CPU params after one step, of a leaf's largest
+BIG_GRAD = 1e-4              # a first Adam step moves a weight of |g| >= this by ±lr
+# a stack with Mamba layers decodes by the one-token recurrence where the
+# cache-off forward runs the chunked scan: its rows are held to the
+# reference's own tolerance for the recurrence against the scan
+# (tests/test_moe_mamba.py::test_mamba_naive_recurrence_oracle), |Δ| <=
+# atol + rtol·|want|; attention-only stacks to LOGIT_TOL
+RECURRENCE_TOL = (2e-4, 2e-4)
+AVAILABLE_GIB = 79.2         # what an H100 80GB gives torch (its total_memory)
+
+
+def first_rotation(calls: list):
+    """Replace ``ops.rope_elite_qk`` with a wrapper that keeps the first
+    call's arguments in ``calls``.  → undo."""
+    from repro_torch.kernels import ops
+    rotate = ops.rope_elite_qk
+
+    def keep(*a):
+        if not calls:
+            calls.append(a)
+        return rotate(*a)
+    ops.rope_elite_qk = keep
+    return lambda: setattr(ops, "rope_elite_qk", rotate)
+
+
+def backward_args(fwd, head_dim: int, dev, seed: int):
+    """The rotation's backward inputs at a recorded forward call's shapes
+    and strides (as phase 3k builds row 9d's): q's gradient the slice
+    [..., :2r] of a [B, S, nh, dh] gradient of [q_e | q_ne], k's a
+    contiguous [B, S, nkv, 2r]; positions, freqs and groups the call's."""
+    import torch
+    q, k, pos, freqs, qpr, kpr = fwd
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gq = torch.randn(q.shape[:3] + (head_dim,), generator=g, device=dev)[..., :q.shape[-1]]
+    return gq, torch.randn(tuple(k.shape), generator=g, device=dev), pos, freqs, qpr, kpr
+
+
+def loss_backward(label: str, params, buffers, cfg, batch, moe_impl: str, dev, card: str):
+    """``lm.loss_fn`` (``moe_impl``) and its backward on the card, the
+    counts set to 0 just before: under full remat the rotation must launch
+    twice per attention layer forward and once backward, nothing else.
+    → dict(grads, loss, fwd_ms, bwd_ms, peak, syncs: group-size reads,
+    launches, rotation: the first forward rotation's arguments)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm, moe
+    from repro_torch.tree import items, map_tree
+    p = map_tree(lambda t: t.detach().requires_grad_(True), params)
+    names, leaves = zip(*items(p))
+    calls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    syncs = moe.group_size_syncs
+    undo = first_rotation(calls)
+    try:
+        t0 = time.perf_counter()
+        loss, aux = lm.loss_fn(p, buffers, cfg, batch, moe_impl=moe_impl)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        undo()
+    out = dict(grads=grads, loss=float(loss.detach()), fwd_ms=(t1 - t0) * 1e3,
+               bwd_ms=(t2 - t1) * 1e3, peak=torch.cuda.max_memory_allocated(dev),
+               syncs=moe.group_size_syncs - syncs,
+               launches={k: v for k, v in ops.launches().items() if v},
+               rotation=calls[0] if calls else None)
+    L = cfg.n_attn_layers
+    want = {"rope_elite": 2 * L, "rope_elite_backward": L} if L else {}
+    print(f"[{card}] {label} ({moe_impl}): loss {out['loss']:.6f} (ce "
+          f"{float(aux['ce']):.6f}, balance {float(aux['aux']):.6f}); forward "
+          f"{out['fwd_ms']:.1f} ms, backward {out['bwd_ms']:.1f} ms; group-size syncs "
+          f"{out['syncs']} per step; launches {out['launches']}; peak memory "
+          f"{out['peak'] / 2**30:.2f} GiB", flush=True)
+    if out["launches"] != want:
+        raise AssertionError(f"{label} ({moe_impl}): launches {out['launches']}, "
+                             f"expected {want}")
+    if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+        raise AssertionError(f"{label} ({moe_impl}): a gradient is not finite")
+    return out
+
+
+def grads_agree(label: str, got: dict, want: dict, least_gap: float, card: str) -> float:
+    """Every leaf of ``got`` within ``GRAD_RTOL`` of ``want``'s largest +
+    1e-7, unless a router came within ``ROUTE_GAP`` of another expert
+    choice (then the leaves past it are counted and excused).  → the worst
+    max|Δ| / max|g|."""
+    from routing_margins import ROUTE_GAP
+    worst, bad = (0.0, ""), []
+    for name, w in want.items():
+        d = float((got[name] - w).abs().max())
+        worst = max(worst, (d / (float(w.abs().max()) + 1e-30), name))
+        if d > GRAD_RTOL * float(w.abs().max()) + 1e-7:
+            bad.append(name)
+    print(f"[{card}] {label}, {len(want)} leaves: worst max|Δ| / max|g| {worst[0]:.3e} "
+          f"({worst[1]}), tolerance {GRAD_RTOL}; least router gap {least_gap:.3e}"
+          + (f"; {len(bad)} leaves past it, excused by routing" if bad else ""), flush=True)
+    if bad and not least_gap < ROUTE_GAP:
+        raise AssertionError(f"{label}: {bad[:4]} past {GRAD_RTOL} of their largest")
+    return worst[0]
+
+
+def generate_held_to_train(label: str, params, buffers, cfg, prompts, n_new: int, want,
+                           card: str) -> dict:
+    """``generate_run`` keeping every lane's logits row of every forward;
+    then each row against ``apply_train`` over the prompt and the generated
+    tokens (cache on == cache off) within LOGIT_TOL, or RECURRENCE_TOL for
+    a stack with Mamba layers.  A row past it is excused only where the
+    reference forward's router came within ROUTE_GAP of another expert on
+    that row's context.  → numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    from routing_margins import ROUTE_GAP, recorded_gaps
+    rows, real_p, real_d = [], lm.apply_prefill, lm.apply_decode
+
+    def keep(fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            rows.append(out[:, -1].clone())
+            return out
+        return run
+
+    lm.apply_prefill, lm.apply_decode = keep(real_p), keep(real_d)
+    try:
+        out, stats, wall, rec, launches = generate_run(label, params, buffers, cfg, prompts,
+                                                       n_new, want, card)
+    finally:
+        lm.apply_prefill, lm.apply_decode = real_p, real_d
+    del rec                                  # its recorded calls hold the cache
+    dev = lm.params_device(params)
+    B, P = prompts.shape
+    toks = torch.from_numpy(np.concatenate([prompts, out[:, :-1]], axis=1)).to(dev)
+    with torch.no_grad(), recorded_gaps([]) as calls:
+        full = lm.apply_train(params, buffers, cfg, toks)[:, P - 1:]
+    got = torch.stack(rows, dim=1)                               # [B, n_new, Vp]
+    diff = (got - full).abs()
+    d = diff.amax(-1).cpu().numpy()                              # [B, n_new]
+    atol, rtol = RECURRENCE_TOL if cfg.ssm_state else (LOGIT_TOL, 0.0)
+    over = (diff > atol + rtol * full.abs()).any(-1).cpu().numpy()
+    scale = float(full[..., :cfg.vocab_size].abs().max())       # not the -1e30 padding
+    del full, got, rows, diff
+    if calls:     # least gap over each row's context, per lane and position
+        gap = torch.stack([c.reshape(B, -1).cpu() for c in calls]).amin(0)
+        gap = torch.cummin(gap, dim=1).values[:, P - 1:].numpy()
+    else:
+        gap = np.full(d.shape, np.inf)
+    past = over
+    excused = past & (gap < ROUTE_GAP)
+    r = dict(stats=stats, wall=wall, launches=launches, max_d=float(d[~past].max(initial=0)),
+             bitwise=int((d == 0).sum()), rows=d.size, excused=int(excused.sum()),
+             least_gap=float(gap.min()), over_1e4=int((d > LOGIT_TOL).sum()))
+    print(f"[{card}] {label}: {d.size} logits rows ({B} lanes x {n_new}) against "
+          f"apply_train over prompt + generated tokens: max |difference| {r['max_d']:.3e} "
+          f"(limit {atol} + {rtol}·|want|; |want| up to {scale:.3f}), p50/p99 "
+          f"{np.percentile(d, 50):.3e}/{np.percentile(d, 99):.3e}, {r['over_1e4']} rows past "
+          f"{LOGIT_TOL} absolute, bitwise equal {r['bitwise']}, {r['excused']} excused by a "
+          f"router gap under {ROUTE_GAP:.0e} (least gap {r['least_gap']:.3e})", flush=True)
+    if (past & ~excused).any():
+        b, t = map(int, np.argwhere(past & ~excused)[0])
+        raise AssertionError(f"{label}: lane {b} row {t} differs by {d[b, t]:.3e}, router "
+                             f"gap {gap[b, t]:.3e}")
+    return r
+
+
+def step_card_vs_cpu(label: str, arch: str, dev, card: str) -> dict:
+    """Part e: one whole ``make_train_step`` (int8 moments, ragged MoE) of
+    a reduced EliteKV model on the card against the same step on the CPU
+    (plain versions), by the CPU tests' rule for one step
+    (``tests/test_torch_train.py``): a first Adam step moves a weight by
+    about lr times its gradient's sign, so a weight whose CPU gradient is
+    at least ``BIG_GRAD`` is held to ``STEP_RTOL`` of its leaf's largest,
+    and any other, whose gradient is near the optimizer's eps or zero and
+    whose sign rounding may flip, within 2·lr (counted).  The card's step must launch the rotation twice per attention
+    layer forward and once backward."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import train_loop
+    from repro_torch.tree import items, map_tree
+    from routing_margins import ROUTE_GAP, recorded_gaps
+    cfg = build_config(arch, reduced=True, cache_ratio=0.25)
+    params, buffers = lm.init(cfg, seed=3, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(73).integers(0, cfg.vocab_size, (2, 65)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tc = train_loop.TrainConfig(lr=TRAIN_LR, optimizer=AdamWConfig(moment_dtype="int8"),
+                                moe_impl="ragged")
+    step = train_loop.make_train_step(cfg, tc)
+    with recorded_gaps([]) as calls:
+        p = map_tree(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = lm.loss_fn(p, buffers, cfg, batch, moe_impl="ragged")
+        names, leaves = zip(*items(p))
+        grad = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    least = min((float(c.min()) for c in calls), default=float("inf"))
+    want, _, wm = step(params, buffers, train_loop.init_opt_state(params, tc), batch)
+    cp, cb = map_tree(lambda t: t.to(dev), params), map_tree(lambda t: t.to(dev), buffers)
+    ops.reset_launches()
+    got, _, gm = step(cp, cb, train_loop.init_opt_state(cp, tc),
+                      {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launches().items() if v}
+    L = cfg.n_attn_layers
+    if launches != {"rope_elite": 2 * L, "rope_elite_backward": L}:
+        raise AssertionError(f"{label}: launches {launches}")
+    want, got = dict(items(want)), {k: v.cpu() for k, v in items(got)}
+    worst, flips, bad = (0.0, ""), 0, []
+    for name, w in want.items():
+        d = (got[name] - w).abs()
+        flip = grad[name].abs() < BIG_GRAD
+        held = float(d[~flip].max()) if bool((~flip).any()) else 0.0
+        scale = float(w.abs().max())
+        worst = max(worst, (held / scale, name))
+        flips += int((flip & (d > STEP_RTOL * scale)).sum())
+        if held > STEP_RTOL * scale or float(d.max()) > 2 * TRAIN_LR + STEP_RTOL * scale:
+            bad.append(name)
+    print(f"[{card}] {label}, reduced {cfg.name} ({cfg.num_layers} layers, {L} attention): "
+          f"one AdamW step (int8 moments, lr {TRAIN_LR}, ragged MoE), card vs CPU over "
+          f"{len(want)} leaves: loss {float(gm['loss']):.6f} vs {float(wm['loss']):.6f}, "
+          f"worst max|Δ| / max|p| {worst[0]:.3e} ({worst[1]}) against {STEP_RTOL} where |g| >= "
+          f"{BIG_GRAD}; {flips} weights of smaller gradient past it, all within 2·lr; launches "
+          f"{launches}; "
+          f"least router gap {least:.3e}", flush=True)
+    if bad and not least < ROUTE_GAP:
+        raise AssertionError(f"{label}: {bad[:4]} past {STEP_RTOL} of their largest")
+    return dict(worst=worst[0], flips=flips)
+
+
+def rotation_backward_subrow(label: str, a, launches: int, card: str, flush) -> dict:
+    """Row 9d's kernel (the rotation's transpose mode) at recorded training
+    inputs ``a``: held to its plain version, then timed against its bound
+    as phase 4 times row 9d."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rope_elite as re_k
+    e, bad, same = rope_err(re_k.rope_elite_backward(*a),
+                            ref.rope_elite_qk_ref(*a, transpose=True))
+    if bad:
+        raise AssertionError(f"rope_elite_backward at {label}: {bad} elements past the "
+                             "tolerance")
+    nbytes, flops = rope_cost(a)
+    t_bound, by = bound(nbytes, flops)
+    r = dict(name="rope_elite_backward", at=label, launches=launches, max_abs_err=e,
+             ms=time_ms(lambda: re_k.rope_elite_backward(*a), flush=flush),
+             plain_ms=time_ms(lambda: ref.rope_elite_qk_ref(*a, transpose=True),
+                              flush=flush),
+             bound_ms=t_bound, bound_by=by, library_ms=None)
+    print(f"[{card}] 3n kernel rope_elite_backward at {label} (g_q {tuple(a[0].shape)} "
+          f"stride {a[0].stride()}, g_k {tuple(a[1].shape)}, {re_k.plan_for(*a)}): "
+          f"max_abs_err {e:.3e}, bitwise equal {100 * same:.2f}%; {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {t_bound:.6f} ms ({by}: {nbytes} B, {flops} flop), "
+          f"{100 * t_bound / r['ms']:.1f}% of the bound; launches {launches}", flush=True)
+    return r
+
+
+def moe_mamba_training(dev, card: str) -> dict:
+    """Phase 3n: training and conversion of MoE, Mamba and hybrid stacks at
+    full width (a-d), card against CPU steps at reduced widths (e), and
+    the rotation's backward at the new training shapes (f).  → numbers for
+    the summary."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.convert import pick_dims
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_config
+    from repro_torch.models import lm
+    from repro_torch.runtime import train_loop
+    from repro_torch.tree import leaves
+    from routing_margins import recorded_gaps
+    t_phase = time.perf_counter()
+    flush = torch.empty(64 * 2**20 // 4, device=dev).zero_       # > the 50 MB L2
+    _free_card()
+    out = {"subrows": [], "held": torch.cuda.memory_allocated()}
+    print(f"[{card}] 3n: {out['held'] / 2**30:.2f} GiB allocated on the card before the "
+          f"first model (earlier phases' recorded inputs and pools)", flush=True)
+    weights = lambda p: sum(t.numel() * t.element_size() for t in leaves(p))
+    ids = lambda shape, seed, V: torch.from_numpy(np.random.default_rng(seed).integers(
+        0, V, shape)).to(dev)
+
+    # a. Qwen3-MoE-235B, 1 of 94 layers: converted, then loss and backward
+    # through ragged and dense
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(build_config("qwen3_moe_235b", reduced=False, cache_ratio=0.25,
+                                           elitekv=False), num_layers=1)
+    e = pick_dims(cfg, 0.25, align=16)
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_experts,
+            e.elite_r, e.d_ckv) == (4096, 64, 4, 128, 128, 16, 128), (cfg, e)
+    V = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    params, buffers = lm.init(cfg, seed=0, device=dev)
+    print(f"[{card}] 3n a. Qwen3-MoE-235B baseline, 1 of 94 layers at full width: "
+          f"{weights(params) / 1e9:.2f} GB of f32 weights", flush=True)
+    cp, cb, ccfg, a = convert_timed("3n a. Qwen3-MoE 1 layer conversion (MoE dense)", params,
+                                    buffers, cfg, {"tokens": ids(CALIB_3N, 70, V)}, e, dev, card)
+    del params, buffers
+    _free_card()
+    toks = ids((1, MOE_TRAIN_S + 1), 71, V)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    # a first pass pays one-time costs (8-13 s for a fresh process; PERF.md §6)
+    a["first"] = loss_backward("3n a. Qwen3-MoE 1 layer, B 1 x 512, first pass", cp, cb,
+                               ccfg, batch, "ragged", dev, card)
+    del a["first"]["grads"], a["first"]["rotation"]
+    with recorded_gaps([]) as calls:
+        a["ragged"] = loss_backward("3n a. Qwen3-MoE 1 layer, B 1 x 512", cp, cb, ccfg, batch,
+                                    "ragged", dev, card)
+    least = min(float(c.min()) for c in calls)
+    del calls
+    a["dense"] = loss_backward("3n a. Qwen3-MoE 1 layer, B 1 x 512", cp, cb, ccfg, batch,
+                               "dense", dev, card)
+    a["worst"] = grads_agree("3n a. Qwen3-MoE gradients, ragged against dense",
+                             a["ragged"]["grads"], a["dense"]["grads"], least, card)
+    if a["ragged"]["syncs"] != 2 * ccfg.num_layers or a["dense"]["syncs"]:
+        raise AssertionError(f"group-size syncs {a['ragged']['syncs']} ragged, "
+                             f"{a['dense']['syncs']} dense")
+    n = sum(t.numel() for t in leaves(cp))
+    head = cp["lm_head"]["w"].numel()
+    a["adamw_gb"] = {"f32": 34 * n / 1e9, "int8": 20 * n / 1e9, "lm_head": 4 * 4 * head / 1e9}
+    print(f"[{card}] 3n a. why the whole AdamW step of this layer does not fit: {n / 1e9:.3f} "
+          f"B parameters; the functional update holds old and new weights, the gradients and "
+          f"their clipped copy, old and new moments: ~34 B per parameter with f32 moments "
+          f"({a['adamw_gb']['f32']:.1f} GB), ~20 B with int8 ({a['adamw_gb']['int8']:.1f} GB), "
+          f"plus ~{a['adamw_gb']['lm_head']:.1f} GB of f32 update transients of the 2-D "
+          f"lm_head leaf [{cfg.d_model}, {cfg.padded_vocab}] (update_chunk cuts only leaves of "
+          f"3+ axes), against the card's {AVAILABLE_GIB} GiB; the loss and its backward above "
+          f"hold weights and gradients ({2 * 4 * n / 1e9:.1f} GB)", flush=True)
+    qwen_rot = backward_args(a["ragged"]["rotation"], cfg.head_dim, dev, 74)
+    qwen_launches = a["ragged"]["launches"]["rope_elite_backward"]
+    for k in ("ragged", "dense"):
+        del a[k]["grads"], a[k]["rotation"]
+    del cp, cb, batch, toks
+    _free_card()
+    a["wall"] = time.perf_counter() - t0
+    out["qwen1"] = a
+
+    # b. Qwen3-MoE-235B, 4 of 94 layers, converted from a baseline and
+    # served through generate, rows held to apply_train
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, num_layers=QWEN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params, buffers = lm.init(cfg, seed=0, device=dev)
+    print(f"[{card}] 3n b. Qwen3-MoE-235B baseline, {QWEN_LAYERS} of 94 layers: "
+          f"{weights(params) / 1e9:.2f} GB of f32 weights", flush=True)
+    cp, cb, ccfg, b = convert_timed(f"3n b. Qwen3-MoE {QWEN_LAYERS} layers conversion", params,
+                                    buffers, cfg, {"tokens": ids(CALIB_3N, 75, V)}, e, dev, card)
+    del params, buffers
+    _free_card()
+    L, N = ccfg.num_layers, 32
+    prompts = np.random.default_rng(76).integers(0, V, (8, 512))
+    b["gen"] = generate_held_to_train(
+        f"3n b. generate converted Qwen3-MoE {L} layers 8 x (512 + {N})", cp, cb, ccfg,
+        prompts, N, {"elite_decode": L * (N - 1), "flash_prefill": L, "rope_elite": L * N},
+        card)
+    b["peak"] = torch.cuda.max_memory_allocated()
+    del cp, cb
+    _free_card()
+    b["wall"] = time.perf_counter() - t0
+    out["qwen4"] = b
+
+    # c. Jamba-v0.1, one period, converted (search over its attention layer
+    # 3, J-LRD there) and served through generate; then its layers 0-3
+    # (attention at 3, two MoE FFNs) through the loss and its backward
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(build_config("jamba_v0_1_52b", reduced=False, cache_ratio=0.25,
+                                           elitekv=False), num_layers=JAMBA_LAYERS)
+    e = pick_dims(cfg, 0.25, align=16)
+    assert (cfg.attn_layer_indices, cfg.n_heads, cfg.n_kv_heads, e.elite_r, e.d_ckv) == \
+        ((3,), 32, 8, 16, 256), (cfg, e)
+    V = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    params, buffers = lm.init(cfg, seed=0, device=dev)
+    print(f"[{card}] 3n c. Jamba-v0.1 baseline, one period ({JAMBA_LAYERS} of 32 layers): "
+          f"{weights(params) / 1e9:.2f} GB of f32 weights", flush=True)
+    cp, cb, ccfg, c = convert_timed("3n c. Jamba period conversion (MoE dense)", params,
+                                    buffers, cfg, {"tokens": ids(CALIB_3N, 77, V)}, e, dev, card)
+    if not all(cp["layers"][i]["attn"] is params["layers"][i]["attn"]
+               for i in range(JAMBA_LAYERS) if cfg.layer_kind(i) == "ssm"):
+        raise AssertionError("Jamba: a Mamba layer was not passed through the conversion")
+    del params, buffers
+    _free_card()
+    N = 128
+    prompts = np.random.default_rng(78).integers(0, V, (8, 1024))
+    c["gen"] = generate_held_to_train(
+        f"3n c. generate converted Jamba period 8 x (1024 + {N})", cp, cb, ccfg, prompts, N,
+        {"elite_decode": N - 1, "flash_prefill": 1, "rope_elite": N}, card)
+    c["peak"] = torch.cuda.max_memory_allocated()
+    half = {**cp, "layers": cp["layers"][:JAMBA_TRAIN_LAYERS]}
+    hb = {"layers": cb["layers"][:JAMBA_TRAIN_LAYERS]}
+    del cp, cb
+    _free_card()
+    hcfg = dataclasses.replace(ccfg, num_layers=JAMBA_TRAIN_LAYERS)
+    toks = ids((1, MOE_TRAIN_S + 1), 79, V)
+    c["first"] = loss_backward(f"3n c. converted Jamba layers 0-{JAMBA_TRAIN_LAYERS - 1}, "
+                               f"B 1 x 512, first pass", half, hb, hcfg,
+                               {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, "ragged",
+                               dev, card)
+    del c["first"]["grads"], c["first"]["rotation"]
+    c["train"] = loss_backward(f"3n c. converted Jamba layers 0-{JAMBA_TRAIN_LAYERS - 1} "
+                               f"({weights(half) / 1e9:.2f} GB), B 1 x 512", half, hb, hcfg,
+                               {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, "ragged",
+                               dev, card)
+    jamba_rot = backward_args(c["train"]["rotation"], cfg.head_dim, dev, 80)
+    jamba_launches = c["train"]["launches"]["rope_elite_backward"]
+    del c["train"]["grads"], c["train"]["rotation"], half, hb, toks
+    _free_card()
+    c["wall"] = time.perf_counter() - t0
+    out["jamba"] = c
+
+    # d. Falcon-Mamba-7B, 8 of 64 layers: AdamW steps (f32 moments), then
+    # one layer's loss and backward with and without the per-chunk recompute
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(build_config("falcon_mamba_7b", reduced=False, cache_ratio=0.25),
+                              num_layers=FALCON_TRAIN_LAYERS)
+    assert (cfg.d_inner, cfg.ssm_state, cfg.ssm_chunk, cfg.n_attn_layers) == \
+        (8192, 16, 128, 0), cfg
+    params, buffers = lm.init(cfg, seed=0, device=dev)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=MOE_TRAIN_S,
+                                    batch_size=FALCON_B, seed=81), device=dev)
+    batches = [next(pipe) for _ in range(FALCON_STEPS)]
+    losses, stamps = [], []
+
+    def cb(step, metrics):
+        losses.append(float(metrics["loss"]))          # waits for the step
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    stamps.append(time.perf_counter())
+    p, _, _ = train_loop.train(params, buffers, cfg, train_loop.TrainConfig(lr=TRAIN_LR),
+                               iter(batches), FALCON_STEPS, log_every=0, callback=cb)
+    del p
+    step_ms = np.diff(stamps) * 1e3
+    d = dict(losses=losses, step_ms=step_ms, p50=float(np.percentile(step_ms[1:], 50)),
+             peak=torch.cuda.max_memory_allocated(dev), params=weights(params) / 4)
+    d["tok_s"] = FALCON_B * MOE_TRAIN_S / (d["p50"] / 1e3)
+    launches = {k: v for k, v in ops.launches().items() if v}
+    print(f"[{card}] 3n d. Falcon-Mamba-7B {FALCON_TRAIN_LAYERS} of 64 layers "
+          f"({d['params'] / 1e9:.3f} B parameters), {FALCON_STEPS} AdamW steps (f32 moments, "
+          f"lr {TRAIN_LR}) at B {FALCON_B} x S {MOE_TRAIN_S}, scan recomputed per chunk: losses "
+          + " ".join(f"{v:.4f}" for v in losses) + "; step ms "
+          + " ".join(f"{t:.1f}" for t in step_ms) + f"; p50 {d['p50']:.1f} ms, "
+          f"{d['tok_s']:.0f} tokens/s, peak memory {d['peak'] / 2**30:.2f} GiB; launches "
+          f"{launches} (no attention layer: no kernel)", flush=True)
+    if launches or not np.isfinite(losses).all():
+        raise AssertionError(f"Falcon-Mamba training: launches {launches}, losses {losses}")
+    del batches, pipe
+    one = {**params, "layers": params["layers"][:1]}
+    del params
+    _free_card()
+    toks = ids((FALCON_B, MOE_TRAIN_S + 1), 82, cfg.vocab_size)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    runs = {}
+    for unroll in (False, True):
+        base = torch.cuda.memory_allocated(dev)
+        c1 = dataclasses.replace(cfg, num_layers=1, ssm_unroll=unroll)
+        runs[unroll] = loss_backward(f"3n d. Falcon-Mamba 1 layer, B {FALCON_B} x "
+                                     f"{MOE_TRAIN_S}, ssm_unroll={unroll}", one,
+                                     {"layers": [{}]}, c1, batch, "ragged", dev, card)
+        runs[unroll]["above"] = runs[unroll]["peak"] - base
+    # the embedding table's gradient is an accumulating index_put, whose
+    # order of additions may change from run to run whatever the scan does:
+    # it is held to 1e-6 of its largest, every other leaf bit for bit
+    g0, g1 = runs[False]["grads"], runs[True]["grads"]
+    same = all(torch.equal(g, g1[k]) for k, g in g0.items() if k != "embed/table")
+    emb = float((g0["embed/table"] - g1["embed/table"]).abs().max())
+    same = same and emb <= 1e-6 * float(g1["embed/table"].abs().max())
+    d["recompute_peak"], d["unroll_peak"] = runs[False]["above"], runs[True]["above"]
+    d["recompute_ms"], d["unroll_ms"] = (runs[False]["fwd_ms"] + runs[False]["bwd_ms"],
+                                         runs[True]["fwd_ms"] + runs[True]["bwd_ms"])
+    print(f"[{card}] 3n d. Falcon-Mamba one layer's loss and backward at B {FALCON_B} x "
+          f"{MOE_TRAIN_S}: peak above what was allocated before, per-chunk recompute "
+          f"{d['recompute_peak'] / 2**30:.2f} GiB against {d['unroll_peak'] / 2**30:.2f} GiB "
+          f"unrolled; forward + backward {d['recompute_ms']:.1f} against "
+          f"{d['unroll_ms']:.1f} ms; gradients of every leaf but the embedding table "
+          f"bitwise equal, the table's within {emb:.3e}: {same}", flush=True)
+    if not same:
+        raise AssertionError("Falcon-Mamba: per-chunk recompute changed the gradients")
+    del runs, one, batch, toks
+    _free_card()
+    d["wall"] = time.perf_counter() - t0
+    out["falcon"] = d
+
+    # e. card against CPU: one whole train step at reduced widths
+    t0 = time.perf_counter()
+    out["steps"] = {arch: step_card_vs_cpu(f"3n e. {arch}", arch, dev, card)
+                    for arch in ("qwen3_moe_235b", "jamba_v0_1_52b")}
+    out["steps_wall"] = time.perf_counter() - t0
+
+    # f. the rotation's backward at the Qwen3-MoE and Jamba training inputs
+    out["subrows"] = [
+        rotation_backward_subrow("Qwen3-MoE training (64/4 heads, 2r 32 of 128), B 1 x 512",
+                                 qwen_rot, qwen_launches, card, flush),
+        rotation_backward_subrow("Jamba training (32/8 heads, 2r 32 of 128), B 1 x 512",
+                                 jamba_rot, jamba_launches, card, flush)]
+    del qwen_rot, jamba_rot, flush
+    _free_card()
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 3n (MoE, Mamba and hybrid training and conversion) "
+          f"{out['wall']:.1f} s", flush=True)
     return out
 
 
@@ -3438,6 +3986,8 @@ def main() -> int:
     hyb = moe_mamba_hybrid(dev, card)
     # m. the vision and audio frontends at full width and depth
     fronts = frontends(dev, card)
+    # n. training and conversion of MoE, Mamba and hybrid stacks
+    tr3n = moe_mamba_training(dev, card)
 
     # -- 4. times at the main paths' shapes ----------------------------------
     scratch = torch.empty(64 * 2**20 // 4, device=dev)      # > the 50 MB L2
@@ -3737,6 +4287,49 @@ def main() -> int:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
               f"SDPA {lib}, launches {r['launches']}", flush=True)
 
+    # phase 3n's numbers
+    a, b, c, d = tr3n["qwen1"], tr3n["qwen4"], tr3n["jamba"], tr3n["falcon"]
+    print(f"[{card}] 3n a. Qwen3-MoE 1 layer: conversion search {a['search']:.2f} s, SVDs "
+          f"and surgery {a['convert']:.2f} s; loss + backward at B 1 x 512: first ragged pass "
+          f"{a['first']['fwd_ms']:.1f} + {a['first']['bwd_ms']:.1f} ms, then ragged "
+          f"{a['ragged']['fwd_ms']:.1f} + {a['ragged']['bwd_ms']:.1f} ms ({a['ragged']['syncs']} "
+          f"group-size syncs per step, peak {a['ragged']['peak'] / 2**30:.2f} GiB), dense "
+          f"{a['dense']['fwd_ms']:.1f} + {a['dense']['bwd_ms']:.1f} ms (peak "
+          f"{a['dense']['peak'] / 2**30:.2f} GiB); gradients ragged vs dense {a['worst']:.3e} "
+          f"of a leaf's largest; a whole AdamW step would hold ~{a['adamw_gb']['f32']:.1f} GB "
+          f"(f32 moments) or ~{a['adamw_gb']['int8']:.1f} GB (int8) + "
+          f"{a['adamw_gb']['lm_head']:.1f}; wall {a['wall']:.1f} s", flush=True)
+    for label, x in (("b. converted Qwen3-MoE 4 layers, generate 8 x (512 + 32)", b),
+                     ("c. converted Jamba period, generate 8 x (1024 + 128)", c)):
+        st, g = x["gen"]["stats"], x["gen"]
+        dec = np.asarray(st.step_ms[1:])
+        print(f"[{card}] 3n {label}: search {x['search']:.2f} s, SVDs and surgery "
+              f"{x['convert']:.2f} s; decode tok/s={st.decoded_tokens / g['wall']:.1f} "
+              f"prefill_ms={st.step_ms[0]:.2f} step_ms p50/p95={np.percentile(dec, 50):.2f}/"
+              f"{np.percentile(dec, 95):.2f}; rows within {g['max_d']:.3e} of apply_train "
+              f"({g['excused']} excused by routing); peak {x['peak'] / 2**30:.2f} GiB; wall "
+              f"{x['wall']:.1f} s", flush=True)
+    t = c["train"]
+    print(f"[{card}] 3n c. converted Jamba layers 0-3, loss + backward at B 1 x 512: "
+          f"first pass {c['first']['fwd_ms']:.1f} + {c['first']['bwd_ms']:.1f} ms, then "
+          f"{t['fwd_ms']:.1f} + {t['bwd_ms']:.1f} ms, {t['syncs']} group-size syncs per step, "
+          f"peak {t['peak'] / 2**30:.2f} GiB", flush=True)
+    print(f"[{card}] 3n d. Falcon-Mamba-7B 8 layers: AdamW step p50 {d['p50']:.1f} ms, "
+          f"{d['tok_s']:.0f} tokens/s, peak {d['peak'] / 2**30:.2f} GiB, losses "
+          f"{d['losses'][0]:.4f} -> {d['losses'][-1]:.4f}; one layer's loss + backward peak "
+          f"above what was held {d['recompute_peak'] / 2**30:.2f} GiB with the per-chunk "
+          f"recompute against {d['unroll_peak'] / 2**30:.2f} GiB unrolled "
+          f"({d['recompute_ms']:.1f} against {d['unroll_ms']:.1f} ms); wall {d['wall']:.1f} s",
+          flush=True)
+    for arch, x in tr3n["steps"].items():
+        print(f"[{card}] 3n e. reduced {arch}, one train step card vs CPU: worst "
+              f"{x['worst']:.3e} of a leaf's largest, {x['flips']} weights of gradient under "
+              f"{BIG_GRAD} within 2·lr (both steps {tr3n['steps_wall']:.1f} s)", flush=True)
+    for r in tr3n["subrows"]:
+        print(f"[{card}] 3n {r['name']} at {r['at']}: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+              f"launches {r['launches']}", flush=True)
+
     # -- 5. result lines -----------------------------------------------------
     t = train3k
     print(f"[{card}] uptraining (3k): step_ms p50 {t['step_ms_p50']:.1f}, tokens/s "
@@ -3745,8 +4338,8 @@ def main() -> int:
           f"{t['losses'][-1]:.4f}", flush=True)
     print(f"[{card}] phases 3i (conversion) {conv['phase']:.1f} s, 3k (training) "
           f"{t['phase']:.1f} s, 3j (MiniCPM-2B) {tied['wall']:.1f} s, 3l (MoE, Mamba, "
-          f"hybrid) {hyb['wall']:.1f} s and 3m (frontends) {fronts['wall']:.1f} s; the "
-          f"whole script "
+          f"hybrid) {hyb['wall']:.1f} s, 3m (frontends) {fronts['wall']:.1f} s and 3n (MoE, "
+          f"Mamba and hybrid training and conversion) {tr3n['wall']:.1f} s; the whole script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -92,6 +92,7 @@ class ModelConfig:
     tie_embeddings: bool = False     # logits = h @ embed.table^T, no lm_head
     attn_chunk_q: Optional[int] = None   # training attention: None = chunk at S >= 4096
     ssm_chunk: int = 128                 # mamba scan chunk length
+    ssm_unroll: bool = False             # no per-chunk recompute of the mamba scan
     loss_chunk: int = 0                  # seq-chunked CE (never the whole [B,S,V] logits)
     remat: bool = True                   # recompute layers in the backward
     remat_policy: str = "full"           # full (recompute the layer) | dots | none

@@ -16,7 +16,9 @@ comparison baseline — and EliteKV dimension selection (paper App. C).
 
 Counterpart of the JAX package's ``core/convert.py`` on the port's layout:
 one dict per layer (``params["layers"][i]["attn"]``) where the reference
-stacks layers under ``params["blocks"]["p0"]``.  Weights stay on the
+stacks layers under ``params["blocks"]["p{pos}"]``; layers are keyed by
+absolute index, so a hybrid stack converts its attention layers and keeps
+its Mamba layers.  Weights stay on the
 baseline's device, the factorizations included (``core/lrd.py``).
 """
 from __future__ import annotations
@@ -71,27 +73,22 @@ def convert_layer(attn_params: Dict, cfg: ModelConfig, e: EliteKVConfig,
     return params, {"elite_freqs": t(freqs[elite_idx].astype(np.float32))}
 
 
-def check_attention_only(cfg) -> None:
-    """The search and the conversion index layers by attention ordinal: a
-    stack with Mamba layers is refused (ROADMAP item 16.2)."""
-    if cfg.n_attn_layers != cfg.num_layers:
-        raise ValueError(f"{cfg.name} has Mamba layers: the RoPElite search and the "
-                         "conversion take attention-only stacks (hybrid conversion is "
-                         "ROADMAP item 16.2)")
-
-
 def convert_model(params: Dict, buffers: Dict, cfg: ModelConfig, elite_sets: Dict,
                   elitekv: EliteKVConfig) -> Tuple[Dict, Dict, ModelConfig]:
-    """Whole-model conversion of an attention-only baseline (a stack with
-    Mamba layers raises ``ValueError``).  ``elite_sets``: {layer index:
-    [nkv, r]}.  → (params, buffers, config) of the EliteKV model; the
-    embedding, LM head, norms and MLPs are the baseline's tensors (shared,
-    not copied)."""
+    """Whole-model conversion of a baseline (dense, MoE, hybrid or pure
+    Mamba).  ``elite_sets``: {absolute layer index: [nkv, r]} for every
+    attention layer.  → (params, buffers, config) of the EliteKV model:
+    each attention layer converted, every Mamba layer and every FFN (MoE
+    experts included), the embedding, LM head and norms the baseline's
+    tensors (shared, not copied)."""
     assert not cfg.elitekv.enabled
-    check_attention_only(cfg)
     new_cfg = dataclasses.replace(cfg, elitekv=dataclasses.replace(elitekv, enabled=True))
     layers, bufs = [], []
     for li, layer in enumerate(params["layers"]):
+        if cfg.layer_kind(li) != "attn":
+            layers.append(layer)
+            bufs.append(buffers["layers"][li])
+            continue
         pe, be = convert_layer(layer["attn"], cfg, elitekv, elite_sets[li])
         layers.append({**layer, "attn": pe})
         bufs.append(be)
@@ -99,12 +96,13 @@ def convert_model(params: Dict, buffers: Dict, cfg: ModelConfig, elite_sets: Dic
 
 
 def elitekv_from_baseline(params, buffers, cfg, calib_batch, elitekv: EliteKVConfig,
-                          method: str = "greedy"):
+                          method: str = "greedy", moe_impl: str = "dense"):
     """Search + convert in one call (the paper's full §3 pipeline) on a
-    calibration batch (``ropelite.search_model``'s)."""
+    calibration batch (``ropelite.search_model``'s, captured through MoE
+    layers by ``moe_impl``)."""
     from repro_torch.core import ropelite
     sets = ropelite.search_model(params, buffers, cfg, calib_batch, elitekv.elite_r,
-                                 method=method)
+                                 method=method, moe_impl=moe_impl)
     return convert_model(params, buffers, cfg, sets, elitekv)
 
 

@@ -29,7 +29,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import rope as rope_lib
-from repro_torch.core.convert import check_attention_only
 from repro_torch.models import lm
 
 
@@ -126,28 +125,33 @@ def layer_qk(layer_params, x: torch.Tensor):
     return q, k
 
 
-def search_model(params, buffers, cfg, batch, r: int,
-                 method: str = "greedy", causal: bool = True) -> Dict[int, torch.Tensor]:
+def search_model(params, buffers, cfg, batch, r: int, method: str = "greedy",
+                 moe_impl: str = "dense", causal: bool = True) -> Dict[int, torch.Tensor]:
     """Elite chunks for every attention layer of a *baseline* (non-elite)
-    attention-only model, from the calibration ``batch`` (the reference's
-    batch dict: tokens [B,S], with a vision model's patches before them or
-    an audio model's frames; a bare id tensor is the tokens).  Positions
-    run over every row of the embedded sequence, patches included.
+    model — dense, MoE, hybrid or pure Mamba — from the calibration
+    ``batch`` (the reference's batch dict: tokens [B,S], with a vision
+    model's patches before them or an audio model's frames; a bare id
+    tensor is the tokens), captured through MoE layers dispatched by
+    ``moe_impl`` (the exact "dense" oracle by default, as the reference).
+    Positions run over every row of the embedded sequence, patches
+    included.
 
-    Returns {layer index: [n_kv, r] int32} (greedy order preserved), on the
-    params' device.
+    Returns {absolute layer index: [n_kv, r] int32} over the attention
+    layers only ({} for a stack without any), greedy order preserved, on
+    the params' device.
     """
     assert not cfg.elitekv.enabled, "search runs on the baseline model"
-    check_attention_only(cfg)
     if method not in ("greedy", "uniform", "contribution"):
         raise ValueError(method)
-    caps = lm.capture_attn_inputs(params, buffers, cfg, batch)
-    positions = torch.arange(caps[0].shape[1], device=caps[0].device)
+    caps = lm.capture_attn_inputs(params, buffers, cfg, batch, moe_impl=moe_impl)
     out: Dict[int, torch.Tensor] = {}
-    for li, x in enumerate(caps):
+    positions = None
+    for li, x in caps.items():
         if method == "uniform":
             out[li] = uniform_selection(cfg.head_dim // 2, r, cfg.n_kv_heads, x.device)
             continue
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
         q, k = layer_qk(params["layers"][li]["attn"], x)
         if method == "greedy":
             out[li] = greedy_search_layer(q, k, positions, cfg.rope_theta, cfg.q_group,

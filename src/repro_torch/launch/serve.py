@@ -89,8 +89,11 @@ are token-identical.  Check and summarise the artifacts with
     python tools/check_trace.py out.json --metrics metrics.prom
     PYTHONPATH=src python -m repro_torch.launch.diagnose trace-summary out.json
 
-Batch mode rejects both flags, as the reference does.  The reference's
-multi-device options are not ported yet (ROADMAP Queue 1).
+Batch mode rejects both flags, as the reference does.  ``--moe-impl``
+picks how MoE layers dispatch in every forward of either mode: "ragged"
+(the default) or the "dense" oracle; "ep" (expert parallelism) and the
+reference's other multi-device options are not ported yet (ROADMAP Queue
+1, item 15) and raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -105,7 +108,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.cache import model_cache_floats_per_token
 from repro_torch.core.convert import pick_dims
 from repro_torch.kernels import ops
-from repro_torch.models import lm
+from repro_torch.models import lm, moe
 from repro_torch.obs import REGISTRY, Tracer, write_chrome_trace
 from repro_torch.runtime import serve_loop
 
@@ -151,7 +154,7 @@ def serve_stream(params, buffers, cfg, args):
         speculate_k=args.speculate, draft_rank=args.draft_rank)
     tracer = Tracer(capacity=args.trace_capacity) if args.trace else None
     sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=args.device,
-                                 tracer=tracer, metrics=REGISTRY)
+                                 tracer=tracer, metrics=REGISTRY, moe_impl=args.moe_impl)
     reqs = make_stream(cfg, args.requests, args.rate, args.prompt_len,
                        args.new_tokens, args.seed, shared_prefix=args.shared_prefix,
                        temperature=args.temperature, top_p=args.top_p,
@@ -226,7 +229,7 @@ def serve_batch(params, buffers, cfg, base, args):
         0, cfg.vocab_size, (args.batch, args.prompt_len))
     t0 = time.perf_counter()
     out, stats = serve_loop.generate(params, buffers, cfg, prompts, args.new_tokens,
-                                     device=args.device)
+                                     device=args.device, moe_impl=args.moe_impl)
     dt = time.perf_counter() - t0
     base_floats = model_cache_floats_per_token(base)
     elite_floats = model_cache_floats_per_token(cfg)
@@ -329,7 +332,11 @@ def main(argv=None):
     ap.add_argument("--metrics-out", default="",
                     help="write the metrics registry in Prometheus text "
                          "format to this path after the run")
+    ap.add_argument("--moe-impl", choices=("ragged", "dense", "ep"), default="ragged",
+                    help="MoE dispatch: ragged (sorted groups) or the dense "
+                         "oracle; ep is not ported (ValueError)")
     args = ap.parse_args(argv)
+    moe.check_impl(args.moe_impl)
     if get_config(args.arch).frontend == "audio":
         raise ValueError(f"{args.arch} is an audio model with no token embedding: it "
                          "takes frame embeddings through lm's entry points, not the "

@@ -14,6 +14,14 @@ with the same data stream.  Matmuls stay out of TF32, as in serving.  The
 token pipeline feeds text: ``internvl2_2b`` trains on it without patches;
 the audio model ``musicgen_large`` has no token embedding and is refused
 with ``ValueError`` (``lm.loss_fn`` trains it on ``frames`` batches).
+Every architecture of ``--arch`` trains: dense, MoE (``qwen3_moe_235b``,
+``arctic_480b``), the hybrid ``jamba_v0_1_52b`` and the pure Mamba
+``falcon_mamba_7b``.  ``--moe-impl`` picks how MoE layers dispatch in the
+loss: "ragged" (the default) or the "dense" oracle; "ep" (expert
+parallelism) is not ported (ROADMAP item 15) and raises ``ValueError``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_moe_235b \
+        --reduced --device cpu --steps 2 --batch 2 --seq 16 --moe-impl dense
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.launch.serve import build_config
-from repro_torch.models import lm
+from repro_torch.models import lm, moe
 from repro_torch.optim import schedule as sched_lib
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime import train_loop
@@ -51,7 +59,11 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (cpu runs the kernels' plain versions)")
+    ap.add_argument("--moe-impl", choices=("ragged", "dense", "ep"), default="ragged",
+                    help="MoE dispatch: ragged (sorted groups) or the dense "
+                         "oracle; ep is not ported (ValueError)")
     args = ap.parse_args(argv)
+    moe.check_impl(args.moe_impl)
     if get_config(args.arch).frontend == "audio":
         raise ValueError(f"{args.arch} is an audio model with no token embedding: it "
                          "trains on frame embeddings through lm.loss_fn, not on the "
@@ -76,7 +88,7 @@ def main(argv=None):
                               stable=args.steps // 2, decay=args.steps // 3 + 1)
 
     tc = train_loop.TrainConfig(optimizer=AdamWConfig(), lr=args.lr, schedule=sched,
-                                grad_accum=args.grad_accum)
+                                grad_accum=args.grad_accum, moe_impl=args.moe_impl)
     data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                     batch_size=args.batch, seed=args.seed),
                          device=args.device)

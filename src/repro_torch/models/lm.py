@@ -15,8 +15,9 @@ Layer ``i``'s ``attn`` holds its mixer's params (attention, or Mamba where
 ``cfg.layer_kind(i) == "ssm"``); ``ffn``/``ffn_norm`` are absent where
 ``cfg.ffn_kind(i) == "none"`` (Falcon-Mamba) and hold a ``models/moe.py``
 FFN where it is "moe".  No ``lm_head`` when ``cfg.tie_embeddings``: the
-logits are then ``h @ embed.table^T``.  MoE layers dispatch "ragged"
-(``models/moe.py``); ``apply_train`` also takes the "dense" oracle.
+logits are then ``h @ embed.table^T``.  MoE layers dispatch as every entry
+point's ``moe_impl`` says (``models/moe.py``): "ragged" (the default) or the
+"dense" oracle.
 
 Every entry point takes the reference's ``batch`` dict (a bare id tensor
 stands for ``{"tokens": t}``): ``tokens`` [B,S] int64 for a text model; for
@@ -43,7 +44,8 @@ Entry points over a contiguous cache (EliteKV or baseline, lockstep):
   * ``loss_fn``       — mean next-token cross-entropy of ``apply_train``
     (sequence-chunked at ``cfg.loss_chunk``), what training differentiates.
   * ``capture_attn_inputs`` — each attention layer's normed input of a
-    baseline forward, which the RoPElite search reads.
+    baseline forward, keyed by absolute layer index, which the RoPElite
+    search reads.
 All return f32 logits over the padded vocab (padding columns = -1e30) and
 write the pool pages or the cache in place.  ``make_draft_params`` derives
 the rank-truncated draft model of self-speculative decode.
@@ -282,7 +284,7 @@ def _forward_contiguous(params, buffers, cfg, batch, mode: str, cache=None,
         else:
             mix = _contiguous_attention(cfg, b, mode, positions, layer_cache, index)
             if captures is not None:
-                mix = _capturing(mix, captures)
+                mix = _capturing(mix, captures, i)
         h, aux = (_run_layer(p, cfg, i, h, mix, moe_impl) if wrap is None
                   else wrap(_run_layer, p, cfg, i, h, mix, moe_impl))
         if aux is not None:
@@ -293,10 +295,10 @@ def _forward_contiguous(params, buffers, cfg, batch, mode: str, cache=None,
     return (h if return_hidden else _logits(params, cfg, h)), aux_sum
 
 
-def _capturing(attend, captures: list):
-    """``attend`` that first appends its normed input to ``captures``."""
+def _capturing(attend, captures: dict, i: int):
+    """``attend`` that first keeps its normed input in ``captures[i]``."""
     def run(pa, hn):
-        captures.append(hn)
+        captures[i] = hn
         return attend(pa, hn)
     return run
 
@@ -328,13 +330,15 @@ def _chunk_nll(params, cfg, h, labels, mask):
     return torch.sum((logz - gold) * mask), torch.sum(mask)
 
 
-def loss_fn(params, buffers, cfg, batch, aux_weight: float = 0.01):
+def loss_fn(params, buffers, cfg, batch, moe_impl: str = "ragged",
+            aux_weight: float = 0.01):
     """Training loss of ``batch`` {"tokens" [B,S] (a vision model's
     "patch_embeds" [B,nv,d] before them, or an audio model's "frames"
     [B,S,d] instead), "labels" [B,S] int64, optional "loss_mask" [B,S]
     f32}: mean next-token cross-entropy in f32 over the text (or frame)
     positions, the first ``nv`` logits rows dropped, plus ``aux_weight``
-    times the MoE balance loss (0 for a stack without MoE layers).  Where
+    times the MoE balance loss (0 for a stack without MoE layers); MoE
+    layers dispatch by ``moe_impl``.  Where
     ``cfg.loss_chunk`` divides S and no patches lead, the CE goes chunk by
     chunk of the sequence, each chunk's logits recomputed in the backward
     under grad, so the whole [B,S,V] logits never exist.  → (loss, {"ce",
@@ -345,7 +349,7 @@ def loss_fn(params, buffers, cfg, batch, aux_weight: float = 0.01):
     ck = cfg.loss_chunk
     if ck and labels.shape[1] % ck == 0 and nv == 0:
         h, aux = apply_train(params, buffers, cfg, batch, return_hidden=True,
-                             return_aux=True)
+                             moe_impl=moe_impl, return_aux=True)
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
         nll = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -357,48 +361,54 @@ def loss_fn(params, buffers, cfg, batch, aux_weight: float = 0.01):
             nll, cnt = nll + n_c, cnt + c_c
         ce = nll / torch.clamp(cnt, min=1.0)
     else:
-        logits, aux = apply_train(params, buffers, cfg, batch, return_aux=True)
+        logits, aux = apply_train(params, buffers, cfg, batch, moe_impl=moe_impl,
+                                  return_aux=True)
         ce = cross_entropy(logits[:, nv:], labels, mask)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
-def capture_attn_inputs(params, buffers, cfg, batch):
+def capture_attn_inputs(params, buffers, cfg, batch, moe_impl: str = "ragged"):
     """The normed attention input of every attention layer of the
     whole-sequence forward of ``batch`` (tokens [B,S]; a vision model's
-    patches before them, or an audio model's frames) — what the RoPElite
-    search projects to q and k: a list over those layers of [B,nv+S,d].
-    The reference returns the same arrays stacked as ``{"p0": [n_layers,
-    B, S, d]}``."""
-    captures: list = []
-    _forward_contiguous(params, buffers, cfg, _as_batch(batch), "train", captures=captures)
+    patches before them, or an audio model's frames), through Mamba and MoE
+    layers (dispatched by ``moe_impl``) alike — what the RoPElite search
+    projects to q and k: ``{absolute layer index: [B,nv+S,d]}`` over the
+    attention layers, in layer order.  The reference returns the same
+    arrays stacked per attention position, ``{"p{pos}": [n_super, B, S,
+    d]}``: its entry ``s`` of ``p{pos}`` is layer ``s·P + pos`` here."""
+    captures: dict = {}
+    _forward_contiguous(params, buffers, cfg, _as_batch(batch), "train", captures=captures,
+                        moe_impl=moe_impl)
     return captures
 
 
-def apply_prefill(params, buffers, cfg, batch, cache):
+def apply_prefill(params, buffers, cfg, batch, cache, moe_impl: str = "ragged"):
     """Prefill prompts (``batch``: tokens [B,S], a vision model's patches
     before them, or an audio model's frames) from position 0: writes cache
     rows [0, nv+S) of every attention layer and every Mamba layer's final
-    state in place and sets ``cache["index"] = nv+S``.  → logits
-    [B,nv+S,Vp] f32."""
+    state in place and sets ``cache["index"] = nv+S``; MoE layers dispatch
+    by ``moe_impl``.  → logits [B,nv+S,Vp] f32."""
     batch = _as_batch(batch)
-    logits, _ = _forward_contiguous(params, buffers, cfg, batch, "prefill", cache)
+    logits, _ = _forward_contiguous(params, buffers, cfg, batch, "prefill", cache,
+                                    moe_impl=moe_impl)
     cache["index"] = logits.shape[1]
     return logits
 
 
-def apply_decode(params, buffers, cfg, batch, cache):
+def apply_decode(params, buffers, cfg, batch, cache, moe_impl: str = "ragged"):
     """One token (or an audio model's frame) per lane, tokens [B,1] (frames
     [B,1,d]) at position ``cache["index"]``: writes that cache row of every
     attention layer and advances every Mamba state in place, and advances
     the index.  → logits [B,1,Vp] f32."""
-    logits, _ = _forward_contiguous(params, buffers, cfg, _as_batch(batch), "decode", cache)
+    logits, _ = _forward_contiguous(params, buffers, cfg, _as_batch(batch), "decode", cache,
+                                    moe_impl=moe_impl)
     cache["index"] += 1
     return logits
 
 
 def apply_prefill_paged(params, buffers, cfg, batch, pages, slot_mapping,
                         chunk_start=None, block_tables=None, prefix_lens=None,
-                        block_size: int = 0):
+                        block_size: int = 0, moe_impl: str = "ragged"):
     """Prefill sequences (or chunks of them) into the paged pool.
 
     ``batch``: tokens [B,S] (a vision model's patches [B,nv,d] before them,
@@ -415,8 +425,8 @@ def apply_prefill_paged(params, buffers, cfg, batch, pages, slot_mapping,
     prefix, located by ``block_tables`` [B,mb] / ``prefix_lens`` [B] /
     ``block_size``, plus the chunk causally.  A lane with no valid token (all
     sentinel) gets ``kv_lens = 0`` and a zero attention output; padding rows
-    are never read.
-    → logits [B,S,Vp] f32; ``pages`` written in place.
+    are never read.  MoE layers dispatch by ``moe_impl``.
+    → logits [B,nv+S,Vp] f32; ``pages`` written in place.
     """
     _check_paged(cfg)
     device = params_device(params)
@@ -437,14 +447,15 @@ def apply_prefill_paged(params, buffers, cfg, batch, pages, slot_mapping,
                   block_size=block_size)
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
         h, _ = _run_layer(p, cfg, i, h, lambda pa, hn: elite_attention.apply_prefill_paged(
-            pa, cfg, b, hn, positions, _layer_pages(pages, cfg, i), writes, **kw), "ragged")
+            pa, cfg, b, hn, positions, _layer_pages(pages, cfg, i), writes, **kw), moe_impl)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h)
 
 
 def apply_decode_paged(params, buffers, cfg, batch, pages, slot_mapping,
                        block_tables, lengths, block_size: int,
-                       sparse_topk: int = 0, sparse_recent: int = 0):
+                       sparse_topk: int = 0, sparse_recent: int = 0,
+                       moe_impl: str = "ragged"):
     """One decode step for every serving lane, reading and writing the pool.
 
     ``batch``: tokens [B,1] (an audio model's frames [B,1,d]); ``lengths``
@@ -453,7 +464,7 @@ def apply_decode_paged(params, buffers, cfg, batch, pages, slot_mapping,
     lanes); ``block_tables`` [B,mb].
     ``sparse_topk > 0`` attends only the block-top-k selection plus the
     ``sparse_recent`` newest blocks in every layer (the pool needs block
-    summaries).
+    summaries).  MoE layers dispatch by ``moe_impl``.
     → logits [B,1,Vp] f32; ``pages`` written in place.
     """
     _check_paged(cfg)
@@ -466,13 +477,14 @@ def apply_decode_paged(params, buffers, cfg, batch, pages, slot_mapping,
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
         h, _ = _run_layer(p, cfg, i, h, lambda pa, hn: elite_attention.apply_decode_paged(
             pa, cfg, b, hn, _layer_pages(pages, cfg, i), writes, block_tables, lengths,
-            block_size, sparse_topk, sparse_recent), "ragged")
+            block_size, sparse_topk, sparse_recent), moe_impl)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h)
 
 
 def apply_verify_paged(params, buffers, cfg, batch, pages, slot_mapping,
-                       block_tables, q_offsets, lengths, block_size: int):
+                       block_tables, q_offsets, lengths, block_size: int,
+                       moe_impl: str = "ragged"):
     """Speculative-verify forward: score a window of ``W = k+1`` tokens per
     lane (the pending token and ``k`` draft proposals) against its paged
     prefix in one call, writing the window's full-model streams to the pool.
@@ -484,7 +496,8 @@ def apply_verify_paged(params, buffers, cfg, batch, pages, slot_mapping,
     [B,W] flat write slots (padding → the pool's sentinel);
     ``block_tables`` [B,mb].  Logits row ``w`` is the full model's
     next-token distribution after window token ``w``: rows ``0..k-1`` judge
-    the proposals, row ``k`` gives the bonus token.
+    the proposals, row ``k`` gives the bonus token.  MoE layers dispatch
+    by ``moe_impl``.
     → logits [B,W,Vp] f32; ``pages`` written in place.
     """
     _check_paged(cfg)
@@ -498,7 +511,7 @@ def apply_verify_paged(params, buffers, cfg, batch, pages, slot_mapping,
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
         h, _ = _run_layer(p, cfg, i, h, lambda pa, hn: elite_attention.apply_verify_paged(
             pa, cfg, b, hn, _layer_pages(pages, cfg, i), writes, block_tables, q_offsets,
-            lengths, block_size), "ragged")
+            lengths, block_size), moe_impl)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h)
 

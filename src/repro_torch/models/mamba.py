@@ -14,6 +14,15 @@ underflow to 0; no log-space cumulative sum is taken, which would overflow
 f32 within a chunk.  The scan is plain PyTorch: the reference computes it
 outside any Pallas kernel too.
 
+Under autograd each chunk's step is recomputed in the backward (a
+non-reentrant ``torch.utils.checkpoint`` per chunk, the reference's
+``jax.checkpoint(step)``), unless ``cfg.ssm_unroll``: only the chunks'
+inputs and the ``[B, d_inner, N]`` carries are kept, where the rounds'
+``[B, chunk, d_inner, N]`` pairs of every chunk would be (about 17 such
+tensors per chunk; at Falcon-Mamba's width and B 8 × S 512, ~9 GB per
+chunk).  The recompute changes no bits, and it nests inside the layer's
+own checkpoint (``lm._remat``).
+
 Decode is the reference's one-token recurrence over ``(conv, ssm)``, term
 for term: the conv window's last ``K-1`` pre-activation inputs and the f32
 ``[B, d_inner, N]`` state.  There is no KV cache, which is why EliteKV does
@@ -26,6 +35,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import dense_init
 
@@ -92,9 +102,24 @@ def _scan_chunk(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     return a, b
 
 
-def ssm_scan(dt, xs, Bm, Cm, A, D, h0=None, chunk: int = 128):
+def _chunk_step(h, dtk, xk, Bk, Ck, A, D):
+    """One chunk of the scan from the carry h [B,di,N] f32: → (y [B,ck,di]
+    f32, the carry after the chunk, a tensor of its own)."""
+    dtk, xk = dtk.float(), xk.float()
+    dA = torch.exp(dtk[..., None] * A[None, None])                         # [B,ck,di,N]
+    dBx = (dtk * xk)[..., None] * Bk.float()[:, :, None, :]
+    aprod, bacc = _scan_chunk(dA, dBx)
+    h_ts = aprod * h[:, None] + bacc                                       # [B,ck,di,N]
+    y = torch.einsum("bsdn,bsn->bsd", h_ts, Ck.float())
+    # a copy: a view would keep the chunk's whole h_ts alive as the carry
+    return y + D[None, None] * xk, h_ts[:, -1].clone()
+
+
+def ssm_scan(dt, xs, Bm, Cm, A, D, h0=None, chunk: int = 128, unroll: bool = False):
     """Selective scan.  dt, xs [B,S,di]; Bm, Cm [B,S,N]; A [di,N]; D [di].
-    → y [B,S,di] (xs's dtype) and the final state h [B,di,N] f32."""
+    → y [B,S,di] (xs's dtype) and the final state h [B,di,N] f32.  Where
+    autograd records (grad mode on and an input that requires grad), each
+    chunk is recomputed in the backward unless ``unroll``."""
     B, S, di = xs.shape
     N = Bm.shape[-1]
     chunk = min(chunk, S)
@@ -104,17 +129,15 @@ def ssm_scan(dt, xs, Bm, Cm, A, D, h0=None, chunk: int = 128):
     h = (torch.zeros((B, di, N), dtype=torch.float32, device=xs.device) if h0 is None
          else h0.float())
     A, D = A.float(), D.float()
+    recompute = (not unroll and torch.is_grad_enabled()
+                 and any(t.requires_grad for t in (dt, xs, Bm, Cm, A, D, h)))
     ys = []
     for i in range(0, S + n_pad, chunk):
-        dtk = dt[:, i:i + chunk].float()
-        xk = xs[:, i:i + chunk].float()
-        dA = torch.exp(dtk[..., None] * A[None, None])                     # [B,ck,di,N]
-        dBx = (dtk * xk)[..., None] * Bm[:, i:i + chunk].float()[:, :, None, :]
-        aprod, bacc = _scan_chunk(dA, dBx)
-        h_ts = aprod * h[:, None] + bacc                                   # [B,ck,di,N]
-        y = torch.einsum("bsdn,bsn->bsd", h_ts, Cm[:, i:i + chunk].float())
-        ys.append((y + D[None, None] * xk).to(xs.dtype))
-        h = h_ts[:, -1]
+        args = (h, dt[:, i:i + chunk], xs[:, i:i + chunk], Bm[:, i:i + chunk],
+                Cm[:, i:i + chunk], A, D)
+        y, h = (checkpoint(_chunk_step, *args, use_reentrant=False) if recompute
+                else _chunk_step(*args))
+        ys.append(y.to(xs.dtype))
     return torch.cat(ys, dim=1)[:, :S], h
 
 
@@ -127,7 +150,8 @@ def apply_full(params, cfg, x, return_state: bool = False):
     xs, z = torch.chunk(x @ params["in_proj"].to(dt_), 2, dim=-1)
     xs_act = F.silu(_conv_causal(xs, params["conv_w"].to(dt_), params["conv_b"]))
     dt, Bm, Cm, A = _ssm_params(params, cfg, xs_act)
-    y, h_fin = ssm_scan(dt, xs_act, Bm, Cm, A, params["D"], chunk=cfg.ssm_chunk)
+    y, h_fin = ssm_scan(dt, xs_act, Bm, Cm, A, params["D"], chunk=cfg.ssm_chunk,
+                        unroll=cfg.ssm_unroll)
     out = (y * F.silu(z)) @ params["out_proj"].to(dt_)
     if not return_state:
         return out

@@ -9,7 +9,10 @@ Counterpart of the JAX package's ``models/moe.py``:
                  on its contiguous slice of the sorted rows; the reference
                  runs ``jax.lax.ragged_dot`` here.  Splitting the rows needs
                  the group sizes on the host: one device-to-host read per
-                 MoE layer and forward, counted in ``group_size_syncs``.
+                 MoE layer and forward, counted in ``group_size_syncs``
+                 (under the layer remat a training step reads them twice:
+                 forward and recompute).  Each expert weight is split
+                 once per call, so its gradient is one ``stack``.
 
 The reference's third implementation, ``ep`` (expert parallelism over a
 mesh), is not ported: ``impl="ep"`` raises.
@@ -103,12 +106,17 @@ def apply_ragged(params, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
     sizes = torch.bincount(flat, minlength=E).tolist()           # the one host read
     group_size_syncs += 1
     dt = x.dtype
+    # each weight split once: under autograd one ``stack`` gathers its
+    # experts' gradients, where a ``select`` per expert would add a zero
+    # tensor of the whole [E, d, f] into the gradient for each expert
+    w_gate, w_up, w_down = (torch.unbind(params[k].to(dt), 0)
+                            for k in ("w_gate", "w_up", "w_down"))
     ys, start = [], 0
     for e, n in enumerate(sizes):
         if n:
             xe = xs[start:start + n]
-            h = F.silu(xe @ params["w_gate"][e].to(dt)) * (xe @ params["w_up"][e].to(dt))
-            ys.append(h @ params["w_down"][e].to(dt))
+            h = F.silu(xe @ w_gate[e]) * (xe @ w_up[e])
+            ys.append(h @ w_down[e])
             start += n
     y = torch.empty_like(xs)
     y[order] = torch.cat(ys)                                     # unsort
@@ -117,13 +125,17 @@ def apply_ragged(params, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
     return y.reshape(B, S, d), aux
 
 
-def apply(params, cfg, x, impl: str = "ragged") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B,S,d] → (y [B,S,d], aux scalar f32)."""
-    if impl == "dense":
-        return apply_dense(params, cfg, x)
-    if impl == "ragged":
-        return apply_ragged(params, cfg, x)
+def check_impl(impl: str) -> None:
+    """Raise ``ValueError`` unless ``impl`` is "dense" or "ragged" ("ep" is
+    not ported)."""
     if impl == "ep":
         raise ValueError("moe impl 'ep' (expert parallelism over a device mesh) is not "
                          "ported: ROADMAP Queue 1 item 15 (multi-GPU)")
-    raise ValueError(f"unknown moe impl {impl!r}: expected dense or ragged")
+    if impl not in ("dense", "ragged"):
+        raise ValueError(f"unknown moe impl {impl!r}: expected dense or ragged")
+
+
+def apply(params, cfg, x, impl: str = "ragged") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B,S,d] → (y [B,S,d], aux scalar f32)."""
+    check_impl(impl)
+    return (apply_dense if impl == "dense" else apply_ragged)(params, cfg, x)

@@ -91,7 +91,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import (BlockManager, OutOfBlocks, PagedKVPool,
                                     SwappedSeq, measured_cache_bytes)
-from repro_torch.models import lm
+from repro_torch.models import lm, moe
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime import prng
@@ -103,18 +103,18 @@ from repro_torch.runtime import prng
 PHASES = ("prefill", "decode", "draft", "verify", "sample", "accept", "swap", "other")
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, moe_impl: str = "ragged"):
     def prefill_step(params, buffers, tokens, cache):
-        return lm.apply_prefill(params, buffers, cfg, tokens, cache)
+        return lm.apply_prefill(params, buffers, cfg, tokens, cache, moe_impl=moe_impl)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, moe_impl: str = "ragged"):
     """→ ``decode_step(params, buffers, tokens, cache) -> (next [B] int64,
     logits)``: the greedy next token stays on the device."""
     def decode_step(params, buffers, tokens, cache):
-        logits = lm.apply_decode(params, buffers, cfg, tokens, cache)
+        logits = lm.apply_decode(params, buffers, cfg, tokens, cache, moe_impl=moe_impl)
         return logits[:, -1].argmax(dim=-1), logits
 
     return decode_step
@@ -154,23 +154,24 @@ def _check_text(cfg: ModelConfig) -> None:
 
 @torch.no_grad()
 def generate(params, buffers, cfg: ModelConfig, prompts, max_new_tokens: int,
-             device="cuda") -> Tuple[np.ndarray, ServeStats]:
+             device="cuda", moe_impl: str = "ragged") -> Tuple[np.ndarray, ServeStats]:
     """Greedy generation for a batch of equal-length prompts over a
     contiguous f32 cache of ``prompt + max_new_tokens`` rows.
 
     prompts [B, S_prompt] int → generated [B, max_new_tokens] int32.
     ``params``/``buffers`` must live on ``device``.  Prompts are text: a
     vision model serves them without patches; an audio model is refused
-    (``_check_text``).
+    (``_check_text``).  MoE layers dispatch by ``moe_impl`` in every forward.
     """
     _check_text(cfg)
+    moe.check_impl(moe_impl)
     prompts = np.asarray(prompts, np.int32)
     B, Sp = prompts.shape
     max_len = Sp + max_new_tokens
     dev = torch.empty(0, device=device).device
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     cache = lm.init_cache(cfg, B, max_len, device=dev)
-    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    prefill, decode = make_prefill_step(cfg, moe_impl), make_decode_step(cfg, moe_impl)
     stats = ServeStats(prefill_tokens=B * Sp, decoded_tokens=B * max_new_tokens)
     t0 = time.perf_counter()
     logits = prefill(params, buffers, torch.from_numpy(prompts).to(dev), cache)
@@ -495,12 +496,14 @@ class Scheduler:
 
     ``params``/``buffers`` must already live on ``device``.  ``tracer`` (a
     ``repro_torch.obs.Tracer``) and ``metrics`` (a ``MetricsRegistry``)
-    observe the run.
+    observe the run.  MoE layers dispatch by ``moe_impl`` in every forward
+    (prefill, decode, draft and verify).
     """
 
     def __init__(self, params, buffers, cfg: ModelConfig, scfg: SchedulerConfig,
-                 device="cuda", tracer=None, metrics=None):
+                 device="cuda", tracer=None, metrics=None, moe_impl: str = "ragged"):
         _check_text(cfg)
+        moe.check_impl(moe_impl)
         if not cfg.elitekv.enabled:
             raise ValueError("paged serving requires an EliteKV config")
         if scfg.eviction not in ("recompute", "swap"):
@@ -528,6 +531,7 @@ class Scheduler:
             raise ValueError(f"params live on {lm.params_device(params)}, "
                              f"scheduler device is {self.device}")
         self.params, self.buffers, self.cfg, self.scfg = params, buffers, cfg, scfg
+        self.moe_impl = moe_impl
         self.trace = tracer or NULL_TRACER
         self.metrics = metrics or MetricsRegistry()
         self.pool = PagedKVPool(cfg, scfg.num_blocks, scfg.block_size,
@@ -936,7 +940,7 @@ class Scheduler:
         with self._phase("prefill", lanes=1, tokens=n):
             logits = lm.apply_prefill_paged(
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
-                self.pool.pages, torch.from_numpy(sm), **kw)
+                self.pool.pages, torch.from_numpy(sm), **kw, moe_impl=self.moe_impl)
             self._sync()
         self.trace.instant("prefill_chunk", track=f"slot{slot}", cat="request",
                            uid=req.uid, start=pos, n=n)
@@ -1001,7 +1005,7 @@ class Scheduler:
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
                 self.pool.pages, torch.from_numpy(sms), chunk_start=starts,
                 block_tables=bt, prefix_lens=starts,
-                block_size=scfg.block_size)
+                block_size=scfg.block_size, moe_impl=self.moe_impl)
             self._sync()
         self._m_prefill_tokens.inc(n_toks)
         self.prefill_chunks += 1
@@ -1122,7 +1126,8 @@ class Scheduler:
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
                 self.pool.pages, torch.from_numpy(sm), self._tensor(bt),
                 self._tensor(lengths), self.scfg.block_size,
-                self.scfg.sparse_topk_blocks, self.scfg.sparse_recent_blocks)
+                self.scfg.sparse_topk_blocks, self.scfg.sparse_recent_blocks,
+                moe_impl=self.moe_impl)
             self._sync()
         with self._phase("sample"):
             if sampled:
@@ -1212,7 +1217,7 @@ class Scheduler:
                 logits = lm.apply_decode_paged(
                     self.draft_params, self.buffers, self.cfg, self._tensor(tokens),
                     self.pool.pages, torch.from_numpy(sm), bt, self._tensor(lengths),
-                    scfg.block_size)
+                    scfg.block_size, moe_impl=self.moe_impl)
                 if sampled:
                     arrays = self._sampling_arrays(
                         sampled, {i: len(r.generated) + j for i, r in sampled.items()}, B)
@@ -1240,7 +1245,7 @@ class Scheduler:
             logits = lm.apply_verify_paged(
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
                 self.pool.pages, torch.from_numpy(sms), bt, self._tensor(offs),
-                self._tensor(lengths), scfg.block_size)
+                self._tensor(lengths), scfg.block_size, moe_impl=self.moe_impl)
             targets = torch.argmax(logits, dim=-1).cpu().numpy()       # [B, W]
             rows = None
             if sampled:                     # verify rows, then draft rows

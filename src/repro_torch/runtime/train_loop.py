@@ -2,8 +2,11 @@
 f32/bf16/int8 moments, optional int8 gradient compression with error
 feedback, checkpoint/restart.
 
-The port's own copy of the JAX package's ``runtime/train_loop.py`` for the
-dense stacks (no MoE, so no ``moe_impl``).  The reference's ``jax.grad``
+The port's own copy of the JAX package's ``runtime/train_loop.py``, for
+every stack: dense, MoE (``TrainConfig.moe_impl``, "ragged" or the "dense"
+oracle, with the balance loss weighted by ``aux_weight``), Mamba and
+hybrid (the scan recomputed per chunk, ``models/mamba.py``).  The
+reference's ``jax.grad``
 becomes a backward of ``lm.loss_fn`` into fresh leaves that share the
 params' storage; its ``lax.scan`` over microbatches a Python loop whose
 gradients add up in those leaves' ``.grad`` in the same order.  On the card the step runs through the
@@ -32,6 +35,7 @@ class TrainConfig:
     grad_accum: int = 1                          # microbatch steps per update
     grad_compression: bool = False               # int8 with error feedback
     aux_weight: float = 0.01
+    moe_impl: str = "ragged"                     # MoE dispatch: ragged | dense
 
 
 def _compress_grads(grads, err):
@@ -69,7 +73,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         lsum = 0.0
         for mb in mbs:
             with torch.enable_grad():
-                loss, metrics = lm.loss_fn(params, buffers, cfg, mb,
+                loss, metrics = lm.loss_fn(params, buffers, cfg, mb, moe_impl=tc.moe_impl,
                                            aux_weight=tc.aux_weight)
                 loss.backward()
             lsum = lsum + loss.detach()

@@ -84,8 +84,8 @@ def test_capture_attn_inputs_match(baseline):
     jcfg, jp, jb, cfg, tp, tb, batch = baseline
     want = jax_lm.capture_attn_inputs(jp, jb, jcfg, batch)["p0"]
     got = lm.capture_attn_inputs(tp, tb, cfg, _tokens(batch))
-    assert len(got) == jcfg.num_layers
-    for li, x in enumerate(got):
+    assert list(got) == list(range(jcfg.num_layers))
+    for li, x in got.items():
         np.testing.assert_allclose(x.numpy(), np.asarray(want[li]), atol=1e-5, rtol=0)
 
 

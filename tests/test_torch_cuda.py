@@ -16,9 +16,11 @@ same rows seen as identity-table pages.  ``rope_elite`` rotates each pair
 once with no reduction, through its one-tensor entry and its q-and-k entry:
 2e-6 relative (1e-6 absolute near zero); so does its backward (the kernel
 in transpose mode under autograd) against autograd through the plain
-version.  Training gradients on the card against the CPU's: 1e-4 of each
-leaf's largest (f32 matmuls summed in another order).  The attention
-kernels have no backward and must raise when asked for one.
+version, also at the MoE and hybrid training shapes.  Training gradients
+on the card against the CPU's, and the ragged MoE's against the dense
+oracle's: 1e-4 of each leaf's largest (f32 matmuls summed in another
+order).  The attention kernels have no backward and must raise when asked
+for one.
 """
 import numpy as np
 import pytest
@@ -1134,6 +1136,64 @@ def test_moe_on_card_matches_cpu(arch, cuda):
     assert moe.group_size_syncs == 1
     _rel_close(got, want)
     assert abs(float(aux) - float(want_aux)) <= 1e-5 * float(want_aux)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b", "arctic_480b"])
+def test_ragged_moe_gradient_on_card_matches_dense(arch, cuda):
+    """The ragged MoE's gradient on the card (every expert weight split
+    once, one ``stack`` on the way back) against the dense oracle's, for
+    the input and every weight, where no router comes within ``ROUTE_GAP``
+    of another choice: 1e-4 of each leaf's largest."""
+    from repro_torch.models import moe
+    from routing_margins import ROUTE_GAP, recorded_gaps
+    cfg = get_config(arch).reduced()
+    p0 = _to_card(moe.init(cfg, torch.Generator().manual_seed(2), "cpu"), cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x0 = torch.randn(2, 24, cfg.d_model, generator=g, device=cuda)
+    gy = torch.randn(2, 24, cfg.d_model, generator=g, device=cuda)
+    grads = {}
+    for impl in ("ragged", "dense"):
+        p = {k: v.clone().requires_grad_(True) if torch.is_tensor(v) else
+             {n: t.clone().requires_grad_(True) for n, t in v.items()} for k, v in p0.items()}
+        x = x0.clone().requires_grad_(True)
+        with recorded_gaps([]) as calls:
+            y, aux = moe.apply(p, cfg, x, impl=impl)
+        assert float(calls[0].min()) > ROUTE_GAP
+        leaves = [x] + [t for v in p.values() for t in
+                        (v.values() if isinstance(v, dict) else [v])]
+        grads[impl] = torch.autograd.grad((y * gy).sum() + aux, leaves)
+    for got, want in zip(grads["ragged"], grads["dense"]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-7
+
+
+# the rotation's backward at the MoE and hybrid training shapes (PERF.md rows
+# 9q, 9j): q_e [1, 512, H, 32] a slice of the 128-wide [q_e | q_ne] gradient,
+# one frequency row per kv head (Hq, Hk, rows, 2r, width)
+MOE_BWD_CASES = {"qwen3_moe": (64, 4, 4, 32, 128), "jamba": (32, 8, 8, 32, 128)}
+
+
+@pytest.mark.parametrize("case", list(MOE_BWD_CASES))
+def test_rope_backward_at_moe_and_hybrid_training_shapes(case, cuda):
+    Hq, Hk, rows, r2, wide = MOE_BWD_CASES[case]
+    B, S = 1, 512
+    g = torch.Generator(device=cuda).manual_seed(11)
+    freqs = torch.exp(-4 * torch.rand(rows, r2 // 2, generator=g, device=cuda))
+    proj = torch.randn(B, S, Hq, wide, generator=g, device=cuda)
+    k0 = torch.randn(B, S, Hk, r2, generator=g, device=cuda)
+    gq = torch.randn(B, S, Hq, r2, generator=g, device=cuda)
+    gk = torch.randn(B, S, Hk, r2, generator=g, device=cuda)
+    pos = torch.arange(S, device=cuda)
+    grads = {}
+    for name, fn in (("kernel", ops.rope_elite_qk), ("plain", ref.rope_elite_qk_ref)):
+        p, k = proj.clone().requires_grad_(True), k0.clone().requires_grad_(True)
+        before = ops.launches()["rope_elite_backward"]
+        qo, ko = fn(p[..., :r2], k, pos, freqs, Hq // rows, Hk // rows)
+        grads[name] = torch.autograd.grad((qo * gq).sum() + (ko * gk).sum(), (p, k))
+        torch.cuda.synchronize()
+        assert ops.launches()["rope_elite_backward"] == before + (name == "kernel")
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(got, want, **ROPE_TOL)
+    assert not grads["kernel"][0][..., r2:].any()
 
 
 def test_mamba_on_card_matches_cpu(cuda):

@@ -310,8 +310,9 @@ def test_capture_attn_inputs_match_reference(arch):
     jbatch = jax_make_inputs(jcfg, B, S, "prefill", seed=6)
     want = jax_lm.capture_attn_inputs(jp, jb, jcfg, jbatch)["p0"]
     got = lm.capture_attn_inputs(tp, tb, tcfg, _torch(jbatch))
-    assert len(got) == jcfg.num_layers and got[0].shape == (B, S, tcfg.d_model)
-    for li, x in enumerate(got):
+    assert list(got) == list(range(jcfg.num_layers))
+    assert got[0].shape == (B, S, tcfg.d_model)
+    for li, x in got.items():
         np.testing.assert_allclose(x.numpy(), np.asarray(want[li]), atol=1e-5, rtol=0)
 
 
@@ -351,16 +352,23 @@ def test_search_and_conversion_on_a_calibration_batch_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "falcon_mamba_7b"])
 def test_conversion_of_a_stack_with_mamba_layers_is_refused(arch):
-    """The search and ``convert_model`` index attention layers by ordinal:
-    a stack with Mamba layers raises ``ValueError`` naming ROADMAP item 16.2
-    (it raised ``KeyError`` mid-way before)."""
+    """Not refused any more: the search and ``convert_model`` key layers by
+    absolute index, so one period of Jamba gets a set for its attention
+    layer 3 only and Falcon-Mamba none, and the converted model keeps every
+    Mamba layer's tensors and serves (``tests/test_torch_moe_mamba_train.py``
+    holds both to the reference)."""
     cfg = get_config(arch).reduced(num_layers=get_config(arch).block_period)
     params, buffers = lm.init(cfg, seed=0, device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(ValueError, match="16.2"):
-        ropelite.search_model(params, buffers, cfg, toks, r=2)
-    with pytest.raises(ValueError, match="16.2"):
-        convert.convert_model(params, buffers, cfg, {}, EliteKVConfig(**ELITE))
+    toks = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.vocab_size, (1, 8)))
+    sets = ropelite.search_model(params, buffers, cfg, toks, r=2)
+    assert list(sets) == list(cfg.attn_layer_indices) == ([3] if cfg.n_attn_layers else [])
+    cp, cb, ccfg = convert.convert_model(params, buffers, cfg, sets,
+                                         EliteKVConfig(**dict(ELITE, elite_r=2)))
+    for i, (layer, base) in enumerate(zip(cp["layers"], params["layers"])):
+        assert (layer["attn"] is base["attn"]) == (cfg.layer_kind(i) == "ssm")
+        assert bool(cb["layers"][i]) == (cfg.layer_kind(i) == "attn")
+    logits = lm.apply_train(cp, cb, ccfg, toks)
+    assert logits.shape == (1, 8, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
 
 
 # -- serving ----------------------------------------------------------------------
