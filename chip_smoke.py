@@ -235,6 +235,27 @@ non-zero:
       tolerance, 2e-4 + 2e-4·|want|; (f) the rotation's backward at
       (a)'s and (c)'s recorded training inputs against its plain version,
       timed with its bound (PERF.md rows 9q, 9j).
+   o. the dry run against the card (runs after phase 2, before a, on a
+      card that holds next to nothing): ``launch/dryrun.py``'s targets
+      (132 SMs, 227 KiB opt-in shared memory) must be the card's; for
+      each cell ``dryrun.lower_cell`` on a 1 x 1 plan predicts the peak,
+      temp and resident bytes and the FLOPs from a meta-device trace, then
+      the same step (``dryrun.run_step`` on ``dryrun.cell_state`` of the
+      same cell, seeded random weights) runs on the card after
+      ``torch.cuda.reset_peak_memory_stats()``: ``max_memory_allocated()``
+      less what the card held before the cell's tensors were made must be
+      within max(3%, 256 MiB) of the prediction, the kernels' launches
+      must be the trace's meta calls, and the outputs finite.  C1
+      TinyLlama-1.1B EliteKV ``decode_32k`` at B 128 (a zeroed 32,768-row
+      cache, index 32,767: ``elite_decode`` and ``rope_elite`` 22 each);
+      C2 ``prefill_32k`` at the largest B <= 32 whose predicted peak, with
+      what is held, is at most 90% of the card's memory (``flash_prefill``
+      and ``rope_elite`` 22 each); C3 one AdamW step (f32 moments) at B 8
+      x 512 (``rope_elite`` 44, ``rope_elite_backward`` 22); C4
+      Qwen3-MoE-235B at 1 of 94 layers, its loss and gradients at B 1 x
+      512 (ragged routing on the card, even groups on meta).  Meanwhile a
+      subprocess without the card lists the dry run of every applicable
+      cell at 16 x 16 (resident GiB per device, wall s).
    Every kernel is re-run on the busiest inputs recorded from its run and
    held against its plain version, twice, with identical bits; a torch.profiler window over 10 steady
    decode steps of 8 lanes, on the f32 pool, on the int8 pool with sparse
@@ -398,85 +419,11 @@ def time_ms(fn, iters: int = 30, warmup: int = 3, flush=None, ahead: bool = True
     return total / iters
 
 
-# A decode or verify call is the argument tuple ``ops.<name>`` takes:
-# (q_e, q_lat, k_e, c_k, c_v, [k_e_scale, c_k_scale, c_v_scale,] table,
-#  [q_offsets,] rows, q_group, scale, block_size) — table/rows are
-# block_tables/lengths for the chain and verify entries and
-# sel_tables/sel_counts for the sparse ones; q_offsets only for verify.
-
-def split_decode(name: str, a):
-    """→ (q_e, q_lat, pages, scales, table, q_offsets or None, rows, G, bs)."""
-    n = 8 if name.endswith("q8") else 5
-    if "verify" in name:
-        return a[0], a[1], a[2:5], a[5:n], a[n], a[n + 1], a[n + 2], a[n + 3], a[n + 5]
-    return a[0], a[1], a[2:5], a[5:n], a[n], None, a[n + 1], a[n + 2], a[n + 4]
-
-
-def visited_rows(name: str, a) -> int:
-    """Pool rows the call's walk visits: live lengths (chain, verify) or the
-    sum of the selected blocks' counts (selection)."""
-    *_, table, _, rows, _, bs = split_decode(name, a)
-    if "sparse" in name:
-        return int(rows.clamp(0, bs).sum())
-    return int(rows.clamp(max=table.shape[1] * bs).sum())
-
-
-def scored_pairs(name: str, a) -> int:
-    """(query position, pool row) pairs the call scores: one per visited row
-    for decode; for verify, row w of a lane sees min(q_offset + w + 1,
-    length) rows (a padding row past the lane's window sees them all)."""
-    if "verify" not in name:
-        return visited_rows(name, a)
-    q_e, *_, table, offs, rows, _, bs = split_decode(name, a)
-    lens = rows.clamp(max=table.shape[1] * bs).tolist()
-    W = q_e.shape[1]
-    return sum(min(o + w + 1, n) for o, n in zip(offs.tolist(), lens) if n
-               for w in range(W))
-
-
-def decode_cost(name: str, a):
-    """(bytes, flops) the call needs on these inputs: every input read once —
-    only the visited rows of the pages, plus their per-slot scales — and the
-    output written once; the flops of every scored (query, row) pair."""
-    q_e, q_lat, (k_e, c_k, c_v), scales, table, offs, rows, G, bs = split_decode(name, a)
-    nh, r2 = q_e.shape[-2:]
-    dc = c_k.shape[-1]
-    nkv = nh // G
-    live = visited_rows(name, a)
-    lat = 1 if c_v is c_k else 2
-    per_row = k_e.element_size() * (nkv * r2 + lat * dc) + 4 * len(set(
-        s.data_ptr() for s in scales))
-    extra = 0 if offs is None else offs.numel()
-    # q_e, q_lat and the output (q_lat's shape), the walk's int32 arrays
-    nbytes = (4 * (q_e.numel() + 2 * q_lat.numel() + table.numel() + rows.numel()
-                   + extra) + live * per_row)
-    flops = scored_pairs(name, a) * nh * (2 * (r2 + dc) + 2 * dc)
-    return nbytes, flops
-
-
-def contig_decode_cost(a):
-    """(bytes, flops) of ``elite_decode`` on its argument tuple (q_e, q_lat,
-    k_e, c_k, c_v, lengths, G, scale): q_e, q_lat and the output once, each
-    lane's rows below its length once; the flops of every scored row."""
-    q_e, q_lat, k_e, c_k, c_v, lengths = a[:6]
-    B, nh, r2 = q_e.shape
-    S, nkv, dc = k_e.shape[1], k_e.shape[2], c_k.shape[-1]
-    rows = int(lengths.clamp(0, S).sum())
-    lat = 1 if c_v is c_k else 2
-    nbytes = 4 * (q_e.numel() + 2 * q_lat.numel() + B) + rows * 4 * (nkv * r2 + lat * dc)
-    return nbytes, rows * nh * (2 * (r2 + dc) + 2 * dc)
-
-
-def rope_cost(a):
-    """(bytes, flops) of ``rope_elite_qk`` on (q, k, positions, freqs,
-    q_per_row, k_per_row): q and k read and their outputs written once, the
-    positions and the freq rows once; 6 flops per rotated pair (4 products,
-    a sum and a difference) and 3 per distinct angle (the angle, one sincos
-    counted as two)."""
-    q, k, pos, freqs = a[:4]
-    tokens = q.shape[0] * q.shape[1]
-    return (8 * (q.numel() + k.numel()) + pos.numel() * pos.element_size()
-            + 4 * freqs.numel(), 3 * (q.numel() + k.numel()) + 3 * tokens * freqs.numel())
+# The bytes and FLOPs of a kernel call (the bounds) are the kernel modules'
+# own formulas, which the dry run's meta versions count too:
+# ``elite_decode.decode_cost``/``contig_decode_cost`` (with ``split_decode``,
+# ``visited_rows``, ``scored_pairs``), ``flash_prefill.prefill_cost`` and
+# ``rope_elite.rope_cost``; the functions below import them.
 
 
 def rope_two_launches(a, plain=False):
@@ -491,22 +438,6 @@ def rope_two_launches(a, plain=False):
                           else freqs.repeat_interleave(heads // freqs.shape[0], 0))
     fn = ref.rope_elite_ref if plain else re_k.rope_elite
     return fn(q, pos, rows(q.shape[2])), fn(k, pos, rows(k.shape[2]))
-
-
-def prefill_cost(x):
-    """(bytes, flops) of flash prefill on these inputs: q and o whole, each
-    lane's k/v rows below kv_len once; 4·dh flops per visible pair and head."""
-    q, offs, lens = x["q"], x["offs"].tolist(), x["lens"].tolist()
-    B, Sq, nh, dh = q.shape
-    nkv = x["k"].shape[2]
-    Sk = x["k"].shape[1]
-    pairs = 0
-    for off, kvl in zip(offs, lens):
-        for i in range(Sq):
-            pairs += max(0, min(i + off + 1, kvl, Sk))
-    kv_rows = sum(min(kvl, Sk) for kvl in lens)
-    nbytes = 4 * (2 * q.numel() + 2 * kv_rows * nkv * dh + 2 * B)
-    return nbytes, pairs * nh * 4 * dh
 
 
 def bound(nbytes: int, flops: int, peak_flops: float = PEAK_F32_FLOPS):
@@ -2486,13 +2417,15 @@ def kernel_subrow(label: str, name: str, a, launches: int, card: str, flush,
     body at the 3xTF32 rate, as phase 4) and SDPA's time where one call
     computes the function (``flash_prefill``; ``elite_decode`` over
     prebuilt operands, as phase 4)."""
+    from repro_torch.kernels.elite_decode import contig_decode_cost, decode_cost, visited_rows
+    from repro_torch.kernels.flash_prefill import prefill_cost
     from repro_torch.kernels import elite_decode as ed
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import ref
     lib, peak = None, PEAK_F32_FLOPS
     if name == "flash_prefill":
         x = dict(q=a[0], k=a[1], v=a[2], G=a[3], scale=a[4], offs=a[5], lens=a[6])
-        nbytes, flops = prefill_cost(x)
+        nbytes, flops = prefill_cost(x["q"], x["k"], x["offs"], x["lens"])
         if fp.plan_for(*a).body == "prefill":
             peak = PEAK_3XTF32_FLOPS
         fn, plain = (lambda: run_prefill(x)), (lambda: run_prefill(x, plain=True))
@@ -2524,6 +2457,7 @@ def moe_mamba_hybrid(dev, card: str) -> dict:
     ``Scheduler``, one full-width period of Jamba-v0.1 and the whole of
     Falcon-Mamba-7B through ``generate``, card vs CPU module checks, and
     the kernels at the new attention shapes.  → numbers for the summary."""
+    from repro_torch.kernels.elite_decode import visited_rows
     import dataclasses
     import numpy as np
     import torch
@@ -2854,6 +2788,7 @@ def frontends(dev, card: str) -> dict:
     (``patch_embeds``, ``tokens``, ``frames``), each freed before the next;
     then the kernels at their busiest 3m inputs.  → numbers for the
     summary."""
+    from repro_torch.kernels.elite_decode import visited_rows
     import dataclasses
     import numpy as np
     import torch
@@ -3250,6 +3185,7 @@ def rotation_backward_subrow(label: str, a, launches: int, card: str, flush) -> 
     """Row 9d's kernel (the rotation's transpose mode) at recorded training
     inputs ``a``: held to its plain version, then timed against its bound
     as phase 4 times row 9d."""
+    from repro_torch.kernels.rope_elite import rope_cost
     from repro_torch.kernels import ref
     from repro_torch.kernels import rope_elite as re_k
     e, bad, same = rope_err(re_k.rope_elite_backward(*a),
@@ -3532,12 +3468,185 @@ def _tensors(tree):
         yield tree
 
 
+# -- the dry run against the card (phase 3o) --------------------------------------
+
+# |predicted - measured| peak allowed: the larger of 3% of the measured and 256 MiB
+PEAK_REL, PEAK_FLOOR = 0.03, 256 * 2**20
+#: the share of the card's memory C2's predicted peak (with what is held) may take
+PREFILL_FILL = 0.90
+# lists every applicable cell of the reference's --all at 16 x 16, one JSON
+# line each (run without the card: meta tensors only)
+LISTING = """
+import json, time
+from repro_torch.configs import ARCH_IDS, SHAPES
+from repro_torch.launch import dryrun
+for arch in ARCH_IDS:
+    if arch.startswith("llama2_13b"):
+        continue
+    for shape in SHAPES:
+        t0 = time.perf_counter()
+        r = dryrun.lower_cell(arch, shape)
+        if not r["skipped"]:
+            print(json.dumps(dict(arch=arch, shape=shape, resident=r["memory"]["argument_bytes"],
+                                  flops=r["flops_per_device"], s=time.perf_counter() - t0)),
+                  flush=True)
+"""
+
+
+def dryrun_cell_on_card(label: str, arch: str, shape: str, kw: dict, want: dict, dev,
+                        card: str) -> dict:
+    """Predict one cell on a 1 x 1 plan, then run the same step on the card
+    (the launch counts set to 0 just before it) and hold the measured peak
+    to the prediction.  ``want``: the launches the step must make."""
+    import torch
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import dryrun
+    from repro_torch.tree import leaves
+    _free_card()
+    build.free_scratch(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t_cell = t0 = time.perf_counter()
+    rec, cell = dryrun.lower_cell(arch, shape, mesh_axes={"data": 1, "model": 1},
+                                  return_cell=True, **kw)
+    t_pred = time.perf_counter() - t0
+    mem = rec["memory"]
+    state = dryrun.cell_state(cell, dev, seed=5)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    out = dryrun.run_step(cell, state)
+    torch.cuda.synchronize(dev)
+    step_s = time.perf_counter() - t1
+    launches = {k: v for k, v in ops.launches().items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    outs = [t for t in leaves(list(out) if isinstance(out, tuple) else [out])
+            if torch.is_tensor(t) and t.is_floating_point()]
+    # in pieces of 2**28 elements: a whole-tensor test of C2's logits would
+    # need 16 GB more
+    finite = all(bool(torch.isfinite(part).all()) for t in outs
+                 for part in t.reshape(-1).split(2**28))
+    del out, state, outs
+    _free_card()
+    build.free_scratch(dev)
+    measured = peak - held
+    pred = mem["peak_estimate_bytes"]
+    diff, allowed = abs(pred - measured), max(PEAK_REL * measured, PEAK_FLOOR)
+    calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+    print(f"[{card}] 3o {label} {arch} {shape} B {cell.shape.global_batch} x "
+          f"{cell.shape.seq_len} ({rec['step']}) on 1x1: predicted peak {pred / 2**30:.3f} GiB "
+          f"(resident {mem['argument_bytes'] / 2**30:.3f}, temp {mem['temp_bytes'] / 2**30:.3f} "
+          f"at {mem['peak_op']}), {rec['flops_per_device']:.4e} FLOPs, meta trace "
+          f"{t_pred:.1f} s; measured max_memory_allocated {peak / 2**30:.3f} GiB with "
+          f"{held / 2**30:.3f} GiB held before the cell: {measured / 2**30:.3f} GiB, "
+          f"|predicted - measured| {diff / 2**20:.1f} MiB ({100 * diff / measured:.2f}%) against "
+          f"{allowed / 2**20:.1f} MiB allowed; step {step_s:.2f} s (cell "
+          f"{time.perf_counter() - t_cell:.1f} s); launches {launches}", flush=True)
+    for t in rec["largest_at_peak"][:4]:
+        print(f"[{card}] 3o {label}   at the peak: {t['bytes'] / 2**30:.3f} GiB "
+              f"{t['dtype']}{t['shape']} <- {t['op']}", flush=True)
+    if launches != want or launches != calls:
+        raise AssertionError(f"3o {label}: launches {launches}, expected {want} (the trace's "
+                             f"meta calls {calls})")
+    if not finite:
+        raise AssertionError(f"3o {label}: an output is not finite")
+    if diff > allowed:
+        raise AssertionError(f"3o {label}: predicted peak {pred} B against {measured} B "
+                             f"measured, {diff} B apart (> {allowed:.0f} B)")
+    return dict(label=label, arch=arch, shape=shape, batch=cell.shape.global_batch,
+                seq=cell.shape.seq_len, predicted=pred, measured=measured, held=held,
+                raw_peak=peak, temp=mem["temp_bytes"], resident=mem["argument_bytes"],
+                flops=rec["flops_per_device"], step_s=step_s, diff=diff)
+
+
+def largest_prefill_batch(room: float, most: int = 32) -> int:
+    """The largest batch of at most ``most`` whose predicted ``prefill_32k``
+    peak (TinyLlama-1.1B, 1 x 1) is at most ``room`` bytes.  The peak is
+    linear in the batch (weights, then per lane its cache, activations and
+    logits), so two predictions place it and one or two more confirm it."""
+    from repro_torch.launch import dryrun
+    peak = lambda b: dryrun.lower_cell("tinyllama_1_1b", "prefill_32k", batch=b, mesh_axes={
+        "data": 1, "model": 1})["memory"]["peak_estimate_bytes"]
+    p1, p2 = peak(1), peak(2)
+    B = max(1, min(most, 1 + int((room - p1) // (p2 - p1))))
+    while B > 1 and peak(B) > room:
+        B -= 1
+    while B < most and peak(B + 1) <= room:
+        B += 1
+    return B
+
+
+def dryrun_vs_card(dev, card: str) -> dict:
+    """Phase 3o: the dry run's predictions held to the card (C1-C4), and
+    the 16 x 16 listing from a subprocess without the card.  → numbers for
+    the summary."""
+    import os
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import elite_decode as ed
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    sms, limit = ed.sm_count(dev), ed.smem_optin_limit(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"[{card}] 3o: the card has {sms} SMs, {limit} B opt-in shared memory per block, "
+          f"{total} B of memory; the dry run plans for {build.TARGET_SMS} SMs and "
+          f"{build.TARGET_SMEM_OPTIN} B", flush=True)
+    if (sms, limit) != (build.TARGET_SMS, build.TARGET_SMEM_OPTIN):
+        raise AssertionError("3o: the dry run's target card is not this card")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    listing = subprocess.Popen([sys.executable, "-c", LISTING], cwd=ROOT, env=env,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        cells = [dryrun_cell_on_card("C1", "tinyllama_1_1b", "decode_32k", {},
+                                     {"elite_decode": 22, "rope_elite": 22}, dev, card)]
+        # C2: the largest batch <= 32 whose predicted peak, beside what is held,
+        # fills at most PREFILL_FILL of the card
+        _free_card()
+        build.free_scratch(dev)
+        room = PREFILL_FILL * total - torch.cuda.memory_allocated(dev)
+        B = largest_prefill_batch(room)
+        print(f"[{card}] 3o C2: B {B} is the largest batch whose predicted peak fits "
+              f"{room / 2**30:.2f} GiB", flush=True)
+        cells.append(dryrun_cell_on_card("C2", "tinyllama_1_1b", "prefill_32k", {"batch": B},
+                                         {"flash_prefill": 22, "rope_elite": 22}, dev, card))
+        cells.append(dryrun_cell_on_card(
+            "C3", "tinyllama_1_1b", "train_4k", {"batch": 8, "seq_len": 512},
+            {"rope_elite": 44, "rope_elite_backward": 22}, dev, card))
+        cells.append(dryrun_cell_on_card(
+            "C4", "qwen3_moe_235b", "train_4k",
+            {"batch": 1, "seq_len": 512, "optimizer": False, "overrides": {"num_layers": 1}},
+            {"rope_elite": 2, "rope_elite_backward": 1}, dev, card))
+        t_cells = time.perf_counter() - t_phase
+        out, err = listing.communicate(timeout=600)
+    finally:
+        if listing.poll() is None:
+            listing.kill()
+            listing.communicate()
+    if listing.returncode != 0:
+        raise AssertionError(f"3o: the 16 x 16 listing failed:\n{err[-4000:]}")
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    for r in rows:
+        print(f"[{card}] 3o 16x16 {r['arch']} {r['shape']}: resident "
+              f"{r['resident'] / 2**30:.3f} GiB per device, {r['flops']:.4e} FLOPs per device "
+              f"(an even split), {r['s']:.2f} s", flush=True)
+    if len(rows) != 35:
+        raise AssertionError(f"3o: {len(rows)} cells listed at 16 x 16, expected 35")
+    wall = time.perf_counter() - t_phase
+    print(f"[{card}] 3o: C1-C4 in {t_cells:.1f} s, the listing of {len(rows)} cells in "
+          f"{sum(r['s'] for r in rows):.1f} s beside them; phase wall {wall:.1f} s", flush=True)
+    return dict(cells=cells, rows=rows, wall=wall)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
         return 2
     import numpy as np
+    from repro_torch.kernels.elite_decode import (contig_decode_cost, decode_cost, scored_pairs,
+                                                  split_decode, visited_rows)
+    from repro_torch.kernels.flash_prefill import prefill_cost
+    from repro_torch.kernels.rope_elite import rope_cost
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import elite_decode as ed
     from repro_torch.kernels import flash_prefill as fp
@@ -3730,6 +3839,8 @@ def main() -> int:
     del wide, got
     print(f"[{card}] phase 2 at the other architectures' widths: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # o. the dry run against the card, while the card holds next to nothing
+    dry = dryrun_vs_card(dev, card)
 
     # -- 3. the main paths at full width ------------------------------------
     cfg = build_config("tinyllama_1_1b", reduced=False, cache_ratio=0.25)
@@ -4024,7 +4135,7 @@ def main() -> int:
     # chunk's.  The prefill body's bound is at the tensor cores' 3xTF32 rate,
     # the decode body's at the f32 rate (bytes bound it either way)
     for label, x in flash_x.items():
-        nbytes, flops = prefill_cost(x)
+        nbytes, flops = prefill_cost(x["q"], x["k"], x["offs"], x["lens"])
         body = fp.plan_for(x["q"], x["k"], x["v"], x["G"], x["scale"], x["offs"],
                            x["lens"]).body
         t_f32, by_f32 = bound(nbytes, flops)
@@ -4339,7 +4450,8 @@ def main() -> int:
     print(f"[{card}] phases 3i (conversion) {conv['phase']:.1f} s, 3k (training) "
           f"{t['phase']:.1f} s, 3j (MiniCPM-2B) {tied['wall']:.1f} s, 3l (MoE, Mamba, "
           f"hybrid) {hyb['wall']:.1f} s, 3m (frontends) {fronts['wall']:.1f} s and 3n (MoE, "
-          f"Mamba and hybrid training and conversion) {tr3n['wall']:.1f} s; the whole script "
+          f"Mamba and hybrid training and conversion) {tr3n['wall']:.1f} s, 3o (the dry run "
+          f"against the card) {dry['wall']:.1f} s; the whole script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": rows}))

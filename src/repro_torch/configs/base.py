@@ -12,8 +12,9 @@ FFN ``ffn_kind(i)`` ("mlp", "moe" or "none"); both repeat every
 vision model (``frontend="vision"``) takes ``n_frontend_tokens`` precomputed
 patch embeddings before its text, an audio model (``"audio"``) takes
 precomputed frame embeddings and has no token embedding; ``make_inputs``
-draws the reference's seeded batches.  No shape cells or dry-run input
-specs yet.
+draws the reference's seeded batches.  The shape cells of the dry run
+(``ShapeConfig``, ``SHAPES``, ``cell_applicable``) and its shape-only
+inputs (``input_specs``: meta tensors) are the reference's.
 """
 from __future__ import annotations
 
@@ -269,6 +270,63 @@ def make_inputs(cfg: ModelConfig, batch: int, seq: int, kind: str,
     if kind == "train":
         out["labels"] = ids(n_text)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Shape cells
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) runs; long_500k skips pure full-attention archs."""
+    if shape.name == "long_500k" and cfg.ssm_state == 0:
+        return False, "long_500k skipped: pure full-attention arch (needs sub-quadratic path)"
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Shape-only stand-ins for every model input: ``torch.empty`` on the
+    meta device, which allocates nothing (the reference's
+    ``ShapeDtypeStruct``s).  Ids are int64, as ``make_inputs`` gives them;
+    embeddings ``dtype``.  A frontend's encoder is a stub, as in the
+    reference: the backbone takes precomputed frame or patch embeddings."""
+    B, S = shape.global_batch, shape.seq_len
+    emb = lambda n: torch.empty((B, n, cfg.d_model), dtype=dtype, device="meta")
+    ids = lambda n: torch.empty((B, n), dtype=torch.int64, device="meta")
+    nv = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    specs: Dict[str, torch.Tensor] = {}
+    if shape.kind == "decode":          # one new token against a cache of S
+        if cfg.frontend == "audio":
+            specs["frames"] = emb(1)
+        else:
+            specs["tokens"] = ids(1)
+        return specs
+    if cfg.frontend == "audio":
+        specs["frames"] = emb(S)
+    else:
+        if nv:
+            specs["patch_embeds"] = emb(nv)
+        specs["tokens"] = ids(S - nv)
+    if shape.kind == "train":
+        specs["labels"] = ids(S - nv)
+    return specs
 
 
 ARCH_IDS = ("tinyllama_1_1b", "llama2_7b", "llama2_13b", "yi_6b", "granite_3_2b",

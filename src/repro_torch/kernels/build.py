@@ -8,6 +8,13 @@ unchanged one is reused.  ``build()`` starts one nvcc per source, all at
 once, and returns what ``-Xptxas -v`` reported (registers, shared memory,
 spills) for each source it compiled.
 
+A meta tensor (the dry run's shape-only trace, ``launch/dryrun.py``)
+reaches a launcher's meta version: it allocates what the CUDA launcher
+allocates (outputs, this module's scratch) and, instead of launching,
+adds the call's bytes and FLOPs to ``META_CALLS`` (``meta_call``), never
+to a launch count.  Its plan takes the target card's SMs and opt-in shared
+memory from ``TARGET_SMS`` and ``TARGET_SMEM_OPTIN``.
+
 ``launch`` calls an entry on the current stream.  With a kernel tracer
 armed (``ops.set_kernel_tracer``) it brackets the call with two CUDA events
 and leaves a span on the tracer's ``kernel`` track, read when the trace is;
@@ -40,6 +47,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _SCRATCH: Dict[tuple, tuple] = {}
+
+#: the card a meta call is planned for, the H100 SXM5: 132 SMs (NVIDIA H100
+#: Tensor Core GPU Architecture whitepaper, H100 SXM5) and 227 KiB of
+#: shared memory per block by opt-in (CUDA C++ Programming Guide, compute
+#: capability 9.0); ``chip_smoke.py`` phase 3o checks both against the card
+TARGET_SMS = 132
+TARGET_SMEM_OPTIN = 227 * 1024
+#: the kernels' meta versions' calls since ``reset_meta_calls``:
+#: {entry name: {"calls", "bytes", "flops"}}
+META_CALLS: Dict[str, Dict[str, int]] = {}
 
 #: the tracer kernel launches report to (``ops.set_kernel_tracer``), or None
 TRACER = None
@@ -114,6 +131,26 @@ def scratch(dev, key: str, n_partial: int, n_counters: int):
         cnt = torch.zeros(n_counters, dtype=torch.int32, device=dev)
     _SCRATCH[(dev, key)] = part, cnt
     return part, cnt
+
+
+def free_scratch(dev) -> None:
+    """Drop the split-KV scratch held for device ``dev`` (it is allocated
+    again, at the size a call needs, by the next call)."""
+    for key in [k for k in _SCRATCH if k[0] == dev]:
+        del _SCRATCH[key]
+
+
+def meta_call(name: str, nbytes: int, flops: int) -> None:
+    """Count one call of ``name``'s meta version, with the bytes and FLOPs
+    the CUDA kernel needs for it."""
+    rec = META_CALLS.setdefault(name, {"calls": 0, "bytes": 0, "flops": 0})
+    rec["calls"] += 1
+    rec["bytes"] += int(nbytes)
+    rec["flops"] += int(flops)
+
+
+def reset_meta_calls() -> None:
+    META_CALLS.clear()
 
 
 def check(t, name: str, shape, dtype, device) -> None:

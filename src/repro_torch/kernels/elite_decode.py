@@ -43,6 +43,16 @@ fewer window positions, each part its own CTAs in the same launch, with the
 uncut call's walk, ranges and per-row arithmetic; only a window of which
 one position does not fit raises ``ValueError`` before launching.
 ``ref.split_call_ref`` is the plan's arithmetic in plain PyTorch.
+
+``elite_decode`` on meta tensors is its meta version (the dry run's decode
+step): the same checks, plan (for the target card of ``build``), scratch
+and output, no launch; it counts the call's bytes and FLOPs
+(``contig_decode_cost``) in ``build.META_CALLS``.  A meta tensor holds no
+lengths, so it counts every lane's whole cache: the walk of the dry run's
+decode at index S - 1, the most the call can need.  The paged and verify
+entries take CUDA tensors only.  ``decode_cost`` and
+``contig_decode_cost`` are the bytes and FLOPs of a call on its inputs,
+which ``chip_smoke.py``'s bounds read too.
 """
 from __future__ import annotations
 
@@ -106,7 +116,10 @@ def smem_bytes_built(window: int, q_group: int, heads: int, block_size: int, r2:
 
 
 def smem_optin_limit(device) -> int:
-    """The card's opt-in limit of shared memory for one block, in bytes."""
+    """The card's opt-in limit of shared memory for one block, in bytes
+    (the target card's for the meta device)."""
+    if device.type == "meta":
+        return build.TARGET_SMEM_OPTIN
     if device not in _SMEM_OPTIN:
         fn = build.load("elite_decode_smem_optin", [], source=_SOURCE)
         with torch.cuda.device(device):
@@ -115,6 +128,8 @@ def smem_optin_limit(device) -> int:
 
 
 def sm_count(device) -> int:
+    if device.type == "meta":
+        return build.TARGET_SMS
     if device not in _SM_COUNT:
         _SM_COUNT[device] = torch.cuda.get_device_properties(device).multi_processor_count
     return _SM_COUNT[device]
@@ -224,6 +239,16 @@ def plan(B: int, window: int, q_group: int, nkv: int, block_size: int, r2: int, 
                 size, parts)
 
 
+def shares(a, b) -> bool:
+    """Whether two tensors are one (J-LRD passes its latent as c_k and
+    c_v): the same start address, or on meta, where none has an address,
+    the same storage and offset."""
+    if a.is_meta:
+        return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+                and a.storage_offset() == b.storage_offset())
+    return a.data_ptr() == b.data_ptr()
+
+
 def plan_for(name: str, args, sms: int, limit: int, part: int = 0) -> Plan:
     """The plan of the call ``ops.<name>(*args)`` (a decode or verify entry)
     on a card of ``sms`` SMs and ``limit`` bytes of opt-in shared memory per
@@ -231,9 +256,8 @@ def plan_for(name: str, args, sms: int, limit: int, part: int = 0) -> Plan:
     q_e, _, k_e, c_k, c_v = args[:5]
     q8 = name.endswith("_q8")
     scales = args[5:8] if q8 else ()
-    shared_cv = c_k.data_ptr() == c_v.data_ptr() and (
-        not q8 or scales[1].data_ptr() == scales[2].data_ptr())
     r2, dc = k_e.shape[-1], c_k.shape[-1]
+    shared_cv = shares(c_k, c_v) and (not q8 or shares(scales[1], scales[2]))
     if name == "elite_decode":
         (B, S, nkv), G = k_e.shape[:3], args[6]
         window, bs, n_tiles = 1, CONTIG_TILE, -(-S // CONTIG_TILE)
@@ -310,6 +334,8 @@ def _call(symbol: str, ptrs, ints, scale: float, p: Plan, R: int, dc: int) -> No
     B = ints[0]
     units = B * p.groups * p.parts
     partials, cnt = build.scratch(dev, "elite_decode", units * p.splits * R * (dc + 2), units)
+    if dev.type == "meta":
+        return
     fn = _ENTRIES.get(symbol)
     if fn is None:
         argtypes = [ctypes.c_void_p] * (len(ptrs) + 2) + [ctypes.c_int] * (len(ints) + 5) + [
@@ -326,10 +352,10 @@ def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
     (the same tensor under J-LRD), all f32; lengths [B] int32; every tensor
     contiguous on one CUDA device.  Lane b attends its rows ``< lengths[b]``
     (all S for a longer length).  → o [B,nh,dc] f32; length-0 lanes give
-    zeros."""
+    zeros.  On meta tensors, the meta version (module docstring)."""
     dev = q_e.device
-    if dev.type != "cuda":
-        raise ValueError(f"elite_decode kernel needs CUDA tensors, got {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"elite_decode kernel needs CUDA (or meta) tensors, got {dev}")
     B, nh, r2 = q_e.shape
     S, nkv = k_e.shape[1], k_e.shape[2]
     dc = c_k.shape[-1]
@@ -342,13 +368,17 @@ def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
     build.check(c_k, "c_k", (B, S, dc), f32, dev)
     build.check(c_v, "c_v", (B, S, dc), f32, dev)
     build.check(lengths, "lengths", (B,), torch.int32, dev)
-    p = plan(B, 1, q_group, nkv, CONTIG_TILE, r2, dc, c_k.data_ptr() == c_v.data_ptr(),
+    p = plan(B, 1, q_group, nkv, CONTIG_TILE, r2, dc, shares(c_k, c_v),
              False, -(-S // CONTIG_TILE), sm_count(dev), smem_optin_limit(dev),
              "elite_decode")
     out = torch.empty((B, nh, dc), dtype=f32, device=dev)
     _call("elite_decode", (q_e, q_lat, k_e, c_k, c_v, lengths, out),
           (B, S, nkv, q_group, r2, dc, CONTIG_TILE), scale, p, q_group * p.heads, dc)
-    elite_decode.launches += 1
+    if dev.type == "meta":
+        build.meta_call("elite_decode", *contig_decode_cost(
+            (q_e, q_lat, k_e, c_k, c_v, lengths), rows=B * S))
+    else:
+        elite_decode.launches += 1
     return out
 
 
@@ -434,3 +464,77 @@ for _fn in (elite_decode, elite_decode_paged, elite_decode_paged_q8,
             elite_decode_sparse_paged, elite_decode_sparse_paged_q8,
             elite_verify_paged, elite_verify_paged_q8):
     _fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# bytes and FLOPs of a call (the bounds of chip_smoke.py and the dry run)
+# ---------------------------------------------------------------------------
+# A decode or verify call is the argument tuple ``ops.<name>`` takes:
+# (q_e, q_lat, k_e, c_k, c_v, [k_e_scale, c_k_scale, c_v_scale,] table,
+#  [q_offsets,] rows, q_group, scale, block_size) — table/rows are
+# block_tables/lengths for the chain and verify entries and
+# sel_tables/sel_counts for the sparse ones; q_offsets only for verify.
+
+def split_decode(name: str, a):
+    """→ (q_e, q_lat, pages, scales, table, q_offsets or None, rows, G, bs)."""
+    n = 8 if name.endswith("q8") else 5
+    if "verify" in name:
+        return a[0], a[1], a[2:5], a[5:n], a[n], a[n + 1], a[n + 2], a[n + 3], a[n + 5]
+    return a[0], a[1], a[2:5], a[5:n], a[n], None, a[n + 1], a[n + 2], a[n + 4]
+
+
+def visited_rows(name: str, a) -> int:
+    """Pool rows the call's walk visits: live lengths (chain, verify) or the
+    sum of the selected blocks' counts (selection)."""
+    *_, table, _, rows, _, bs = split_decode(name, a)
+    if "sparse" in name:
+        return int(rows.clamp(0, bs).sum())
+    return int(rows.clamp(max=table.shape[1] * bs).sum())
+
+
+def scored_pairs(name: str, a) -> int:
+    """(query position, pool row) pairs the call scores: one per visited row
+    for decode; for verify, row w of a lane sees min(q_offset + w + 1,
+    length) rows (a padding row past the lane's window sees them all)."""
+    if "verify" not in name:
+        return visited_rows(name, a)
+    q_e, *_, table, offs, rows, _, bs = split_decode(name, a)
+    lens = rows.clamp(max=table.shape[1] * bs).tolist()
+    W = q_e.shape[1]
+    return sum(min(o + w + 1, n) for o, n in zip(offs.tolist(), lens) if n
+               for w in range(W))
+
+
+def decode_cost(name: str, a):
+    """(bytes, flops) the call needs on these inputs: every input read once —
+    only the visited rows of the pages, plus their per-slot scales — and the
+    output written once; the flops of every scored (query, row) pair."""
+    q_e, q_lat, (k_e, c_k, c_v), scales, table, offs, rows, G, bs = split_decode(name, a)
+    nh, r2 = q_e.shape[-2:]
+    dc = c_k.shape[-1]
+    nkv = nh // G
+    live = visited_rows(name, a)
+    lat = 1 if c_v is c_k else 2
+    per_row = k_e.element_size() * (nkv * r2 + lat * dc) + 4 * len(set(
+        s.data_ptr() for s in scales))
+    extra = 0 if offs is None else offs.numel()
+    # q_e, q_lat and the output (q_lat's shape), the walk's int32 arrays
+    nbytes = (4 * (q_e.numel() + 2 * q_lat.numel() + table.numel() + rows.numel()
+                   + extra) + live * per_row)
+    flops = scored_pairs(name, a) * nh * (2 * (r2 + dc) + 2 * dc)
+    return nbytes, flops
+
+
+def contig_decode_cost(a, rows=None):
+    """(bytes, flops) of ``elite_decode`` on its argument tuple (q_e, q_lat,
+    k_e, c_k, c_v, lengths, ...): q_e, q_lat and the output once, each
+    lane's rows below its length once (``rows`` of them in all, read from
+    ``lengths`` unless given); the flops of every scored row."""
+    q_e, q_lat, k_e, c_k, c_v, lengths = a[:6]
+    B, nh, r2 = q_e.shape
+    S, nkv, dc = k_e.shape[1], k_e.shape[2], c_k.shape[-1]
+    if rows is None:
+        rows = int(lengths.clamp(0, S).sum())
+    lat = 1 if shares(c_k, c_v) else 2
+    nbytes = 4 * (q_e.numel() + 2 * q_lat.numel() + B) + rows * 4 * (nkv * r2 + lat * dc)
+    return nbytes, rows * nh * (2 * (r2 + dc) + 2 * dc)

@@ -21,6 +21,14 @@ shapes alone (never from ``q_offsets`` or ``kv_lens``):
   scratch that the wrapper allocates once and grows.
 * ``prefill``: every other call; 64 query rows of one query head per CTA on
   the tensor cores (3xTF32).
+
+On meta tensors (the dry run's prefill step) ``flash_prefill`` is its meta
+version: the same checks, plan, scratch and output, no launch; it counts
+the call's bytes and FLOPs (``prefill_cost``) in ``build.META_CALLS``.  A
+meta tensor holds no offsets or lengths, so every lane's queries count as
+the last ``Sq`` positions of its ``Sk`` keys (``q_offsets = Sk - Sq``,
+``kv_lens = Sk``): a prefill from position 0, or a decode at index
+``Sk - 1``, the most the call can need.
 """
 from __future__ import annotations
 
@@ -90,10 +98,11 @@ def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,
 
     q [B,Sq,nh,dh], k/v [B,Sk,nkv,dh] f32, q_offsets/kv_lens [B] int32, all
     contiguous on one CUDA device; dh in ``HEAD_DIMS``.  → [B,Sq,nh,dh] f32.
+    On meta tensors, the meta version (module docstring).
     """
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_prefill kernel needs CUDA tensors, got {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_prefill kernel needs CUDA (or meta) tensors, got {dev}")
     B, Sq, nh, dh = q.shape
     Sk, nkv = k.shape[1], k.shape[2]
     if B < 1 or Sq < 1 or nh != nkv * q_group or dh not in HEAD_DIMS:
@@ -109,6 +118,9 @@ def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,
     n_part = B * nkv * p.ranges * p.rows * (dh + 2) if p.body == "decode" else 0
     part, cnt = build.scratch(dev, "flash_prefill", n_part, B * nkv)
     out = torch.empty((B, Sq, nh, dh), dtype=f32, device=dev)
+    if dev.type == "meta":
+        build.meta_call("flash_prefill", *prefill_cost(q, k, [Sk - Sq] * B, [Sk] * B))
+        return out
     fn = build.load("flash_prefill", _ARGTYPES)
     build.launch("flash_prefill", fn,
                  (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offsets.data_ptr(),
@@ -119,3 +131,26 @@ def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,
 
 
 flash_prefill.launches = 0
+
+
+def visible_pairs(Sq: int, Sk: int, q_offset: int, kv_len: int) -> int:
+    """(query, key) pairs one lane scores: query i sees keys
+    j <= i + q_offset with j < min(kv_len, Sk) (``q_offset >= 0``)."""
+    m = max(0, min(kv_len, Sk))
+    n1 = max(0, min(Sq, m - q_offset))       # rows whose causal edge is inside
+    return n1 * (q_offset + 1) + n1 * (n1 - 1) // 2 + (Sq - n1) * m
+
+
+def prefill_cost(q, k, q_offsets, kv_lens):
+    """(bytes, flops) of a call on q [B,Sq,nh,dh], k [B,Sk,nkv,dh] and the
+    lanes' offsets and lengths (tensors or host lists): q and o whole, each
+    lane's k/v rows below kv_len once; 4·dh flops per visible pair and
+    head."""
+    offs = q_offsets.tolist() if torch.is_tensor(q_offsets) else list(q_offsets)
+    lens = kv_lens.tolist() if torch.is_tensor(kv_lens) else list(kv_lens)
+    B, Sq, nh, dh = q.shape
+    Sk, nkv = k.shape[1], k.shape[2]
+    pairs = sum(visible_pairs(Sq, Sk, o, n) for o, n in zip(offs, lens))
+    kv_rows = sum(min(n, Sk) for n in lens)
+    nbytes = 4 * (2 * q.numel() + 2 * kv_rows * nkv * dh + 2 * B)
+    return nbytes, pairs * nh * 4 * dh

@@ -11,6 +11,18 @@ reads; both rotary entries launch one body and count in
 plain torch selection on either device, as the reference runs it in plain
 jnp.
 
+Meta tensors (the dry run's shape-only trace, ``launch/dryrun.py``).  A
+meta input to ``elite_decode``, ``flash_prefill``, ``rope_elite`` or
+``rope_elite_qk`` (and so to the rotary backward) takes the kernel's path
+to its launcher's meta version, which allocates what the CUDA launcher
+allocates — outputs, split-KV scratch sized by the same host plan — and
+counts the call's bytes and FLOPs in ``build.META_CALLS`` instead of
+launching; it never runs the plain version (whose temporaries, such as
+``flash_prefill``'s whole ``[B, H, S, S]`` scores, the kernel never
+allocates) and adds nothing to a launch count.  A meta input to any other
+entry (paged, sparse, verify, their ``_q8`` forms) raises
+``NotImplementedError`` naming the entry.
+
 Gradients.  On the card the two rotary entries run inside
 ``torch.autograd.Function``s when an input requires grad under grad mode:
 forward launches the kernel as above, backward launches it in its
@@ -132,6 +144,19 @@ class _Rope(torch.autograd.Function):
         return _re.rope_elite_backward(g, None, positions, rows, per_row, 0)[0], None, None
 
 
+def _refuse_meta(name: str, t) -> None:
+    """Raise for a meta input to an entry that has no meta version."""
+    if t.is_meta:
+        raise NotImplementedError(f"{name}: no meta version (the dry run lowers the "
+                                  f"contiguous steps); got meta tensors")
+
+
+def _kernel_side(t) -> bool:
+    """Whether a call on ``t`` goes to the kernel's launcher (CUDA, or its
+    meta version) rather than the plain version (CPU)."""
+    return t.is_cuda or t.is_meta
+
+
 def launches() -> Dict[str, int]:
     return {name: fn.launches for name, fn in LAUNCHERS.items()}
 
@@ -145,7 +170,7 @@ def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
                  scale: float) -> torch.Tensor:
     """Absorbed decode over a contiguous cache; see ``ref.elite_decode_ref``."""
     args = (q_e, q_lat, k_e, c_k, c_v, lengths, q_group, scale)
-    if q_e.is_cuda:
+    if _kernel_side(q_e):
         _no_backward("elite_decode", *args)
         return _ed.elite_decode(*args)
     return _plain("elite_decode", ref.elite_decode_ref, *args)
@@ -157,6 +182,7 @@ def elite_decode_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     """Paged absorbed decode attention; see ``ref.elite_decode_paged_ref``."""
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, block_tables, lengths,
             q_group, scale, block_size)
+    _refuse_meta("elite_decode_paged", q_e)
     if q_e.is_cuda:
         _no_backward("elite_decode_paged", *args)
         return _ed.elite_decode_paged(*args)
@@ -169,6 +195,7 @@ def elite_decode_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     """Decode over an int8 pool; see ``ref.elite_decode_paged_q8_ref``."""
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
             c_v_scale, block_tables, lengths, q_group, scale, block_size)
+    _refuse_meta("elite_decode_paged_q8", q_e)
     if q_e.is_cuda:
         _no_backward("elite_decode_paged_q8", *args)
         return _ed.elite_decode_paged_q8(*args)
@@ -181,6 +208,7 @@ def elite_decode_sparse_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     """Decode over a block selection; see ``ref.elite_decode_sparse_paged_ref``."""
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, sel_tables, sel_counts,
             q_group, scale, block_size)
+    _refuse_meta("elite_decode_sparse_paged", q_e)
     if q_e.is_cuda:
         _no_backward("elite_decode_sparse_paged", *args)
         return _ed.elite_decode_sparse_paged(*args)
@@ -195,6 +223,7 @@ def elite_decode_sparse_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     ``ref.elite_decode_sparse_paged_q8_ref``."""
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
             c_v_scale, sel_tables, sel_counts, q_group, scale, block_size)
+    _refuse_meta("elite_decode_sparse_paged_q8", q_e)
     if q_e.is_cuda:
         _no_backward("elite_decode_sparse_paged_q8", *args)
         return _ed.elite_decode_sparse_paged_q8(*args)
@@ -208,6 +237,7 @@ def elite_verify_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     """Speculative verify over the pool; see ``ref.elite_verify_paged_ref``."""
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, block_tables, q_offsets,
             lengths, q_group, scale, block_size)
+    _refuse_meta("elite_verify_paged", q_e)
     if q_e.is_cuda:
         _no_backward("elite_verify_paged", *args)
         return _ed.elite_verify_paged(*args)
@@ -221,6 +251,7 @@ def elite_verify_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     """Verify over an int8 pool; see ``ref.elite_verify_paged_q8_ref``."""
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
             c_v_scale, block_tables, q_offsets, lengths, q_group, scale, block_size)
+    _refuse_meta("elite_verify_paged_q8", q_e)
     if q_e.is_cuda:
         _no_backward("elite_verify_paged_q8", *args)
         return _ed.elite_verify_paged_q8(*args)
@@ -231,7 +262,7 @@ def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,
                   kv_lens) -> torch.Tensor:
     """Causal GQA attention with per-lane offsets; see ``ref.flash_prefill_ref``."""
     args = (q, k, v, q_group, scale, q_offsets, kv_lens)
-    if q.is_cuda:
+    if _kernel_side(q):
         _no_backward("flash_prefill", *args)
         return _fp.flash_prefill(*args)
     return _plain("flash_prefill", ref.flash_prefill_ref, *args)
@@ -239,7 +270,7 @@ def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,
 
 def rope_elite(x, positions, freqs) -> torch.Tensor:
     """Per-head rotary of packed elite dims; see ``ref.rope_elite_ref``."""
-    if x.is_cuda:
+    if _kernel_side(x):
         if torch.is_grad_enabled() and x.requires_grad:
             _no_backward("rope_elite (positions, freqs)", positions, freqs)
             return _Rope.apply(x, positions, freqs)
@@ -250,7 +281,7 @@ def rope_elite(x, positions, freqs) -> torch.Tensor:
 def rope_elite_qk(q, k, positions, freqs, q_per_row: int, k_per_row: int):
     """q and k of a layer rotated in one launch; see ``ref.rope_elite_qk_ref``."""
     args = (q, k, positions, freqs, q_per_row, k_per_row)
-    if q.is_cuda:
+    if _kernel_side(q):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
             _no_backward("rope_elite_qk (positions, freqs)", positions, freqs)
             return _RopeQK.apply(*args)

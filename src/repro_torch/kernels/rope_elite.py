@@ -28,6 +28,12 @@ into row blocks where one token's rows need more than ``MAX_THREADS``
 threads.  A CUDA tensor the kernel cannot take (a row start not 8-byte
 aligned, an offset past 32 bits, one row needing more than
 ``MAX_THREADS`` threads) raises.
+
+On meta tensors (the dry run's trace) the three entries are their meta
+versions: the same checks and plan, the outputs allocated, no launch; each
+call's bytes and FLOPs (``rope_cost``) go to ``build.META_CALLS`` under the
+name a launch would count in (``rope_elite``, or ``rope_elite_backward``
+in transpose mode).
 """
 from __future__ import annotations
 
@@ -120,8 +126,8 @@ def _launch(q, k, positions, freqs, q_per_row: int, k_per_row: int,
     """Check and launch; k is None for the one-tensor entry; ``transpose``
     rotates by the negated angles (the backward).  → (q_rot, k_rot)."""
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"rope_elite kernel needs CUDA tensors, got {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"rope_elite kernel needs CUDA (or meta) tensors, got {dev}")
     if q.dim() != 4 or q.shape[-1] % 2:
         raise ValueError(f"q: shape {tuple(q.shape)}, expected [B, S, H, 2r]")
     B, S, Hq, r2 = q.shape
@@ -149,6 +155,10 @@ def _launch(q, k, positions, freqs, q_per_row: int, k_per_row: int,
     if max(q_out.numel(), 0 if k_out is None else k_out.numel()) >= 2**31:
         raise ValueError("rope_elite: outputs past 32-bit offsets")
     p = plan_for(q, k, positions, freqs, q_per_row, k_per_row)
+    if dev.type == "meta":
+        build.meta_call("rope_elite_backward" if transpose else "rope_elite",
+                        *rope_cost((q, k, positions, freqs)))
+        return q_out, k_out
     kst = k.stride()[:3] if k is not None else (0, 0, 0)
     fn = build.load("rope_elite_qk", _ARGTYPES, source="rope_elite")
     name = ("rope_elite" if k is None else "rope_elite_qk") + ("_backward" if transpose else "")
@@ -217,3 +227,16 @@ def rope_elite_backward(g_q, g_k, positions, freqs, q_per_row: int, k_per_row: i
 
 rope_elite.launches = 0
 rope_elite_backward.launches = 0
+
+
+def rope_cost(a):
+    """(bytes, flops) of a rotation on (q, k, positions, freqs, ...), k None
+    for the one-tensor entry: q and k read and their outputs written once,
+    the positions and the freq rows once; 6 flops per rotated pair (4
+    products, a sum and a difference) and 3 per distinct angle (the angle,
+    one sincos counted as two)."""
+    q, k, pos, freqs = a[:4]
+    n = q.numel() + (0 if k is None else k.numel())
+    tokens = q.shape[0] * q.shape[1]
+    return (8 * n + pos.numel() * pos.element_size() + 4 * freqs.numel(),
+            3 * n + 3 * tokens * freqs.numel())

@@ -1,5 +1,20 @@
-"""Offline trace analysis — the ``trace-summary`` subcommand of the JAX
-package's ``launch/diagnose.py``, standard library only.
+"""The JAX package's ``launch/diagnose.py``: a cell's dry-run report, and
+offline trace analysis.
+
+A cell's per-device memory and FLOPs (``launch/dryrun.py``'s record):
+
+  PYTHONPATH=src python -m repro_torch.launch.diagnose --arch tinyllama_1_1b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.diagnose --arch tinyllama_1_1b --shape train_4k \
+      --one-card --batch 8 --seq-len 512
+
+prints the peak, temp and resident bytes per device, the FLOPs per device,
+the kernels' calls, bytes and FLOPs, and the largest tensors live at the
+peak with their shapes, dtypes and the operators that made them.  On the
+production meshes (``--multi-pod`` for 2 × 16 × 16) the port has no
+sharded step to trace (ROADMAP item 15): the peak and temp are ``null``
+and the FLOPs an even split; ``--one-card`` takes a 1 × 1 mesh, whose step
+is traced.  No collectives are counted (item 15).  The dry run imports
+PyTorch; ``trace-summary`` uses the standard library only.
 
 Summarise a Chrome trace written by ``launch/serve.py --trace``:
 
@@ -10,9 +25,8 @@ per-request lifecycle table (TTFT / residency / retirement reason), the
 most-preempted requests, and an ASCII pool-occupancy timeline — the
 terminal view of what Perfetto renders graphically — exactly as the
 reference prints them for the same file (its per-replica blocks too, for
-traces of a data-parallel run).  The reference's ``--arch/--shape`` dry run
-lowers for a TPU mesh and is not ported (ROADMAP Queue 1).  Importing this
-module parses nothing.
+traces of a data-parallel run).  Importing this module parses nothing
+and imports no PyTorch.
 """
 import argparse
 import json
@@ -145,13 +159,59 @@ def trace_summary(argv):
               f"(1.00 = perfectly even)")
 
 
+def _gib(n) -> str:
+    return "null" if n is None else f"{n / 2**30:.2f} GiB"
+
+
+def cell_report(argv):
+    ap = argparse.ArgumentParser(
+        prog="diagnose", description="per-device memory and FLOPs of a dry-run cell "
+        "(or: diagnose trace-summary TRACE)")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--one-card", action="store_true", help="a 1 x 1 mesh: trace the step")
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--seq-len", type=int, default=None)
+    ap.add_argument("--no-elitekv", action="store_true")
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args(argv)
+
+    from repro_torch.launch import dryrun
+    res = dryrun.lower_cell(args.arch, args.shape, args.multi_pod,
+                            elitekv=not args.no_elitekv, batch=args.batch,
+                            seq_len=args.seq_len, top=args.top,
+                            mesh_axes={"data": 1, "model": 1} if args.one_card else None)
+    if res["skipped"]:
+        print(f"{args.arch} {args.shape}: skipped ({res['reason']})")
+        return res
+    mem = res["memory"]
+    print(f"{res['arch']} {res['shape']} on {res['mesh']} ({res['chips']} chips): "
+          f"{res['step']}, batch {res['global_batch']} x {res['seq_len']}")
+    print(f"peak/device: {_gib(mem['peak_estimate_bytes'])}  (temp "
+          f"{_gib(mem['temp_bytes'])}, resident {_gib(mem['argument_bytes'])})"
+          + (f"  [{mem['reason']}]" if mem.get("reason") else
+             f"  at {mem['peak_op']}"))
+    print("resident/device: " + ", ".join(f"{k} {_gib(v['bytes'])}"
+                                          for k, v in res["resident"].items()))
+    print(f"flops/device: {res['flops_per_device']:.3e}"
+          + (f"  ({res['flops_split']})" if res["flops_split"] else ""))
+    for name, k in sorted(res["kernels"].items()):
+        print(f"  kernel {name:20s} calls {k['calls']:6d}  {k['bytes'] / 2**30:9.3f} GiB  "
+              f"{k['flops']:.3e} flops")
+    print("collectives: none (item 15)")
+    if res["largest_at_peak"]:
+        print("\n== largest live tensors at the peak ==")
+        for t in res["largest_at_peak"]:
+            print(f"  {t['bytes'] / 2**30:8.3f} GiB  {t['dtype']}{t['shape']}  <- {t['op']}")
+    return res
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["trace-summary"]:
         return trace_summary(argv[1:])
-    sys.exit("usage: python -m repro_torch.launch.diagnose trace-summary TRACE "
-             "[--top N] [--width N]  (the reference's --arch/--shape dry run "
-             "is not ported)")
+    return cell_report(argv)
 
 
 if __name__ == "__main__":

@@ -11,11 +11,14 @@ import torch.nn.functional as F
 def dense_init(shape: Sequence[int], generator: torch.Generator, device,
                scale: Optional[float] = None, in_axis: int = 0) -> torch.Tensor:
     """Truncated-normal (±3σ) fan-in init (LLaMA-style), drawn from
-    ``generator`` on ``device``."""
+    ``generator`` on ``device``; on the meta device a shape-only
+    ``torch.empty`` that draws nothing (``generator`` may be None)."""
     fan_in = shape[in_axis]
     if scale is None:
         scale = fan_in ** -0.5
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    if t.is_meta:
+        return t
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=generator)
     return t.mul_(scale)
 

@@ -78,13 +78,17 @@ def init(cfg, seed: int = 0, device="cuda") -> Tuple[Dict, Dict]:
     """Random (params, buffers) from a seeded ``torch.Generator`` on
     ``device``: per layer EliteKV attention when ``cfg.elitekv.enabled``,
     else the baseline GQA attention (no buffers), or Mamba; then its MLP or
-    MoE FFN, if any."""
+    MoE FFN, if any.  On ``device="meta"`` the same tree of shape-only
+    ``torch.empty`` leaves, with nothing drawn (the reference's
+    ``jax.eval_shape(lm.init)``)."""
     if cfg.num_layers % cfg.block_period:
         raise ValueError(f"{cfg.num_layers} layers are not whole periods of "
                          f"{cfg.block_period}")
     device = torch.device(device)
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
+    g = None
+    if device.type != "meta":
+        g = torch.Generator(device=device)
+        g.manual_seed(seed)
     d, Vp = cfg.d_model, cfg.padded_vocab
     audio = cfg.frontend == "audio"
     params = {} if audio else {"embed": {"table": dense_init((Vp, d), g, device, scale=0.02)}}

@@ -12,7 +12,11 @@ Counterpart of the JAX package's ``models/moe.py``:
                  MoE layer and forward, counted in ``group_size_syncs``
                  (under the layer remat a training step reads them twice:
                  forward and recompute).  Each expert weight is split
-                 once per call, so its gradient is one ``stack``.
+                 once per call, so its gradient is one ``stack``.  A meta
+                 input (the dry run's shape-only trace) holds no ids to
+                 read: it takes the group sizes of balanced routing
+                 (``even_group_sizes``), so the matmuls' shapes and FLOPs
+                 are those of k experts per token, not E.
 
 The reference's third implementation, ``ep`` (expert parallelism over a
 mesh), is not ported: ``impl="ep"`` raises.
@@ -91,6 +95,14 @@ def apply_dense(params, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
     return y.reshape(B, S, d), aux
 
 
+def even_group_sizes(rows: int, n_experts: int) -> list:
+    """The group sizes of balanced routing: each expert takes
+    ``ceil(rows / n_experts)`` rows, the last ones trimmed so the sizes sum
+    to ``rows``."""
+    q = -(-rows // n_experts)
+    return [max(0, min(q, rows - e * q)) for e in range(n_experts)]
+
+
 def apply_ragged(params, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sorted grouped dispatch: each expert's rows in one contiguous slice,
     three matmuls per expert that has rows."""
@@ -103,8 +115,11 @@ def apply_ragged(params, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
     flat = idx.reshape(-1)                                       # [T*k]
     order = torch.argsort(flat, stable=True)
     xs = xf[order // k]                                          # [T*k, d]
-    sizes = torch.bincount(flat, minlength=E).tolist()           # the one host read
-    group_size_syncs += 1
+    if x.is_meta:                   # the dry run: no ids to read, balanced groups
+        sizes = even_group_sizes(T * k, E)
+    else:
+        sizes = torch.bincount(flat, minlength=E).tolist()       # the one host read
+        group_size_syncs += 1
     dt = x.dtype
     # each weight split once: under autograd one ``stack`` gathers its
     # experts' gradients, where a ``select`` per expert would add a zero

@@ -69,12 +69,23 @@ def _decode(x, dtype: str) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 
+def _meta_moment(shape, dtype: str):
+    """What ``_encode`` makes of a leaf of ``shape``, shape-only on meta."""
+    empty = lambda s, dt: torch.empty(s, dtype=dt, device="meta")
+    if dtype == "int8":
+        return {"q": empty(shape, torch.int8),
+                "s": empty(tuple(shape[:-1]) + (1,) if len(shape) else (), torch.float32)}
+    return empty(shape, torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+
+
 def init(params, cfg: AdamWConfig):
     """Zero moments in ``cfg.moment_dtype`` and step 0 (int32, on the
-    device of the first leaf)."""
+    device of the first leaf); on meta the same tree, shape-only."""
     dev = next(leaves(params)).device
     zeros = lambda p: _encode(torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                               cfg.moment_dtype)
+    if dev.type == "meta":
+        zeros = lambda p: _meta_moment(tuple(p.shape), cfg.moment_dtype)
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
             "m": map_tree(zeros, params), "v": map_tree(zeros, params)}
 

@@ -1245,3 +1245,38 @@ def test_hybrid_generate_on_card_matches_cpu(arch, layers, cuda):
                                             device="cpu")
         got, _ = serve_loop.generate_paged(cp, cb, cfg, prompts, 8, scfg, device=cuda)
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape,size", [("decode_32k", dict(batch=4, seq_len=256)),
+                                        ("prefill_32k", dict(batch=2, seq_len=256)),
+                                        ("train_4k", dict(batch=2, seq_len=64))])
+def test_dryrun_peak_matches_the_card(shape, size, cuda):
+    """A reduced TinyLlama step's peak on the card (``max_memory_allocated``
+    less what was held before its tensors were made) within chip_smoke
+    phase 3o's bound, max(3%, 256 MiB), of ``lower_cell``'s prediction on a
+    1 x 1 plan, with the trace's kernel calls as the launches."""
+    import gc
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    small = get_config("tinyllama_1_1b").reduced().with_elitekv()
+    over = {k: getattr(small, k) for k in ("num_layers", "d_model", "n_heads", "n_kv_heads",
+                                           "d_head", "d_ff", "vocab_size", "elitekv")}
+    rec, cell = dryrun.lower_cell("tinyllama_1_1b", shape, mesh_axes={"data": 1, "model": 1},
+                                  overrides=over, return_cell=True, **size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    build.free_scratch(cuda)
+    held = torch.cuda.memory_allocated(cuda)
+    state = dryrun.cell_state(cell, cuda, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    ops.reset_launches()
+    out = dryrun.run_step(cell, state)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated(cuda) - held
+    launches = {k: v for k, v in ops.launches().items() if v}
+    del out, state
+    build.free_scratch(cuda)
+    pred = rec["memory"]["peak_estimate_bytes"]
+    assert abs(pred - measured) <= max(0.03 * measured, 256 * 2**20), (pred, measured)
+    assert launches == {k: v["calls"] for k, v in rec["kernels"].items()}
