@@ -125,6 +125,25 @@ non-zero:
       stream wait taken out, to show what it keeps out; the decode step's p50 traced
       against untraced is taken in turns on one scheduler (U T T U), with
       events per step and ring drops.
+   p. the data-parallel router (runs after h, on a's model): the five
+      scenarios of ``runtime/sharded_check.py`` (plain with swap and
+      recompute eviction on a 32-block pool that preempts, a 64-token
+      shared prefix with the prefix cache, the int8 pool, speculative k=2)
+      and a sampled one (temperature 0.8, top-p 0.9, a seed per request),
+      each over 8 requests (prompts 64-256 tokens, 32 new, two arrivals per
+      step, 4 slots, blocks of 16) through one ``Scheduler`` and through
+      ``Router`` with two replicas sharing the card.  Greedy streams must
+      equal the single scheduler's but where its token is a near-tie
+      (``compare_streams``; counted), sampled ones are held by
+      ``compare_sampled``; the logits rows of the two runs are compared
+      (the bitwise-equal share answers whether a lane's bits move with its
+      neighbours); each replica's launches must be its own forwards'
+      (``path_kernels`` of its report).  A traced plain router run must
+      give the untraced router's tokens, one kernel span per launch, and a
+      trace and metrics file that ``tools/check_trace.py`` passes (a
+      subprocess; ``build/obs/router_plain.*``); so must the files of
+      ``launch/serve.py --stream --dp 2 --trace`` run in a fresh process,
+      where no kernel is loaded yet (``build/obs/router_cli.*``).
    i. conversion (the paper's §3): the baseline TinyLlama-1.1B of f,
       4 x 512 random calibration tokens, ``capture_attn_inputs`` and a
       greedy RoPElite search at r = 8 per layer (``rope_elite`` 22 times in
@@ -1580,6 +1599,234 @@ def serving_features(params, buffers, cfg, dev, card: str, base: dict) -> dict:
     return out
 
 
+# -- the data-parallel replica router (phase 3p) ---------------------------------
+
+DP_REQUESTS, DP_NEW, DP_PROMPT = 8, 32, (64, 256)
+DP_SHARED = 64               # the prefix scenario's shared prompt prefix
+DP_TIGHT_BLOCKS = 32         # plain and recompute: every replica and the single preempt
+DP_BASE = dict(max_slots=4, block_size=16, num_blocks=96, max_new_tokens=DP_NEW,
+               max_len=DP_SHARED + DP_PROMPT[1] + DP_NEW, prefill_chunk_tokens=128,
+               prefill_batch_lanes=4)
+
+
+def router_run(label, params, buffers, cfg, scfg, reqs, dev, card: str, draws=None,
+               rows=None, tracer=None, metrics=None):
+    """``reqs`` through a ``Router`` of two replicas on ``dev``, with the
+    counts set to 0 just before and read just after: outputs checked, and
+    each replica's launches must be ``path_kernels`` of its own report
+    (the replicas' together the whole run's).  ``draws``/``rows`` record
+    sampled draws and greedy logits rows (one dict per replica).
+    → (report, router)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.router import Router
+    L = cfg.n_attn_layers
+    router = Router(params, buffers, cfg, scfg, num_replicas=2, devices=[dev, dev],
+                    tracer=tracer, metrics=metrics)
+    undo = [record_draws(draws)] if draws is not None else []
+    if rows is not None:
+        undo.append(record_greedy_rows(router.replicas, rows))
+    ops.reset_launches()
+    ops.set_kernel_tracer(tracer, device=router.devices)
+    try:
+        rep = router.run(reqs)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launches().items() if v}
+    finally:
+        ops.set_kernel_tracer(None)
+        for u in undo:
+            u()
+    print(f"[{card}] {label}: {rep.summary()}", flush=True)
+    print(rep.per_replica_table())
+    if rep.completed != len(reqs) or sorted(router.finished_tokens()) != \
+            sorted(r.uid for r in reqs):
+        raise AssertionError(f"{label}: {rep.completed}/{len(reqs)} requests finished")
+    for r in (q for s in router.replicas for q in s.finished):
+        toks = np.asarray(r.generated)
+        if len(toks) != r.max_new_tokens or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{label} request {r.uid}: bad output {toks[:8]}...")
+    for i, (r, got) in enumerate(zip(rep.replicas, rep.launches)):
+        want = path_kernels(scfg, r, L)
+        if got != want or not all(want.values()):
+            raise AssertionError(f"{label} replica {i}: launches {got}, expected {want} "
+                                 f"(its forwards x layers)")
+    merged = {k: sum(n.get(k, 0) for n in rep.launches) for k in launches}
+    if merged != launches:
+        raise AssertionError(f"{label}: replicas' launches {rep.launches} != the run's "
+                             f"{launches}")
+    return rep, router
+
+
+def rows_agree(label: str, want_rows: dict, got_rows: list, streams, card: str) -> dict:
+    """The logits rows of one scheduler's run against a router run's, for
+    each token up to and including where a stream parts: bitwise-equal
+    count and max |difference|, which must be within LOGIT_TOL (the same
+    context through another batch).  → counts."""
+    import torch
+    got = {k: v for r in got_rows for k, v in r.items()}
+    st = dict(rows=0, bitwise=0, max_d=0.0)
+    for uid, _, toks, ref in streams:
+        diff = [t for t, (a, b) in enumerate(zip(toks, ref)) if a != b]
+        n = diff[0] + 1 if diff else len(ref)
+        both = [t for t in range(n) if (uid, t) in want_rows and (uid, t) in got]
+        if not both:
+            continue
+        A = torch.stack([want_rows[uid, t] for t in both]).double()
+        B = torch.stack([got[uid, t] for t in both]).double()
+        d = (A - B).abs().amax(-1)
+        st["rows"] += len(both)
+        st["bitwise"] += int((d == 0).sum())
+        st["max_d"] = max(st["max_d"], float(d.max()))
+    print(f"[{card}] {label}: {st['rows']} logits rows against one Scheduler's: bitwise "
+          f"equal {st['bitwise']} ({100 * st['bitwise'] / max(st['rows'], 1):.1f}%), max "
+          f"|difference| {st['max_d']:.3e} (limit {LOGIT_TOL})", flush=True)
+    if not st["max_d"] <= LOGIT_TOL:
+        raise AssertionError(f"{label}: logits rows differ by {st['max_d']:.3e}")
+    return st
+
+
+def data_parallel(params, buffers, cfg, dev, card: str) -> dict:
+    """Phase 3p: every scenario through one ``Scheduler`` and through two
+    router replicas sharing the card; a traced routed run.  → figures."""
+    import collections
+    import numpy as np
+    import torch
+    from repro_torch.obs import MetricsRegistry, Tracer, write_chrome_trace
+    from repro_torch.runtime import serve_loop, sharded_check
+    from repro_torch.launch import diagnose
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(30)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, int(n))))
+               for n in rng.integers(DP_PROMPT[0], DP_PROMPT[1] + 1, DP_REQUESTS)]
+    out = {"scenarios": {}}
+    untraced = None
+    for name in list(sharded_check.SCENARIOS) + list(sharded_check.SAMPLED):
+        t0 = time.perf_counter()
+        knobs, req = sharded_check.scenario_knobs(name)
+        if "shared" in req:
+            req["shared"] = DP_SHARED
+        kw = dict(DP_BASE, **knobs)
+        if name in ("plain", "recompute"):
+            kw["num_blocks"] = DP_TIGHT_BLOCKS
+        scfg = serve_loop.SchedulerConfig(**kw)
+        make = lambda req=req: sharded_check.build_requests(prompts, new_tokens=DP_NEW, **req)
+        sampled = name in sharded_check.SAMPLED
+        greedy_rows = not sampled and not scfg.speculate_k
+        want_draws, got_draws = ({}, {}) if sampled else (None, None)
+        want_rows, got_rows = {}, [{}, {}]
+        setup = (lambda s: undo.append(record_greedy_rows([s], [want_rows]))) if greedy_rows \
+            else None
+        undo = []
+        try:
+            srep, _, _, sched = serve_run(f"3p {name} one Scheduler", params, buffers, cfg,
+                                          scfg, make(), card, setup=setup, draws=want_draws)
+        finally:
+            for u in undo:
+                u()
+        rep, router = router_run(f"3p {name} dp=2", params, buffers, cfg, scfg, make(), dev,
+                                 card, draws=got_draws, rows=got_rows if greedy_rows else None)
+        got = router.finished_tokens()
+        streams = [(r.uid, np.asarray(r.prompt, np.int32), got[r.uid], r.generated)
+                   for r in sorted(sched.finished, key=lambda r: r.uid)]
+        res = dict(routed=rep.routed, imbalance=rep.imbalance,
+                   completed=[r.completed for r in rep.replicas],
+                   occupancy=[r.mean_occupancy for r in rep.replicas],
+                   tok_s=rep.tok_per_s, single_tok_s=srep.tok_per_s,
+                   ttft=(rep.ttft_wall_p50_ms, rep.ttft_wall_p95_ms),
+                   single_ttft=(srep.ttft_wall_p50_ms, srep.ttft_wall_p95_ms),
+                   step_p50=[r.step_ms_p50 for r in rep.replicas],
+                   single_step_p50=srep.step_ms_p50, launches=rep.launches,
+                   preemptions=[r.preemptions for r in rep.replicas],
+                   single_preemptions=srep.preemptions)
+        if name in ("plain", "recompute") and not (srep.preemptions > 0
+                                                   and rep.preemptions > 0):
+            raise AssertionError(f"3p {name}: preemptions {srep.preemptions} (one "
+                                 f"Scheduler), {res['preemptions']} (replicas): expected > 0")
+        if sampled:
+            reqs = {r.uid: r for r in sched.finished}
+            res["sampled"] = compare_sampled(f"3p {name} dp=2", streams, want_draws,
+                                             got_draws, reqs, card, "one Scheduler's draws")
+            res["ties"] = 0
+        else:
+            res["ties"] = compare_streams(f"3p {name} dp=2", streams, params, buffers, cfg,
+                                          dev, card, against="one Scheduler's")
+        if greedy_rows:
+            res["rows"] = rows_agree(f"3p {name} dp=2", want_rows, got_rows, streams, card)
+        res["wall"] = time.perf_counter() - t0
+        print(f"[{card}] 3p {name}: routed={res['routed']} imbalance={res['imbalance']:.2f} "
+              f"completed={res['completed']} occupancy="
+              f"{[round(o, 3) for o in res['occupancy']]} preemptions={res['preemptions']} "
+              f"(one Scheduler {srep.preemptions}); tok/s {rep.tok_per_s:.1f} (one Scheduler "
+              f"{srep.tok_per_s:.1f}), TTFT p50/p95 {rep.ttft_wall_p50_ms:.1f}/"
+              f"{rep.ttft_wall_p95_ms:.1f} ms ({srep.ttft_wall_p50_ms:.1f}/"
+              f"{srep.ttft_wall_p95_ms:.1f}); replica step p50 "
+              f"{[round(x, 2) for x in res['step_p50']]} ms ({srep.step_ms_p50:.2f}); "
+              f"near-tie tokens excused {res['ties']}; launches per replica {rep.launches}; "
+              f"{res['wall']:.1f} s", flush=True)
+        out["scenarios"][name] = res
+        if name == "plain":
+            untraced = (scfg, make, got)
+    # the plain router run again, traced
+    scfg, make, want = untraced
+    tr, metrics = Tracer(), MetricsRegistry()
+    rep, router = router_run("3p traced plain dp=2", params, buffers, cfg, scfg, make(), dev,
+                             card, tracer=tr, metrics=metrics)
+    if router.finished_tokens() != want:
+        bad = sorted(u for u in want if router.finished_tokens().get(u) != want[u])
+        raise AssertionError(f"3p traced plain dp=2: streams {bad} differ from the untraced "
+                             f"router run's")
+    events = tr.events()
+    spans = collections.Counter(e.name for e in events if e.track == "kernel")
+    spans["rope_elite"] += spans.pop("rope_elite_qk", 0)
+    spans = {k: v for k, v in spans.items() if v}
+    counted = {k: sum(n.get(k, 0) for n in rep.launches) for k in set().union(*rep.launches)}
+    if spans != counted or not spans:
+        raise AssertionError(f"3p traced plain: kernel spans {spans} != launches {counted}")
+    out_dir = ROOT / "build" / "obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = write_chrome_trace(out_dir / "router_plain.json", tr)
+    prom = out_dir / "router_plain.prom"
+    prom.write_text(metrics.to_prometheus())
+    chk = subprocess.run([sys.executable, str(ROOT / "tools" / "check_trace.py"), str(path),
+                          "--metrics", str(prom)], capture_output=True, text=True, timeout=300)
+    if chk.returncode:
+        raise AssertionError(f"3p traced plain: check_trace failed\n{chk.stdout[-3000:]}")
+    routes = sum(e.name == "route" for e in events)
+    print(f"[{card}] 3p traced plain dp=2: tokens == the untraced router run's on all "
+          f"{len(want)} streams; {tr.emitted} events ({tr.dropped} dropped), {routes} route "
+          f"instants, {sum(spans.values())} kernel spans == launches; "
+          f"{chk.stdout.strip().splitlines()[-1]}", flush=True)
+    diagnose.main(["trace-summary", str(path), "--top", "2"])
+    out["traced_events"] = tr.emitted
+    # the launcher in a fresh process (no kernel loaded yet), traced
+    import os
+    t0 = time.perf_counter()
+    cli = out_dir / "router_cli"
+    card_dev = str(torch.empty(0, device=dev).device)
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--elitekv", "--stream", "--dp", "2",
+         "--device", card_dev, "--requests", "6", "--prompt-len", "64", "--new-tokens", "8",
+         "--prefill-chunk", "64", "--trace", f"{cli}.json", "--metrics-out", f"{cli}.prom"],
+        capture_output=True, text=True, timeout=240, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    line = f"stream [tp=1 dp=2 devices={card_dev},{card_dev}]: dp=2 completed=6"
+    if run.returncode or line not in run.stdout:
+        raise AssertionError(f"3p launch/serve.py --dp 2 --trace: rc {run.returncode}\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+    chk = subprocess.run([sys.executable, str(ROOT / "tools" / "check_trace.py"), f"{cli}.json",
+                          "--metrics", f"{cli}.prom"], capture_output=True, text=True,
+                         timeout=300)
+    if chk.returncode:
+        raise AssertionError(f"3p launcher trace: check_trace failed\n{chk.stdout[-3000:]}")
+    print(f"[{card}] 3p launch/serve.py --stream --dp 2 --device {card_dev} --trace in a fresh "
+          f"process: {run.stdout.splitlines()[0]}; {chk.stdout.strip().splitlines()[-1]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 3p (data-parallel router) {out['wall']:.1f} s", flush=True)
+    return out
+
+
 # -- the dense architectures' widths (phases 1, 2) -----------------------------
 
 # the architectures beyond phase 1's two widths whose decode and verify plans
@@ -2273,25 +2520,38 @@ def mamba_vs_cpu(label: str, p, cfg, dev, card: str, seed: int) -> None:
         raise AssertionError(f"{label}: card vs CPU {errs} past {MODULE_TOL}")
 
 
-def record_greedy_rows(sched, rows: dict):
-    """Keep the logits row every greedy token of ``sched`` is taken from, in
-    ``rows`` under (uid, token index): the row after a completed prefill and
-    each decode step's rows of the decode-ready lanes.  → undo."""
+def record_greedy_rows(scheds: list, rows: list):
+    """Keep the logits row every greedy token of each of ``scheds`` (stepped
+    one at a time: one scheduler, or a router's replicas) is taken from, in
+    ``rows[k]`` for scheduler ``k``, under (uid, token index): the row after
+    a completed prefill and each decode step's rows of the decode-ready
+    lanes.  → undo."""
     from repro_torch.models import lm
-    real, real_first = lm.apply_decode_paged, sched._sample_prefill_token
+    real, current = lm.apply_decode_paged, [None]
 
     def decode(*a, **k):
         logits = real(*a, **k)
-        for i, req in enumerate(sched.slots):
-            if req is not None and sched._decode_ready(req):
-                rows[req.uid, len(req.generated)] = logits[i, -1].clone()
+        s = current[0]
+        if s is not None:
+            for i, req in enumerate(s.slots):
+                if req is not None and s._decode_ready(req):
+                    rows[scheds.index(s)][req.uid, len(req.generated)] = \
+                        logits[i, -1].clone()
         return logits
 
-    def first(req, last_row):
-        rows[req.uid, len(req.generated)] = last_row.clone()
-        return real_first(req, last_row)
+    for s, r in zip(scheds, rows):
+        def step(s=s, real_step=s.step):
+            current[0] = s
+            try:
+                return real_step()
+            finally:
+                current[0] = None
 
-    lm.apply_decode_paged, sched._sample_prefill_token = decode, first
+        def first(req, last_row, r=r, real_first=s._sample_prefill_token):
+            r[req.uid, len(req.generated)] = last_row.clone()
+            return real_first(req, last_row)
+        s.step, s._sample_prefill_token = step, first
+    lm.apply_decode_paged = decode
     return lambda: setattr(lm, "apply_decode_paged", real)
 
 
@@ -2504,7 +2764,7 @@ def moe_mamba_hybrid(dev, card: str) -> dict:
     try:
         rep, launches, rec, sched = serve_run(
             "3l Qwen3-MoE f32 24 requests", params, buffers, cfg, scfg, reqs, card,
-            setup=lambda s: undo.append(record_greedy_rows(s, rows)))
+            setup=lambda s: undo.append(record_greedy_rows([s], [rows])))
     finally:
         for u in undo:
             u()
@@ -2848,7 +3108,7 @@ def frontends(dev, card: str) -> dict:
     try:
         rep, _, _, sched = serve_run(
             "3m InternVL2-2B Scheduler, 8 text requests", cp, cb, ccfg, scfg, reqs, card,
-            setup=lambda s: undo.append(record_greedy_rows(s, rows)))
+            setup=lambda s: undo.append(record_greedy_rows([s], [rows])))
     finally:
         for u in undo:
             u()
@@ -3948,6 +4208,10 @@ def main() -> int:
             new_min=64, shared_prefix=256, temperature=0.8, top_p=0.95, sample_seed=200),
             feats["streams prefix on"], feats["prefix on"])})
 
+    # p. the data-parallel router: two replicas sharing the card against one
+    # Scheduler, every sharded_check scenario and a sampled one
+    dp3p = data_parallel(params, buffers, cfg, dev, card)
+
     # i. conversion of the baseline TinyLlama-1.1B, and the converted model
     # served; k. that model uptrained, resumed and served; j. MiniCPM-2B
     # (tied embeddings) served plain and speculative
@@ -4441,6 +4705,17 @@ def main() -> int:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
               f"launches {r['launches']}", flush=True)
 
+    # phase 3p's numbers
+    for name, x in dp3p["scenarios"].items():
+        agree = x.get("rows")
+        print(f"[{card}] 3p {name}: dp=2 tok/s {x['tok_s']:.1f} against one Scheduler's "
+              f"{x['single_tok_s']:.1f}; TTFT p50/p95 {x['ttft'][0]:.1f}/{x['ttft'][1]:.1f} "
+              f"against {x['single_ttft'][0]:.1f}/{x['single_ttft'][1]:.1f} ms; replica step "
+              f"p50 {x['step_p50'][0]:.2f}/{x['step_p50'][1]:.2f} against "
+              f"{x['single_step_p50']:.2f} ms; near-ties {x['ties']}"
+              + (f"; rows bitwise equal {agree['bitwise']}/{agree['rows']}, max |d| "
+                 f"{agree['max_d']:.3e}" if agree else ""), flush=True)
+
     # -- 5. result lines -----------------------------------------------------
     t = train3k
     print(f"[{card}] uptraining (3k): step_ms p50 {t['step_ms_p50']:.1f}, tokens/s "
@@ -4451,8 +4726,11 @@ def main() -> int:
           f"{t['phase']:.1f} s, 3j (MiniCPM-2B) {tied['wall']:.1f} s, 3l (MoE, Mamba, "
           f"hybrid) {hyb['wall']:.1f} s, 3m (frontends) {fronts['wall']:.1f} s and 3n (MoE, "
           f"Mamba and hybrid training and conversion) {tr3n['wall']:.1f} s, 3o (the dry run "
-          f"against the card) {dry['wall']:.1f} s; the whole script "
+          f"against the card) {dry['wall']:.1f} s, 3p (the data-parallel router) "
+          f"{dp3p['wall']:.1f} s; the whole script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    if not (isinstance(rows, list) and rows and all(isinstance(r, dict) for r in rows)):
+        raise AssertionError(f"the kernel rows are {rows!r}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,11 @@ once, so a traced launch is *gated*: the stream first waits
 once the start event, the launch and the end event are all queued.  The
 card then runs the three back to back and the span measures the card: the
 launch, not the host's time to issue it.  Nothing on the host waits; the
-card waits only for work the host had not yet issued.
+card waits only for work the host had not yet issued.  CUDA loads a kernel
+lazily at its first launch, and loading waits for the whole context, so a
+first launch behind the gate would wait for itself: arming the tracer on a
+device (``anchor``) first loads every kernel of every source there (each
+source's ``<name>_preload`` entry, ``PRELOAD``).
 """
 from __future__ import annotations
 
@@ -45,8 +49,13 @@ SOURCES = ("elite_decode_paged", "flash_prefill", "rope_elite")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: each source's entry that loads all its kernels on the current device
+PRELOAD = {"elite_decode_paged": "elite_decode_preload",
+           "flash_prefill": "flash_prefill_preload", "rope_elite": "rope_elite_preload"}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _SCRATCH: Dict[tuple, tuple] = {}
+_PRELOADED: set = set()                    # device indices whose kernels are loaded
 
 #: the card a meta call is planned for, the H100 SXM5: 132 SMs (NVIDIA H100
 #: Tensor Core GPU Architecture whitepaper, H100 SXM5) and 227 KiB of
@@ -186,11 +195,26 @@ def _gate() -> Dict[str, object]:
     return _GATE
 
 
+def preload(dev) -> None:
+    """Load every kernel of every source on ``dev`` (once per device), so
+    that no launch behind the gate is a kernel's first."""
+    if dev.index in _PRELOADED:
+        return
+    with torch.cuda.device(dev):
+        for source, symbol in PRELOAD.items():
+            err = load(symbol, [], source=source)()
+            if err:
+                raise RuntimeError(f"{symbol} failed: CUDA error {err}")
+    _PRELOADED.add(dev.index)
+
+
 def anchor(tracer, dev) -> None:
     """Tie ``tracer``'s device spans on ``dev`` to its clock: wait for the
     card, take the host time, record an event on the idle card.  Also makes
-    the launch gate, so a traced launch allocates nothing."""
+    the launch gate, so a traced launch allocates nothing, and loads every
+    kernel on ``dev`` (``preload``)."""
     _gate()
+    preload(dev)
     torch.cuda.synchronize(dev)
     ev = torch.cuda.Event(enable_timing=True)
     t = tracer.now()

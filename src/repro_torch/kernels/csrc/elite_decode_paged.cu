@@ -611,6 +611,24 @@ extern "C" int elite_decode_smem_optin(void) {
   return v;
 }
 
+// Loads every instantiation of the decode body on the current device now.
+// CUDA loads a kernel lazily at its first launch, and loading waits for the
+// whole context: a first launch behind a stream wait (a traced launch,
+// kernels/build.py) would wait for itself.  Returns 0 or the CUDA error.
+extern "C" int elite_decode_preload(void) {
+  const void* fns[] = {(const void*)decode_kernel<float, ContigWalk>,
+                       (const void*)decode_kernel<float, ChainWalk>,
+                       (const void*)decode_kernel<int8_t, ChainWalk>,
+                       (const void*)decode_kernel<float, SelWalk>,
+                       (const void*)decode_kernel<int8_t, SelWalk>};
+  cudaFuncAttributes attr;
+  for (const void* fn : fns) {
+    const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 // The contiguous cache: k_e [B, S, nkv, r2], c_k / c_v [B, S, dc], lengths
 // [B]; rows staged in tiles of bs.
 extern "C" int elite_decode(const float* q_e, const float* q_lat, const float* k_e,

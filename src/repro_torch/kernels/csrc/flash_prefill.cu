@@ -596,6 +596,24 @@ extern "C" long flash_prefill_smem_bytes(int body, int dh) {
   }
 }
 
+// Loads both bodies at every head dim on the current device now (CUDA loads
+// a kernel lazily at its first launch, which waits for the whole context:
+// a first launch behind a stream wait would wait for itself).  Returns 0 or
+// the CUDA error.
+extern "C" int flash_prefill_preload(void) {
+  const void* fns[] = {(const void*)flash_decode_kernel<32>, (const void*)flash_decode_kernel<64>,
+                       (const void*)flash_decode_kernel<128>,
+                       (const void*)flash_prefill_kernel<32>,
+                       (const void*)flash_prefill_kernel<64>,
+                       (const void*)flash_prefill_kernel<128>};
+  cudaFuncAttributes attr;
+  for (const void* fn : fns) {
+    const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 // Launches `body` on `stream`; returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a head dim this file does not instantiate or a
 // decode call with more than 16 query rows per kv head.  The decode body

@@ -164,6 +164,23 @@ void launch(const Args& a, bool pos64, dim3 grid, dim3 block, cudaStream_t strea
 
 }  // namespace
 
+// Loads every instantiation of the rotation on the current device now (CUDA
+// loads a kernel lazily at its first launch, which waits for the whole
+// context: a first launch behind a stream wait would wait for itself).
+// Returns 0 or the CUDA error.
+extern "C" int rope_elite_preload(void) {
+  const void* fns[] = {(const void*)rope_qk_kernel<1, int32_t>,
+                       (const void*)rope_qk_kernel<1, int64_t>,
+                       (const void*)rope_qk_kernel<2, int32_t>,
+                       (const void*)rope_qk_kernel<2, int64_t>};
+  cudaFuncAttributes attr;
+  for (const void* fn : fns) {
+    const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 // q: f32, element (b, s, h, e) at b*q_sb + s*q_ss + h*q_sh + e, Hq = rows *
 // q_per_row heads; k likewise with Hk = rows * k_per_row (k_per_row = 0: no
 // k, and k, k_out may be null); pos: int32 (pos64 == 0) or int64, element

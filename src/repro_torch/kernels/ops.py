@@ -74,14 +74,18 @@ select_topk_blocks = ref.select_topk_blocks
 def set_kernel_tracer(tracer, device=None) -> None:
     """Install (or clear with ``None``) the tracer kernel calls report to.
     Process-wide, as in the reference: kernel call sites sit below the
-    scheduler.  A CUDA ``device`` is anchored now (one synchronize), so its
+    scheduler.  ``device`` is one device or a sequence of them (a router's
+    replicas); each CUDA device is anchored now (one synchronize), so its
     launches never wait; a disabled tracer disarms."""
     if tracer is not None and not tracer.enabled:
         tracer = None
     build.TRACER = tracer
-    dev = torch.device(device) if device is not None else None
-    if tracer is not None and dev is not None and dev.type == "cuda":
-        index = torch.cuda.current_device() if dev.index is None else dev.index
+    if tracer is None or device is None:
+        return
+    devices = device if isinstance(device, (list, tuple)) else [device]
+    indices = {torch.cuda.current_device() if d.index is None else d.index
+               for d in map(torch.device, devices) if d.type == "cuda"}
+    for index in sorted(indices):
         build.anchor(tracer, torch.device("cuda", index))
 
 

@@ -89,11 +89,29 @@ are token-identical.  Check and summarise the artifacts with
     python tools/check_trace.py out.json --metrics metrics.prom
     PYTHONPATH=src python -m repro_torch.launch.diagnose trace-summary out.json
 
-Batch mode rejects both flags, as the reference does.  ``--moe-impl``
+Batch mode rejects both flags, as the reference does.
+
+``--dp N`` (with ``--stream``) serves the stream through ``N`` independent
+``Scheduler`` replicas behind the least-loaded router
+(``runtime/router.py``), each with its own pool of ``--num-blocks``
+blocks; the merged token streams equal one scheduler's.  Placement
+follows ``--device`` (``launch/mesh.py::replica_devices``): a bare
+``cuda`` puts replica ``i`` on card ``i`` and needs ``N`` cards, while
+``cuda:0`` or ``cpu`` hosts every replica on that one device.  The run
+prints the ``stream [tp= dp= devices=]`` summary line and one line per
+replica; ``--trace`` puts each replica's events on ``r{i}:`` tracks beside
+the router's ``route`` instants, and ``--metrics-out`` adds the
+``serve_replica_{i}_*`` family:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --elitekv \
+        --stream --device cpu --dp 2 --trace out.json --metrics-out m.prom
+
+``--tp`` (tensor parallelism inside a replica) is ROADMAP item 15b: ``--tp
+> 1`` raises ``ValueError``.  ``--tp``/``--dp`` below 1, or above 1 without
+``--stream``, are argument errors, as in the reference.  ``--moe-impl``
 picks how MoE layers dispatch in every forward of either mode: "ragged"
-(the default) or the "dense" oracle; "ep" (expert parallelism) and the
-reference's other multi-device options are not ported yet (ROADMAP Queue
-1, item 15) and raise ``ValueError``.
+(the default) or the "dense" oracle; "ep" (expert parallelism, ROADMAP
+item 15d) raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -108,9 +126,11 @@ from repro_torch.configs import get_config
 from repro_torch.core.cache import model_cache_floats_per_token
 from repro_torch.core.convert import pick_dims
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import replica_devices
 from repro_torch.models import lm, moe
 from repro_torch.obs import REGISTRY, Tracer, write_chrome_trace
 from repro_torch.runtime import serve_loop
+from repro_torch.runtime.router import Router
 
 
 def make_stream(cfg, n_requests: int, rate: float, prompt_len: int,
@@ -153,12 +173,14 @@ def serve_stream(params, buffers, cfg, args):
         sparse_topk_blocks=args.sparse_topk, sparse_recent_blocks=args.sparse_recent,
         speculate_k=args.speculate, draft_rank=args.draft_rank)
     tracer = Tracer(capacity=args.trace_capacity) if args.trace else None
-    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=args.device,
-                                 tracer=tracer, metrics=REGISTRY, moe_impl=args.moe_impl)
     reqs = make_stream(cfg, args.requests, args.rate, args.prompt_len,
                        args.new_tokens, args.seed, shared_prefix=args.shared_prefix,
                        temperature=args.temperature, top_p=args.top_p,
                        sample_seed=args.sample_seed)
+    if args.dp > 1:
+        return serve_routed(params, buffers, cfg, scfg, reqs, tracer, args)
+    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=args.device,
+                                 tracer=tracer, metrics=REGISTRY, moe_impl=args.moe_impl)
     ops.set_kernel_tracer(tracer, device=args.device)
     try:
         report = sched.run(reqs)
@@ -209,17 +231,43 @@ def serve_stream(params, buffers, cfg, args):
               f"({report.block_reuse_ratio:.2f}x)")
     print(f"phases: {report.phase_table()} "
           f"(step wall {report.step_wall_ms_total:.0f}ms)")
+    write_observability(tracer, args)
+    return report
+
+
+def write_observability(tracer, args) -> None:
+    """Write the trace and the metrics registry where the flags ask."""
     if tracer is not None:
         path = write_chrome_trace(args.trace, tracer)
-        print(f"trace: {report.trace_events} events "
-              f"({report.trace_dropped} dropped by the ring) -> {path} "
+        print(f"trace: {tracer.emitted} events "
+              f"({tracer.dropped} dropped by the ring) -> {path} "
               f"(open in https://ui.perfetto.dev)")
     if args.metrics_out:
         with open(args.metrics_out, "w", encoding="utf-8") as f:
             f.write(REGISTRY.to_prometheus())
         print(f"metrics: {len(REGISTRY.names())} instruments -> "
               f"{args.metrics_out} (Prometheus text format)")
-    return report
+
+
+def serve_routed(params, buffers, cfg, scfg, reqs, tracer, args):
+    """``--dp N``: the stream through ``N`` Scheduler replicas behind the
+    router, placed by ``launch/mesh.py::replica_devices``."""
+    devices = replica_devices(dp=args.dp, device=args.device, tp=args.tp)
+    router = Router(params, buffers, cfg, scfg, num_replicas=args.dp, devices=devices,
+                    moe_impl=args.moe_impl, tracer=tracer, metrics=REGISTRY)
+    ops.set_kernel_tracer(tracer, device=devices)
+    try:
+        rep = router.run(reqs)
+    finally:
+        ops.set_kernel_tracer(None)
+    pool0 = router.replicas[0].pool
+    print(f"arch={cfg.name} stream [tp={args.tp} dp={args.dp} "
+          f"devices={','.join(map(str, router.devices))}]: {rep.summary()}")
+    print(rep.per_replica_table())
+    print(f"pool: {pool0.bytes_per_token()}B/token; {args.dp} replicas x "
+          f"{scfg.num_blocks} blocks x {scfg.block_size} tokens")
+    write_observability(tracer, args)
+    return rep
 
 
 def serve_batch(params, buffers, cfg, base, args):
@@ -335,8 +383,21 @@ def main(argv=None):
     ap.add_argument("--moe-impl", choices=("ragged", "dense", "ep"), default="ragged",
                     help="MoE dispatch: ragged (sorted groups) or the dense "
                          "oracle; ep is not ported (ValueError)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel width inside a replica (not ported: "
+                         "tp > 1 raises ValueError)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel replicas: N independent schedulers "
+                         "behind a least-loaded router (a bare --device cuda "
+                         "needs N cards; cuda:0 or cpu hosts them all)")
     args = ap.parse_args(argv)
     moe.check_impl(args.moe_impl)
+    if args.tp < 1 or args.dp < 1:
+        ap.error("--tp and --dp must be >= 1")
+    if (args.tp > 1 or args.dp > 1) and not args.stream:
+        ap.error("--tp/--dp shard the paged serving path; add --stream")
+    if args.tp > 1 or args.dp > 1:
+        replica_devices(dp=args.dp, device=args.device, tp=args.tp)   # placement errors first
     if get_config(args.arch).frontend == "audio":
         raise ValueError(f"{args.arch} is an audio model with no token embedding: it "
                          "takes frame embeddings through lm's entry points, not the "

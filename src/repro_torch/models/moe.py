@@ -145,7 +145,7 @@ def check_impl(impl: str) -> None:
     not ported)."""
     if impl == "ep":
         raise ValueError("moe impl 'ep' (expert parallelism over a device mesh) is not "
-                         "ported: ROADMAP Queue 1 item 15 (multi-GPU)")
+                         "ported: ROADMAP Queue 1 item 15d (training across cards)")
     if impl not in ("dense", "ragged"):
         raise ValueError(f"unknown moe impl {impl!r}: expected dense or ragged")
 

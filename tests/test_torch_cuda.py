@@ -1280,3 +1280,64 @@ def test_dryrun_peak_matches_the_card(shape, size, cuda):
     pred = rec["memory"]["peak_estimate_bytes"]
     assert abs(pred - measured) <= max(0.03 * measured, 256 * 2**20), (pred, measured)
     assert launches == {k: v["calls"] for k, v in rec["kernels"].items()}
+
+
+NEAR_TIE = 1e-3          # chip_smoke.py's: a top-2 margin f32 rounding may decide
+
+
+def _near_tie_margin(params, buffers, cfg, tokens, dev) -> float:
+    """Top-1/top-2 margin of the next token after ``tokens`` (a one-shot
+    prefill into a fresh pool), as chip_smoke.py's ``near_tie_margin``."""
+    from repro_torch.core.cache import PagedKVPool
+    n = len(tokens)
+    pool = PagedKVPool(cfg, -(-n // 16), 16, device=dev)
+    pool.ensure_capacity(0, n)
+    sm = pool.prefill_slot_mapping(0, 0, n, n)[None]
+    logits = lm.apply_prefill_paged(
+        params, buffers, cfg, torch.from_numpy(np.asarray(tokens, np.int32)[None]).to(dev),
+        pool.pages, torch.from_numpy(sm))
+    top = torch.topk(logits[0, n - 1].double(), 2).values
+    return float(top[0] - top[1])
+
+
+@pytest.mark.parametrize("name", ["plain", "recompute", "prefix", "int8", "spec"])
+def test_router_on_card_matches_one_scheduler(name, cuda):
+    """Two replicas sharing the card against one Scheduler on the same
+    requests (sharded_check's): a stream may part only where the single
+    scheduler's token is a near-tie (margin under NEAR_TIE), and each
+    replica launched exactly its own forwards' kernels."""
+    from repro_torch.runtime import sharded_check
+    from repro_torch.runtime.router import Router
+    cfg, params, buffers, prompts = sharded_check.tiny_model(cuda)
+    knobs, req = sharded_check.scenario_knobs(name)
+    scfg = serve_loop.SchedulerConfig(max_slots=2, block_size=8, num_blocks=24,
+                                      prefill_chunk_tokens=8,
+                                      max_new_tokens=sharded_check.NEW_TOKENS, **knobs)
+    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=cuda)
+    sched.run(sharded_check.build_requests(prompts, **req))
+    ops.reset_launches()
+    router = Router(params, buffers, cfg, scfg, num_replicas=2, devices=[cuda, cuda])
+    rep = router.run(sharded_check.build_requests(prompts, **req))
+    total = {k: v for k, v in ops.launches().items() if v}
+    assert router.devices == [torch.device("cuda", 0)] * 2
+    assert all(r.params is params for r in router.replicas)
+    L = cfg.num_layers
+    for r, n in zip(rep.replicas, rep.launches):
+        sfx = "_q8" if scfg.cache_dtype == "int8" else ""
+        want = {"flash_prefill": r.prefill_chunks * L,
+                "rope_elite": (r.prefill_chunks + r.decode_steps + r.draft_forwards) * L}
+        if scfg.speculate_k:
+            want.update({"elite_verify_paged" + sfx: r.decode_steps * L,
+                         "elite_decode_paged" + sfx: r.draft_forwards * L})
+        else:
+            want["elite_decode_paged" + sfx] = r.decode_steps * L
+        assert n == want and all(want.values())
+    assert total == {k: sum(n.get(k, 0) for n in rep.launches) for k in total}
+    got = router.finished_tokens()
+    for r in sched.finished:
+        diff = [t for t, (a, b) in enumerate(zip(got[r.uid], r.generated)) if a != b]
+        if diff:
+            ctx = list(r.prompt) + r.generated[:diff[0]]
+            assert _near_tie_margin(params, buffers, cfg, ctx, cuda) < NEAR_TIE, r.uid
+        else:
+            assert got[r.uid] == r.generated

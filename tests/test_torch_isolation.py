@@ -36,3 +36,15 @@ def test_no_source_file_names_jax_or_the_reference():
     assert files
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
+
+
+def test_router_modules_load_no_jax():
+    """The replica router, its check and the placement rules stand alone."""
+    probe = ("import sys\n"
+             "import repro_torch.runtime.router, repro_torch.runtime.sharded_check\n"
+             "import repro_torch.launch.mesh, repro_torch.launch.serve\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(PORT.parent)), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
