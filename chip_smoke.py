@@ -144,6 +144,21 @@ non-zero:
       subprocess; ``build/obs/router_plain.*``); so must the files of
       ``launch/serve.py --stream --dp 2 --trace`` run in a fresh process,
       where no kernel is loaded yet (``build/obs/router_cli.*``).
+   q. tensor-parallel attention (runs after p, on a's model): the paged
+      forwards (``models/lm.py``, ``mesh=``) at tp 1, 2 and 4 on a
+      ``TPMesh`` whose shards all sit on the one card, in four pools of
+      blocks of 16 (f32 and int8, each without and with block summaries):
+      a prefill of 4 lanes of 64-256 prompt tokens, the longest resumed as
+      a second chunk, then 32 dense decode steps and a verify window of 3
+      (or, with summaries, 8 sparse steps, k = 4 + 2).  Every logits row at
+      tp 2 and 4 must equal tp 1's bit for bit; each run's launches must be
+      its forwards' (the attention kernels ``tp`` times per layer and
+      forward, ``flash_prefill`` and ``rope_elite`` as at tp 1).  Printed:
+      the pool's bytes per token globally and per device, the decode
+      step's p50 (CUDA events) and the launches per tp, and
+      ``elite_decode_paged`` at a shard's widths (nkv 2 and 1, as launched:
+      the unsharded call's split ranges) against its plain version, timed
+      with its bound beside the unsharded call of the same step.
    i. conversion (the paper's §3): the baseline TinyLlama-1.1B of f,
       4 x 512 random calibration tokens, ``capture_attn_inputs`` and a
       greedy RoPElite search at r = 8 per layer (``rope_elite`` 22 times in
@@ -922,11 +937,11 @@ class Recorder:
         counts = dict.fromkeys(names, 0)
 
         def wrap(name):
-            def fn(*a):
+            def fn(*a, **kw):
                 if counts[name] % self.n == 0:
                     self.calls[name].append(a)
                 counts[name] += 1
-                return self.orig[name](*a)
+                return self.orig[name](*a, **kw)
             return fn
 
         for k in names:
@@ -1824,6 +1839,179 @@ def data_parallel(params, buffers, cfg, dev, card: str) -> dict:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     out["wall"] = time.perf_counter() - t_phase
     print(f"[{card}] phase 3p (data-parallel router) {out['wall']:.1f} s", flush=True)
+    return out
+
+
+# -- tensor-parallel paged attention (phase 3q) -----------------------------------
+TP_PROMPTS = (64, 131, 200, 256)   # the four lanes' prompt tokens
+TP_FIRST_CHUNK = 128               # the last lane's first chunk; its rest is resumed
+TP_DECODE, TP_SPARSE, TP_W, TP_MB = 32, 8, 3, 24
+TP_POOLS = (("f32", {}), ("int8", dict(dtype="int8")),
+            ("f32 + summaries", dict(block_summaries=True)),
+            ("int8 + summaries", dict(dtype="int8", block_summaries=True)))
+
+
+def tp_forwards(params, buffers, cfg, mesh, pool_kw: dict):
+    """One tp's forwards of phase 3q on a fresh pool over ``mesh``: a
+    prefill of 4 lanes (the last lane's first chunk), that lane's second
+    chunk resumed, then on a pool without summaries ``TP_DECODE`` dense
+    decode steps and one verify window of ``TP_W``, on one with summaries
+    ``TP_SPARSE`` sparse steps (k = 4 + 2).  Tokens are seeded, the same
+    at every tp.  → (every forward's logits, the decode steps' device ms,
+    the pool)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cache import PagedKVPool
+    from repro_torch.models import lm
+    rng = np.random.default_rng(32)
+    bs = 16
+    pool = PagedKVPool(cfg, 4 * TP_MB, bs, mesh=mesh, **pool_kw)
+    dev = mesh.devices[0]
+    tok = lambda *s: torch.as_tensor(rng.integers(0, cfg.vocab_size, s), device=dev)
+    lanes = list(range(len(TP_PROMPTS)))
+    first = [min(n, TP_FIRST_CHUNK) if b == lanes[-1] else n for b, n in enumerate(TP_PROMPTS)]
+    S = max(first)
+    for b, n in zip(lanes, first):
+        pool.ensure_capacity(b, n)
+    sm = np.stack([pool.prefill_slot_mapping(b, 0, n, S) for b, n in zip(lanes, first)])
+    out = [lm.apply_prefill_paged(params, buffers, cfg, tok(len(lanes), S), pool.pages,
+                                  torch.from_numpy(sm), mesh=mesh)]
+    b, start = lanes[-1], first[-1]
+    n = TP_PROMPTS[-1] - start
+    pool.ensure_capacity(b, start + n)
+    cs = np.asarray([start], np.int32)
+    out.append(lm.apply_prefill_paged(
+        params, buffers, cfg, tok(1, n), pool.pages,
+        torch.from_numpy(pool.prefill_slot_mapping(b, start, n, n)[None]), chunk_start=cs,
+        block_tables=pool.block_table_array([b], TP_MB), prefix_lens=cs, block_size=bs,
+        mesh=mesh))
+    sparse = pool_kw.get("block_summaries", False)
+    kw = dict(sparse_topk=4, sparse_recent=2) if sparse else {}
+    step_ms = []
+    for _ in range(TP_SPARSE if sparse else TP_DECODE):
+        lengths = np.asarray([pool.length(s) + 1 for s in lanes], np.int32)
+        for s in lanes:
+            pool.ensure_capacity(s, int(lengths[s]))
+        sm = pool.slot_mapping(lanes, (lengths - 1).tolist())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out.append(lm.apply_decode_paged(params, buffers, cfg, tok(len(lanes), 1), pool.pages,
+                                         torch.from_numpy(sm),
+                                         pool.block_table_array(lanes, TP_MB), lengths, bs,
+                                         mesh=mesh, **kw))
+        ev[1].record()
+        step_ms.append(ev)
+    if not sparse:
+        offs = np.asarray([pool.length(s) for s in lanes], np.int32)
+        for s in lanes:
+            pool.ensure_capacity(s, int(offs[s]) + TP_W)
+        sm = np.stack([pool.prefill_slot_mapping(s, int(offs[s]), TP_W, TP_W) for s in lanes])
+        out.append(lm.apply_verify_paged(params, buffers, cfg, tok(len(lanes), TP_W),
+                                         pool.pages, torch.from_numpy(sm),
+                                         pool.block_table_array(lanes, TP_MB), offs,
+                                         offs + TP_W, bs, mesh=mesh))
+    torch.cuda.synchronize()
+    return out, [s.elapsed_time(e) for s, e in step_ms], pool
+
+
+def tensor_parallel(params, buffers, cfg, dev, card: str) -> dict:
+    """Phase 3q: the paged forwards of phase 3's TinyLlama-1.1B (22 layers,
+    full width) at tp 1, 2 and 4 on a ``TPMesh`` of the one card, in four
+    pools (f32, int8, each with and without block summaries): every logits
+    row at tp 2 and 4 bitwise equal to tp 1, each run's launches those of
+    its forwards (the attention kernels ``tp`` times per layer and
+    forward), and ``elite_decode_paged`` at a shard's widths (PERF.md row
+    1t) against its plain version, timed with its bound.  → figures."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import elite_decode as ed
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.elite_decode import decode_cost
+    from repro_torch.launch.mesh import TPMesh
+    t_phase = time.perf_counter()
+    L = cfg.n_attn_layers
+    out = {"runs": {}, "rows": []}
+    shard_calls = {}
+    with torch.no_grad():
+        for kind, pool_kw in TP_POOLS:
+            want = None
+            for tp in (1, 2, 4):
+                mesh = TPMesh.on(dev, tp)
+                rec = (Recorder(L * tp, names=("elite_decode_paged",))
+                       if kind == "f32" else None)
+                ops.reset_launches()
+                try:
+                    logits, step_ms, pool = tp_forwards(params, buffers, cfg, mesh, pool_kw)
+                    launches = {k: v for k, v in ops.launches().items() if v}
+                finally:
+                    if rec is not None:
+                        rec.close()
+                if rec is not None:
+                    shard_calls[tp] = rec.calls["elite_decode_paged"][-1], launches[
+                        "elite_decode_paged"]
+                sparse = "summaries" in kind
+                q8 = "_q8" if "int8" in kind else ""
+                steps = TP_SPARSE if sparse else TP_DECODE
+                expect = {"flash_prefill": 2 * L,
+                          "rope_elite": (2 + steps + (0 if sparse else 1)) * L,
+                          f"elite_decode_{'sparse_' if sparse else ''}paged{q8}": steps * L * tp}
+                if not sparse:
+                    expect["elite_verify_paged" + q8] = L * tp
+                if launches != expect:
+                    raise AssertionError(f"3q {kind} tp={tp}: launches {launches} != the "
+                                         f"forwards' {expect}")
+                for x in logits:
+                    if not bool(torch.isfinite(x[..., :cfg.vocab_size]).all()):
+                        raise AssertionError(f"3q {kind} tp={tp}: logits not finite")
+                if want is None:
+                    want = logits
+                else:
+                    bad = [i for i, (g, w) in enumerate(zip(logits, want))
+                           if not torch.equal(g, w)]
+                    if len(logits) != len(want) or bad:
+                        d = max(float((logits[i] - want[i]).abs().max()) for i in bad)
+                        raise AssertionError(f"3q {kind} tp={tp}: forwards {bad} differ from "
+                                             f"tp 1's (max |d| {d:.3e})")
+                rows = sum(x.shape[0] * x.shape[1] for x in logits)
+                res = dict(bpt=pool.bytes_per_token(),
+                           bpt_dev=pool.bytes_per_token_per_device(),
+                           step_p50=float(np.median(step_ms)), launches=launches, rows=rows)
+                out["runs"][(kind, tp)] = res
+                print(f"[{card}] 3q {kind} tp={tp}: {len(logits)} forwards, {rows} logits rows"
+                      f"{' bitwise equal to tp 1' if tp > 1 else ''}; pool bytes per token "
+                      f"{res['bpt']} global, {res['bpt_dev']} per device; "
+                      f"{'sparse' if sparse else 'dense'} decode step p50 "
+                      f"{res['step_p50']:.3f} ms (CUDA events, {len(step_ms)} steps); "
+                      f"launches {launches}", flush=True)
+                del logits, pool
+            del want
+    # PERF.md row 1t: elite_decode_paged at a shard's widths, beside row 1 at
+    # the same step (tp 1), each as the main path launched it
+    scratch = torch.empty(64 * 2**20 // 4, device=dev)
+    nkv = cfg.n_kv_heads
+    for tp, (a, n) in sorted(shard_calls.items()):
+        got = ed.elite_decode_paged(*a, split_nkv=nkv)
+        err = check(f"3q elite_decode_paged tp={tp} shard (nkv {a[2].shape[1]})",
+                    max_err(got, ref.elite_decode_paged_ref(*a)), card)
+        nbytes, flops = decode_cost("elite_decode_paged", a)
+        t_bound, by = bound(nbytes, flops)
+        row = dict(tp=tp, nkv=a[2].shape[1], launches=n, max_abs_err=err,
+                   ms=time_ms(lambda: ed.elite_decode_paged(*a, split_nkv=nkv),
+                              flush=scratch.zero_),
+                   plain_ms=time_ms(lambda: ref.elite_decode_paged_ref(*a), flush=scratch.zero_),
+                   bound_ms=t_bound, bound_by=by,
+                   plan=plan_line(ed.plan_for("elite_decode_paged", a,
+                                              ed.sm_count(a[0].device),
+                                              ed.smem_optin_limit(a[0].device),
+                                              split_nkv=nkv)))
+        out["rows"].append(row)
+        print(f"[{card}] 3q elite_decode_paged at tp={tp} (nkv {row['nkv']} per shard, "
+              f"B={a[0].shape[0]} lengths={a[6].tolist()}): {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms ({by}), launches "
+              f"{n} in the f32 run; {row['plan']}", flush=True)
+    del scratch
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 3q (tensor-parallel attention) {out['wall']:.1f} s", flush=True)
     return out
 
 
@@ -4211,6 +4399,9 @@ def main() -> int:
     # p. the data-parallel router: two replicas sharing the card against one
     # Scheduler, every sharded_check scenario and a sampled one
     dp3p = data_parallel(params, buffers, cfg, dev, card)
+    # q. tensor-parallel attention: the paged forwards at tp 1, 2 and 4 on
+    # a TPMesh of the card, bitwise equal
+    tp3q = tensor_parallel(params, buffers, cfg, dev, card)
 
     # i. conversion of the baseline TinyLlama-1.1B, and the converted model
     # served; k. that model uptrained, resumed and served; j. MiniCPM-2B
@@ -4716,6 +4907,17 @@ def main() -> int:
               + (f"; rows bitwise equal {agree['bitwise']}/{agree['rows']}, max |d| "
                  f"{agree['max_d']:.3e}" if agree else ""), flush=True)
 
+    # phase 3q's numbers
+    for (kind, tp), x in tp3q["runs"].items():
+        print(f"[{card}] 3q {kind} tp={tp}: bytes_per_token_per_device {x['bpt_dev']} "
+              f"(global {x['bpt']}), decode step p50 {x['step_p50']:.3f} ms, launches "
+              f"{x['launches']}", flush=True)
+    for r in tp3q["rows"]:
+        print(f"[{card}] 3q row 1t elite_decode_paged tp={r['tp']} shard (nkv {r['nkv']}): "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}), launches {r['launches']}, max_abs_err "
+              f"{r['max_abs_err']:.3e}", flush=True)
+
     # -- 5. result lines -----------------------------------------------------
     t = train3k
     print(f"[{card}] uptraining (3k): step_ms p50 {t['step_ms_p50']:.1f}, tokens/s "
@@ -4727,7 +4929,8 @@ def main() -> int:
           f"hybrid) {hyb['wall']:.1f} s, 3m (frontends) {fronts['wall']:.1f} s and 3n (MoE, "
           f"Mamba and hybrid training and conversion) {tr3n['wall']:.1f} s, 3o (the dry run "
           f"against the card) {dry['wall']:.1f} s, 3p (the data-parallel router) "
-          f"{dp3p['wall']:.1f} s; the whole script "
+          f"{dp3p['wall']:.1f} s, 3q (tensor-parallel attention) {tp3q['wall']:.1f} s; "
+          f"the whole script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if not (isinstance(rows, list) and rows and all(isinstance(r, dict) for r in rows)):
         raise AssertionError(f"the kernel rows are {rows!r}")

@@ -42,7 +42,17 @@ and ``retain`` as blocks change hands, ``share``, ``cow`` and
 spans over the host window of a swap, whose device copy on the card adds a
 ``device_ms`` argument read when the trace is (two CUDA events, no wait).
 
-Not ported: tensor-parallel page placement.
+Tensor-parallel placement (``mesh=``, a ``launch.mesh.TPMesh`` of ``tp >
+1`` devices) follows ``distributed/sharding.py::serving_page_pspecs``:
+``k_e`` is split over its kv heads, shard ``r`` ``[L, n_slots, n_kv/tp,
+2r]`` on ``devices[r]``, and every other leaf (latents, int8 scales, block
+summaries) is replicated, stored once per distinct device.  Each leaf of
+such a pool's ``pages["p0"]`` is then a tuple of ``tp`` tensors, entry
+``r`` the one shard ``r`` reads (one object for the shards of one device).
+The host bookkeeping (block ids, chains, refcounts, prefix hashes) is the
+same at any tp, and every write of page contents (the forwards' scatter,
+copy-on-write, swap-in) goes to every shard and copy (``put_rows``), so the
+shards gathered hold a tp-1 pool's bytes.
 """
 from __future__ import annotations
 
@@ -56,6 +66,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
+from repro_torch.distributed.sharding import plan_for_mesh, serving_page_pspecs
 from repro_torch.obs.trace import NULL_TRACER, DeviceDuration
 
 #: per-block latent summary leaves of a ``block_summaries=True`` pool
@@ -65,6 +76,53 @@ BLOCK_SUMMARY_SUFFIXES = ("_blkmean", "_blkmax")
 def is_block_summary(name: str) -> bool:
     """True for page leaves indexed by block rather than by slot."""
     return name.endswith(BLOCK_SUMMARY_SUFFIXES)
+
+
+#: the page leaf a tensor-parallel pool splits, over its kv heads: the axis
+#: after the slot axis (``serving_page_pspecs``)
+HEAD_SPLIT = "k_e"
+
+
+def first(leaf) -> torch.Tensor:
+    """A page leaf's tensor, or the first shard's of a sharded pool's tuple
+    (for a replicated leaf, its copy on the mesh's first device)."""
+    return leaf if torch.is_tensor(leaf) else leaf[0]
+
+
+def leaf_copies(leaf) -> List[torch.Tensor]:
+    """The distinct tensors of a page leaf: the leaf itself, or each tensor
+    of a sharded pool's per-shard tuple once."""
+    if torch.is_tensor(leaf):
+        return [leaf]
+    return list({id(t): t for t in leaf}.values())
+
+
+def put_rows(name: str, leaf, dim: int, index: torch.Tensor, src: torch.Tensor) -> None:
+    """``index_copy_(dim, index, src)`` into page leaf ``name`` on every
+    shard: a tensor as it is; shard ``r`` of a split ``k_e`` takes its kv
+    heads of ``src`` (the axis after ``dim``), every distinct copy of a
+    replicated leaf all of ``src``."""
+    if torch.is_tensor(leaf):
+        leaf.index_copy_(dim, index, src)
+    elif name == HEAD_SPLIT:
+        h = src.shape[dim + 1] // len(leaf)
+        for r, t in enumerate(leaf):
+            t.index_copy_(dim, index.to(t.device), src.narrow(dim + 1, r * h, h).to(t.device))
+    else:
+        for t in leaf_copies(leaf):
+            t.index_copy_(dim, index.to(t.device), src.to(t.device))
+
+
+def take_rows(name: str, leaf, dim: int, index: torch.Tensor, out: torch.Tensor) -> None:
+    """Rows ``index`` of page leaf ``name``'s axis ``dim`` with every kv
+    head into ``out`` (on the device of the leaf's first tensor): a split
+    ``k_e``'s shards read and concatenated in shard order, a replicated
+    leaf read from its first copy."""
+    if name != HEAD_SPLIT or torch.is_tensor(leaf):
+        torch.index_select(first(leaf), dim, index, out=out)
+    else:
+        torch.cat([torch.index_select(t, dim, index.to(t.device)).to(out.device)
+                   for t in leaf], dim + 1, out=out)
 
 
 #: the hash chain's root "parent" digest (the reference's, so keys agree)
@@ -273,12 +331,15 @@ class PagedKVPool:
     flat slot ``b · block_size + t``.  ``dtype`` is ``"float32"`` or
     ``"int8"`` (or the torch dtype).  ``tracer`` receives the pool events.
     Only attention-only stacks of one layer position page (dense, or MoE
-    in every layer); any other is a ``ValueError``.
+    in every layer); any other is a ``ValueError``.  ``mesh`` (a
+    ``TPMesh``) places the pages over its devices (module docstring) and
+    takes the place of ``device``, which becomes ``devices[0]``; a ``tp``
+    that does not divide the kv heads is a ``ValueError``.
     """
 
     def __init__(self, cfg: ModelConfig, num_blocks: int, block_size: int,
                  device="cuda", dtype="float32", block_summaries: bool = False,
-                 tracer=None):
+                 tracer=None, mesh=None):
         if not cfg.elitekv.enabled:
             raise ValueError("the paged pool stores EliteKV compressed streams only")
         if cfg.n_attn_layers != cfg.num_layers:
@@ -295,7 +356,13 @@ class PagedKVPool:
         self.cfg = cfg
         self.block_size = block_size
         self.num_blocks = num_blocks
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.tp
+        if cfg.n_kv_heads % self.tp:
+            raise ValueError(f"tp={self.tp} does not divide {cfg.name}'s {cfg.n_kv_heads} kv "
+                             f"heads: pad the config first "
+                             f"(distributed/sharding.py::pad_cfg_for_tp)")
+        self.device = torch.device(device) if mesh is None else mesh.devices[0]
         self.allocator = BlockAllocator(num_blocks)
         self._tables: Dict[int, List[int]] = {}   # seq_id → block chain
         self._lengths: Dict[int, int] = {}        # seq_id → live token count
@@ -310,17 +377,36 @@ class PagedKVPool:
         else:
             tails["c_k"] = (e.d_ck,)
             tails["c_v"] = (e.d_cv,)
-        L, dev = cfg.num_layers, self.device
-        leaves = {}
+        L = cfg.num_layers
+        shapes = {}
         for name, tail in tails.items():
-            leaves[name] = torch.zeros((L, n_slots) + tail, dtype=self.dtype, device=dev)
+            shapes[name] = ((L, n_slots) + tail, self.dtype)
             if quantized:
-                leaves[name + "_scale"] = torch.zeros((L, n_slots), device=dev)
+                shapes[name + "_scale"] = ((L, n_slots), torch.float32)
         if block_summaries:
             key = "c" if e.lrd == "joint" else "c_k"
             for sfx in BLOCK_SUMMARY_SUFFIXES:
-                leaves[key + sfx] = torch.zeros((L, num_blocks) + tails[key], device=dev)
+                shapes[key + sfx] = ((L, num_blocks) + tails[key], torch.float32)
+        if self.tp == 1:
+            leaves = {name: torch.zeros(shape, dtype=dt, device=self.device)
+                      for name, (shape, dt) in shapes.items()}
+        else:
+            specs = serving_page_pspecs(cfg, plan_for_mesh({"model": self.tp}))
+            leaves = {name: self._placed(shape, dt, specs[name])
+                      for name, (shape, dt) in shapes.items()}
         self.pages = {"p0": leaves}
+
+    def _placed(self, shape, dtype, spec) -> tuple:
+        """A leaf of ``shape`` over the mesh by its ``spec``: split on the
+        axis the spec gives the TP axis (one shard per device of the mesh),
+        else one replica per distinct device."""
+        devices = self.mesh.devices
+        if "model" in spec:
+            axis = spec.index("model")
+            shape = shape[:axis] + (shape[axis] // self.tp,) + shape[axis + 1:]
+            return tuple(torch.zeros(shape, dtype=dtype, device=d) for d in devices)
+        copies = {d: torch.zeros(shape, dtype=dtype, device=d) for d in self.mesh.distinct()}
+        return tuple(copies[d] for d in devices)
 
     # -- allocation (prefix-cache aware) ------------------------------------
     def _alloc(self, n: int) -> List[int]:
@@ -408,11 +494,12 @@ class PagedKVPool:
             b = table[bi]
             if self._refcount.get(b, 0) > 1:
                 new = self._alloc(1)[0]
-                for name, arr in self.pages["p0"].items():
-                    if is_block_summary(name):
-                        arr[:, new] = arr[:, b]
-                    else:
-                        arr[:, new * bs:(new + 1) * bs] = arr[:, b * bs:(b + 1) * bs]
+                for name, leaf in self.pages["p0"].items():
+                    for arr in leaf_copies(leaf):      # every shard and copy
+                        if is_block_summary(name):
+                            arr[:, new] = arr[:, b]
+                        else:
+                            arr[:, new * bs:(new + 1) * bs] = arr[:, b * bs:(b + 1) * bs]
                 self._refcount[b] -= 1
                 table[bi] = new
                 self.cow_copies += 1
@@ -523,13 +610,36 @@ class PagedKVPool:
         whatever the pool's dtype)."""
         return model_cache_floats_per_token(self.cfg)
 
+    def _leaf_bytes(self, name: str, leaf) -> int:
+        """A leaf's bytes as one device would hold it whole: a split
+        ``k_e``'s shards summed, a replicated leaf once."""
+        parts = leaf if name == HEAD_SPLIT and not torch.is_tensor(leaf) else [first(leaf)]
+        return sum(t.numel() * t.element_size() for t in parts)
+
     def bytes_per_token(self) -> int:
         """Pool bytes per token slot, summed over every page leaf: int8 rows
         and their f32 scales in a quantized pool, and the block summaries
-        spread over their blocks' slots."""
+        spread over their blocks' slots.  Global: a sharded pool counts its
+        split ``k_e`` whole and each replicated leaf once."""
         n_slots = self.num_blocks * self.block_size
-        return sum(a.numel() * a.element_size() // n_slots
-                   for layer in self.pages.values() for a in layer.values())
+        return sum(self._leaf_bytes(name, a) // n_slots
+                   for layer in self.pages.values() for name, a in layer.items())
+
+    def bytes_per_token_per_device(self) -> int:
+        """Pool bytes per token slot resident on each device of the mesh:
+        the split ``k_e`` counts ``1/tp`` of its bytes, every replicated
+        leaf in full (the reference's formula).  ``bytes_per_token()`` at
+        tp 1."""
+        n_slots = self.num_blocks * self.block_size
+        return sum(self._leaf_bytes(name, a) // (self.tp if name == HEAD_SPLIT else 1)
+                   // n_slots for layer in self.pages.values() for name, a in layer.items())
+
+    def leaf_shape(self, name: str) -> Tuple[int, ...]:
+        """Page leaf ``name``'s shape with every kv head (a tp-1 pool's)."""
+        t = first(self.pages["p0"][name])
+        if name == HEAD_SPLIT and self.tp > 1:
+            return tuple(t.shape[:2]) + (t.shape[2] * self.tp,) + tuple(t.shape[3:])
+        return tuple(t.shape)
 
     def stats(self) -> PoolStats:
         live = sum(self._lengths.values())
@@ -745,17 +855,19 @@ class BlockManager:
             chain = torch.as_tensor(pool.block_table(seq_id)[:-(-length // pool.block_size)],
                                     dtype=torch.int64, device=dev)
             layout, off = [], 0
-            for name, arr in pool.pages["p0"].items():
+            for name, leaf in pool.pages["p0"].items():
                 n = len(chain) if is_block_summary(name) else length
-                shape = (arr.shape[0], n) + tuple(arr.shape[2:])
-                layout.append((name, arr.dtype, shape, off))
-                off += -(-_nbytes(arr.dtype, shape) // 16) * 16     # 16-byte aligned leaves
+                full = pool.leaf_shape(name)
+                shape = (full[0], n) + full[2:]
+                dtype = first(leaf).dtype
+                layout.append((name, dtype, shape, off))
+                off += -(-_nbytes(dtype, shape) // 16) * 16     # 16-byte aligned leaves
             if ev:
                 ev[0].record(torch.cuda.current_stream(dev))
             staging = torch.empty(off, dtype=torch.uint8, device=dev)
             for name, view in _unpack(staging, layout).items():
                 idx = chain if is_block_summary(name) else slots
-                torch.index_select(pool.pages["p0"][name], 1, idx, out=view)
+                take_rows(name, pool.pages["p0"][name], 1, idx, view)
             ready = None
             if dev.type == "cuda":
                 host = torch.empty(off, dtype=torch.uint8, pin_memory=True)
@@ -796,7 +908,7 @@ class BlockManager:
             staged = swapped.host.to(dev, non_blocking=True)
             for name, view in _unpack(staged, swapped.layout).items():
                 idx = chain if is_block_summary(name) else slots
-                pool.pages["p0"][name].index_copy_(1, idx, view)
+                put_rows(name, pool.pages["p0"][name], 1, idx, view)
             if ev:
                 ev[1].record(torch.cuda.current_stream(dev))
         self.swap_ins += 1

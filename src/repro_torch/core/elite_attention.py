@@ -57,6 +57,15 @@ of every path projects q_e and k_e first and rotates them together in one
 grad that launch is differentiable on the card (``kernels/ops.py``), so
 ``wk_e`` and the elite columns of ``wq`` get their gradients through it.
 
+Tensor parallelism (``mesh=``, a ``launch.mesh.TPMesh``, on a pool placed
+over it): decode and verify attend through ``kernels/ops.py``'s ``*_tp``
+wrappers, each head shard over its own ``k_e`` pages; the block selection
+runs once, on the full-head query.  Everything else runs full-head on the
+mesh's first device, as at tp 1: the projections, the ``bk``/``bv``
+absorption, the ``wo`` contraction and prefill, whose chain gather
+reassembles ``k_e`` from the shards first (``_full_heads``, the reference's
+``_pin``).  So a logits row's bits do not depend on tp.
+
 Prefill routing differs from the reference, which attends through XLA
 (``_attend`` for fresh chunks, ``_attend_resumed`` over a gathered prefix):
 here every prefill attention is the ``flash_prefill`` kernel, whose contract
@@ -77,7 +86,7 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.core import rope as rope_lib
-from repro_torch.core.cache import BLOCK_SUMMARY_SUFFIXES
+from repro_torch.core.cache import BLOCK_SUMMARY_SUFFIXES, HEAD_SPLIT, first, put_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_pages
 from repro_torch.models.attention import _attend
@@ -261,7 +270,10 @@ def _scatter_pages(pages, k_e_new, c_k_new, c_v_new, writes: Writes) -> None:
     k_e_new [N,nkv,2r], c_*_new [N,dc].  An int8 pool gets each row
     quantized here, with its scale written to the same slot of
     ``<name>_scale``; a pool with block summaries gets the touched blocks'
-    summaries recomputed after the write."""
+    summaries recomputed after the write.  A tensor-parallel pool's shards
+    each get their kv heads of ``k_e`` (quantized whole: a scale is per
+    slot) and every copy of the replicated leaves all of theirs
+    (``cache.put_rows``)."""
     rows, slots = writes
     quantized = "k_e_scale" in pages
 
@@ -269,8 +281,8 @@ def _scatter_pages(pages, k_e_new, c_k_new, c_v_new, writes: Writes) -> None:
         val = val[rows]
         if quantized:
             val, s = quant.quantize_rows(val)
-            pages[name + "_scale"].index_copy_(0, slots, s)
-        pages[name].index_copy_(0, slots, val.to(pages[name].dtype))
+            put_rows(name + "_scale", pages[name + "_scale"], 0, slots, s)
+        put_rows(name, pages[name], 0, slots, val.to(first(pages[name]).dtype))
 
     put("k_e", k_e_new)
     if "c" in pages:
@@ -294,25 +306,27 @@ def _update_block_summaries(pages, key: str, slots: torch.Tensor) -> None:
     in an int8 pool, dequantized) ``key`` stream.  A block's valid height is
     its largest offset written in this call plus one, since writes within a
     block are sequential.  Each touched block is written once: on the card
-    ``index_copy_`` with a repeated index has no defined winner."""
-    mean_buf, max_buf = (pages[key + sfx] for sfx in BLOCK_SUMMARY_SUFFIXES)
-    n_blocks = mean_buf.shape[0]
-    bs = pages[key].shape[0] // n_blocks
+    ``index_copy_`` with a repeated index has no defined winner.  A
+    tensor-parallel pool's summaries are computed once, from the first copy
+    of the latent, and written to every copy."""
+    n_blocks = first(pages[key + BLOCK_SUMMARY_SUFFIXES[0]]).shape[0]
+    latent = first(pages[key])
+    bs = latent.shape[0] // n_blocks
     blk = slots // bs
     height = torch.zeros(n_blocks, dtype=slots.dtype, device=slots.device)
     height.scatter_reduce_(0, blk, slots % bs + 1, "amax")
     blocks = torch.unique(blk)
     counts = height[blocks]
     idx = blocks[:, None] * bs + torch.arange(bs, device=slots.device)[None, :]
-    content = pages[key][idx].float()                        # [U, bs, dc]
+    content = latent[idx].float()                            # [U, bs, dc]
     if key + "_scale" in pages:
-        content = content * pages[key + "_scale"][idx][..., None]
+        content = content * first(pages[key + "_scale"])[idx][..., None]
     mask = (torch.arange(bs, device=slots.device)[None, :] < counts[:, None])[..., None]
     zero = torch.zeros((), device=content.device)
     mean = torch.where(mask, content, zero).sum(1) / counts.clamp(min=1)[:, None].float()
     amax = torch.where(mask, content.abs(), zero).amax(1)
-    mean_buf.index_copy_(0, blocks, mean)
-    max_buf.index_copy_(0, blocks, amax)
+    for sfx, val in zip(BLOCK_SUMMARY_SUFFIXES, (mean, amax)):
+        put_rows(key + sfx, pages[key + sfx], 0, blocks, val)
 
 
 def _page_latents(pages):
@@ -335,9 +349,11 @@ def _gather_chain(pages, params, block_tables, block_size: int, dt):
     """Contiguous K/V of each lane's cached chain: block_tables [B, mb] →
     K [B, mb·bs, nkv, dh], V [B, mb·bs, nkv, dh].  Positions past a lane's
     live length land on blocks of other sequences (or the pad block 0); the
-    caller masks them by ``kv_lens``."""
-    gather = lambda a: gather_pages(a, block_tables, block_size)
-    k_e = gather(pages["k_e"]).to(dt)
+    caller masks them by ``kv_lens``.  A tensor-parallel pool's ``k_e`` is
+    reassembled with every kv head on the tables' device before anything
+    is computed from it (``_full_heads``)."""
+    gather = lambda a: gather_pages(first(a), block_tables, block_size)
+    k_e = _full_heads(pages[HEAD_SPLIT], block_tables, block_size).to(dt)
     c_k_pages, c_v_pages = _page_latents(pages)
     c_k = gather(c_k_pages).to(dt)
     c_v = c_k if c_v_pages is c_k_pages else gather(c_v_pages).to(dt)
@@ -348,6 +364,19 @@ def _gather_chain(pages, params, block_tables, block_size: int, dt):
         k_e, c_k = k_e * ks[..., None, None], c_k * cks[..., None]
         c_v = c_k if shared else c_v * cvs[..., None]
     return _up_project(params, k_e, c_k, c_v, dt)
+
+
+def _full_heads(leaf, block_tables, block_size: int):
+    """``k_e`` of each lane's chain with every kv head, ``[B, mb·bs, nkv,
+    2r]`` on the tables' device: a tensor-parallel pool's shards gathered,
+    copied there and concatenated in shard order.  The reference's ``_pin``
+    of its prefix gather to replicated: prefill runs full-head on one
+    device, so the cross-head ``wo`` sum keeps the single-device order."""
+    if torch.is_tensor(leaf):
+        return gather_pages(leaf, block_tables, block_size)
+    dev = block_tables.device
+    return torch.cat([gather_pages(t, block_tables.to(t.device), block_size).to(dev)
+                      for t in leaf], 2)
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +446,7 @@ def _absorbed_out(params, cfg, o, dt):
 
 def apply_decode_paged(params, cfg, buffers, x, pages, writes: Writes,
                        block_tables, lengths, block_size: int,
-                       sparse_topk: int = 0, sparse_recent: int = 0):
+                       sparse_topk: int = 0, sparse_recent: int = 0, mesh=None):
     """Absorbed decode over the block pool — one token per serving lane.
 
     x [B,1,d]; lengths [B] int32, the live length *including* the new token
@@ -426,7 +455,10 @@ def apply_decode_paged(params, cfg, buffers, x, pages, writes: Writes,
     only the ``min(sparse_topk + sparse_recent, mb)`` blocks that
     ``select_topk_blocks`` picks from the pool's block summaries (written by
     the scatter below, so the new token's block is current); it needs a
-    ``block_summaries=True`` pool.
+    ``block_summaries=True`` pool.  ``mesh`` (a ``TPMesh`` over which
+    ``pages`` are placed) runs the attention head-sharded (``ops.*_tp``);
+    the selection runs once, on the full-head ``q_lat``, so every shard
+    walks the same blocks.
     → out [B,1,d]; ``pages`` updated in place.
     """
     dt = x.dtype
@@ -438,25 +470,25 @@ def apply_decode_paged(params, cfg, buffers, x, pages, writes: Writes,
     _scatter_new(pages, *streams, writes)
 
     C_k, C_v = _page_latents(pages)
-    scales = _page_scales(pages) or ()
     q_e = q_e.reshape(B, nh, -1).contiguous()
     q_lat = q_lat.reshape(B, nh, -1).contiguous()
     if sparse_topk > 0:
         key = _latent_key(pages)
         num_sel = min(sparse_topk + sparse_recent, block_tables.shape[1])
         walk = ops.select_topk_blocks(
-            q_lat, *(pages[key + sfx] for sfx in BLOCK_SUMMARY_SUFFIXES),
+            q_lat, *(first(pages[key + sfx]) for sfx in BLOCK_SUMMARY_SUFFIXES),
             block_tables, lengths, block_size, num_sel, sparse_recent)
-        fn = ops.elite_decode_sparse_paged_q8 if scales else ops.elite_decode_sparse_paged
+        fn = ops.elite_decode_sparse_paged_tp
     else:
         walk = (block_tables, lengths)
-        fn = ops.elite_decode_paged_q8 if scales else ops.elite_decode_paged
-    o = fn(q_e, q_lat, pages["k_e"], C_k, C_v, *scales, *walk, G, dh ** -0.5, block_size)
-    return _absorbed_out(params, cfg, o.reshape(B, 1, nh, C_v.shape[-1]), dt)
+        fn = ops.elite_decode_paged_tp
+    o = fn(q_e, q_lat, pages[HEAD_SPLIT], C_k, C_v, _page_scales(pages), *walk, G,
+           dh ** -0.5, block_size, mesh)
+    return _absorbed_out(params, cfg, o.reshape(B, 1, nh, -1), dt)
 
 
 def apply_verify_paged(params, cfg, buffers, x, pages, writes: Writes,
-                       block_tables, q_offsets, lengths, block_size: int):
+                       block_tables, q_offsets, lengths, block_size: int, mesh=None):
     """Absorbed multi-query verify for speculative decode: one forward
     scores each lane's window of ``W = k+1`` tokens (the pending token and
     ``k`` draft proposals) against its paged prefix and the window itself.
@@ -471,6 +503,7 @@ def apply_verify_paged(params, cfg, buffers, x, pages, writes: Writes,
     up to its own position.  Rejected tokens are later rolled back by
     truncating the chain, never by rewriting pages.  A pool with block
     summaries is refused: sparse decode and speculation are exclusive.
+    ``mesh`` runs the attention head-sharded, as in ``apply_decode_paged``.
     → out [B,W,d]; ``pages`` updated in place.
     """
     if _latent_key(pages) + BLOCK_SUMMARY_SUFFIXES[0] in pages:
@@ -485,8 +518,7 @@ def apply_verify_paged(params, cfg, buffers, x, pages, writes: Writes,
     _scatter_new(pages, *streams, writes)
 
     C_k, C_v = _page_latents(pages)
-    scales = _page_scales(pages) or ()
-    fn = ops.elite_verify_paged_q8 if scales else ops.elite_verify_paged
-    o = fn(q_e.contiguous(), q_lat.contiguous(), pages["k_e"], C_k, C_v, *scales,
-           block_tables, q_offsets, lengths, G, dh ** -0.5, block_size)
+    o = ops.elite_verify_paged_tp(q_e.contiguous(), q_lat.contiguous(), pages[HEAD_SPLIT],
+                                  C_k, C_v, _page_scales(pages), block_tables, q_offsets,
+                                  lengths, G, dh ** -0.5, block_size, mesh)
     return _absorbed_out(params, cfg, o, dt)

@@ -218,7 +218,7 @@ def split_plan(groups: int, n_tiles: int, target_ctas: int, max_splits: int):
 @functools.lru_cache(maxsize=None)
 def plan(B: int, window: int, q_group: int, nkv: int, block_size: int, r2: int, dc: int,
          shared_cv: bool, q8: bool, n_tiles: int, sms: int, limit: int,
-         symbol: str = "elite_decode", part: int = 0) -> Plan:
+         symbol: str = "elite_decode", part: int = 0, split_nkv: int = 0) -> Plan:
     """The plan of one call: head groups (and window parts, where one kv
     head's rows of the whole window do not fit) by shared memory
     (``window_parts``), then the walk's width (``mb``, the selection's
@@ -226,6 +226,10 @@ def plan(B: int, window: int, q_group: int, nkv: int, block_size: int, r2: int, 
     CTAs per SM on the reference load, at most ``dc`` splits
     (``split_plan``: the range size depends on neither ``B``, the width nor
     the window's parts).  ``part`` forces a cut (see ``window_parts``).
+    ``split_nkv`` (a head shard's call: the unsharded call's kv heads)
+    sizes the ranges from that call's head groups instead of this one's, so
+    that each shard walks the unsharded call's ranges and merges its
+    partials in its order: the shard's bits are the unsharded call's.
     Raises ``ValueError`` for widths the kernel does not take.  Memoized: a
     serving step asks for the same few plans in every layer."""
     if r2 % 4 or dc % 4 or not 1 <= block_size <= 32:
@@ -234,7 +238,11 @@ def plan(B: int, window: int, q_group: int, nkv: int, block_size: int, r2: int, 
     heads, stages, need, size = window_parts(window, q_group, nkv, block_size, r2, dc,
                                              shared_cv, q8, limit, symbol, part)
     groups, parts = nkv // heads, -(-window // size)
-    splits, tps = split_plan(groups, n_tiles, sms * CTAS_PER_SM, dc)
+    split_groups = groups
+    if split_nkv and split_nkv != nkv:
+        split_groups = split_nkv // window_parts(window, q_group, split_nkv, block_size, r2,
+                                                 dc, shared_cv, q8, limit, symbol, part)[0]
+    splits, tps = split_plan(split_groups, n_tiles, sms * CTAS_PER_SM, dc)
     return Plan(heads, groups, stages, splits, tps, B * groups * parts * splits, need,
                 size, parts)
 
@@ -249,10 +257,12 @@ def shares(a, b) -> bool:
     return a.data_ptr() == b.data_ptr()
 
 
-def plan_for(name: str, args, sms: int, limit: int, part: int = 0) -> Plan:
+def plan_for(name: str, args, sms: int, limit: int, part: int = 0,
+             split_nkv: int = 0) -> Plan:
     """The plan of the call ``ops.<name>(*args)`` (a decode or verify entry)
     on a card of ``sms`` SMs and ``limit`` bytes of opt-in shared memory per
-    block; ``part`` forces a verify window's cut."""
+    block; ``part`` forces a verify window's cut, ``split_nkv`` sizes a head
+    shard's ranges (``plan``)."""
     q_e, _, k_e, c_k, c_v = args[:5]
     q8 = name.endswith("_q8")
     scales = args[5:8] if q8 else ()
@@ -266,18 +276,20 @@ def plan_for(name: str, args, sms: int, limit: int, part: int = 0) -> Plan:
         window = q_e.shape[1] if "verify" in name else 1
         n_tiles = args[8 if q8 else 5].shape[-1]
     return plan(B, window, G, nkv, bs, r2, dc, shared_cv, q8, n_tiles, sms, limit, name,
-                part)
+                part, split_nkv)
 
 
 def _launch(symbol: str, q_e, q_lat, pages, scales, table, rows, q_group: int,
-            scale: float, block_size: int, q_offsets=None, part: int = 0) -> torch.Tensor:
+            scale: float, block_size: int, q_offsets=None, part: int = 0,
+            split_nkv: int = 0) -> torch.Tensor:
     """Check every argument and launch entry ``symbol``.  ``pages`` is
     (k_e, c_k, c_v); ``scales`` () for f32 pages or the three [n_slots] f32
     scales of int8 pages; ``table`` [B, W] int32 and ``rows`` either
     ``lengths`` [B] (chain walk) or ``sel_counts`` [B, W] (selection).
     ``q_offsets`` [B] int32 makes it a verify call, whose q_e/q_lat and
     output carry a window axis: [B, W, nh, ·]; ``part`` forces its window
-    cut into parts of that many positions."""
+    cut into parts of that many positions; ``split_nkv`` plans a head
+    shard's ranges as the unsharded call's (``plan``)."""
     dev = q_e.device
     if dev.type != "cuda":
         raise ValueError(f"{symbol} kernel needs CUDA tensors, got {dev}")
@@ -314,7 +326,7 @@ def _launch(symbol: str, q_e, q_lat, pages, scales, table, rows, q_group: int,
     shared_cv = c_k.data_ptr() == c_v.data_ptr() and (
         not scales or scales[1].data_ptr() == scales[2].data_ptr())
     p = plan(B, window, q_group, nkv, block_size, r2, dc, shared_cv, bool(scales), width,
-             sm_count(dev), smem_optin_limit(dev), symbol, part)
+             sm_count(dev), smem_optin_limit(dev), symbol, part, split_nkv)
     out = torch.empty(lead + (nh, dc), dtype=f32, device=dev)
     ints = (B, window, nkv, q_group, r2, dc, block_size, width) if verify else \
         (B, nkv, q_group, r2, dc, block_size, width)
@@ -384,38 +396,42 @@ def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
 
 def elite_decode_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                        block_tables, lengths, q_group: int, scale: float,
-                       block_size: int) -> torch.Tensor:
+                       block_size: int, split_nkv: int = 0) -> torch.Tensor:
     """q_e [B,nh,2r], q_lat [B,nh,dc], k_e_pages [n_slots,nkv,2r],
     c_k/c_v_pages [n_slots,dc] (the same tensor under J-LRD), all f32;
     block_tables [B,mb] and lengths [B] int32; every tensor contiguous on
-    one CUDA device.  → o [B,nh,dc] f32; length-0 lanes give zeros."""
+    one CUDA device.  → o [B,nh,dc] f32; length-0 lanes give zeros.
+    ``split_nkv``: a head shard's call, planned as the unsharded call of
+    that many kv heads (``plan``); every entry below takes it."""
     out = _launch("elite_decode_paged", q_e, q_lat, (k_e_pages, c_k_pages, c_v_pages),
-                  (), block_tables, lengths, q_group, scale, block_size)
+                  (), block_tables, lengths, q_group, scale, block_size,
+                  split_nkv=split_nkv)
     elite_decode_paged.launches += 1
     return out
 
 
 def elite_decode_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                           k_e_scale, c_k_scale, c_v_scale, block_tables, lengths,
-                          q_group: int, scale: float, block_size: int) -> torch.Tensor:
+                          q_group: int, scale: float, block_size: int,
+                          split_nkv: int = 0) -> torch.Tensor:
     """``elite_decode_paged`` over int8 pages and their f32 scales
     [n_slots] (J-LRD: the same latent tensor and scale twice) → f32."""
     out = _launch("elite_decode_paged_q8", q_e, q_lat, (k_e_pages, c_k_pages, c_v_pages),
                   (k_e_scale, c_k_scale, c_v_scale), block_tables, lengths,
-                  q_group, scale, block_size)
+                  q_group, scale, block_size, split_nkv=split_nkv)
     elite_decode_paged_q8.launches += 1
     return out
 
 
 def elite_decode_sparse_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                               sel_tables, sel_counts, q_group: int, scale: float,
-                              block_size: int) -> torch.Tensor:
+                              block_size: int, split_nkv: int = 0) -> torch.Tensor:
     """``elite_decode_paged`` over the selection sel_tables/sel_counts
     [B,W] int32 (physical block ids, rows per block) → o [B,nh,dc] f32;
     all-zero lanes give zeros."""
     out = _launch("elite_decode_sparse_paged", q_e, q_lat,
                   (k_e_pages, c_k_pages, c_v_pages), (), sel_tables, sel_counts,
-                  q_group, scale, block_size)
+                  q_group, scale, block_size, split_nkv=split_nkv)
     elite_decode_sparse_paged.launches += 1
     return out
 
@@ -423,18 +439,19 @@ def elite_decode_sparse_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
 def elite_decode_sparse_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                                  k_e_scale, c_k_scale, c_v_scale, sel_tables,
                                  sel_counts, q_group: int, scale: float,
-                                 block_size: int) -> torch.Tensor:
+                                 block_size: int, split_nkv: int = 0) -> torch.Tensor:
     """``elite_decode_sparse_paged`` over int8 pages and their scales → f32."""
     out = _launch("elite_decode_sparse_paged_q8", q_e, q_lat,
                   (k_e_pages, c_k_pages, c_v_pages), (k_e_scale, c_k_scale, c_v_scale),
-                  sel_tables, sel_counts, q_group, scale, block_size)
+                  sel_tables, sel_counts, q_group, scale, block_size, split_nkv=split_nkv)
     elite_decode_sparse_paged_q8.launches += 1
     return out
 
 
 def elite_verify_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                        block_tables, q_offsets, lengths, q_group: int,
-                       scale: float, block_size: int, part: int = 0) -> torch.Tensor:
+                       scale: float, block_size: int, part: int = 0,
+                       split_nkv: int = 0) -> torch.Tensor:
     """Speculative verify: q_e [B,W,nh,2r], q_lat [B,W,nh,dc] f32, pages as
     in ``elite_decode_paged``, block_tables [B,mb], q_offsets [B] (position
     of each lane's window row 0) and lengths [B] (live length including the
@@ -443,7 +460,8 @@ def elite_verify_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     ``part`` (a check's knob) forces the window's cut into parts of that
     many positions; the plan cuts by itself where it must."""
     out = _launch("elite_verify_paged", q_e, q_lat, (k_e_pages, c_k_pages, c_v_pages),
-                  (), block_tables, lengths, q_group, scale, block_size, q_offsets, part)
+                  (), block_tables, lengths, q_group, scale, block_size, q_offsets, part,
+                  split_nkv)
     elite_verify_paged.launches += 1
     return out
 
@@ -451,11 +469,13 @@ def elite_verify_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
 def elite_verify_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                           k_e_scale, c_k_scale, c_v_scale, block_tables, q_offsets,
                           lengths, q_group: int, scale: float,
-                          block_size: int, part: int = 0) -> torch.Tensor:
+                          block_size: int, part: int = 0,
+                          split_nkv: int = 0) -> torch.Tensor:
     """``elite_verify_paged`` over int8 pages and their f32 scales → f32."""
     out = _launch("elite_verify_paged_q8", q_e, q_lat,
                   (k_e_pages, c_k_pages, c_v_pages), (k_e_scale, c_k_scale, c_v_scale),
-                  block_tables, lengths, q_group, scale, block_size, q_offsets, part)
+                  block_tables, lengths, q_group, scale, block_size, q_offsets, part,
+                  split_nkv)
     elite_verify_paged_q8.launches += 1
     return out
 

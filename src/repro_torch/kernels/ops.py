@@ -36,6 +36,15 @@ kernel, rather than give an output that silently drops the gradient
 (serving runs under ``torch.no_grad()``).  On the CPU the plain versions
 are differentiable as they are.
 
+Tensor parallelism.  ``elite_decode_paged_tp``, ``elite_decode_sparse_paged_tp``
+and ``elite_verify_paged_tp`` are the reference's ``shard_map`` wrappers on
+a ``launch.mesh.TPMesh``: one call of the single-device entry above per
+head shard (each counted and traced as that entry), planned with
+``split_nkv`` (the unsharded call's kv heads, which size the split-KV
+ranges; the plain versions ignore it), and the shards' outputs copied to
+the mesh's first device and concatenated, the reference's ``all_gather``.
+They launch no kernel of their own.
+
 ``set_kernel_tracer`` (the reference's, ``kernels/ops.py``) arms spans on
 the ``kernel`` track of a tracer, one per call, named after the entry
 (``rope_elite_qk`` for the two-tensor rotary) with the first tensor's
@@ -182,47 +191,48 @@ def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
 
 def elite_decode_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                        block_tables, lengths, q_group: int, scale: float,
-                       block_size: int) -> torch.Tensor:
+                       block_size: int, split_nkv: int = 0) -> torch.Tensor:
     """Paged absorbed decode attention; see ``ref.elite_decode_paged_ref``."""
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, block_tables, lengths,
             q_group, scale, block_size)
     _refuse_meta("elite_decode_paged", q_e)
     if q_e.is_cuda:
         _no_backward("elite_decode_paged", *args)
-        return _ed.elite_decode_paged(*args)
+        return _ed.elite_decode_paged(*args, split_nkv=split_nkv)
     return _plain("elite_decode_paged", ref.elite_decode_paged_ref, *args)
 
 
 def elite_decode_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                           k_e_scale, c_k_scale, c_v_scale, block_tables, lengths,
-                          q_group: int, scale: float, block_size: int) -> torch.Tensor:
+                          q_group: int, scale: float, block_size: int,
+                          split_nkv: int = 0) -> torch.Tensor:
     """Decode over an int8 pool; see ``ref.elite_decode_paged_q8_ref``."""
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
             c_v_scale, block_tables, lengths, q_group, scale, block_size)
     _refuse_meta("elite_decode_paged_q8", q_e)
     if q_e.is_cuda:
         _no_backward("elite_decode_paged_q8", *args)
-        return _ed.elite_decode_paged_q8(*args)
+        return _ed.elite_decode_paged_q8(*args, split_nkv=split_nkv)
     return _plain("elite_decode_paged_q8", ref.elite_decode_paged_q8_ref, *args)
 
 
 def elite_decode_sparse_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                               sel_tables, sel_counts, q_group: int, scale: float,
-                              block_size: int) -> torch.Tensor:
+                              block_size: int, split_nkv: int = 0) -> torch.Tensor:
     """Decode over a block selection; see ``ref.elite_decode_sparse_paged_ref``."""
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, sel_tables, sel_counts,
             q_group, scale, block_size)
     _refuse_meta("elite_decode_sparse_paged", q_e)
     if q_e.is_cuda:
         _no_backward("elite_decode_sparse_paged", *args)
-        return _ed.elite_decode_sparse_paged(*args)
+        return _ed.elite_decode_sparse_paged(*args, split_nkv=split_nkv)
     return _plain("elite_decode_sparse_paged", ref.elite_decode_sparse_paged_ref, *args)
 
 
 def elite_decode_sparse_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                                  k_e_scale, c_k_scale, c_v_scale, sel_tables,
                                  sel_counts, q_group: int, scale: float,
-                                 block_size: int) -> torch.Tensor:
+                                 block_size: int, split_nkv: int = 0) -> torch.Tensor:
     """Selection decode over an int8 pool; see
     ``ref.elite_decode_sparse_paged_q8_ref``."""
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
@@ -230,36 +240,146 @@ def elite_decode_sparse_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
     _refuse_meta("elite_decode_sparse_paged_q8", q_e)
     if q_e.is_cuda:
         _no_backward("elite_decode_sparse_paged_q8", *args)
-        return _ed.elite_decode_sparse_paged_q8(*args)
+        return _ed.elite_decode_sparse_paged_q8(*args, split_nkv=split_nkv)
     return _plain("elite_decode_sparse_paged_q8", ref.elite_decode_sparse_paged_q8_ref,
                   *args)
 
 
 def elite_verify_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                        block_tables, q_offsets, lengths, q_group: int, scale: float,
-                       block_size: int) -> torch.Tensor:
+                       block_size: int, split_nkv: int = 0) -> torch.Tensor:
     """Speculative verify over the pool; see ``ref.elite_verify_paged_ref``."""
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, block_tables, q_offsets,
             lengths, q_group, scale, block_size)
     _refuse_meta("elite_verify_paged", q_e)
     if q_e.is_cuda:
         _no_backward("elite_verify_paged", *args)
-        return _ed.elite_verify_paged(*args)
+        return _ed.elite_verify_paged(*args, split_nkv=split_nkv)
     return _plain("elite_verify_paged", ref.elite_verify_paged_ref, *args)
 
 
 def elite_verify_paged_q8(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
                           k_e_scale, c_k_scale, c_v_scale, block_tables, q_offsets,
                           lengths, q_group: int, scale: float,
-                          block_size: int) -> torch.Tensor:
+                          block_size: int, split_nkv: int = 0) -> torch.Tensor:
     """Verify over an int8 pool; see ``ref.elite_verify_paged_q8_ref``."""
     args = (q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, k_e_scale, c_k_scale,
             c_v_scale, block_tables, q_offsets, lengths, q_group, scale, block_size)
     _refuse_meta("elite_verify_paged_q8", q_e)
     if q_e.is_cuda:
         _no_backward("elite_verify_paged_q8", *args)
-        return _ed.elite_verify_paged_q8(*args)
+        return _ed.elite_verify_paged_q8(*args, split_nkv=split_nkv)
     return _plain("elite_verify_paged_q8", ref.elite_verify_paged_q8_ref, *args)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel wrappers: the reference's shard_map over the "model" axis
+# ---------------------------------------------------------------------------
+
+def _tp(mesh) -> int:
+    return 1 if mesh is None else mesh.tp
+
+
+def _shard_of(x, r: int, mesh):
+    """Shard ``r``'s copy of a replicated argument: its entry of a per-shard
+    sequence (a sharded pool's leaf), else ``x`` on ``devices[r]``."""
+    if isinstance(x, (list, tuple)):
+        return x[r]
+    return x.to(mesh.devices[r])
+
+
+def _kv_shard(k_e, r: int, mesh):
+    """Shard ``r``'s ``k_e`` pages: its entry of a sharded pool's per-shard
+    tuple, else kv heads ``[r·h, (r+1)·h)`` of the whole pages, on
+    ``devices[r]``."""
+    if isinstance(k_e, (list, tuple)):
+        return k_e[r]
+    h = k_e.shape[1] // mesh.tp
+    return k_e[:, r * h:(r + 1) * h].contiguous().to(mesh.devices[r])
+
+
+def _tp_attend(fn, mesh, head_axis: int, q_e, q_lat, pages, scales, walk, q_group: int,
+               scale: float, block_size: int):
+    """Run the single-device entry ``fn`` once per head shard and gather.
+
+    ``pages`` is (k_e, c_k, c_v): ``k_e`` the whole ``[n_slots, nkv, 2r]``
+    pages or a sharded pool's tuple of ``tp`` head shards, the latents (and
+    ``scales``, ``()`` for f32) a tensor or a per-shard tuple.  Shard ``r``
+    takes query heads ``[r·nh/tp, (r+1)·nh/tp)`` on ``head_axis`` and its kv
+    heads' pages, and the replicated latents, scales and ``walk`` on
+    ``devices[r]``; its call is planned as the unsharded call's
+    (``split_nkv``), so its ranges and merge order are that call's.  The
+    outputs are copied to ``devices[0]`` and concatenated in shard order:
+    the reference's tiled ``all_gather``."""
+    k_e, c_k, c_v = pages
+    nkv = (sum(t.shape[1] for t in k_e) if isinstance(k_e, (list, tuple))
+           else k_e.shape[1])
+    nh, tp = q_e.shape[head_axis], mesh.tp
+    if nkv % tp or nh != nkv * q_group:
+        raise ValueError(f"tensor parallelism needs tp to divide the kv heads: tp={tp} "
+                         f"nkv={nkv} nh={nh} (pad the config: pad_cfg_for_tp)")
+    if isinstance(k_e, (list, tuple)) and len(k_e) != tp:
+        raise ValueError(f"k_e pages in {len(k_e)} shards for a mesh of tp={tp}")
+    per = nh // tp
+    outs = []
+    for r, dev in enumerate(mesh.devices):
+        ck = _shard_of(c_k, r, mesh)
+        cv = ck if c_v is c_k else _shard_of(c_v, r, mesh)
+        sc = [_shard_of(x, r, mesh) for x in scales]
+        if scales and scales[2] is scales[1]:
+            sc[2] = sc[1]
+        q = [t.narrow(head_axis, r * per, per).contiguous().to(dev) for t in (q_e, q_lat)]
+        o = fn(*q, _kv_shard(k_e, r, mesh), ck, cv, *sc,
+               *(_shard_of(w, r, mesh) for w in walk), q_group, scale, block_size,
+               split_nkv=nkv)
+        outs.append(o.to(mesh.devices[0]))
+    return torch.cat(outs, head_axis)
+
+
+def elite_decode_paged_tp(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, scales,
+                          block_tables, lengths, q_group: int, scale: float,
+                          block_size: int, mesh) -> torch.Tensor:
+    """Tensor-parallel paged decode over ``mesh`` (a ``launch.mesh.TPMesh``;
+    None is tp 1): q_e/q_lat [B, nh, *] split on heads, ``k_e_pages`` on kv
+    heads, the rest replicated (``_tp_attend``) → the full-head
+    o [B, nh, dc] on ``devices[0]``.  ``scales`` is None for an f32 pool or
+    the ``(k_e, c_k, c_v)`` scale triple of an int8 one (exact under head
+    sharding: a scale is per slot).  At tp 1 the single-device entry."""
+    fn = elite_decode_paged if scales is None else elite_decode_paged_q8
+    if _tp(mesh) == 1:
+        return fn(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, *(scales or ()),
+                  block_tables, lengths, q_group, scale, block_size)
+    return _tp_attend(fn, mesh, 1, q_e, q_lat, (k_e_pages, c_k_pages, c_v_pages),
+                      scales or (), (block_tables, lengths), q_group, scale, block_size)
+
+
+def elite_decode_sparse_paged_tp(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, scales,
+                                 sel_tables, sel_counts, q_group: int, scale: float,
+                                 block_size: int, mesh) -> torch.Tensor:
+    """``elite_decode_paged_tp`` over a block selection: ``sel_tables`` /
+    ``sel_counts`` are replicated, chosen once on the full-head query
+    (``select_topk_blocks``), so every shard walks the same blocks."""
+    fn = elite_decode_sparse_paged if scales is None else elite_decode_sparse_paged_q8
+    if _tp(mesh) == 1:
+        return fn(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, *(scales or ()),
+                  sel_tables, sel_counts, q_group, scale, block_size)
+    return _tp_attend(fn, mesh, 1, q_e, q_lat, (k_e_pages, c_k_pages, c_v_pages),
+                      scales or (), (sel_tables, sel_counts), q_group, scale, block_size)
+
+
+def elite_verify_paged_tp(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, scales,
+                          block_tables, q_offsets, lengths, q_group: int, scale: float,
+                          block_size: int, mesh) -> torch.Tensor:
+    """Tensor-parallel speculative verify: as ``elite_decode_paged_tp``
+    with a window axis, q_e/q_lat [B, W, nh, *] split on axis 2 and the
+    gather reassembling o [B, W, nh, dc]."""
+    fn = elite_verify_paged if scales is None else elite_verify_paged_q8
+    if _tp(mesh) == 1:
+        return fn(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, *(scales or ()),
+                  block_tables, q_offsets, lengths, q_group, scale, block_size)
+    return _tp_attend(fn, mesh, 2, q_e, q_lat, (k_e_pages, c_k_pages, c_v_pages),
+                      scales or (), (block_tables, q_offsets, lengths), q_group, scale,
+                      block_size)
 
 
 def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,

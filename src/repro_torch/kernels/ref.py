@@ -4,6 +4,13 @@ They compute the same functions as the JAX package's ``kernels/ref.py``
 oracles and serve two purposes: the kernel wrappers take them for tensors
 that lie on the CPU, and tests and ``chip_smoke.py`` hold each CUDA kernel
 against them on the card.  Rows with no visible key output exact zeros.
+
+On the CPU the decode and verify versions make the kv head a batch axis
+of every product (the head-shared latent broadcast over it), so each head's
+rows are computed by the same batched product whatever the number of heads
+in the call: a head shard's call (``ops.*_tp``) gives the unsharded call's
+bits.  On the card they fold the heads into one product per lane
+(``_per_head``).
 """
 from __future__ import annotations
 
@@ -20,15 +27,34 @@ def _decode_masked(q_e, q_lat, k_e, c_k, c_v, valid, q_group: int,
     ``valid [B, 1, S]``."""
     B, nh, r2 = q_e.shape
     S, nkv = k_e.shape[1], k_e.shape[2]
-    qe_g = q_e.reshape(B, nkv, q_group, r2)
-    s_e = torch.einsum("bhge,bkhe->bhgk", qe_g, k_e).reshape(B, nh, S)
-    s_lat = torch.einsum("bhc,bkc->bhk", q_lat, c_k)
-    s = (s_e + s_lat) * scale
+    s_e = _per_head(q_e.reshape(B, nkv, q_group, r2), k_e.permute(0, 2, 3, 1))
+    s_lat = _per_head(q_lat.reshape(B, nkv, q_group, -1), c_k.transpose(1, 2))
+    s = ((s_e + s_lat) * scale).reshape(B, nh, S)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     # rows with no visible key (empty serving slots) attend to nothing
     p = torch.where(valid.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
-    return torch.einsum("bhk,bkc->bhc", p.to(c_v.dtype), c_v)
+    return _per_head(p.to(c_v.dtype).reshape(B, nkv, q_group, S), c_v).reshape(B, nh, -1)
+
+
+def _per_head(x, y):
+    """``x [B, nkv, M, K] @ y`` → ``[B, nkv, M, N]``, ``y`` per kv head
+    ``[B, nkv, K, N]`` or head-shared ``[B, K, N]``.  A head-shared ``y``
+    is multiplied in one of two forms with the same math.  On the CPU,
+    where the plain version is the computation, one product per (lane, kv
+    head), both operands contiguous, so a head's bits do not depend on how
+    many heads the call holds (with one head the broadcast is a view, and a
+    strided operand would take another product routine).  On the card,
+    where it is the kernels' yardstick, the heads fold into the rows of one
+    product per lane: a per-head product of one row runs as a GEMV whose
+    rounding parts from the kernels' by more than their checks allow
+    (PERF.md, the tensor-parallel attention entry)."""
+    if y.dim() == 4:
+        return x.contiguous() @ y.contiguous()
+    if x.is_cuda:
+        B, nkv, M, K = x.shape
+        return (x.reshape(B, nkv * M, K) @ y).reshape(B, nkv, M, -1)
+    return x.contiguous() @ y.contiguous()[:, None]
 
 
 def elite_decode_ref(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
@@ -173,11 +199,12 @@ def elite_verify_ref(q_e, q_lat, k_e, c_k, c_v, q_offsets, lengths,
     """
     B, W, nh, r2 = q_e.shape
     S, nkv = k_e.shape[1], k_e.shape[2]
-    qe_g = q_e.reshape(B, W, nkv, q_group, r2)
-    ql_g = q_lat.reshape(B, W, nkv, q_group, -1)
-    s_e = torch.einsum("bwhge,bkhe->bhgwk", qe_g, k_e)
-    s_lat = torch.einsum("bwhgc,bkc->bhgwk", ql_g, c_k)
-    s = (s_e + s_lat) * scale                                # [B,nkv,G,W,S]
+    G = q_group
+    rows = lambda t: t.reshape(B, W, nkv, G, -1).permute(0, 2, 3, 1, 4).reshape(
+        B, nkv, G * W, -1)
+    s_e = _per_head(rows(q_e), k_e.permute(0, 2, 3, 1))
+    s_lat = _per_head(rows(q_lat), c_k.transpose(1, 2))
+    s = ((s_e + s_lat) * scale).reshape(B, nkv, G, W, S)
     kpos = torch.arange(S, device=k_e.device)[None, None, :]
     wpos = torch.arange(W, device=k_e.device)[None, :, None]
     mask = ((kpos <= wpos + q_offsets[:, None, None])
@@ -185,8 +212,8 @@ def elite_verify_ref(q_e, q_lat, k_e, c_k, c_v, q_offsets, lengths,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
-    o = torch.einsum("bhgwk,bkc->bwhgc", p.to(c_v.dtype), c_v)
-    return o.reshape(B, W, nh, -1)
+    o = _per_head(p.to(c_v.dtype).reshape(B, nkv, G * W, S), c_v)
+    return o.reshape(B, nkv, G, W, -1).permute(0, 3, 1, 2, 4).reshape(B, W, nh, -1)
 
 
 def elite_verify_paged_ref(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
@@ -227,7 +254,9 @@ def split_merge_ref(q_e, q_lat, k_e, c_k, c_v, valid, q_group: int, scale: float
     B, W, nh, r2 = q_e.shape
     P, nkv = k_e.shape[1], k_e.shape[2]
     span = tile * tiles_per_split
-    qe_g = q_e.reshape(B, W, nkv, q_group, r2)
+    heads = lambda t: t.reshape(B, W, nkv, q_group, -1).transpose(1, 2).reshape(
+        B, nkv, W * q_group, -1)
+    qe_h, ql_h = heads(q_e), heads(q_lat)
     parts = []
     for start in range(0, P, span):
         # each range scored on its own rows, padded to the full span, so a
@@ -237,12 +266,15 @@ def split_merge_ref(q_e, q_lat, k_e, c_k, c_v, valid, q_group: int, scale: float
         rows = [torch.cat([t[:, sl], t.new_zeros((B, pad) + t.shape[2:])], 1)
                 for t in (k_e, c_k, c_v)]
         v = torch.cat([valid[:, :, sl], valid.new_zeros(B, W, pad)], 2)[:, :, None, :]
-        s_e = torch.einsum("bwhge,bphe->bwhgp", qe_g, rows[0]).reshape(B, W, nh, span)
-        sv = (s_e + torch.einsum("bwnc,bpc->bwnp", q_lat, rows[1])) * scale
+        s_e = _per_head(qe_h, rows[0].permute(0, 2, 3, 1))        # [B,nkv,W·G,span]
+        s_lat = _per_head(ql_h, rows[1].transpose(1, 2))
+        sv = _heads_last((s_e + s_lat) * scale, W)
         v = v.expand_as(sv)
         m = torch.where(v, sv, torch.full_like(sv, NEG_INF)).amax(-1)
         p = torch.where(v, torch.exp(sv - m[..., None]), torch.zeros_like(sv))
-        parts.append((m, p.sum(-1), torch.einsum("bwnp,bpc->bwnc", p, rows[2])))
+        p_h = p.reshape(B, W, nkv, q_group, span).transpose(1, 2)
+        acc = _per_head(p_h.reshape(B, nkv, W * q_group, span), rows[2])
+        parts.append((m, p.sum(-1), _heads_last(acc, W)))
     M = torch.full_like(parts[0][0], NEG_INF)
     for m, l, _ in parts:
         M = torch.where(l > 0, torch.maximum(M, m), M)
@@ -253,6 +285,12 @@ def split_merge_ref(q_e, q_lat, k_e, c_k, c_v, valid, q_group: int, scale: float
         lsum = lsum + l * w
         o = o + acc * w[..., None]
     return o / torch.clamp(lsum, min=1e-30)[..., None]
+
+
+def _heads_last(x, W: int):
+    """``[B, nkv, W·G, N]`` (window-major rows) → ``[B, W, nkv·G, N]``."""
+    B, nkv, R, N = x.shape
+    return x.reshape(B, nkv, W, R // W, N).transpose(1, 2).reshape(B, W, -1, N)
 
 
 def split_call_ref(name: str, args, tiles_per_split: int, tile: int = 16,

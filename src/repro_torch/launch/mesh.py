@@ -12,18 +12,54 @@ data-parallel replica behind ``runtime/router.py``.  A bare ``"cuda"``
 spreads the replicas over the visible cards, replica ``i`` on ``cuda:i``;
 an explicit device (``"cuda:0"``, ``"cpu"``) places every replica on it —
 the port's stand-in for the reference's forced host-device count, which is
-how one card or the CPU serves ``dp > 1``.  Tensor parallelism inside a
-replica (``tp > 1``) is ROADMAP item 15b and raises ``ValueError``.
+how one card or the CPU serves ``dp > 1``.  Tensor-parallel *serving*
+(``tp > 1`` replicas behind the scheduler and the launcher) is ROADMAP item
+15b.2 and raises ``ValueError``.
+
+``TPMesh`` is one replica's ``("model",)`` submesh: the ``tp`` devices its
+attention heads are split over, head shard ``r`` on ``devices[r]``.  The
+port's tensor parallelism is single-controller, as the reference's
+``shard_map`` is: one process drives every shard, and a shard's device may
+repeat (every shard on ``cuda:0`` on one card, on ``cpu`` in the tests).
+The paged pool (``core/cache.py``), the paged forwards (``models/lm.py``)
+and the head-sharded attention wrappers (``kernels/ops.py``) take it.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import dataclasses
+from typing import Dict, List, Tuple
 
 import torch
 
 TP_NOT_PORTED = ("tensor-parallel serving (tp > 1) is not ported yet: ROADMAP "
-                 "Queue 1 item 15b (the head-sharded decode/verify wrappers and "
-                 "their all_gather epilogue)")
+                 "Queue 1 item 15b.2 (the Scheduler's mesh, serving_devices(tp > 1), "
+                 "the launcher's --tp and sharded_check --tp/--parity)")
+
+
+@dataclasses.dataclass(frozen=True)
+class TPMesh:
+    """The devices of one replica's head shards: shard ``r`` on
+    ``devices[r]``; repeats allowed.  ``tp = len(devices)``."""
+    devices: Tuple[torch.device, ...]
+
+    def __post_init__(self):
+        devs = tuple(torch.device(d) for d in self.devices)
+        if not devs:
+            raise ValueError("a TPMesh needs at least one device")
+        object.__setattr__(self, "devices", devs)
+
+    @property
+    def tp(self) -> int:
+        return len(self.devices)
+
+    @classmethod
+    def on(cls, device, tp: int) -> "TPMesh":
+        """``tp`` shards, every one on ``device``."""
+        return cls((torch.device(device),) * tp)
+
+    def distinct(self) -> Tuple[torch.device, ...]:
+        """The mesh's devices, each once, in shard order."""
+        return tuple(dict.fromkeys(self.devices))
 
 
 def production_mesh_axes(*, multi_pod: bool = False) -> Dict[str, int]:

@@ -106,8 +106,8 @@ the router's ``route`` instants, and ``--metrics-out`` adds the
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --elitekv \
         --stream --device cpu --dp 2 --trace out.json --metrics-out m.prom
 
-``--tp`` (tensor parallelism inside a replica) is ROADMAP item 15b: ``--tp
-> 1`` raises ``ValueError``.  ``--tp``/``--dp`` below 1, or above 1 without
+``--tp`` (tensor parallelism inside a replica) is ROADMAP item 15b.2:
+``--tp > 1`` raises ``ValueError``.  ``--tp``/``--dp`` below 1, or above 1 without
 ``--stream``, are argument errors, as in the reference.  ``--moe-impl``
 picks how MoE layers dispatch in every forward of either mode: "ragged"
 (the default) or the "dense" oracle; "ep" (expert parallelism, ROADMAP

@@ -65,6 +65,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.core import elite_attention, lrd
+from repro_torch.core.cache import first
 from repro_torch.models import attention, mamba, moe
 from repro_torch.models.layers import (cross_entropy, dense_init, embed, mlp, mlp_init,
                                        rmsnorm, rmsnorm_init, unembed)
@@ -161,13 +162,33 @@ def _logits(params, cfg, h):
 
 def _layer_pages(pages, cfg, i: int):
     """Layer ``i``'s views ``{name: [...]}`` of the stacked pool pages (or
-    cache leaves): position ``p{i % P}``, superblock ``i // P``."""
+    cache leaves): position ``p{i % P}``, superblock ``i // P``.  A leaf of
+    a tensor-parallel pool (a tuple, one tensor per shard) gives a tuple of
+    views, one object wherever the shards share a tensor."""
     P = cfg.block_period
-    return {name: arr[i // P] for name, arr in pages[f"p{i % P}"].items()}
+    return {name: _layer_view(arr, i // P) for name, arr in pages[f"p{i % P}"].items()}
+
+
+def _layer_view(leaf, s: int):
+    if torch.is_tensor(leaf):
+        return leaf[s]
+    views = {}
+    return tuple(views.setdefault(id(t), t[s]) for t in leaf)
 
 
 def _n_slots(pages) -> int:
-    return pages["p0"]["k_e"].shape[1]
+    return first(pages["p0"]["k_e"]).shape[1]
+
+
+def _check_mesh(pages, mesh) -> None:
+    """The pool's pages must be placed over ``mesh``: as many ``k_e`` head
+    shards as its ``tp`` (a plain tensor at tp 1)."""
+    k_e = pages["p0"]["k_e"]
+    shards = 1 if torch.is_tensor(k_e) else len(k_e)
+    tp = 1 if mesh is None else mesh.tp
+    if shards != tp:
+        raise ValueError(f"pool pages in {shards} head shard(s) for a mesh of tp={tp}: "
+                         f"build the pool with PagedKVPool(..., mesh=) of the same mesh")
 
 
 def _run_layer(p, cfg, i: int, h, mix, moe_impl: str):
@@ -412,7 +433,7 @@ def apply_decode(params, buffers, cfg, batch, cache, moe_impl: str = "ragged"):
 
 def apply_prefill_paged(params, buffers, cfg, batch, pages, slot_mapping,
                         chunk_start=None, block_tables=None, prefix_lens=None,
-                        block_size: int = 0, moe_impl: str = "ragged"):
+                        block_size: int = 0, moe_impl: str = "ragged", mesh=None):
     """Prefill sequences (or chunks of them) into the paged pool.
 
     ``batch``: tokens [B,S] (a vision model's patches [B,nv,d] before them,
@@ -430,9 +451,16 @@ def apply_prefill_paged(params, buffers, cfg, batch, pages, slot_mapping,
     ``block_size``, plus the chunk causally.  A lane with no valid token (all
     sentinel) gets ``kv_lens = 0`` and a zero attention output; padding rows
     are never read.  MoE layers dispatch by ``moe_impl``.
+
+    ``mesh`` (a ``launch.mesh.TPMesh``, None for one device): the pool's
+    pages are placed over it (``PagedKVPool(..., mesh=)``).  Prefill
+    computes replicated, full-head, on the params' device (the mesh's
+    first): only the pool's ``k_e`` is sharded, and the scatter writes each
+    shard its heads (the reference's ``mesh=`` prefill).
     → logits [B,nv+S,Vp] f32; ``pages`` written in place.
     """
     _check_paged(cfg)
+    _check_mesh(pages, mesh)
     device = params_device(params)
     n_slots = _n_slots(pages)
     h = _embed_inputs(params, cfg, _as_batch(batch))
@@ -459,7 +487,7 @@ def apply_prefill_paged(params, buffers, cfg, batch, pages, slot_mapping,
 def apply_decode_paged(params, buffers, cfg, batch, pages, slot_mapping,
                        block_tables, lengths, block_size: int,
                        sparse_topk: int = 0, sparse_recent: int = 0,
-                       moe_impl: str = "ragged"):
+                       moe_impl: str = "ragged", mesh=None):
     """One decode step for every serving lane, reading and writing the pool.
 
     ``batch``: tokens [B,1] (an audio model's frames [B,1,d]); ``lengths``
@@ -468,10 +496,13 @@ def apply_decode_paged(params, buffers, cfg, batch, pages, slot_mapping,
     lanes); ``block_tables`` [B,mb].
     ``sparse_topk > 0`` attends only the block-top-k selection plus the
     ``sparse_recent`` newest blocks in every layer (the pool needs block
-    summaries).  MoE layers dispatch by ``moe_impl``.
+    summaries).  MoE layers dispatch by ``moe_impl``.  ``mesh``: the
+    attention runs head-sharded over it (``kernels/ops.py``'s ``*_tp``
+    wrappers), every other op full-head on its first device.
     → logits [B,1,Vp] f32; ``pages`` written in place.
     """
     _check_paged(cfg)
+    _check_mesh(pages, mesh)
     device = params_device(params)
     i32 = dict(dtype=torch.int32, device=device)
     h = _embed_step(params, cfg, _as_batch(batch))
@@ -481,14 +512,14 @@ def apply_decode_paged(params, buffers, cfg, batch, pages, slot_mapping,
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
         h, _ = _run_layer(p, cfg, i, h, lambda pa, hn: elite_attention.apply_decode_paged(
             pa, cfg, b, hn, _layer_pages(pages, cfg, i), writes, block_tables, lengths,
-            block_size, sparse_topk, sparse_recent), moe_impl)
+            block_size, sparse_topk, sparse_recent, mesh), moe_impl)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h)
 
 
 def apply_verify_paged(params, buffers, cfg, batch, pages, slot_mapping,
                        block_tables, q_offsets, lengths, block_size: int,
-                       moe_impl: str = "ragged"):
+                       moe_impl: str = "ragged", mesh=None):
     """Speculative-verify forward: score a window of ``W = k+1`` tokens per
     lane (the pending token and ``k`` draft proposals) against its paged
     prefix in one call, writing the window's full-model streams to the pool.
@@ -501,10 +532,11 @@ def apply_verify_paged(params, buffers, cfg, batch, pages, slot_mapping,
     ``block_tables`` [B,mb].  Logits row ``w`` is the full model's
     next-token distribution after window token ``w``: rows ``0..k-1`` judge
     the proposals, row ``k`` gives the bonus token.  MoE layers dispatch
-    by ``moe_impl``.
+    by ``moe_impl``; ``mesh`` as in ``apply_decode_paged``.
     → logits [B,W,Vp] f32; ``pages`` written in place.
     """
     _check_paged(cfg)
+    _check_mesh(pages, mesh)
     device = params_device(params)
     i32 = dict(dtype=torch.int32, device=device)
     h = _embed_step(params, cfg, _as_batch(batch))
@@ -515,7 +547,7 @@ def apply_verify_paged(params, buffers, cfg, batch, pages, slot_mapping,
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
         h, _ = _run_layer(p, cfg, i, h, lambda pa, hn: elite_attention.apply_verify_paged(
             pa, cfg, b, hn, _layer_pages(pages, cfg, i), writes, block_tables, q_offsets,
-            lengths, block_size), moe_impl)
+            lengths, block_size, mesh), moe_impl)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return _logits(params, cfg, h)
 

@@ -18,9 +18,10 @@ too (``main([...])`` returns the object it prints).
 
 ``--device`` places the replicas (``launch/mesh.py::replica_devices``): a
 bare ``cuda`` puts replica ``i`` on card ``i``, an explicit ``cuda:0`` or
-``cpu`` every replica on that device.  Tensor parallelism (``--tp > 1``)
-and the reference's ``--parity`` check of the head-sharded epilogue are
-ROADMAP item 15b and raise ``ValueError``.
+``cpu`` every replica on that device.  Tensor-parallel serving (``--tp >
+1``) and the reference's ``--parity`` check of the head-sharded epilogue
+are ROADMAP item 15b.2 and raise ``ValueError`` (the head-sharded attention
+itself is ported: ``kernels/ops.py``'s ``*_tp`` wrappers).
 
 Scenario knobs mirror launch/serve.py flags: ``plain`` (chunked prefill +
 swap eviction under pool pressure), ``recompute`` (the same, recompute
@@ -142,7 +143,7 @@ def main(argv=None):
                     help=f"comma list from {sorted({**SCENARIOS, **SAMPLED})}")
     ap.add_argument("--parity", action="store_true",
                     help="the reference's head-sharded epilogue parity check "
-                         "(tensor parallelism: not ported)")
+                         "(tensor-parallel serving: not ported)")
     args = ap.parse_args(argv)
     from repro_torch.launch.mesh import TP_NOT_PORTED, replica_devices
     if args.parity:

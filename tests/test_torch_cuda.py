@@ -1341,3 +1341,35 @@ def test_router_on_card_matches_one_scheduler(name, cuda):
             assert _near_tie_margin(params, buffers, cfg, ctx, cuda) < NEAR_TIE, r.uid
         else:
             assert got[r.uid] == r.generated
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("form", ["decode", "sparse", "verify"])
+def test_tp_wrappers_on_card_bitwise_unsharded(form, q8, tp, cuda):
+    """Each head shard's launch on a ``TPMesh`` of the one card, at
+    TinyLlama-1.1B's widths (32/4 heads): the gathered output is the
+    unsharded launch's bit for bit, from ``tp`` launches of the entry."""
+    from repro_torch.launch.mesh import TPMesh
+    nh, nkv, r2, dc, dh = WIDTHS["tinyllama_1_1b"]
+    if form == "verify":
+        x, G, bs = _verify_inputs(cuda, nh, nkv, r2, dc, False, 3, seed=11)
+        walk = (x["bt"], x["offs"], x["lengths"])
+    else:
+        x, G, bs = _decode_inputs(cuda, nh, nkv, r2, dc, False, seed=11)
+        walk = _selection(x, bs, 6, 3) if form == "sparse" else (x["bt"], x["lengths"])
+    pages = _quantize(x) if q8 else [x["k_e"], x["c_k"], x["c_v"]]
+    name = {"decode": "elite_decode_paged", "sparse": "elite_decode_sparse_paged",
+            "verify": "elite_verify_paged"}[form]
+    entry = name + ("_q8" if q8 else "")
+    before = ops.launches()[entry]
+    want = getattr(ops, entry)(x["q_e"], x["q_lat"], *pages, *walk, G, dh ** -0.5, bs)
+    torch.cuda.synchronize()
+    single = ops.launches()[entry] - before
+    before = ops.launches()[entry]
+    got = getattr(ops, name + "_tp")(x["q_e"], x["q_lat"], *pages[:3],
+                                     tuple(pages[3:]) if q8 else None, *walk, G,
+                                     dh ** -0.5, bs, TPMesh.on(cuda, tp))
+    torch.cuda.synchronize()
+    assert single == 1 and ops.launches()[entry] - before == tp * single
+    assert got.device == want.device and torch.equal(got, want)
