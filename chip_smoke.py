@@ -159,6 +159,22 @@ non-zero:
       ``elite_decode_paged`` at a shard's widths (nkv 2 and 1, as launched:
       the unsharded call's split ranges) against its plain version, timed
       with its bound beside the unsharded call of the same step.
+   r. tensor-parallel serving (runs after q, on a's model): p's one-
+      ``Scheduler`` runs served again through ``Scheduler(mesh=)`` on a
+      ``TPMesh`` whose shards all sit on the one card — at tp 2 in every
+      scenario of p, sampled included, at tp 4 in plain, int8 and spec —
+      and p's plain and prefix router runs through ``Router(meshes=)`` at
+      tp 2 x dp 2.  Each run must give p's streams (the router's,
+      replica by replica), every greedy logits row and every sampled draw
+      (its row and token) bit for bit, p's preemptions, prefill forwards
+      and decode steps, and launches that are its forwards' with the
+      attention entry ``tp`` times (``path_kernels``).  ``sharded_check``'s
+      parity cases (decode at tp 2 and 4, verify and int8 decode at tp 2)
+      must give the tp-1 call's bits.  ``launch/serve.py
+      --stream --tp 2 --trace`` in a fresh process must pass
+      ``tools/check_trace.py`` (``build/obs/tp_cli.*``).  Printed beside
+      p's tp 1: tok/s, TTFT p50/p95, the decode step's p50 and the pool's
+      bytes per token per device.
    i. conversion (the paper's §3): the baseline TinyLlama-1.1B of f,
       4 x 512 random calibration tokens, ``capture_attn_inputs`` and a
       greedy RoPElite search at r = 8 per layer (``rope_elite`` 22 times in
@@ -210,7 +226,8 @@ non-zero:
       top-2, 4 MLPs; 53.2 GB) through ``generate`` at 8 x (1024 + 128),
       then cache on == cache off (prefill + decode logits against
       ``apply_train`` within LOGIT_TOL) and a profiler window;
-      Falcon-Mamba-7B whole (64 layers, 29.1 GB) through ``generate`` at
+      Falcon-Mamba-7B at full width, 32 of its 64 layers (cut in depth
+      to keep the script inside its time), through ``generate`` at
       8 x (1024 + 128), launching no kernel.  Card against CPU on the same
       weights: one Qwen3-MoE and one Jamba MoE FFN on 64 tokens, one Mamba
       layer's prefill output and state and 16 decode steps (1e-5 of the
@@ -952,13 +969,14 @@ class Recorder:
             setattr(self.ops, k, fn)
 
 
-def path_kernels(scfg, rep, n_layers: int):
+def path_kernels(scfg, rep, n_layers: int, tp: int = 1):
     """{kernel: launches} a run with this config must have made over
     ``n_layers`` attention layers: its decode kernel once per attention
     layer and decode forward (per draft forward, and the
     verify kernel per verify forward, when speculating), ``flash_prefill``
     once per layer and prefill forward, ``rope_elite`` once per layer and
-    forward of any kind (q and k together)."""
+    forward of any kind (q and k together).  At ``tp`` > 1 the decode and
+    verify kernels launch once per head shard."""
     q8 = "_q8" if scfg.cache_dtype == "int8" else ""
     sparse = "sparse_" if scfg.sparse_topk_blocks else ""
     want = {"flash_prefill": rep.prefill_chunks,
@@ -968,18 +986,19 @@ def path_kernels(scfg, rep, n_layers: int):
         want["elite_decode_paged" + q8] = rep.draft_forwards
     else:
         want[f"elite_decode_{sparse}paged{q8}"] = rep.decode_steps
-    return {k: v * n_layers for k, v in want.items()}
+    return {k: v * n_layers * (1 if k in ("flash_prefill", "rope_elite") else tp)
+            for k, v in want.items()}
 
 
 def serve_run(label, params, buffers, cfg, scfg, reqs, card: str, setup=None, draws=None,
-              tracer=None, metrics=None):
+              tracer=None, metrics=None, mesh=None):
     """Serve ``reqs`` with the counts set to 0 just before and read just
     after; check outputs and that the path's kernels (``path_kernels``) ran
     once per attention layer and forward and nothing else launched.  ``setup(scheduler)``
     runs before the requests are served; ``draws`` (a dict) gets every
     sampled draw (``record_draws``).  With a ``tracer`` the scheduler
     records into it (and meters into ``metrics``) and the kernel tracer is
-    armed for the run.
+    armed for the run.  ``mesh`` (a ``TPMesh``) serves tensor-parallel.
     → (report, launches, recorder, scheduler)."""
     import numpy as np
     import torch
@@ -990,7 +1009,7 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, card: str, setup=None, dr
     rec = Recorder(L)
     dev = lm.params_device(params)
     sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=dev, tracer=tracer,
-                                 metrics=metrics)
+                                 metrics=metrics, mesh=mesh)
     if setup is not None:
         setup(sched)
     undo = record_draws(draws) if draws is not None else (lambda: None)
@@ -1016,7 +1035,7 @@ def serve_run(label, params, buffers, cfg, scfg, reqs, card: str, setup=None, dr
         toks = np.asarray(r.generated)
         if len(toks) != r.max_new_tokens or toks.min() < 0 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"{label} request {r.uid}: bad output {toks[:8]}...")
-    want = path_kernels(scfg, rep, L)
+    want = path_kernels(scfg, rep, L, 1 if mesh is None else mesh.tp)
     for name, n in want.items():
         if not launches[name] == n > 0:
             raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
@@ -1625,8 +1644,9 @@ DP_BASE = dict(max_slots=4, block_size=16, num_blocks=96, max_new_tokens=DP_NEW,
 
 
 def router_run(label, params, buffers, cfg, scfg, reqs, dev, card: str, draws=None,
-               rows=None, tracer=None, metrics=None):
-    """``reqs`` through a ``Router`` of two replicas on ``dev``, with the
+               rows=None, tracer=None, metrics=None, meshes=None):
+    """``reqs`` through a ``Router`` of two replicas on ``dev`` (or one per
+    ``TPMesh`` of ``meshes``), with the
     counts set to 0 just before and read just after: outputs checked, and
     each replica's launches must be ``path_kernels`` of its own report
     (the replicas' together the whole run's).  ``draws``/``rows`` record
@@ -1637,13 +1657,14 @@ def router_run(label, params, buffers, cfg, scfg, reqs, dev, card: str, draws=No
     from repro_torch.kernels import ops
     from repro_torch.runtime.router import Router
     L = cfg.n_attn_layers
-    router = Router(params, buffers, cfg, scfg, num_replicas=2, devices=[dev, dev],
-                    tracer=tracer, metrics=metrics)
+    placed = dict(devices=[dev, dev]) if meshes is None else dict(meshes=meshes)
+    router = Router(params, buffers, cfg, scfg, num_replicas=2, tracer=tracer,
+                    metrics=metrics, **placed)
     undo = [record_draws(draws)] if draws is not None else []
     if rows is not None:
         undo.append(record_greedy_rows(router.replicas, rows))
     ops.reset_launches()
-    ops.set_kernel_tracer(tracer, device=router.devices)
+    ops.set_kernel_tracer(tracer, device=router.shard_devices())
     try:
         rep = router.run(reqs)
         torch.cuda.synchronize()
@@ -1661,8 +1682,8 @@ def router_run(label, params, buffers, cfg, scfg, reqs, dev, card: str, draws=No
         toks = np.asarray(r.generated)
         if len(toks) != r.max_new_tokens or toks.min() < 0 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"{label} request {r.uid}: bad output {toks[:8]}...")
-    for i, (r, got) in enumerate(zip(rep.replicas, rep.launches)):
-        want = path_kernels(scfg, r, L)
+    for i, (r, got, s) in enumerate(zip(rep.replicas, rep.launches, router.replicas)):
+        want = path_kernels(scfg, r, L, 1 if s.mesh is None else s.mesh.tp)
         if got != want or not all(want.values()):
             raise AssertionError(f"{label} replica {i}: launches {got}, expected {want} "
                                  f"(its forwards x layers)")
@@ -1714,7 +1735,7 @@ def data_parallel(params, buffers, cfg, dev, card: str) -> dict:
     rng = np.random.default_rng(30)
     prompts = [list(map(int, rng.integers(0, cfg.vocab_size, int(n))))
                for n in rng.integers(DP_PROMPT[0], DP_PROMPT[1] + 1, DP_REQUESTS)]
-    out = {"scenarios": {}}
+    out = {"scenarios": {}, "handoff": {}}
     untraced = None
     for name in list(sharded_check.SCENARIOS) + list(sharded_check.SAMPLED):
         t0 = time.perf_counter()
@@ -1780,6 +1801,17 @@ def data_parallel(params, buffers, cfg, dev, card: str) -> dict:
               f"near-tie tokens excused {res['ties']}; launches per replica {rep.launches}; "
               f"{res['wall']:.1f} s", flush=True)
         out["scenarios"][name] = res
+        # what phase 3r holds its tp runs to, so that tp 1 is served once
+        out["handoff"][name] = dict(
+            scfg=scfg, make=make, tokens={r.uid: list(r.generated) for r in sched.finished},
+            rows=want_rows if greedy_rows else None, draws=want_draws,
+            counts=(srep.preemptions, srep.prefill_chunks, srep.decode_steps,
+                    srep.draft_forwards),
+            bpt_dev=sched.pool.bytes_per_token_per_device(),
+            router=dict(tokens=got, rows=got_rows, routed=rep.routed,
+                        counts=[(r.preemptions, r.prefill_chunks, r.decode_steps)
+                                for r in rep.replicas])
+            if name in TP_ROUTED else None)
         if name == "plain":
             untraced = (scfg, make, got)
     # the plain router run again, traced
@@ -2012,6 +2044,152 @@ def tensor_parallel(params, buffers, cfg, dev, card: str) -> dict:
     del scratch
     out["wall"] = time.perf_counter() - t_phase
     print(f"[{card}] phase 3q (tensor-parallel attention) {out['wall']:.1f} s", flush=True)
+    return out
+
+
+# -- tensor-parallel serving (phase 3r) -------------------------------------------
+TP_SERVED = ((2, ("plain", "recompute", "prefix", "int8", "spec", "sampled")),
+             (4, ("plain", "int8", "spec")))   # (tp, 3p's scenarios served at it)
+TP_ROUTED = ("plain", "prefix")                # served by the router at tp 2 x dp 2
+
+
+def same_rows(label: str, want: dict, got: dict) -> int:
+    """Every recorded row (a greedy logits row, or a sampled draw's row and
+    token) of a tp run against tp 1's, bit for bit.  → rows compared."""
+    import torch
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: recorded {len(got)} rows, tp 1 {len(want)}; "
+                             f"differing keys {sorted(set(got) ^ set(want), key=str)[:8]}")
+    bad = []
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, tuple):                        # a draw: (row, token)
+            same = torch.equal(g[0], w[0]) and g[1] == w[1]
+        elif torch.is_tensor(w):
+            same = torch.equal(g, w)
+        else:                                           # a residual draw's mark
+            same = g == w
+        if not same:
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} of {len(want)} rows differ from tp 1's, "
+                             f"first {bad[:4]}")
+    return len(want)
+
+
+def tp_serving(params, buffers, cfg, dev, card: str, handoff: dict) -> dict:
+    """Phase 3r: 3p's one-``Scheduler`` runs again through ``Scheduler(mesh=)``
+    at tp 2 (every scenario) and tp 4 (plain, int8, spec), and 3p's plain
+    and prefix router runs through ``Router(meshes=)`` at tp 2 x dp 2, every
+    shard on the card, each held to 3p's run bit for bit; the launcher at
+    ``--tp 2`` traced in a fresh process.  → figures."""
+    import os
+    import torch
+    from repro_torch.launch.mesh import TPMesh
+    from repro_torch.runtime import sharded_check
+    t_phase = time.perf_counter()
+    out = {"runs": {}}
+    # sharded_check --parity's cases on the card: each *_tp wrapper's kernel
+    # launches bitwise equal to the unsharded call's
+    parity = sharded_check.run_parity(dev)
+    print(f"[{card}] 3r sharded_check --parity on {dev}: {parity}", flush=True)
+    if not all(parity.values()):
+        raise AssertionError(f"3r parity: {parity}")
+    for tp, names in TP_SERVED:
+        for name in names:
+            t0 = time.perf_counter()
+            h = handoff[name]
+            rows = {} if h["rows"] is not None else None
+            draws = {} if h["draws"] is not None else None
+            undo = []
+            setup = ((lambda s: undo.append(record_greedy_rows([s], [rows])))
+                     if rows is not None else None)
+            label = f"3r {name} tp={tp}"
+            try:
+                rep, launches, _, sched = serve_run(label, params, buffers, cfg, h["scfg"],
+                                                    h["make"](), card, setup=setup,
+                                                    draws=draws, mesh=TPMesh.on(dev, tp))
+            finally:
+                for u in undo:
+                    u()
+            got = {r.uid: list(r.generated) for r in sched.finished}
+            if got != h["tokens"]:
+                bad = sorted(u for u in h["tokens"] if got.get(u) != h["tokens"][u])
+                raise AssertionError(f"{label}: streams {bad} differ from tp 1's")
+            counts = (rep.preemptions, rep.prefill_chunks, rep.decode_steps,
+                      rep.draft_forwards)
+            if counts != h["counts"]:
+                raise AssertionError(f"{label}: (preemptions, prefill forwards, decode "
+                                     f"steps, draft forwards) {counts} != tp 1's "
+                                     f"{h['counts']}")
+            n_rows = same_rows(label, h["rows"], rows) if rows is not None else 0
+            n_draws = same_rows(label, h["draws"], draws) if draws is not None else 0
+            res = dict(tok_s=rep.tok_per_s, ttft=(rep.ttft_wall_p50_ms, rep.ttft_wall_p95_ms),
+                       step_p50=rep.step_ms_p50,
+                       bpt_dev=sched.pool.bytes_per_token_per_device(),
+                       one_bpt_dev=h["bpt_dev"],
+                       launches={k: v for k, v in launches.items() if v},
+                       rows=n_rows, draws=n_draws, wall=time.perf_counter() - t0)
+            out["runs"][name, tp] = res
+            print(f"[{card}] {label}: {len(got)} streams, {n_rows} greedy rows and {n_draws} "
+                  f"draws bitwise tp 1's; preemptions {counts[0]}, {counts[1]} prefill "
+                  f"forwards, {counts[2]} decode steps as tp 1; launches {res['launches']}; "
+                  f"{res['wall']:.1f} s", flush=True)
+            del sched, rows, draws
+    for name in TP_ROUTED:
+        t0 = time.perf_counter()
+        h = handoff[name]["router"]
+        rows = [{}, {}]
+        label = f"3r {name} tp=2 dp=2"
+        rep, router = router_run(label, params, buffers, cfg, handoff[name]["scfg"],
+                                 handoff[name]["make"](), dev, card, rows=rows,
+                                 meshes=[TPMesh.on(dev, 2), TPMesh.on(dev, 2)])
+        if router.finished_tokens() != h["tokens"] or rep.routed != h["routed"]:
+            raise AssertionError(f"{label}: streams or routing {rep.routed} differ from "
+                                 f"3p's dp=2 router ({h['routed']})")
+        counts = [(r.preemptions, r.prefill_chunks, r.decode_steps) for r in rep.replicas]
+        if counts != h["counts"]:
+            raise AssertionError(f"{label}: replicas' (preemptions, prefill forwards, decode "
+                                 f"steps) {counts} != 3p's {h['counts']}")
+        n_rows = sum(same_rows(f"{label} replica {i}", w, g)
+                     for i, (w, g) in enumerate(zip(h["rows"], rows)))
+        res = dict(tok_s=rep.tok_per_s, ttft=(rep.ttft_wall_p50_ms, rep.ttft_wall_p95_ms),
+                   step_p50=[r.step_ms_p50 for r in rep.replicas],
+                   bpt_dev=router.replicas[0].pool.bytes_per_token_per_device(),
+                   launches=rep.launches, rows=n_rows, wall=time.perf_counter() - t0)
+        out["runs"][name, "2x2"] = res
+        print(f"[{card}] {label}: streams, routing {rep.routed} and {n_rows} greedy rows "
+              f"bitwise 3p's dp=2 router; launches per replica {rep.launches}; "
+              f"{res['wall']:.1f} s", flush=True)
+        del router, rows
+    # the launcher in a fresh process (no kernel loaded yet), traced
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cli = out_dir / "tp_cli"
+    card_dev = str(torch.empty(0, device=dev).device)
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--elitekv", "--stream", "--tp", "2",
+         "--device", card_dev, "--requests", "6", "--prompt-len", "64", "--new-tokens", "8",
+         "--prefill-chunk", "64", "--trace", f"{cli}.json", "--metrics-out", f"{cli}.prom"],
+        capture_output=True, text=True, timeout=240, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if run.returncode or "stream [tp=2]: completed=6" not in run.stdout \
+            or "pool/device: " not in run.stdout:
+        raise AssertionError(f"3r launch/serve.py --tp 2 --trace: rc {run.returncode}\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+    chk = subprocess.run([sys.executable, str(ROOT / "tools" / "check_trace.py"), f"{cli}.json",
+                          "--metrics", f"{cli}.prom"], capture_output=True, text=True,
+                         timeout=300)
+    if chk.returncode:
+        raise AssertionError(f"3r launcher trace: check_trace failed\n{chk.stdout[-3000:]}")
+    pool_line = next(x for x in run.stdout.splitlines() if x.startswith("pool/device: "))
+    print(f"[{card}] 3r launch/serve.py --stream --tp 2 --device {card_dev} --trace in a fresh "
+          f"process: {run.stdout.splitlines()[0]}; {pool_line}; "
+          f"{chk.stdout.strip().splitlines()[-1]}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    out["wall"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 3r (tensor-parallel serving) {out['wall']:.1f} s", flush=True)
     return out
 
 
@@ -2900,10 +3078,16 @@ def kernel_subrow(label: str, name: str, a, launches: int, card: str, flush,
     return r
 
 
+# Falcon-Mamba-7B's layers through generate in 3l: 32 of 64, cut in depth
+# to make room for phase 3r in the script's time (64 took ~22 s)
+FALCON_GEN_LAYERS = 32
+
+
 def moe_mamba_hybrid(dev, card: str) -> dict:
     """Phase 3l: Qwen3-MoE (4 full-width layers) through the paged
-    ``Scheduler``, one full-width period of Jamba-v0.1 and the whole of
-    Falcon-Mamba-7B through ``generate``, card vs CPU module checks, and
+    ``Scheduler``, one full-width period of Jamba-v0.1 and
+    ``FALCON_GEN_LAYERS`` of Falcon-Mamba-7B's 64 layers through
+    ``generate``, card vs CPU module checks, and
     the kernels at the new attention shapes.  → numbers for the summary."""
     from repro_torch.kernels.elite_decode import visited_rows
     import dataclasses
@@ -3044,15 +3228,17 @@ def moe_mamba_hybrid(dev, card: str) -> dict:
     del dec, pre
     out["jamba"] = b
 
-    # c. Falcon-Mamba-7B, all 64 layers, through generate: no kernel runs
+    # c. Falcon-Mamba-7B at full width through generate: no kernel runs
     cfg = build_config("falcon_mamba_7b", reduced=False, cache_ratio=0.25)
     assert (cfg.num_layers, cfg.n_attn_layers, cfg.d_inner, cfg.elitekv.enabled) == \
         (64, 0, 8192, False), cfg
+    cfg = dataclasses.replace(cfg, num_layers=FALCON_GEN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, buffers = lm.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    print(f"[{card}] 3l c. Falcon-Mamba-7B, all 64 layers: {weights(params) / 1e9:.2f} GB of "
+    print(f"[{card}] 3l c. Falcon-Mamba-7B, {FALCON_GEN_LAYERS} of 64 layers: "
+          f"{weights(params) / 1e9:.2f} GB of "
           f"f32 weights made in {time.perf_counter() - t0:.1f} s", flush=True)
     prompts = np.random.default_rng(16).integers(0, cfg.vocab_size, (B, P))
     _, fstats, fwall, _, _ = generate_run("3l generate Falcon-Mamba", params, buffers, cfg,
@@ -4402,6 +4588,9 @@ def main() -> int:
     # q. tensor-parallel attention: the paged forwards at tp 1, 2 and 4 on
     # a TPMesh of the card, bitwise equal
     tp3q = tensor_parallel(params, buffers, cfg, dev, card)
+    # r. tensor-parallel serving: 3p's runs through Scheduler(mesh=) at tp 2
+    # and 4 and Router(meshes=) at tp 2 x dp 2, bitwise equal to 3p's
+    tp3r = tp_serving(params, buffers, cfg, dev, card, dp3p.pop("handoff"))
 
     # i. conversion of the baseline TinyLlama-1.1B, and the converted model
     # served; k. that model uptrained, resumed and served; j. MiniCPM-2B
@@ -4810,7 +4999,7 @@ def main() -> int:
           f"{q['profile']['events']:.0f} device events and {q['profile']['syncs']:.1f} "
           f"syncs per step, device busy {q['profile']['busy_ms']:.2f} ms per step",
           flush=True)
-    for label, x in (("Jamba period", jb), ("Falcon-Mamba 64 layers", fm)):
+    for label, x in (("Jamba period", jb), (f"Falcon-Mamba {FALCON_GEN_LAYERS} layers", fm)):
         st = x["stats"]
         dec = np.asarray(st.step_ms[1:])
         prof = x.get("profile")
@@ -4918,6 +5107,24 @@ def main() -> int:
               f"({r['bound_by']}), launches {r['launches']}, max_abs_err "
               f"{r['max_abs_err']:.3e}", flush=True)
 
+    # phase 3r's numbers, beside 3p's tp 1 (one Scheduler, or the dp=2 router)
+    for (name, tp), x in tp3r["runs"].items():
+        one = dp3p["scenarios"][name]
+        if tp == "2x2":
+            print(f"[{card}] 3r {name} tp=2 dp=2: tok/s {x['tok_s']:.1f} against "
+                  f"{one['tok_s']:.1f} at tp 1; TTFT p50/p95 {x['ttft'][0]:.1f}/"
+                  f"{x['ttft'][1]:.1f} against {one['ttft'][0]:.1f}/{one['ttft'][1]:.1f} ms; "
+                  f"replica step p50 {x['step_p50'][0]:.2f}/{x['step_p50'][1]:.2f} against "
+                  f"{one['step_p50'][0]:.2f}/{one['step_p50'][1]:.2f} ms; pool bytes per "
+                  f"token per device {x['bpt_dev']}", flush=True)
+            continue
+        print(f"[{card}] 3r {name} tp={tp}: tok/s {x['tok_s']:.1f} against "
+              f"{one['single_tok_s']:.1f} at tp 1; TTFT p50/p95 {x['ttft'][0]:.1f}/"
+              f"{x['ttft'][1]:.1f} against {one['single_ttft'][0]:.1f}/"
+              f"{one['single_ttft'][1]:.1f} ms; step p50 {x['step_p50']:.2f} against "
+              f"{one['single_step_p50']:.2f} ms; pool bytes per token per device "
+              f"{x['bpt_dev']} against {x['one_bpt_dev']}", flush=True)
+
     # -- 5. result lines -----------------------------------------------------
     t = train3k
     print(f"[{card}] uptraining (3k): step_ms p50 {t['step_ms_p50']:.1f}, tokens/s "
@@ -4929,7 +5136,8 @@ def main() -> int:
           f"hybrid) {hyb['wall']:.1f} s, 3m (frontends) {fronts['wall']:.1f} s and 3n (MoE, "
           f"Mamba and hybrid training and conversion) {tr3n['wall']:.1f} s, 3o (the dry run "
           f"against the card) {dry['wall']:.1f} s, 3p (the data-parallel router) "
-          f"{dp3p['wall']:.1f} s, 3q (tensor-parallel attention) {tp3q['wall']:.1f} s; "
+          f"{dp3p['wall']:.1f} s, 3q (tensor-parallel attention) {tp3q['wall']:.1f} s, 3r "
+          f"(tensor-parallel serving) {tp3r['wall']:.1f} s; "
           f"the whole script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if not (isinstance(rows, list) and rows and all(isinstance(r, dict) for r in rows)):

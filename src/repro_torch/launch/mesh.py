@@ -6,23 +6,24 @@ The port's counterpart of the JAX package's ``launch/mesh.py``.
 in front for two pods; ``distributed/sharding.py`` sizes what each device
 holds from them.
 
-``serving_devices``/``replica_devices`` are the counterparts of
-``make_serving_mesh``/``replica_meshes``: the devices of each
-data-parallel replica behind ``runtime/router.py``.  A bare ``"cuda"``
-spreads the replicas over the visible cards, replica ``i`` on ``cuda:i``;
-an explicit device (``"cuda:0"``, ``"cpu"``) places every replica on it —
-the port's stand-in for the reference's forced host-device count, which is
-how one card or the CPU serves ``dp > 1``.  Tensor-parallel *serving*
-(``tp > 1`` replicas behind the scheduler and the launcher) is ROADMAP item
-15b.2 and raises ``ValueError``.
+``serving_devices``/``replica_meshes`` are the counterparts of
+``make_serving_mesh``/``replica_meshes``: the ``[dp, tp]`` serving layout,
+one ``TPMesh`` per data-parallel replica behind ``runtime/router.py``.  A
+bare ``"cuda"`` spreads the shards over the visible cards, replica ``i``'s
+shard ``j`` on ``cuda:(i·tp + j)``; an explicit device (``"cuda:0"``,
+``"cpu"``) hosts every shard of every replica — the port's stand-in for
+the reference's forced host-device count, which is how one card or the CPU
+serves ``tp > 1`` and ``dp > 1``.  ``replica_devices`` gives each replica's
+one device at ``tp == 1``.
 
 ``TPMesh`` is one replica's ``("model",)`` submesh: the ``tp`` devices its
 attention heads are split over, head shard ``r`` on ``devices[r]``.  The
 port's tensor parallelism is single-controller, as the reference's
 ``shard_map`` is: one process drives every shard, and a shard's device may
 repeat (every shard on ``cuda:0`` on one card, on ``cpu`` in the tests).
-The paged pool (``core/cache.py``), the paged forwards (``models/lm.py``)
-and the head-sharded attention wrappers (``kernels/ops.py``) take it.
+The ``Scheduler`` (``runtime/serve_loop.py``), the router's replicas, the
+paged pool (``core/cache.py``), the paged forwards (``models/lm.py``) and
+the head-sharded attention wrappers (``kernels/ops.py``) take it.
 """
 from __future__ import annotations
 
@@ -30,11 +31,6 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 import torch
-
-TP_NOT_PORTED = ("tensor-parallel serving (tp > 1) is not ported yet: ROADMAP "
-                 "Queue 1 item 15b.2 (the Scheduler's mesh, serving_devices(tp > 1), "
-                 "the launcher's --tp and sharded_check --tp/--parity)")
-
 
 @dataclasses.dataclass(frozen=True)
 class TPMesh:
@@ -72,14 +68,13 @@ def production_mesh_axes(*, multi_pod: bool = False) -> Dict[str, int]:
 def serving_devices(tp: int = 1, dp: int = 1, device="cuda") -> List[List[torch.device]]:
     """The ``(dp, tp)`` serving layout: one list of ``tp`` devices per
     replica.  A bare ``"cuda"`` takes the first ``dp * tp`` visible cards
-    (replica ``i`` on ``cuda:i``); any other device hosts every replica."""
+    (replica ``i``'s shard ``j`` on ``cuda:(i·tp + j)``, ``make_serving_mesh``'s
+    ``[dp, tp]`` order); any other device hosts every shard of every replica."""
     if tp < 1 or dp < 1:
         raise ValueError(f"tp and dp must be >= 1, got tp={tp} dp={dp}")
-    if tp > 1:
-        raise ValueError(TP_NOT_PORTED)
     dev = torch.device(device)
     if dev.type != "cuda" or dev.index is not None:
-        return [[dev] for _ in range(dp)]
+        return [[dev] * tp for _ in range(dp)]
     need = dp * tp
     visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if need > visible:
@@ -90,6 +85,12 @@ def serving_devices(tp: int = 1, dp: int = 1, device="cuda") -> List[List[torch.
     return [[torch.device("cuda", i * tp + j) for j in range(tp)] for i in range(dp)]
 
 
-def replica_devices(dp: int = 1, device="cuda", tp: int = 1) -> List[torch.device]:
-    """One device per data-parallel replica (``tp == 1``)."""
-    return [devs[0] for devs in serving_devices(tp=tp, dp=dp, device=device)]
+def replica_meshes(tp: int = 1, dp: int = 1, device="cuda") -> List[TPMesh]:
+    """One ``TPMesh`` per data-parallel replica over ``serving_devices``:
+    replica ``i``'s head shards on its own ``tp`` devices."""
+    return [TPMesh(tuple(devs)) for devs in serving_devices(tp=tp, dp=dp, device=device)]
+
+
+def replica_devices(dp: int = 1, device="cuda") -> List[torch.device]:
+    """One device per data-parallel replica at ``tp == 1``."""
+    return [devs[0] for devs in serving_devices(tp=1, dp=dp, device=device)]

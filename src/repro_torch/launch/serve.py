@@ -91,24 +91,30 @@ are token-identical.  Check and summarise the artifacts with
 
 Batch mode rejects both flags, as the reference does.
 
-``--dp N`` (with ``--stream``) serves the stream through ``N`` independent
-``Scheduler`` replicas behind the least-loaded router
+``--tp N`` (with ``--stream``) serves tensor-parallel: the attention heads
+and the pool's ``k_e`` pages are split over ``N`` devices
+(``Scheduler(mesh=)``); the streams equal ``--tp 1``'s, and the run adds a
+``pool/device:`` line (pool bytes per token on each device, the global
+figure and tp).  ``N`` must divide the model's kv heads (an argument error
+otherwise).  ``--dp M`` (with ``--stream``) serves the stream through ``M``
+independent ``Scheduler`` replicas behind the least-loaded router
 (``runtime/router.py``), each with its own pool of ``--num-blocks``
 blocks; the merged token streams equal one scheduler's.  Placement
-follows ``--device`` (``launch/mesh.py::replica_devices``): a bare
-``cuda`` puts replica ``i`` on card ``i`` and needs ``N`` cards, while
-``cuda:0`` or ``cpu`` hosts every replica on that one device.  The run
-prints the ``stream [tp= dp= devices=]`` summary line and one line per
-replica; ``--trace`` puts each replica's events on ``r{i}:`` tracks beside
-the router's ``route`` instants, and ``--metrics-out`` adds the
+follows ``--device`` (``launch/mesh.py::replica_meshes``): a bare
+``cuda`` puts replica ``i``'s shard ``j`` on card ``i·N + j`` and needs
+``N·M`` cards, while ``cuda:0`` or ``cpu`` hosts every shard of every
+replica on that one device.  A router run prints the ``stream [tp= dp=
+devices=]`` summary line, one line per replica and the ``pool/device:``
+line; ``--trace`` puts each replica's events on ``r{i}:`` tracks beside
+the router's ``route`` instants (each shard's kernel launch is one span on
+the ``kernel`` track), and ``--metrics-out`` adds the
 ``serve_replica_{i}_*`` family:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --elitekv \
-        --stream --device cpu --dp 2 --trace out.json --metrics-out m.prom
+        --stream --device cpu --tp 2 --dp 2 --trace out.json --metrics-out m.prom
 
-``--tp`` (tensor parallelism inside a replica) is ROADMAP item 15b.2:
-``--tp > 1`` raises ``ValueError``.  ``--tp``/``--dp`` below 1, or above 1 without
-``--stream``, are argument errors, as in the reference.  ``--moe-impl``
+``--tp``/``--dp`` below 1, or above 1 without ``--stream``, are argument
+errors, as in the reference.  ``--moe-impl``
 picks how MoE layers dispatch in every forward of either mode: "ragged"
 (the default) or the "dense" oracle; "ep" (expert parallelism, ROADMAP
 item 15d) raises ``ValueError``.
@@ -126,7 +132,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.cache import model_cache_floats_per_token
 from repro_torch.core.convert import pick_dims
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import replica_devices
+from repro_torch.launch.mesh import replica_meshes
 from repro_torch.models import lm, moe
 from repro_torch.obs import REGISTRY, Tracer, write_chrome_trace
 from repro_torch.runtime import serve_loop
@@ -177,17 +183,22 @@ def serve_stream(params, buffers, cfg, args):
                        args.new_tokens, args.seed, shared_prefix=args.shared_prefix,
                        temperature=args.temperature, top_p=args.top_p,
                        sample_seed=args.sample_seed)
+    meshes = replica_meshes(tp=args.tp, dp=args.dp, device=args.device)
     if args.dp > 1:
-        return serve_routed(params, buffers, cfg, scfg, reqs, tracer, args)
-    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, device=args.device,
-                                 tracer=tracer, metrics=REGISTRY, moe_impl=args.moe_impl)
-    ops.set_kernel_tracer(tracer, device=args.device)
+        return serve_routed(params, buffers, cfg, scfg, reqs, tracer, meshes, args)
+    sched = serve_loop.Scheduler(params, buffers, cfg, scfg, tracer=tracer, metrics=REGISTRY,
+                                 moe_impl=args.moe_impl, mesh=meshes[0])
+    ops.set_kernel_tracer(tracer, device=list(meshes[0].devices))
     try:
         report = sched.run(reqs)
     finally:
         ops.set_kernel_tracer(None)
     stats = sched.pool.stats()
-    print(f"arch={cfg.name} stream [{args.device}]: {report.summary()}")
+    if args.tp == 1:
+        print(f"arch={cfg.name} stream [{args.device}]: {report.summary()}")
+    else:
+        print(f"arch={cfg.name} stream [tp={args.tp}]: {report.summary()}")
+        print(pool_device_line(sched.pool))
     if scfg.prefill_chunk_tokens:
         print(f"chunked prefill: {report.prefill_chunks} forwards of "
               f"<= {scfg.prefill_chunk_tokens} tokens x {scfg.chunk_lanes} "
@@ -249,22 +260,28 @@ def write_observability(tracer, args) -> None:
               f"{args.metrics_out} (Prometheus text format)")
 
 
-def serve_routed(params, buffers, cfg, scfg, reqs, tracer, args):
+def pool_device_line(pool) -> str:
+    """The reference's per-device pool line: bytes per token on each device
+    of the mesh, beside the global figure."""
+    return (f"pool/device: {pool.bytes_per_token_per_device()}B/token "
+            f"(global {pool.bytes_per_token()}B/token, tp={pool.tp})")
+
+
+def serve_routed(params, buffers, cfg, scfg, reqs, tracer, meshes, args):
     """``--dp N``: the stream through ``N`` Scheduler replicas behind the
-    router, placed by ``launch/mesh.py::replica_devices``."""
-    devices = replica_devices(dp=args.dp, device=args.device, tp=args.tp)
-    router = Router(params, buffers, cfg, scfg, num_replicas=args.dp, devices=devices,
+    router, one ``TPMesh`` each (``launch/mesh.py::replica_meshes``)."""
+    router = Router(params, buffers, cfg, scfg, num_replicas=args.dp, meshes=meshes,
                     moe_impl=args.moe_impl, tracer=tracer, metrics=REGISTRY)
+    devices = router.shard_devices()
     ops.set_kernel_tracer(tracer, device=devices)
     try:
         rep = router.run(reqs)
     finally:
         ops.set_kernel_tracer(None)
-    pool0 = router.replicas[0].pool
     print(f"arch={cfg.name} stream [tp={args.tp} dp={args.dp} "
-          f"devices={','.join(map(str, router.devices))}]: {rep.summary()}")
+          f"devices={','.join(map(str, devices))}]: {rep.summary()}")
     print(rep.per_replica_table())
-    print(f"pool: {pool0.bytes_per_token()}B/token; {args.dp} replicas x "
+    print(f"{pool_device_line(router.replicas[0].pool)}; {args.dp} replicas x "
           f"{scfg.num_blocks} blocks x {scfg.block_size} tokens")
     write_observability(tracer, args)
     return rep
@@ -384,20 +401,25 @@ def main(argv=None):
                     help="MoE dispatch: ragged (sorted groups) or the dense "
                          "oracle; ep is not ported (ValueError)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel width inside a replica (not ported: "
-                         "tp > 1 raises ValueError)")
+                    help="tensor-parallel width: shard the attention heads and "
+                         "the k_e pool pages over N devices (token streams stay "
+                         "bit-identical; N must divide the kv heads)")
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel replicas: N independent schedulers "
                          "behind a least-loaded router (a bare --device cuda "
-                         "needs N cards; cuda:0 or cpu hosts them all)")
+                         "needs tp x dp cards; cuda:0 or cpu hosts them all)")
     args = ap.parse_args(argv)
     moe.check_impl(args.moe_impl)
     if args.tp < 1 or args.dp < 1:
         ap.error("--tp and --dp must be >= 1")
     if (args.tp > 1 or args.dp > 1) and not args.stream:
         ap.error("--tp/--dp shard the paged serving path; add --stream")
+    cfg = build_config(args.arch, args.reduced, args.cache_ratio, args.elitekv)
+    if args.tp > 1 and cfg.n_kv_heads % args.tp:
+        ap.error(f"--tp {args.tp} must divide n_kv_heads={cfg.n_kv_heads} "
+                 "(see pad_cfg_for_tp in distributed/sharding.py)")
     if args.tp > 1 or args.dp > 1:
-        replica_devices(dp=args.dp, device=args.device, tp=args.tp)   # placement errors first
+        replica_meshes(tp=args.tp, dp=args.dp, device=args.device)   # placement errors first
     if get_config(args.arch).frontend == "audio":
         raise ValueError(f"{args.arch} is an audio model with no token embedding: it "
                          "takes frame embeddings through lm's entry points, not the "
@@ -435,7 +457,6 @@ def main(argv=None):
     # the reference is f32 end to end: keep matmuls out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = build_config(args.arch, args.reduced, args.cache_ratio, args.elitekv)
     params, buffers = lm.init(cfg, seed=args.seed, device=args.device)
     if not args.stream:
         base = build_config(args.arch, args.reduced, args.cache_ratio, elitekv=False)

@@ -2,8 +2,8 @@
 
 The port's counterpart of the JAX package's ``runtime/router.py``.  The
 router owns the global serving clock and ``N`` ``Scheduler`` replicas, each
-on its own device (``launch/mesh.py::replica_devices``; several replicas
-may share one device, as on one card or the CPU).  Replicas never
+on its own device or tensor-parallel mesh (``launch/mesh.py::replica_meshes``;
+several replicas may share one device, as on one card or the CPU).  Replicas never
 synchronize with each other.  Every global step it (1) routes due arrivals
 to the least-loaded replica, (2) steps every replica once in lockstep, and
 (3) reconciles the :class:`ReplicaBoard` admission ledger against the
@@ -26,10 +26,13 @@ counters on the ``router`` track, and the shared metrics registry grows
 the name-encoded ``serve_replica_{i}_*`` family (the registry has no labels
 by design; tools/check_trace.py checks the family all or nothing).
 
-The port's own additions: ``devices`` places the replicas (replicas on the
-params' device share its tensors, another device gets one copy), and
-``RouterReport.launches`` counts each replica's kernel launches (the
-launch counters' change across that replica's steps).
+``meshes`` gives each replica its own ``TPMesh`` (or None: one device), as
+the reference's does; a replica's scheduler then shards its attention heads
+over that mesh.  The port's own additions: ``devices`` places ``tp == 1``
+replicas; either way replica ``i``'s weights live on its first device
+(replicas on the params' device share its tensors, another device gets one
+copy), and ``RouterReport.launches`` counts each replica's kernel launches
+(the launch counters' change across that replica's steps).
 """
 from __future__ import annotations
 
@@ -231,21 +234,30 @@ def _to(tree, device: torch.device):
 
 class Router:
     """Front end over ``num_replicas`` independent Schedulers (see the
-    module docstring).  ``devices`` gives each replica's device (default:
-    every replica on the params' device).  Replicas on the params' device
-    share ``params``/``buffers``; each other device gets one copy, made
-    once and shared by the replicas there."""
+    module docstring).  ``meshes`` gives each replica's ``TPMesh`` (None
+    for one device), ``devices`` each replica's device at ``tp == 1``;
+    passing both is a ``ValueError``, and with neither every replica runs
+    on the params' device.  Replica ``i``'s device (``devices[i]``) is its
+    mesh's first.  Replicas there share ``params``/``buffers`` when it is
+    the params' device; each other device gets one copy, made once and
+    shared by the replicas there."""
 
     def __init__(self, params, buffers, cfg, scfg: SchedulerConfig,
                  num_replicas: int, devices: Optional[List[Any]] = None,
-                 moe_impl: str = "ragged", tracer=None, metrics=None):
+                 moe_impl: str = "ragged", tracer=None, metrics=None,
+                 meshes: Optional[List[Any]] = None):
         assert num_replicas >= 1, num_replicas
+        if devices is not None and meshes is not None:
+            raise ValueError("pass the replicas' devices or their meshes, not both")
         home = lm.params_device(params)
-        devices = [torch.device(d) for d in devices] if devices is not None \
-            else [home] * num_replicas
-        assert len(devices) == num_replicas, (len(devices), num_replicas)
+        meshes = list(meshes) if meshes is not None else [None] * num_replicas
+        if devices is None:
+            devices = [home if m is None else m.devices[0] for m in meshes]
+        assert len(devices) == len(meshes) == num_replicas, \
+            (len(devices), len(meshes), num_replicas)
         devices = [torch.empty(0, device=d).device for d in devices]  # "cuda" → "cuda:0"
         self.devices = devices
+        self.meshes = meshes
         self.trace = tracer or NULL_TRACER
         self.metrics = metrics or MetricsRegistry()
         self.scfg = scfg
@@ -257,7 +269,8 @@ class Router:
         # totals, while the serve_replica_{i}_* family keeps the split
         self.replicas = [
             Scheduler(*weights[d], cfg, scfg, device=d, moe_impl=moe_impl,
-                      tracer=ReplicaTracer(self.trace, i), metrics=self.metrics)
+                      tracer=ReplicaTracer(self.trace, i), metrics=self.metrics,
+                      mesh=meshes[i])
             for i, d in enumerate(devices)]
         self.board = ReplicaBoard(num_replicas)
         self.t = 0
@@ -281,6 +294,12 @@ class Router:
                     f"serve_replica_{i}_blocks_used",
                     f"replica {i} pool blocks in use"),
             })
+
+    def shard_devices(self) -> List[torch.device]:
+        """Every replica's devices in replica and shard order: its mesh's,
+        or its one device."""
+        return [d for dev, m in zip(self.devices, self.meshes)
+                for d in ((dev,) if m is None else m.devices)]
 
     # -- routing ------------------------------------------------------------
     def submit(self, req: Request) -> int:

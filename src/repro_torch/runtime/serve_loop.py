@@ -67,6 +67,16 @@ up to the verify and decode forwards' rounding.
 Speculation with sparse decode is a ``ValueError`` (a verify window has no
 single selection query).
 
+``Scheduler(mesh=...)`` (a ``launch.mesh.TPMesh``) serves tensor-parallel,
+as the reference's ``mesh=`` does: the pool's ``k_e`` pages are split by kv
+head over the mesh (``PagedKVPool(mesh=)``) and every paged forward, draft
+forwards included, runs its decode and verify attention once per head
+shard (``kernels/ops.py``'s ``*_tp`` wrappers); everything else runs
+full-head on ``mesh.devices[0]``, where the params live.  The host
+bookkeeping (blocks, admission, preemption, swap, prefix sharing) is the
+same at every tp, so a run at tp > 1 takes tp 1's decisions and gives its
+streams.
+
 Observability, as in the reference: ``Scheduler(tracer=..., metrics=...)``
 records the run into a ``repro_torch.obs.Tracer`` — a span per step phase
 on the ``scheduler`` track, request lifecycle instants (``submit``,
@@ -497,11 +507,15 @@ class Scheduler:
     ``params``/``buffers`` must already live on ``device``.  ``tracer`` (a
     ``repro_torch.obs.Tracer``) and ``metrics`` (a ``MetricsRegistry``)
     observe the run.  MoE layers dispatch by ``moe_impl`` in every forward
-    (prefill, decode, draft and verify).
+    (prefill, decode, draft and verify).  ``mesh`` (a ``TPMesh``) shards
+    the attention heads over its devices (module docstring); the device is
+    then ``mesh.devices[0]`` (``device``, if given, must be it).  Without
+    either, ``device`` is ``"cuda"``.
     """
 
     def __init__(self, params, buffers, cfg: ModelConfig, scfg: SchedulerConfig,
-                 device="cuda", tracer=None, metrics=None, moe_impl: str = "ragged"):
+                 device=None, tracer=None, metrics=None, moe_impl: str = "ragged",
+                 mesh=None):
         _check_text(cfg)
         moe.check_impl(moe_impl)
         if not cfg.elitekv.enabled:
@@ -526,7 +540,17 @@ class Scheduler:
                 "partial-width sparse decode needs eviction='swap' (or "
                 "admission='watermark'): a recompute re-prefills densely and "
                 "cannot reproduce streams generated with sparse attention")
-        self.device = torch.empty(0, device=device).device   # "cuda" → "cuda:0"
+        here = lambda d: torch.empty(0, device=d).device      # "cuda" → "cuda:0"
+        if mesh is not None:
+            if device is not None and here(device) != here(mesh.devices[0]):
+                raise ValueError(f"scheduler device {device} is not the mesh's first "
+                                 f"device {mesh.devices[0]}")
+            device = mesh.devices[0]
+        self.device = here("cuda" if device is None else device)
+        self.mesh = mesh
+        # every device a forward's shards run on, each once (_sync waits on all)
+        self._devices = (self.device,) if mesh is None else tuple(
+            dict.fromkeys(map(here, mesh.distinct())))
         if lm.params_device(params) != self.device:
             raise ValueError(f"params live on {lm.params_device(params)}, "
                              f"scheduler device is {self.device}")
@@ -537,7 +561,7 @@ class Scheduler:
         self.pool = PagedKVPool(cfg, scfg.num_blocks, scfg.block_size,
                                 device=self.device, dtype=scfg.cache_dtype,
                                 block_summaries=scfg.sparse_topk_blocks > 0,
-                                tracer=self.trace)
+                                tracer=self.trace, mesh=mesh)
         self.bm = BlockManager(self.pool, policy=scfg.admission,
                                prefix_cache=scfg.prefix_cache)
         self.slots: List[Optional[Request]] = [None] * scfg.max_slots
@@ -652,9 +676,11 @@ class Scheduler:
 
     # -- helpers ------------------------------------------------------------
     def _sync(self) -> None:
-        """Wait for the device, so a phase's wall time covers its work."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for every device of the mesh, so a phase's wall time covers
+        its work."""
+        for d in self._devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -940,7 +966,7 @@ class Scheduler:
         with self._phase("prefill", lanes=1, tokens=n):
             logits = lm.apply_prefill_paged(
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
-                self.pool.pages, torch.from_numpy(sm), **kw, moe_impl=self.moe_impl)
+                self.pool.pages, torch.from_numpy(sm), **kw, moe_impl=self.moe_impl, mesh=self.mesh)
             self._sync()
         self.trace.instant("prefill_chunk", track=f"slot{slot}", cat="request",
                            uid=req.uid, start=pos, n=n)
@@ -1005,7 +1031,7 @@ class Scheduler:
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
                 self.pool.pages, torch.from_numpy(sms), chunk_start=starts,
                 block_tables=bt, prefix_lens=starts,
-                block_size=scfg.block_size, moe_impl=self.moe_impl)
+                block_size=scfg.block_size, moe_impl=self.moe_impl, mesh=self.mesh)
             self._sync()
         self._m_prefill_tokens.inc(n_toks)
         self.prefill_chunks += 1
@@ -1127,7 +1153,7 @@ class Scheduler:
                 self.pool.pages, torch.from_numpy(sm), self._tensor(bt),
                 self._tensor(lengths), self.scfg.block_size,
                 self.scfg.sparse_topk_blocks, self.scfg.sparse_recent_blocks,
-                moe_impl=self.moe_impl)
+                moe_impl=self.moe_impl, mesh=self.mesh)
             self._sync()
         with self._phase("sample"):
             if sampled:
@@ -1217,7 +1243,7 @@ class Scheduler:
                 logits = lm.apply_decode_paged(
                     self.draft_params, self.buffers, self.cfg, self._tensor(tokens),
                     self.pool.pages, torch.from_numpy(sm), bt, self._tensor(lengths),
-                    scfg.block_size, moe_impl=self.moe_impl)
+                    scfg.block_size, moe_impl=self.moe_impl, mesh=self.mesh)
                 if sampled:
                     arrays = self._sampling_arrays(
                         sampled, {i: len(r.generated) + j for i, r in sampled.items()}, B)
@@ -1245,7 +1271,7 @@ class Scheduler:
             logits = lm.apply_verify_paged(
                 self.params, self.buffers, self.cfg, self._tensor(tokens),
                 self.pool.pages, torch.from_numpy(sms), bt, self._tensor(offs),
-                self._tensor(lengths), scfg.block_size, moe_impl=self.moe_impl)
+                self._tensor(lengths), scfg.block_size, moe_impl=self.moe_impl, mesh=self.mesh)
             targets = torch.argmax(logits, dim=-1).cpu().numpy()       # [B, W]
             rows = None
             if sampled:                     # verify rows, then draft rows

@@ -1373,3 +1373,43 @@ def test_tp_wrappers_on_card_bitwise_unsharded(form, q8, tp, cuda):
     torch.cuda.synchronize()
     assert single == 1 and ops.launches()[entry] - before == tp * single
     assert got.device == want.device and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("name", ["plain", "recompute", "prefix", "int8", "spec", "sampled"])
+def test_tp_scheduler_on_card_matches_tp1(name, tp, cuda):
+    """``Scheduler(mesh=)`` with every shard on the card against the same
+    scheduler at tp 1 (sharded_check's requests): the same streams and
+    scheduling, bit for bit, and the attention kernel launched ``tp``
+    times per layer and forward, the other kernels as at tp 1."""
+    from repro_torch.launch.mesh import TPMesh
+    from repro_torch.runtime import sharded_check
+    cfg, params, buffers, prompts = sharded_check.tiny_model(cuda)
+    runs = {}
+    for t in (1, tp):
+        ops.reset_launches()
+        rep = sharded_check.run_scenario(name, params, buffers, cfg, [TPMesh.on(cuda, t)],
+                                         prompts)
+        runs[t] = rep, {k: v for k, v in ops.launches().items() if v}
+    (one, n1), (got, n) = runs[1], runs[tp]
+    assert got["tokens"] == one["tokens"]
+    for key in ("completed", "preemptions", "prefill_chunks", "decode_steps"):
+        assert got["report"][key] == one["report"][key], key
+    attention = {k for k in n1 if k.startswith("elite_")}
+    assert attention and n == {k: v * (tp if k in attention else 1) for k, v in n1.items()}
+    assert got["report"]["pool_bytes_per_token_per_device"] < \
+        one["report"]["pool_bytes_per_token_per_device"]
+
+
+def test_tp_parity_and_routed_tp2_dp2_on_card(cuda):
+    """``sharded_check --parity``'s cases on the card, and ``Router(meshes=)``
+    at tp 2 x dp 2 against the same router at tp 1: the same streams."""
+    from repro_torch.launch.mesh import TPMesh
+    from repro_torch.runtime import sharded_check
+    assert all(sharded_check.run_parity(cuda).values())
+    cfg, params, buffers, prompts = sharded_check.tiny_model(cuda)
+    one, two = (sharded_check.run_scenario("plain", params, buffers, cfg,
+                                           [TPMesh.on(cuda, t)] * 2, prompts)
+                for t in (1, 2))
+    assert two["tokens"] == one["tokens"] and sum(two["report"]["routed"]) == \
+        sharded_check.N_REQUESTS

@@ -12,8 +12,9 @@ against the port's own single ``Scheduler``.
   ``runtime/sharded_check.py`` and the sampled one: equal streams.
 * Observability: the ``serve_replica_{i}_*`` family, ``tools/check_trace.py``
   on a routed trace (a subprocess), ``diagnose trace-summary``'s
-  per-replica blocks; ``launch/mesh.py``'s placement rules; the launcher's
-  ``--dp``/``--tp``; ``sharded_check`` as a module.
+  per-replica blocks; ``launch/mesh.py``'s placement rules at tp 1 and
+  tp > 1; the launcher's ``--dp``/``--tp``; ``sharded_check`` as a module
+  and in process at ``--tp 2`` and ``--parity``.
 
 On the CPU every replica runs the kernels' plain versions, and a lane's
 bits do not depend on its neighbours, so streams are compared exactly.
@@ -352,13 +353,21 @@ def test_replica_tracer_forwards_to_the_base():
 def test_mesh_placement_rules(monkeypatch):
     assert mesh.replica_devices(dp=3, device="cpu") == [torch.device("cpu")] * 3
     assert mesh.serving_devices(dp=2, device="cuda:0") == [[torch.device("cuda", 0)]] * 2
-    with pytest.raises(ValueError, match="item 15b"):
-        mesh.serving_devices(tp=2, dp=1, device="cpu")
+    cpu = torch.device("cpu")
+    assert mesh.serving_devices(tp=2, dp=1, device="cpu") == [[cpu, cpu]]
+    assert [m.devices for m in mesh.replica_meshes(tp=2, dp=2, device="cpu")] == \
+        [(cpu, cpu)] * 2
     with pytest.raises(ValueError, match="must be >= 1"):
         mesh.replica_devices(dp=0, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert mesh.replica_devices(dp=3) == [torch.device("cuda", i) for i in range(3)]
+    cuda = [torch.device("cuda", i) for i in range(4)]
+    assert mesh.serving_devices(tp=2, dp=2) == [cuda[:2], cuda[2:]]
+    assert [m.devices for m in mesh.replica_meshes(tp=4)] == [tuple(cuda)]
+    with pytest.raises(ValueError, match=r"serving mesh needs 6 devices \(tp=2 x dp=3\) "
+                                         r"but only 4 are visible"):
+        mesh.serving_devices(tp=2, dp=3)
     with pytest.raises(ValueError, match=r"serving mesh needs 5 devices \(tp=1 x dp=5\) "
                                          r"but only 4 are visible"):
         mesh.replica_devices(dp=5)
@@ -385,19 +394,35 @@ def test_launcher_serves_routed_and_refuses(monkeypatch, capsys, tmp_path):
     assert "serve_replica_1_blocks_used" in m.read_text()
     assert json.loads(t.read_text())["traceEvents"]
     base = ["--reduced", "--elitekv", "--device", "cpu"]
-    for bad in (["--dp", "2"], ["--stream", "--dp", "0"], ["--stream", "--tp", "0"]):
+    for bad in (["--dp", "2"], ["--stream", "--dp", "0"], ["--stream", "--tp", "0"],
+                ["--stream", "--tp", "3"]):          # 3 does not divide the 4 kv heads
         with pytest.raises(SystemExit):
             serve.main(base + bad)
-    with pytest.raises(ValueError, match="item 15b"):
-        serve.main(base + ["--stream", "--tp", "2"])
+    rep = serve.main(base + ["--stream", "--tp", "2", "--requests", "4", "--rate", "1.0",
+                             "--max-slots", "2", "--block-size", "4", "--num-blocks", "24",
+                             "--prompt-len", "8", "--new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert rep.completed == 4
+    assert "arch=tinyllama_1_1b stream [tp=2]: completed=4" in out
+    assert "pool/device: 384B/token (global 512B/token, tp=2)" in out
     with pytest.raises(ValueError, match="item 15"):
         serve.main(base + ["--stream", "--moe-impl", "ep"])
 
 
-def test_sharded_check_refuses_tp_and_parity():
-    for argv in (["--tp", "2", "--device", "cpu"], ["--parity", "--device", "cpu"]):
-        with pytest.raises(ValueError, match="item 15b"):
-            sharded_check.main(argv)
+def test_sharded_check_runs_tp_and_parity(capsys):
+    one = sharded_check.main(["--device", "cpu"])
+    two = sharded_check.main(["--tp", "2", "--device", "cpu"])
+    assert two["devices"] == ["cpu", "cpu"] and two["tp"] == 2
+    plain1, plain2 = one["scenarios"]["plain"], two["scenarios"]["plain"]
+    assert plain2["tokens"] == plain1["tokens"]
+    assert len(plain2["tokens"]) == sharded_check.N_REQUESTS
+    assert plain2["report"]["pool_bytes_per_token_per_device"] < \
+        plain1["report"]["pool_bytes_per_token_per_device"] == \
+        plain1["report"]["pool_bytes_per_token"] == plain2["report"]["pool_bytes_per_token"]
+    parity = sharded_check.main(["--parity", "--device", "cpu"])["parity"]
+    assert parity == {"decode_tp2": True, "decode_tp4": True, "verify_tp2": True,
+                      "decode_q8_tp2": True}
+    capsys.readouterr()
 
 
 def test_sharded_check_module_dp2_equals_dp1():

@@ -368,5 +368,5 @@ def test_tp_mesh_and_the_serving_refusal():
     assert TPMesh.on("cuda:0", 4).devices == (torch.device("cuda", 0),) * 4
     with pytest.raises(ValueError):
         TPMesh(())
-    with pytest.raises(ValueError, match=r"item 15b\.2"):
-        mesh_lib.serving_devices(tp=2, device="cpu")
+    assert mesh_lib.serving_devices(tp=2, device="cpu") == [[torch.device("cpu")] * 2]
+    assert mesh_lib.replica_meshes(tp=4, device="cpu") == [TPMesh.on("cpu", 4)]
