@@ -195,12 +195,14 @@ non-zero:
       bitwise share printed; a 2-layer full-width TinyLlama-1.1B EliteKV
       (B 2 x S 256): every leaf's gradient on the card against the port on
       the CPU, ``wk_e``'s not zero; i's converted model (d_ckv = 64)
-      uptrained 8 AdamW steps at B 8 x S 512, lr 1e-5 constant, full remat
+      uptrained 4 AdamW steps at B 8 x S 512, lr 1e-5 constant, full remat
       (the rotation launched 44 times forward and 22 backward per step,
       nothing else; losses finite and falling; step ms, tokens/s, peak
-      memory, model-FLOP share; the same run at lr 3e-4 and 1e-4 printed,
-      unchecked); 4 steps with a checkpoint at step 4 and a
-      restart to 8, losses within 1e-4 relative of the uninterrupted run's;
+      memory, model-FLOP share; the same run at lr 3e-4 printed,
+      unchecked); 2 steps with a checkpoint at step 2 and a restart to 4,
+      losses within 1e-4 relative of the uninterrupted run's (8 steps, a
+      sweep at 1e-4 too and a checkpoint at 4 until the sharded steps of
+      phase 3s took their time);
       the uptrained weights serving 8 x (256 + 64) greedy requests, the
       ``Scheduler``'s streams equal to ``generate``'s apart from near-ties.
    j. MiniCPM-2B with tied embeddings at full width (40 layers, 36/36
@@ -212,9 +214,10 @@ non-zero:
       checks below; every earlier model freed, each of these freed before
       the next is made), each run's kernels launched once per attention
       layer and forward and nothing else:
-      Qwen3-MoE-235B, 4 of its 94 layers (128 experts top-8, 64/4 heads of
-      128, vocab 151,936; EliteKV r = 16, d_ckv = 128: 4,096 B of cache
-      per token against 16,384; 44.7 GB of f32 weights) serving 3a's 24
+      Qwen3-MoE-235B, 1 of its 94 layers (128 experts top-8, 64/4 heads of
+      128, vocab 151,936; EliteKV r = 16, d_ckv = 128: 1,024 B of cache
+      per token against 4,096; ~12 GB of f32 weights; 4 layers until the
+      sharded steps of phase 3s took their time) serving 3a's 24
       requests through the paged ``Scheduler``, every token's logits row
       against ``generate`` of its request alone within LOGIT_TOL (a
       request is excused only where ``generate``'s routers came within
@@ -226,7 +229,7 @@ non-zero:
       top-2, 4 MLPs; 53.2 GB) through ``generate`` at 8 x (1024 + 128),
       then cache on == cache off (prefill + decode logits against
       ``apply_train`` within LOGIT_TOL) and a profiler window;
-      Falcon-Mamba-7B at full width, 32 of its 64 layers (cut in depth
+      Falcon-Mamba-7B at full width, 16 of its 64 layers (cut in depth
       to keep the script inside its time), through ``generate`` at
       8 x (1024 + 128), launching no kernel.  Card against CPU on the same
       weights: one Qwen3-MoE and one Jamba MoE FFN on 64 tokens, one Mamba
@@ -238,8 +241,9 @@ non-zero:
    m. the vision and audio frontends at full width and depth, from the
       reference's batch inputs (after l, each model freed before the
       next): InternVL2-2B (24 layers, 16/8 heads of 128, vocab 92,672) and
-      MusicGen-large (48 layers, 32/32 heads of 64, frames in, no
-      embedding table), each a seeded baseline converted at
+      MusicGen-large (12 of its 48 layers, cut in depth to make room for
+      phase 3s; 32/32 heads of 64, frames in, no embedding table), each a
+      seeded baseline converted at
       ``pick_dims(cfg, 0.25, align=16)`` (r 16, d_ckv 256; r 8, d_ckv 512)
       by ``ropelite.search_model`` and ``convert.convert_model`` on a
       calibration batch (4 x (256 patch embeddings + 256 tokens); 2 x 512
@@ -267,14 +271,14 @@ non-zero:
       group-size syncs per step under the layer remat), gradients within
       1e-4 of each leaf's largest unless a router gap is under 1e-6, and
       the functional AdamW's reckoning that rules the whole step out; (b)
-      Qwen3-MoE at 4 layers converted, ``generate`` 8 x (512 + 32), every
+      Qwen3-MoE at 1 layer converted, ``generate`` 8 x (512 + 32), every
       lane's every logits row against ``apply_train`` over the prompt and
       generated tokens within 1e-4 (cache on == off; routing excused as
       above); (c) one Jamba-v0.1 period converted (search and J-LRD at
       its attention layer 3, Mamba layers passed through), ``generate`` 8
       x (1024 + 128) with rows held the same way, then its layers 0-3
       through the loss and backward at B 1 x 512; (d) Falcon-Mamba-7B at 8
-      of 64 layers, 4 AdamW steps (f32 moments) at B 8 x 512 (no kernel
+      of 64 layers, 2 AdamW steps (f32 moments) at B 8 x 512 (no kernel
       runs), and one layer's loss and backward with the scan's per-chunk
       recompute and with ``ssm_unroll``: peaks printed, gradients equal
       bit for bit but the embedding table's (an accumulating index_put,
@@ -2480,12 +2484,13 @@ def conversion(dev, card: str) -> dict:
 
 # -- training (phase 3k) -----------------------------------------------------------
 
-TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 8
-# the checked run's lr, and the larger ones printed beside it: random
-# weights under Adam's sign-like first steps spike at the paper's 3e-4 with
-# no warmup (PERF.md, PR 22), which a converted pretrained model would not
-TRAIN_LR, LR_SWEEP = 1e-5, (3e-4, 1e-4)
-RESUME_AT = 4
+# 4 steps (8 until phase 3s took their time; depth only)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 4
+# the checked run's lr, and the paper's printed beside it: random weights
+# under Adam's sign-like first steps spike at 3e-4 with no warmup (PERF.md,
+# PR 22), which a converted pretrained model would not
+TRAIN_LR, LR_SWEEP = 1e-5, (3e-4,)
+RESUME_AT = 2
 RESUME_RTOL = 1e-4          # resumed vs uninterrupted losses (atomics reorder sums)
 GRAD_RTOL = 1e-4            # card vs CPU gradient, of the leaf's largest (f32 orders)
 # the rotation's backward at the uptraining path's widths, (query heads, key
@@ -2612,8 +2617,9 @@ def training(dev, card: str, params, buffers, cfg) -> dict:
     ``LR_SWEEP``): each step must launch the rotation 2 x 22 times forward (forward
     and recompute) and 22 times backward and nothing else, the loss must
     stay finite and end below where it began; step ms, tokens/s, peak
-    memory and the model-FLOP share of 67 TFLOP/s are printed; (d) 4 steps
-    with a checkpoint at step 4 and a restart to 8, whose losses must equal
+    memory and the model-FLOP share of 67 TFLOP/s are printed; (d)
+    ``RESUME_AT`` steps with a checkpoint there and a restart to
+    ``TRAIN_STEPS``, whose losses must equal
     the uninterrupted run's within ``RESUME_RTOL``; (e) the uptrained weights
     serve 8 x (256 + 64) greedy through the ``Scheduler``, streams equal to
     lockstep ``generate``'s apart from near-ties.  → the numbers and the
@@ -2726,8 +2732,8 @@ def training(dev, card: str, params, buffers, cfg) -> dict:
             raise AssertionError(f"resumed step {s}: loss {resumed[s]} vs uninterrupted "
                                  f"{losses[s]}")
     print(f"[{card}] checkpoint at step {RESUME_AT} ({ck_bytes / 2**30:.2f} GiB on disk; "
-          f"4 steps and the save {t_save:.1f} s) and a restart to {TRAIN_STEPS} (restore "
-          f"and 4 steps {t_resume:.1f} s): losses "
+          f"{RESUME_AT} steps and the save {t_save:.1f} s) and a restart to {TRAIN_STEPS} "
+          f"(restore and {TRAIN_STEPS - RESUME_AT} steps {t_resume:.1f} s): losses "
           + " ".join(f"{resumed[s]:.6f}" for s in range(RESUME_AT, TRAIN_STEPS))
           + f" vs uninterrupted " + " ".join(f"{losses[s]:.6f}"
                                               for s in range(RESUME_AT, TRAIN_STEPS))
@@ -2805,7 +2811,8 @@ def tied_model(dev, card: str) -> dict:
 
 # -- MoE, Mamba and hybrid stacks at full width (phase 3l) -----------------------
 
-QWEN_LAYERS = 4             # of Qwen3-MoE-235B's 94 (one layer per period)
+QWEN_LAYERS = 1             # of Qwen3-MoE-235B's 94 (one layer per period; 4 until
+                            # phase 3s took their time)
 JAMBA_LAYERS = 8            # one whole period of Jamba-v0.1's 32
 MODULE_TOL = 1e-5           # card vs CPU, of the output's largest magnitude (f32)
 
@@ -3078,13 +3085,13 @@ def kernel_subrow(label: str, name: str, a, launches: int, card: str, flush,
     return r
 
 
-# Falcon-Mamba-7B's layers through generate in 3l: 32 of 64, cut in depth
-# to make room for phase 3r in the script's time (64 took ~22 s)
-FALCON_GEN_LAYERS = 32
+# Falcon-Mamba-7B's layers through generate in 3l: 16 of 64, cut in depth
+# to make room for phases 3r (64 → 32; 64 took ~22 s) and 3s (32 → 16)
+FALCON_GEN_LAYERS = 16
 
 
 def moe_mamba_hybrid(dev, card: str) -> dict:
-    """Phase 3l: Qwen3-MoE (4 full-width layers) through the paged
+    """Phase 3l: Qwen3-MoE (``QWEN_LAYERS`` full-width layers) through the paged
     ``Scheduler``, one full-width period of Jamba-v0.1 and
     ``FALCON_GEN_LAYERS`` of Falcon-Mamba-7B's 64 layers through
     ``generate``, card vs CPU module checks, and
@@ -3109,14 +3116,15 @@ def moe_mamba_hybrid(dev, card: str) -> dict:
     def weights(params):
         return sum(t.numel() * t.element_size() for t in _tensors(params))
 
-    # a. Qwen3-MoE-235B, 4 of 94 layers, through the paged Scheduler
+    # a. Qwen3-MoE-235B, QWEN_LAYERS of 94 layers, through the paged Scheduler
     cfg = dataclasses.replace(build_config("qwen3_moe_235b", reduced=False, cache_ratio=0.25),
                               num_layers=QWEN_LAYERS)
     e = cfg.elitekv
     base_cfg = dataclasses.replace(cfg, elitekv=dataclasses.replace(e, enabled=False))
     per_tok, base_tok = (4 * model_cache_floats_per_token(c) for c in (cfg, base_cfg))
     assert (cfg.d_model, cfg.n_experts, cfg.top_k, e.elite_r, e.d_ckv, cfg.n_attn_layers,
-            per_tok, base_tok) == (4096, 128, 8, 16, 128, 4, 4096, 16384), cfg
+            per_tok, base_tok) == (4096, 128, 8, 16, 128, QWEN_LAYERS, 1024 * QWEN_LAYERS,
+                                   4096 * QWEN_LAYERS), cfg
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, buffers = lm.init(cfg, seed=0, device=dev)
@@ -3255,6 +3263,7 @@ def moe_mamba_hybrid(dev, card: str) -> dict:
 FRONT_PATCHES, FRONT_TEXT = 256, 256   # InternVL2: patch embeddings, then text tokens
 FRONT_LANES, FRONT_DECODE = 8, 64      # paged prefill lanes and greedy decode steps
 MUSIC_LANES, MUSIC_FRAMES, MUSIC_DECODE = 4, 512, 32
+MUSIC_LAYERS = 12          # of MusicGen-large's 48: cut in depth to make room for 3s
 FRONT_TRAIN_STEPS = 4
 
 
@@ -3416,7 +3425,7 @@ def convert_timed(label: str, params, buffers, cfg, calib, e, dev, card: str):
 
 
 def frontends(dev, card: str) -> dict:
-    """Phase 3m: InternVL2-2B (24 layers) and MusicGen-large (48 layers) at
+    """Phase 3m: InternVL2-2B (24 layers) and MusicGen-large (12 of 48 layers) at
     full width, each converted from a seeded baseline at a quarter cache,
     served and trained on the card through the reference's batch inputs
     (``patch_embeds``, ``tokens``, ``frames``), each freed before the next;
@@ -3528,11 +3537,12 @@ def frontends(dev, card: str) -> dict:
     assert (cfg.num_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.padded_vocab, e.elite_r, e.d_ckv) == (48, 2048, 32, 32, 64, 2048, 8, 512), \
         (cfg, e)
+    cfg = dataclasses.replace(cfg, num_layers=MUSIC_LAYERS)
     L, V = cfg.num_layers, cfg.vocab_size
     torch.cuda.reset_peak_memory_stats()
     params, buffers = lm.init(cfg, seed=0, device=dev)
     assert "embed" not in params and "lm_head" in params
-    print(f"[{card}] 3m b. MusicGen-large baseline, 48 layers at full width: "
+    print(f"[{card}] 3m b. MusicGen-large baseline, {L} of 48 layers at full width: "
           f"{weights(params) / 1e9:.2f} GB of f32 weights, no embedding table; EliteKV "
           f"r={e.elite_r} d_ckv={e.d_ckv}: {2 * e.elite_r * cfg.n_kv_heads + e.d_ckv} floats "
           f"per token and layer against {2 * cfg.n_kv_heads * cfg.head_dim}", flush=True)
@@ -3581,7 +3591,8 @@ def frontends(dev, card: str) -> dict:
 CALIB_3N = (4, 512)          # calibration tokens of the 3n conversions
 MOE_TRAIN_S = 512            # Qwen3-MoE and Jamba loss and backward at B 1 x S 512
 JAMBA_TRAIN_LAYERS = 4       # Jamba's layers 0-3 (attention at 3): the backward's cut
-FALCON_TRAIN_LAYERS, FALCON_B, FALCON_STEPS = 8, 8, 4
+# 2 steps (4 until phase 3s took their time; depth only)
+FALCON_TRAIN_LAYERS, FALCON_B, FALCON_STEPS = 8, 8, 2
 STEP_RTOL = 1e-5             # card vs CPU params after one step, of a leaf's largest
 BIG_GRAD = 1e-4              # a first Adam step moves a weight of |g| >= this by ±lr
 # a stack with Mamba layers decodes by the one-token recurrence where the
@@ -3923,7 +3934,7 @@ def moe_mamba_training(dev, card: str) -> dict:
     a["wall"] = time.perf_counter() - t0
     out["qwen1"] = a
 
-    # b. Qwen3-MoE-235B, 4 of 94 layers, converted from a baseline and
+    # b. Qwen3-MoE-235B, QWEN_LAYERS of 94 layers, converted from a baseline and
     # served through generate, rows held to apply_train
     t0 = time.perf_counter()
     cfg = dataclasses.replace(cfg, num_layers=QWEN_LAYERS)
@@ -4108,23 +4119,37 @@ def _tensors(tree):
 PEAK_REL, PEAK_FLOOR = 0.03, 256 * 2**20
 #: the share of the card's memory C2's predicted peak (with what is held) may take
 PREFILL_FILL = 0.90
-# lists every applicable cell of the reference's --all at 16 x 16, one JSON
-# line each (run without the card: meta tensors only)
+# lists the cells given as a JSON list of [arch, shape] at 16 x 16, one JSON
+# line each (run without the card: meta tensors only); the sharded traces
+# extrapolated from three and four layer periods
 LISTING = """
-import json, time
-from repro_torch.configs import ARCH_IDS, SHAPES
+import json, sys, time
 from repro_torch.launch import dryrun
-for arch in ARCH_IDS:
-    if arch.startswith("llama2_13b"):
-        continue
-    for shape in SHAPES:
+for arch, shape in json.loads(sys.argv[1]):
         t0 = time.perf_counter()
-        r = dryrun.lower_cell(arch, shape)
+        r = dryrun.lower_cell(arch, shape, depth="periods")
         if not r["skipped"]:
-            print(json.dumps(dict(arch=arch, shape=shape, resident=r["memory"]["argument_bytes"],
-                                  flops=r["flops_per_device"], s=time.perf_counter() - t0)),
-                  flush=True)
+            m = r["memory"]
+            print(json.dumps(dict(arch=arch, shape=shape, resident=m["argument_bytes"],
+                                  peak=m["peak_estimate_bytes"], flops=r["flops_per_device"],
+                                  even=r["flops_split"] is not None,
+                                  colls=r["collective_bytes_per_device"],
+                                  s=time.perf_counter() - t0)), flush=True)
 """
+
+
+def listing_groups():
+    """The reference's --all cells (LLaMA2-13B aside) cut into four lists
+    for four listing processes side by side: Falcon-Mamba's train cell, its
+    other cells, Jamba's, and the rest, so that the slowest (the Mamba scan
+    on meta tensors) set the wall time."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    cells = [(a, s) for a in ARCH_IDS if not a.startswith("llama2_13b") for s in SHAPES]
+    slow = [[("falcon_mamba_7b", "train_4k")],
+            [c for c in cells if c[0] == "falcon_mamba_7b" and c[1] != "train_4k"],
+            [c for c in cells if c[0] == "jamba_v0_1_52b"]]
+    taken = {c for g in slow for c in g}
+    return slow + [[c for c in cells if c not in taken]]
 
 
 def dryrun_cell_on_card(label: str, arch: str, shape: str, kw: dict, want: dict, dev,
@@ -4212,8 +4237,8 @@ def largest_prefill_batch(room: float, most: int = 32) -> int:
 
 def dryrun_vs_card(dev, card: str) -> dict:
     """Phase 3o: the dry run's predictions held to the card (C1-C4), and
-    the 16 x 16 listing from a subprocess without the card.  → numbers for
-    the summary."""
+    the 16 x 16 listing from four subprocesses without the card
+    (``listing_groups``).  → numbers for the summary."""
     import os
     import torch
     from repro_torch.kernels import build
@@ -4228,8 +4253,13 @@ def dryrun_vs_card(dev, card: str) -> dict:
     if (sms, limit) != (build.TARGET_SMS, build.TARGET_SMEM_OPTIN):
         raise AssertionError("3o: the dry run's target card is not this card")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
-    listing = subprocess.Popen([sys.executable, "-c", LISTING], cwd=ROOT, env=env,
-                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    (ROOT / "build").mkdir(exist_ok=True)
+    logs = [open(ROOT / "build" / f"listing{i}.err", "w+") for i in range(4)]
+    # niced, so that C1-C4's host work beside them keeps its core
+    listings = [subprocess.Popen([sys.executable, "-c", LISTING, json.dumps(g)], cwd=ROOT,
+                                 env=env, stdout=subprocess.PIPE, stderr=log, text=True,
+                                 preexec_fn=lambda: os.nice(10))
+                for g, log in zip(listing_groups(), logs)]
     try:
         cells = [dryrun_cell_on_card("C1", "tinyllama_1_1b", "decode_32k", {},
                                      {"elite_decode": 22, "rope_elite": 22}, dev, card)]
@@ -4251,24 +4281,302 @@ def dryrun_vs_card(dev, card: str) -> dict:
             {"batch": 1, "seq_len": 512, "optimizer": False, "overrides": {"num_layers": 1}},
             {"rope_elite": 2, "rope_elite_backward": 1}, dev, card))
         t_cells = time.perf_counter() - t_phase
-        out, err = listing.communicate(timeout=600)
+        outs = [p.communicate(timeout=600)[0] for p in listings]
     finally:
-        if listing.poll() is None:
-            listing.kill()
-            listing.communicate()
-    if listing.returncode != 0:
-        raise AssertionError(f"3o: the 16 x 16 listing failed:\n{err[-4000:]}")
-    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+        for p in listings:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, log in zip(listings, logs):
+        log.seek(0)
+        err = log.read()
+        log.close()
+        if p.returncode != 0:
+            raise AssertionError(f"3o: the 16 x 16 listing failed:\n{err[-4000:]}")
+    rows = [json.loads(line) for out in outs for line in out.splitlines()
+            if line.startswith("{")]
     for r in rows:
+        traced = ("an even split" if r["even"] else
+                  f"traced sharded: peak {r['peak'] / 2**30:.3f} GiB, collectives "
+                  f"{r['colls'] / 2**30:.2f} GiB per device")
         print(f"[{card}] 3o 16x16 {r['arch']} {r['shape']}: resident "
               f"{r['resident'] / 2**30:.3f} GiB per device, {r['flops']:.4e} FLOPs per device "
-              f"(an even split), {r['s']:.2f} s", flush=True)
+              f"({traced}), {r['s']:.2f} s", flush=True)
     if len(rows) != 35:
         raise AssertionError(f"3o: {len(rows)} cells listed at 16 x 16, expected 35")
     wall = time.perf_counter() - t_phase
     print(f"[{card}] 3o: C1-C4 in {t_cells:.1f} s, the listing of {len(rows)} cells in "
-          f"{sum(r['s'] for r in rows):.1f} s beside them; phase wall {wall:.1f} s", flush=True)
+          f"{sum(r['s'] for r in rows):.1f} s in four processes beside them "
+          f"({sum(not r['even'] for r in rows)} traced sharded in "
+          f"{sum(r['s'] for r in rows if not r['even']):.1f} s); phase wall {wall:.1f} s",
+          flush=True)
     return dict(cells=cells, rows=rows, wall=wall)
+
+
+# -- the sharded train and prefill steps (phase 3s) -------------------------------
+
+#: the production mesh 3s runs on: rank 0 of 256
+SHARDED_AXES = {"data": 16, "model": 16}
+
+
+def predict_sharded(shape: str, room: float):
+    """The dry run's record and cell of TinyLlama-1.1B's ``shape`` on the
+    16 x 16 mesh at the global batch, or at the largest multiple of 16
+    whose predicted per-device peak is at most ``room``.  → (record, cell,
+    seconds of meta trace)."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    B = dryrun.SHAPES[shape].global_batch
+    while True:
+        rec, cell = dryrun.lower_cell("tinyllama_1_1b", shape, batch=B, return_cell=True,
+                                      mesh_axes=SHARDED_AXES)
+        if B <= 16 or rec["memory"]["peak_estimate_bytes"] <= room:
+            return rec, cell, time.perf_counter() - t0
+        B -= 16
+
+
+def sharded_cell_on_card(label: str, rec: dict, cell, t_pred: float, want: dict, dev,
+                         card: str) -> dict:
+    """Run the step the dry run traced for ``rec`` (TinyLlama-1.1B at full
+    width and depth, sharded on the 16 x 16 mesh) on the card as rank 0 of
+    a fake group of 256, the launch counts set to 0 just before it, and
+    hold the measured peak, launches and collectives to the prediction."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_group
+    from repro_torch.tree import leaves
+    t_cell = time.perf_counter()
+    mem, shape, batch = rec["memory"], rec["shape"], rec["global_batch"]
+    plan0 = shd.plan_for_mesh(rec["mesh_axes"], fsdp=rec["fsdp"],
+                              seq_parallel=rec["seq_parallel"])
+    _free_card()
+    build.free_scratch(dev)
+    held = torch.cuda.memory_allocated(dev)
+    with fake_group(plan0.chips, "cuda"):
+        plan = dryrun.sharded_plan(plan0, "cuda")
+        state = dryrun.place_state(cell, plan, dryrun.cell_state(cell, "meta"), device=dev,
+                                   seed=5)
+        placed = torch.cuda.memory_allocated(dev) - held
+        constrain = dryrun.sharding_constrain(cell, plan)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        with CommDebugMode() as cdm:
+            out = dryrun.run_step(cell, state, constrain)
+        torch.cuda.synchronize(dev)
+        step_s = time.perf_counter() - t1
+        launches = {k: v for k, v in ops.launches().items() if v}
+        counts = dryrun.comm_counts(cdm)
+        peak = torch.cuda.max_memory_allocated(dev)
+        outs = [getattr(t, "_local_tensor", t)
+                for t in leaves(list(out) if isinstance(out, tuple) else [out])
+                if torch.is_tensor(t) and t.is_floating_point()]
+        finite = all(bool(torch.isfinite(part).all()) for t in outs
+                     for part in t.reshape(-1).split(2**28))
+        del out, state, outs
+    _free_card()
+    build.free_scratch(dev)
+    measured = peak - held
+    pred = mem["peak_estimate_bytes"]
+    diff, allowed = abs(pred - measured), max(PEAK_REL * measured, PEAK_FLOOR)
+    calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+    want_counts = {k: v["count"] for k, v in rec["collectives"].items() if v["count"]}
+    print(f"[{card}] 3s {label} tinyllama_1_1b {shape} B {batch} x {cell.shape.seq_len} "
+          f"({rec['step']}) on 16x16, rank 0 of a fake group of 256 (collectives move no "
+          f"data, so values are not checked here): predicted peak {pred / 2**30:.3f} GiB "
+          f"(resident {mem['argument_bytes'] / 2**30:.3f}, temp {mem['temp_bytes'] / 2**30:.3f} "
+          f"at {mem['peak_op']}), {rec['flops_per_device']:.4e} FLOPs per device, meta trace "
+          f"{t_pred:.1f} s; measured max_memory_allocated {peak / 2**30:.3f} GiB with "
+          f"{held / 2**30:.3f} GiB held before the cell ({placed / 2**30:.3f} GiB placed): "
+          f"{measured / 2**30:.3f} GiB, |predicted - measured| {diff / 2**20:.1f} MiB "
+          f"({100 * diff / measured:.2f}%) against {allowed / 2**20:.1f} MiB allowed; step "
+          f"{step_s:.2f} s (run {time.perf_counter() - t_cell:.1f} s); launches {launches}; "
+          f"collectives {counts} (record: {want_counts}), "
+          f"{rec['collective_bytes_per_device'] / 2**30:.2f} GiB per device", flush=True)
+    for t in rec["largest_at_peak"][:4]:
+        print(f"[{card}] 3s {label}   at the peak: {t['bytes'] / 2**30:.3f} GiB "
+              f"{t['dtype']}{t['shape']} <- {t['op']}", flush=True)
+    if launches != want or launches != calls:
+        raise AssertionError(f"3s {label}: launches {launches}, expected {want} (the trace's "
+                             f"meta calls {calls})")
+    if counts != want_counts:
+        raise AssertionError(f"3s {label}: collectives {counts} on the card, {want_counts} "
+                             f"in the record")
+    if not finite:
+        raise AssertionError(f"3s {label}: an output is not finite")
+    if diff > allowed:
+        raise AssertionError(f"3s {label}: predicted peak {pred} B against {measured} B "
+                             f"measured, {diff} B apart (> {allowed:.0f} B)")
+    return dict(label=label, shape=shape, batch=batch, seq=cell.shape.seq_len, predicted=pred,
+                measured=measured, held=held, placed=placed, raw_peak=peak,
+                temp=mem["temp_bytes"], resident=mem["argument_bytes"],
+                flops=rec["flops_per_device"], step_s=step_s, diff=diff,
+                collectives=rec["collectives"],
+                collective_bytes=rec["collective_bytes_per_device"], trace_s=t_pred)
+
+
+def sharded_kernel_parity(dev, card: str, b1: int, b2: int) -> dict:
+    """The ``local_map``ped ``rope_elite_qk`` (forward and backward) and
+    ``flash_prefill`` at 3s's shard shapes (TinyLlama-1.1B on 16 x 16,
+    rank 0: ``b1`` (S1) or ``b2`` (S2) lanes, 2 of 32 query heads, the 4 kv
+    heads replicated) on seeded local operands, against their plain
+    versions on the same operands.  ``flash_prefill`` at 4,096 positions of
+    S2's 32,768: its plain version's [B, H, S, S] scores would take 17 GB
+    each at 32,768."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import pick_dims
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rope_elite as re_k
+    from repro_torch.kernels.flash_prefill import prefill_cost
+    from repro_torch.kernels.rope_elite import rope_cost
+    from repro_torch.launch.mesh import fake_group, make_production_mesh
+    cfg = get_config("tinyllama_1_1b")
+    r2 = 2 * pick_dims(cfg, 0.25, align=128).elite_r
+    nh, nkv, dh, G = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.q_group
+    hq = nh // SHARDED_AXES["model"]
+    g = torch.Generator(device=dev).manual_seed(33)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    out = {}
+    with fake_group(256, "cuda"):
+        mesh = make_production_mesh(device_type="cuda")
+        rep, bat, heads = [Replicate()] * 2, [Shard(0), Replicate()], [Shard(0), Shard(2)]
+        # a rank-0 piece as a DTensor: 16 batch shards, heads over model where sharded
+
+        def place(t, pl):
+            shape = (t.shape[0] * 16, t.shape[1], t.shape[2] * (16 if pl == heads else 1),
+                     t.shape[3])
+            return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
+                                      stride=torch.empty(shape, device="meta").stride())
+        # S1's rotation: b1 x 4096 local lanes, q_e of 2 heads, k_e of all 4
+        B1, S1 = b1, 4096
+        q_l, k_l = rn(B1, S1, hq, r2), rn(B1, S1, nkv, r2)
+        freqs = torch.rand(nkv, r2 // 2, generator=g, device=dev) * 0.5
+        pos = torch.arange(S1, device=dev)
+        qd = place(q_l.clone(), heads).requires_grad_(True)
+        kd = place(k_l.clone(), bat).requires_grad_(True)
+        ops.reset_launches()
+        got_q, got_k = ops.rope_elite_qk(qd, kd, DTensor.from_local(pos, mesh, rep,
+                                                                    run_check=False),
+                                         DTensor.from_local(freqs, mesh, rep,
+                                                            run_check=False), G, 1)
+        wq, wk = rn(*got_q.to_local().shape), rn(*got_k.to_local().shape)
+        (got_q.to_local() * wq).sum().add((got_k.to_local() * wk).sum()).backward()
+        fw = ops.launches()
+        qp, kp = q_l.clone().requires_grad_(True), k_l.clone().requires_grad_(True)
+        # rank 0's query heads 0 .. hq-1 read kv head 0's row, the keys all rows
+        want_q = ref.rope_elite_ref(qp, pos, freqs.repeat_interleave(G, 0)[:hq])
+        want_k = ref.rope_elite_ref(kp, pos, freqs)
+        ((want_q * wq).sum() + (want_k * wk).sum()).backward()
+        out["rope"] = rope_check("3s rope_elite_qk (local_map) at S1's shard: q_e "
+                                 f"{tuple(q_l.shape)} k_e {tuple(k_l.shape)}",
+                                 (got_q.to_local().detach(), got_k.to_local().detach()),
+                                 (want_q.detach(), want_k.detach()), card)
+        e, bad, same = rope_err((qd.grad.to_local(), kd.grad.to_local()), (qp.grad, kp.grad))
+        print(f"[{card}] parity 3s rope_elite_qk backward (local_map) at S1's shard: "
+              f"max_abs_err={e:.3e}, {bad} outside {ROPE_ATOL:.0e} + {ROPE_RTOL:.0e}·|plain|, "
+              f"bitwise equal {100 * same:.2f}%", flush=True)
+        if bad:
+            raise AssertionError(f"3s rope backward: {bad} elements past the tolerance")
+        out["rope_backward"] = e
+        # S2's attention: b2 local lanes, 2 query heads; kv heads replicated,
+        # sliced to the one the shard reads
+        B2, S2 = b2, 4096
+        q2, k2, v2 = rn(B2, S2, hq, dh), rn(B2, S2, nkv, dh), rn(B2, S2, nkv, dh)
+        offs = torch.zeros(B2 * 16, dtype=torch.int32, device=dev)
+        lens = torch.full((B2 * 16,), S2, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            o = ops.flash_prefill(place(q2, heads), place(k2, bat), place(v2, bat), G,
+                                  dh ** -0.5,
+                                  DTensor.from_local(offs, mesh, rep, run_check=False),
+                                  DTensor.from_local(lens, mesh, rep, run_check=False))
+            want = ref.flash_prefill_ref(q2, k2[:, :, :1].contiguous(),
+                                         v2[:, :, :1].contiguous(), hq, dh ** -0.5,
+                                         offs[:B2], lens[:B2])
+        out["flash"] = check("3s flash_prefill (local_map) at S2's shard: q "
+                             f"{tuple(q2.shape)}, kv heads 1 of {nkv}",
+                             max_err(o.to_local(), want), card)
+        out["launches"] = {k: v for k, v in ops.launches().items() if v}
+        print(f"[{card}] 3s parity launches (not counted in S1/S2): rotation forward and "
+              f"backward {fw}, with flash_prefill {out['launches']}", flush=True)
+        if fw != {**{k: 0 for k in fw}, "rope_elite": 1, "rope_elite_backward": 1}:
+            raise AssertionError(f"3s parity: the rotation launched {fw}")
+        # the kernels' times at the shard shapes: the launch each wrapper's
+        # local function makes (CUDA events), the plain version on the same
+        # operands, the bound; and the whole wrapper call on the host clock
+        flush = torch.empty(64 * 2**20, dtype=torch.int8, device=dev)
+        evict = lambda: flush.zero_()
+        rows = freqs.repeat_interleave(G, 0)[:hq]
+        x = (torch.cat([q_l, k_l], dim=2), None, pos, torch.cat([rows, freqs]))
+        nb, fl = rope_cost(x)
+        out["rope_row"] = dict(
+            shape=f"q_e {tuple(q_l.shape)} beside k_e {tuple(k_l.shape)} as one tensor",
+            ms=time_ms(lambda: re_k.rope_elite(x[0], pos, x[3]), flush=evict),
+            plain_ms=time_ms(lambda: ref.rope_elite_ref(x[0], pos, x[3]), flush=evict),
+            bound=bound(nb, fl), wrapper_ms=host_ms(lambda: ops.rope_elite_qk(
+                qd.detach(), kd.detach(), DTensor.from_local(pos, mesh, rep, run_check=False),
+                DTensor.from_local(freqs, mesh, rep, run_check=False), G, 1)))
+        kv1 = dict(q=q2, k=k2[:, :, :1].contiguous(), v=v2[:, :, :1].contiguous(), G=hq,
+                   scale=dh ** -0.5, offs=offs[:B2], lens=lens[:B2])
+        nb, fl = prefill_cost(kv1["q"], kv1["k"], kv1["offs"], kv1["lens"])
+        out["flash_row"] = dict(
+            shape=f"q {tuple(q2.shape)}, k/v {tuple(kv1['k'].shape)}",
+            ms=time_ms(lambda: run_prefill(kv1), flush=evict),
+            plain_ms=time_ms(lambda: run_prefill(kv1, plain=True), flush=evict),
+            bound=bound(nb, fl, PEAK_3XTF32_FLOPS), library_ms=time_ms(sdpa_call(kv1),
+                                                                        flush=evict),
+            wrapper_ms=host_ms(lambda: ops.flash_prefill(
+                place(q2, heads), place(k2, bat), place(v2, bat), G, dh ** -0.5,
+                DTensor.from_local(offs, mesh, rep, run_check=False),
+                DTensor.from_local(lens, mesh, rep, run_check=False))))
+        del flush
+        for name, r in (("rope_elite", out["rope_row"]), ("flash_prefill", out["flash_row"])):
+            print(f"[{card}] 3s kernel {name} at the shard's {r['shape']}: {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+                  f"({r['bound'][1]})"
+                  + (f", SDPA {r['library_ms']:.4f} ms" if "library_ms" in r else "")
+                  + f"; the local_map wrapper's whole call {r['wrapper_ms']:.3f} ms on the "
+                  f"host clock", flush=True)
+    return out
+
+
+def host_ms(fn, iters: int = 10) -> float:
+    """Mean host-clock ms of ``fn`` to the card's idle, after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def sharded_steps(dev, card: str) -> dict:
+    """Phase 3s: the sharded train and prefill steps of TinyLlama-1.1B at
+    full width and depth on the 16 x 16 mesh, as rank 0 of a fake group of
+    256 on the card (S1 train_4k, S2 prefill_32k), held to the dry run's
+    prediction, and the two kernels' ``local_map`` wrappers at the shard
+    shapes held to their plain versions."""
+    import torch
+    t_phase = time.perf_counter()
+    _free_card()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    room = PREFILL_FILL * total - torch.cuda.memory_allocated(dev)
+    cells = []
+    for label, shape, want in (("S1", "train_4k", {"rope_elite": 44, "rope_elite_backward": 22}),
+                               ("S2", "prefill_32k", {"flash_prefill": 22, "rope_elite": 22})):
+        rec, cell, t_pred = predict_sharded(shape, room)
+        cells.append(sharded_cell_on_card(label, rec, cell, t_pred, want, dev, card))
+    parity = sharded_kernel_parity(dev, card, cells[0]["batch"] // 16, cells[1]["batch"] // 16)
+    wall = time.perf_counter() - t_phase
+    print(f"[{card}] phase 3s (the sharded train and prefill steps) {wall:.1f} s", flush=True)
+    return dict(cells=cells, parity=parity, wall=wall)
 
 
 def main() -> int:
@@ -4591,6 +4899,9 @@ def main() -> int:
     # r. tensor-parallel serving: 3p's runs through Scheduler(mesh=) at tp 2
     # and 4 and Router(meshes=) at tp 2 x dp 2, bitwise equal to 3p's
     tp3r = tp_serving(params, buffers, cfg, dev, card, dp3p.pop("handoff"))
+    # s. the sharded train and prefill steps on the 16 x 16 mesh as rank 0 of
+    # a fake group of 256, held to the dry run's per-device prediction
+    sh3s = sharded_steps(dev, card)
 
     # i. conversion of the baseline TinyLlama-1.1B, and the converted model
     # served; k. that model uptrained, resumed and served; j. MiniCPM-2B
@@ -4989,7 +5300,8 @@ def main() -> int:
     # phase 3l's numbers
     q, jb, fm = hyb["qwen"], hyb["jamba"], hyb["falcon"]
     r = q["rep"]
-    print(f"[{card}] 3l Qwen3-MoE 4 layers, Scheduler f32 24 requests: decode tok/s="
+    print(f"[{card}] 3l Qwen3-MoE {QWEN_LAYERS} layer(s), Scheduler f32 24 requests: "
+          f"decode tok/s="
           f"{r.tok_per_s:.1f} ttft_ms p50/p95={r.ttft_wall_p50_ms:.1f}/{r.ttft_wall_p95_ms:.1f} "
           f"step_ms p50/p95={r.step_ms_p50:.2f}/{r.step_ms_p95:.2f} wall_s={r.wall_s:.2f}, "
           f"peak memory {q['peak'] / 2**30:.2f} GiB ({hyb['held'] / 2**30:.2f} held "
@@ -5054,7 +5366,8 @@ def main() -> int:
           f"of a leaf's largest; a whole AdamW step would hold ~{a['adamw_gb']['f32']:.1f} GB "
           f"(f32 moments) or ~{a['adamw_gb']['int8']:.1f} GB (int8) + "
           f"{a['adamw_gb']['lm_head']:.1f}; wall {a['wall']:.1f} s", flush=True)
-    for label, x in (("b. converted Qwen3-MoE 4 layers, generate 8 x (512 + 32)", b),
+    for label, x in ((f"b. converted Qwen3-MoE {QWEN_LAYERS} layer(s), generate 8 x "
+                      f"(512 + 32)", b),
                      ("c. converted Jamba period, generate 8 x (1024 + 128)", c)):
         st, g = x["gen"]["stats"], x["gen"]
         dec = np.asarray(st.step_ms[1:])
@@ -5137,7 +5450,8 @@ def main() -> int:
           f"Mamba and hybrid training and conversion) {tr3n['wall']:.1f} s, 3o (the dry run "
           f"against the card) {dry['wall']:.1f} s, 3p (the data-parallel router) "
           f"{dp3p['wall']:.1f} s, 3q (tensor-parallel attention) {tp3q['wall']:.1f} s, 3r "
-          f"(tensor-parallel serving) {tp3r['wall']:.1f} s; "
+          f"(tensor-parallel serving) {tp3r['wall']:.1f} s, 3s (the sharded steps) "
+          f"{sh3s['wall']:.1f} s; "
           f"the whole script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if not (isinstance(rows, list) and rows and all(isinstance(r, dict) for r in rows)):

@@ -87,10 +87,13 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.cache import BLOCK_SUMMARY_SUFFIXES, HEAD_SPLIT, first, put_rows
+from repro_torch.distributed.sharding import einsum, matmul, replicated_like
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_pages
 from repro_torch.models.attention import _attend
 from repro_torch.models.layers import dense_init
+
+_NOOP = lambda name, x: x
 
 
 def init(cfg, generator: torch.Generator, device) -> Tuple[Dict, Dict]:
@@ -125,60 +128,64 @@ def init(cfg, generator: torch.Generator, device) -> Tuple[Dict, Dict]:
 # shared pieces
 # ---------------------------------------------------------------------------
 
-def _project(params, cfg, buffers, x, positions):
+def _project(params, cfg, buffers, x, positions, constrain=_NOOP):
     """Rotated elite queries q_e [B,S,nh,2r], linear q_ne [B,S,nh,d_nope],
     rotated k_e [B,S,nkv,2r] and the latents c_k, c_v [B,S,dc] of x [B,S,d]
     at ``positions``: q_e and k_e rotate in one call, query head h with kv
     head ``h // q_group``'s elite frequencies."""
     dt = x.dtype
     r2 = 2 * cfg.elitekv.elite_r
-    q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(dt))
-    k_e = torch.einsum("bsd,dhe->bshe", x, params["wk_e"].to(dt))
+    q = einsum("bsd,dhe->bshe", x, params["wq"].to(dt))
+    k_e = einsum("bsd,dhe->bshe", x, params["wk_e"].to(dt))
     q_e, k_e = ops.rope_elite_qk(q[..., :r2], k_e, positions, buffers["elite_freqs"],
                                  cfg.q_group, 1)
-    return q_e, q[..., r2:], k_e, *_latents(params, cfg, x)
+    return q_e, q[..., r2:], k_e, *_latents(params, cfg, x, constrain)
 
 
-def _latents(params, cfg, x):
-    """Down-projected latent(s) (c_k, c_v) — the same tensor under J-LRD."""
+def _latents(params, cfg, x, constrain=_NOOP):
+    """Down-projected latent(s) (c_k, c_v) — the same tensor under J-LRD —
+    constrained as ``latent``."""
     dt = x.dtype
     if cfg.elitekv.lrd == "joint":
-        c = x @ params["a_kv"].to(dt)
+        c = constrain("latent", matmul(x, params["a_kv"].to(dt)))
         return c, c
-    return x @ params["a_k"].to(dt), x @ params["a_v"].to(dt)
+    return (constrain("latent", matmul(x, params["a_k"].to(dt))),
+            constrain("latent", matmul(x, params["a_v"].to(dt))))
 
 
-def _streams(params, cfg, buffers, x, positions):
-    """Rotated queries q [B,S,nh,dh] and the compressed streams the pool
-    stores: k_e [B,S,nkv,2r], c_k, c_v [B,S,dc] (one tensor under J-LRD)."""
-    q_e, q_ne, *streams = _project(params, cfg, buffers, x, positions)
-    return (torch.cat([q_e, q_ne], dim=-1), *streams)
+def _streams(params, cfg, buffers, x, positions, constrain=_NOOP):
+    """Rotated queries q [B,S,nh,dh] (constrained as ``attn_q``) and the
+    compressed streams the pool stores: k_e [B,S,nkv,2r], c_k, c_v [B,S,dc]
+    (one tensor under J-LRD)."""
+    q_e, q_ne, *streams = _project(params, cfg, buffers, x, positions, constrain)
+    return (constrain("attn_q", torch.cat([q_e, q_ne], dim=-1)), *streams)
 
 
-def _up_project(params, k_e, c_k, c_v, dt):
+def _up_project(params, k_e, c_k, c_v, dt, constrain=_NOOP):
     """Keys and values from the compressed streams: K = [k_e | c_k·bk],
-    V = c_v·bv, each [B,S,nkv,dh]."""
-    k_ne = torch.einsum("bsc,che->bshe", c_k, params["bk"].to(dt))
-    v = torch.einsum("bsc,che->bshe", c_v, params["bv"].to(dt))
-    return torch.cat([k_e, k_ne], dim=-1), v.contiguous()
+    V = c_v·bv, each [B,S,nkv,dh], constrained as ``attn_kv``."""
+    k_ne = einsum("bsc,che->bshe", c_k, params["bk"].to(dt))
+    v = constrain("attn_kv", einsum("bsc,che->bshe", c_v, params["bv"].to(dt)))
+    return constrain("attn_kv", torch.cat([k_e, k_ne], dim=-1)), v.contiguous()
 
 
 # ---------------------------------------------------------------------------
 # full-sequence forward and the contiguous cache
 # ---------------------------------------------------------------------------
 
-def _materialized(params, cfg, buffers, x, positions):
+def _materialized(params, cfg, buffers, x, positions, constrain=_NOOP):
     """q [B,S,nh,dh], K/V [B,S,nkv,dh] and the streams k_e, c_k, c_v."""
-    q, k_e, c_k, c_v = _streams(params, cfg, buffers, x, positions)
-    k, v = _up_project(params, k_e, c_k, c_v, x.dtype)
+    q, k_e, c_k, c_v = _streams(params, cfg, buffers, x, positions, constrain)
+    k, v = _up_project(params, k_e, c_k, c_v, x.dtype, constrain)
     return q, k, v, k_e, c_k, c_v
 
 
-def apply_full(params, cfg, buffers, x, positions) -> torch.Tensor:
+def apply_full(params, cfg, buffers, x, positions, constrain=_NOOP) -> torch.Tensor:
     """Whole-sequence causal forward, no cache.  → out [B,S,d]."""
-    q, k, v, *_ = _materialized(params, cfg, buffers, x, positions)
-    o = _attend(q, k, v, cfg.q_group, cfg.head_dim ** -0.5, chunk_q=cfg.attn_chunk_q)
-    return torch.einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
+    q, k, v, *_ = _materialized(params, cfg, buffers, x, positions, constrain)
+    o = _attend(q, k, v, cfg.q_group, cfg.head_dim ** -0.5, chunk_q=cfg.attn_chunk_q,
+                constrain=constrain)
+    return einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
 
 
 def init_cache(cfg, batch: int, max_len: int, device) -> Dict[str, torch.Tensor]:
@@ -212,16 +219,18 @@ def _write_cache(cache, rows, k_e, c_k, c_v) -> None:
         cache["c_v"][:, rows] = c_v
 
 
-def apply_prefill(params, cfg, buffers, x, positions, cache) -> torch.Tensor:
+def apply_prefill(params, cfg, buffers, x, positions, cache,
+                  constrain=_NOOP) -> torch.Tensor:
     """Prompts x [B,S,d] at ``positions`` [S]: causal attention over the
-    prompt itself; writes cache rows [0, S) in place.  → out [B,S,d]."""
+    prompt itself; writes cache rows [0, S) in place (a placed cache keeps
+    its placements: the rows are redistributed to them).  → out [B,S,d]."""
     B, S = x.shape[:2]
-    q, k, v, k_e, c_k, c_v = _materialized(params, cfg, buffers, x, positions)
+    q, k, v, k_e, c_k, c_v = _materialized(params, cfg, buffers, x, positions, constrain)
     _write_cache(cache, slice(0, S), k_e, c_k, c_v)
-    offs = torch.zeros(B, dtype=torch.int32, device=x.device)
-    lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    offs = replicated_like(x, torch.zeros(B, dtype=torch.int32, device=x.device))
+    lens = replicated_like(x, torch.full((B,), S, dtype=torch.int32, device=x.device))
     o = ops.flash_prefill(q, k, v, cfg.q_group, cfg.head_dim ** -0.5, offs, lens)
-    return torch.einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
+    return einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
 
 
 def apply_decode(params, cfg, buffers, x, index: int, cache) -> torch.Tensor:

@@ -45,6 +45,23 @@ ranges; the plain versions ignore it), and the shards' outputs copied to
 the mesh's first device and concatenated, the reference's ``all_gather``.
 They launch no kernel of their own.
 
+Sharded steps.  ``rope_elite_qk`` and ``flash_prefill`` take ``DTensor``s
+(the sharded train and prefill steps, ``distributed/sharding.py``) through
+``torch.distributed.tensor.experimental.local_map``, the counterpart of the
+reference's ``shard_map`` around a Pallas call: each rank runs the entry
+above on its local tensors (so a CUDA local tensor launches the kernel, a
+meta one takes the meta version and a CPU one the plain version, counted
+as that entry) and the outputs are placed as the inputs were.  Queries
+shard their heads and batch; keys and values shard the batch and, where
+the kv heads divide the mesh axis, their heads, else they are replicated:
+then a shard's query heads ``[q0, q0 + Hq)`` use kv heads ``h // G``, so
+``flash_prefill`` slices the replicated keys and values to those heads and
+passes the shard's own ``q_group``, and ``rope_elite_qk``, whose one launch
+reads one frequency row per ``q_per_row`` query heads and per
+``k_per_row`` key heads, rotates the shard's query heads beside all the
+key heads as one tensor of per-head rows (``rope_elite``'s one-tensor
+launch, its backward likewise) where no such row split exists.
+
 ``set_kernel_tracer`` (the reference's, ``kernels/ops.py``) arms spans on
 the ``kernel`` track of a tracer, one per call, named after the entry
 (``rope_elite_qk`` for the two-tensor rotary) with the first tensor's
@@ -60,6 +77,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels import build
 from repro_torch.kernels import elite_decode as _ed
 from repro_torch.kernels import flash_prefill as _fp
@@ -385,6 +403,8 @@ def elite_verify_paged_tp(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages, scales,
 def flash_prefill(q, k, v, q_group: int, scale: float, q_offsets,
                   kv_lens) -> torch.Tensor:
     """Causal GQA attention with per-lane offsets; see ``ref.flash_prefill_ref``."""
+    if is_dtensor(q):
+        return _sharded_flash_prefill(q, k, v, q_group, scale, q_offsets, kv_lens)
     args = (q, k, v, q_group, scale, q_offsets, kv_lens)
     if _kernel_side(q):
         _no_backward("flash_prefill", *args)
@@ -404,6 +424,8 @@ def rope_elite(x, positions, freqs) -> torch.Tensor:
 
 def rope_elite_qk(q, k, positions, freqs, q_per_row: int, k_per_row: int):
     """q and k of a layer rotated in one launch; see ``ref.rope_elite_qk_ref``."""
+    if is_dtensor(q):
+        return _sharded_rope_qk(q, k, positions, freqs, q_per_row, k_per_row)
     args = (q, k, positions, freqs, q_per_row, k_per_row)
     if _kernel_side(q):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
@@ -411,3 +433,122 @@ def rope_elite_qk(q, k, positions, freqs, q_per_row: int, k_per_row: int):
             return _RopeQK.apply(*args)
         return _re.rope_elite_qk(*args)
     return _plain("rope_elite_qk", ref.rope_elite_qk_ref, *args)
+
+
+# ---------------------------------------------------------------------------
+# sharded steps: the kernels under local_map
+# ---------------------------------------------------------------------------
+
+def _head_split(x, head_dim: int = 2):
+    """(mesh dim that shards ``x``'s heads or None, the local heads' first
+    global head) of a ``DTensor`` [B, S, H, *]: at most one mesh dim may
+    shard the heads, evenly."""
+    from torch.distributed.tensor import Shard
+    dims = [i for i, p in enumerate(x.placements) if p == Shard(head_dim)]
+    if not dims:
+        return None, 0
+    if len(dims) > 1 or x.shape[head_dim] % x.device_mesh.size(dims[0]):
+        raise ValueError(f"heads {x.shape[head_dim]} must split evenly over one mesh dim, "
+                         f"got {x.placements} on {x.device_mesh}")
+    i = dims[0]
+    per = x.shape[head_dim] // x.device_mesh.size(i)
+    return i, x.device_mesh.get_coordinate()[i] * per
+
+
+def _batch_only(x):
+    """``x``'s placements with only its batch sharding (dim 0) kept."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [p if p == Shard(0) else Replicate() for p in x.placements]
+
+
+def _like_batch(q, t):
+    """The placements for a per-lane [B] or per-lane-row tensor ``t`` (or
+    None for a plain tensor) beside ``q``: sharded as ``q``'s batch."""
+    return _batch_only(q) if is_dtensor(t) else None
+
+
+def _check_placements(name: str, x, allowed) -> None:
+    from torch.distributed.tensor import Replicate
+    bad = [p for p in x.placements if p != Replicate() and p not in allowed]
+    if bad:
+        raise ValueError(f"{name}: placements {x.placements} are not batch or head "
+                         f"sharding")
+
+
+def _sharded_flash_prefill(q, k, v, q_group: int, scale: float, q_offsets, kv_lens):
+    """``flash_prefill`` on ``DTensor``s: each rank attends with its query
+    heads and lanes.  Keys and values keep their kv-head sharding where the
+    query heads' mesh dim shards them too; replicated kv heads are sliced
+    to those the shard's query heads read (``h // q_group``), and the call
+    gets the shard's own group."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_placements(f"flash_prefill {name}", x, (Shard(0), Shard(2)))
+    hdim, q0 = _head_split(q)
+    kv_pl = _batch_only(q)
+    nkv, nh = k.shape[2], q.shape[2]
+    hq = nh if hdim is None else nh // q.device_mesh.size(hdim)
+    if hdim is not None and k.placements[hdim] == Shard(2) \
+            and v.placements[hdim] == Shard(2):
+        kv_pl[hdim] = Shard(2)             # kv heads shard with the query heads
+        lo, n_kv, group = None, None, q_group
+    else:                                  # replicated kv heads: the shard's own
+        lo = q0 // q_group
+        n_kv = -(-(q0 + hq) // q_group) - lo
+        group = hq // n_kv
+        if group * n_kv != hq or (hq >= q_group and q0 % q_group):
+            raise ValueError(f"flash_prefill: query heads [{q0}, {q0 + hq}) do not map "
+                             f"onto whole kv heads of group {q_group}")
+
+    def local(q_l, k_l, v_l, offs, lens):
+        if lo is not None:
+            k_l = k_l[:, :, lo:lo + n_kv].contiguous()
+            v_l = v_l[:, :, lo:lo + n_kv].contiguous()
+        return flash_prefill(q_l, k_l, v_l, group, scale, offs, lens)
+
+    fn = local_map(local, out_placements=list(q.placements),
+                   in_placements=(list(q.placements), kv_pl, kv_pl,
+                                  _like_batch(q, q_offsets), _like_batch(q, kv_lens)),
+                   device_mesh=q.device_mesh, redistribute_inputs=True)
+    return fn(q, k, v, q_offsets, kv_lens)
+
+
+def _rows(first: int, n: int, per_row: int):
+    """The frequency row of each of ``n`` heads from global head ``first``."""
+    return [(first + j) // per_row for j in range(n)]
+
+
+def _sharded_rope_qk(q, k, positions, freqs, q_per_row: int, k_per_row: int):
+    """``rope_elite_qk`` on ``DTensor``s: each rank rotates its local q and
+    k heads in one launch.  Where the local heads' frequency rows form one
+    run of rows read ``Hq / R`` and ``Hk / R`` heads apiece, the two-tensor
+    launch takes that run; else the local q and k heads go through the
+    one-tensor launch together, one row per head."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    for name, x in (("q", q), ("k", k)):
+        _check_placements(f"rope_elite_qk {name}", x, (Shard(0), Shard(2)))
+    _, q0 = _head_split(q)
+    _, k0 = _head_split(k)
+    hq, hk = q._local_tensor.shape[2], k._local_tensor.shape[2]
+    rq, rk = _rows(q0, hq, q_per_row), _rows(k0, hk, k_per_row)
+    n = len(set(rq))
+    # one run of n rows from rq[0], read by hq / n query and hk / n key heads each
+    paired = (hq % n == 0 and hk % n == 0
+              and rq == [rq[0] + j // (hq // n) for j in range(hq)]
+              and rk == [rq[0] + j // (hk // n) for j in range(hk)])
+
+    def local(q_l, k_l, pos, f):
+        if paired:
+            return rope_elite_qk(q_l, k_l, pos, f[rq[0]:rq[0] + n], hq // n, hk // n)
+        idx = torch.tensor(rq + rk, device=f.device)
+        out = rope_elite(torch.cat([q_l, k_l], dim=2), pos, f.index_select(0, idx))
+        return out[:, :, :hq], out[:, :, hq:]
+
+    rep = lambda t: (list(t.placements) if is_dtensor(t) else None)
+    fn = local_map(local, out_placements=(list(q.placements), list(k.placements)),
+                   in_placements=(list(q.placements), list(k.placements), rep(positions),
+                                  rep(freqs)),
+                   device_mesh=q.device_mesh, redistribute_inputs=True)
+    return fn(q, k, positions, freqs)

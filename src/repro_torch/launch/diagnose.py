@@ -10,11 +10,14 @@ A cell's per-device memory and FLOPs (``launch/dryrun.py``'s record):
 prints the peak, temp and resident bytes per device, the FLOPs per device,
 the kernels' calls, bytes and FLOPs, and the largest tensors live at the
 peak with their shapes, dtypes and the operators that made them.  On the
-production meshes (``--multi-pod`` for 2 × 16 × 16) the port has no
-sharded step to trace (ROADMAP item 15): the peak and temp are ``null``
-and the FLOPs an even split; ``--one-card`` takes a 1 × 1 mesh, whose step
-is traced.  No collectives are counted (item 15).  The dry run imports
-PyTorch; ``trace-summary`` uses the standard library only.
+production meshes (``--multi-pod`` for 2 × 16 × 16) the train and prefill
+steps of a stack without MoE layers are traced sharded (rank 0 of a fake
+group), and the report adds each collective kind's count and bytes per
+device; decode (ROADMAP item 15c.2) and MoE (item 15d) cells keep a
+``null`` peak and temp, with the reason, and an even split of the FLOPs.
+``--one-card`` takes a 1 × 1 mesh, whose step is traced and sends
+nothing.  The dry run imports PyTorch; ``trace-summary`` uses the
+standard library only.
 
 Summarise a Chrome trace written by ``launch/serve.py --trace``:
 
@@ -174,6 +177,7 @@ def cell_report(argv):
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--seq-len", type=int, default=None)
     ap.add_argument("--no-elitekv", action="store_true")
+    ap.add_argument("--no-seq-parallel", action="store_true")
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
 
@@ -181,6 +185,7 @@ def cell_report(argv):
     res = dryrun.lower_cell(args.arch, args.shape, args.multi_pod,
                             elitekv=not args.no_elitekv, batch=args.batch,
                             seq_len=args.seq_len, top=args.top,
+                            seq_parallel=not args.no_seq_parallel,
                             mesh_axes={"data": 1, "model": 1} if args.one_card else None)
     if res["skipped"]:
         print(f"{args.arch} {args.shape}: skipped ({res['reason']})")
@@ -199,7 +204,17 @@ def cell_report(argv):
     for name, k in sorted(res["kernels"].items()):
         print(f"  kernel {name:20s} calls {k['calls']:6d}  {k['bytes'] / 2**30:9.3f} GiB  "
               f"{k['flops']:.3e} flops")
-    print("collectives: none (item 15)")
+    colls = res["collectives"]
+    if colls:
+        print(f"collectives/device: {_gib(res['collective_bytes_per_device'])}")
+        for kind, c in sorted(colls.items()):
+            print(f"  {kind:18s} count {c['count']:6d}  {c['bytes'] / 2**30:9.3f} GiB")
+    elif res["collective_bytes_per_device"] is None:
+        print(f"collectives: not traced ({mem['reason']})")
+    elif res["chips"] == 1:
+        print("collectives: none (one device)")
+    else:
+        print("collectives: none traced (the one-device step at the per-device batch)")
     if res["largest_at_peak"]:
         print("\n== largest live tensors at the peak ==")
         for t in res["largest_at_peak"]:

@@ -28,10 +28,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import rope as rope_lib
+from repro_torch.distributed.sharding import einsum, is_dtensor, replicated_like
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
 
 NEG_INF = -1e30
+_NOOP = lambda name, x: x
 
 
 def init(cfg, generator: torch.Generator, device) -> Dict[str, torch.Tensor]:
@@ -62,21 +64,36 @@ def _block(q, k, v, scale: float, q_offset: int) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def _local_block(q, k, v, scale: float, q_offset: int) -> torch.Tensor:
+    """``_block`` on ``DTensor``s: every (lane, head) attends on its own, so
+    each rank runs ``_block`` on its local lanes and heads (``local_map``,
+    keys and values placed as the queries), as the reference's GSPMD keeps
+    the scores sharded by batch and head."""
+    from torch.distributed.tensor.experimental import local_map
+    pl = list(q.placements)
+    fn = local_map(lambda ql, kl, vl: _block(ql, kl, vl, scale, q_offset),
+                   out_placements=pl, in_placements=(pl, pl, pl),
+                   device_mesh=q.device_mesh, redistribute_inputs=True)
+    return fn(q, k, v)
+
+
 def _attend(q, k, v, q_group: int, scale: float, q_offset: int = 0,
-            chunk_q: Optional[int] = None) -> torch.Tensor:
+            chunk_q: Optional[int] = None, constrain=_NOOP) -> torch.Tensor:
     """Causal attention.  q [B,Sq,nh,dh]; k,v [B,Sk,nkv,dh]; key j visible
     to query i iff ``j <= i + q_offset``.  → [B,Sq,nh,dh].  Queries go in
     chunks of ``_auto_chunk(Sq, chunk_q)`` rows, each recomputed in the
-    backward under grad."""
+    backward under grad.  The kv heads repeated to the query heads are
+    constrained as ``heads4``."""
     if q_group > 1:
-        k = torch.repeat_interleave(k, q_group, dim=2)
-        v = torch.repeat_interleave(v, q_group, dim=2)
+        k = constrain("heads4", torch.repeat_interleave(k, q_group, dim=2))
+        v = constrain("heads4", torch.repeat_interleave(v, q_group, dim=2))
+    block = _local_block if is_dtensor(q) else _block
     cq = _auto_chunk(q.shape[1], chunk_q)
     if cq is None:
-        return _block(q, k, v, scale, q_offset)
+        return block(q, k, v, scale, q_offset)
     remat = torch.is_grad_enabled()
-    outs = [checkpoint(_block, q[:, i:i + cq], k, v, scale, q_offset + i, use_reentrant=False)
-            if remat else _block(q[:, i:i + cq], k, v, scale, q_offset + i)
+    outs = [checkpoint(block, q[:, i:i + cq], k, v, scale, q_offset + i, use_reentrant=False)
+            if remat else block(q[:, i:i + cq], k, v, scale, q_offset + i)
             for i in range(0, q.shape[1], cq)]
     return torch.cat(outs, dim=1)
 
@@ -90,19 +107,21 @@ def causal_mask(Sq: int, Sk: int, offset: int = 0, dtype=torch.float32,
     return torch.where(kj <= qi + offset, zero, torch.full_like(zero, NEG_INF))
 
 
-def _qkv(params, cfg, x, positions):
+def _qkv(params, cfg, x, positions, constrain=_NOOP):
     dt = x.dtype
-    q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhe->bshe", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhe->bshe", x, params["wv"].to(dt))
+    c = constrain
+    q = c("attn_q", einsum("bsd,dhe->bshe", x, params["wq"].to(dt)))
+    k = c("attn_kv", einsum("bsd,dhe->bshe", x, params["wk"].to(dt)))
+    v = c("attn_kv", einsum("bsd,dhe->bshe", x, params["wv"].to(dt)))
     q, k = rope_lib.apply_rope_qk(q, k, positions, cfg.rope_theta)
-    return q, k, v.contiguous()
+    return c("attn_q", q), c("attn_kv", k), v.contiguous()
 
 
-def apply_full(params, cfg, x, positions) -> torch.Tensor:
-    q, k, v = _qkv(params, cfg, x, positions)
-    o = _attend(q, k, v, cfg.q_group, cfg.head_dim ** -0.5, chunk_q=cfg.attn_chunk_q)
-    return torch.einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
+def apply_full(params, cfg, x, positions, constrain=_NOOP) -> torch.Tensor:
+    q, k, v = _qkv(params, cfg, x, positions, constrain)
+    o = _attend(q, k, v, cfg.q_group, cfg.head_dim ** -0.5, chunk_q=cfg.attn_chunk_q,
+                constrain=constrain)
+    return einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
 
 
 def init_cache(cfg, batch: int, max_len: int, device) -> Dict[str, torch.Tensor]:
@@ -111,17 +130,17 @@ def init_cache(cfg, batch: int, max_len: int, device) -> Dict[str, torch.Tensor]
     return {"k": torch.zeros(shape, device=device), "v": torch.zeros(shape, device=device)}
 
 
-def apply_prefill(params, cfg, x, positions, cache) -> torch.Tensor:
+def apply_prefill(params, cfg, x, positions, cache, constrain=_NOOP) -> torch.Tensor:
     """Prompts x [B,S,d] at ``positions`` [S]; writes cache rows [0, S) in
     place.  → out [B,S,d]."""
     B, S = x.shape[:2]
-    q, k, v = _qkv(params, cfg, x, positions)
+    q, k, v = _qkv(params, cfg, x, positions, constrain)
     cache["k"][:, :S] = k
     cache["v"][:, :S] = v
-    offs = torch.zeros(B, dtype=torch.int32, device=x.device)
-    lens = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    offs = replicated_like(x, torch.zeros(B, dtype=torch.int32, device=x.device))
+    lens = replicated_like(x, torch.full((B,), S, dtype=torch.int32, device=x.device))
     o = ops.flash_prefill(q, k, v, cfg.q_group, cfg.head_dim ** -0.5, offs, lens)
-    return torch.einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
+    return einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
 
 
 def apply_decode(params, cfg, x, index: int, cache) -> torch.Tensor:

@@ -54,6 +54,18 @@ Under grad the training forward recomputes its layers in the backward as
 ``cfg.remat``/``cfg.remat_policy`` say (the reference's ``jax.checkpoint``
 of a layer): "full" keeps only each layer's input, "dots" also the matmul
 outputs (a selective checkpoint), "none" keeps everything.
+
+Sharded steps.  ``apply_train``, ``loss_fn`` and ``apply_prefill`` take the
+reference's ``constrain(name, x)`` hook (``distributed.sharding.
+make_constrain``), called at its points with its names: ``embed`` on the
+embedded inputs, ``attn_in_sharded`` then ``attn_in`` on each sublayer's
+normed input, ``attn_out``/``ffn_out`` on a sublayer's output and
+``residual`` on the sum, ``logits`` on the logits, and inside the mixers
+and the MLP.  With parameters, buffers, inputs and cache placed as
+``DTensor``s the same code is the sharded step; the tensors it makes
+itself (positions, masks, zeros) join as replicated ``DTensor``s on the
+inputs' mesh (``sharding.replicated_like``).  Without a hook, or on plain
+tensors, nothing changes.
 """
 from __future__ import annotations
 
@@ -66,9 +78,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.core import elite_attention, lrd
 from repro_torch.core.cache import first
+from repro_torch.distributed.sharding import is_dtensor, matmul, replicated_like
 from repro_torch.models import attention, mamba, moe
-from repro_torch.models.layers import (cross_entropy, dense_init, embed, mlp, mlp_init,
+from repro_torch.models.layers import (cross_entropy, dense_init, embed, mlp, mlp_init, nll,
                                        rmsnorm, rmsnorm_init, unembed)
+
+#: the constrain hook that constrains nothing
+_NOOP = lambda name, x: x
 
 # what the "dots" remat policy saves (the reference's dots_saveable)
 _MATMULS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -134,13 +150,15 @@ def _embed_step(params, cfg, batch):
     return embed(params["embed"], batch["tokens"], cfg.dtype)
 
 
-def _embed_inputs(params, cfg, batch):
+def _embed_inputs(params, cfg, batch, constrain=_NOOP):
     """``_embed_step``, with a vision batch's ``patch_embeds`` put before
-    the embedded text (the whole-sequence entries)."""
+    the embedded text (the whole-sequence entries), constrained as
+    ``embed``."""
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         txt = embed(params["embed"], batch["tokens"], cfg.dtype)
-        return torch.cat([batch["patch_embeds"].to(cfg.dtype), txt], dim=1)
-    return _embed_step(params, cfg, batch)
+        return constrain("embed", torch.cat([batch["patch_embeds"].to(cfg.dtype), txt],
+                                            dim=1))
+    return constrain("embed", _embed_step(params, cfg, batch))
 
 
 def _n_patches(cfg, batch) -> int:
@@ -149,15 +167,15 @@ def _n_patches(cfg, batch) -> int:
             if cfg.frontend == "vision" and "patch_embeds" in batch else 0)
 
 
-def _logits(params, cfg, h):
+def _logits(params, cfg, h, constrain=_NOOP):
     if cfg.tie_embeddings and cfg.frontend != "audio":
         out = unembed(params["embed"], h)
     else:
-        out = h.float() @ params["lm_head"]["w"].float()
+        out = matmul(h.float(), params["lm_head"]["w"].float())
     if cfg.padded_vocab != cfg.vocab_size:   # mask the vocab padding
         pad = torch.arange(out.shape[-1], device=out.device) >= cfg.vocab_size
-        out = out.masked_fill(pad, -1e30)
-    return out
+        out = out.masked_fill(replicated_like(out, pad), -1e30)
+    return constrain("logits", out)
 
 
 def _layer_pages(pages, cfg, i: int):
@@ -191,19 +209,21 @@ def _check_mesh(pages, mesh) -> None:
                          f"build the pool with PagedKVPool(..., mesh=) of the same mesh")
 
 
-def _run_layer(p, cfg, i: int, h, mix, moe_impl: str):
+def _run_layer(p, cfg, i: int, h, mix, moe_impl: str, constrain=_NOOP):
     """Layer ``i``: pre-norm mixer, then its FFN (MLP, MoE or none);
-    ``mix(mixer_params, hn)`` is the mode's attention or Mamba.
-    → (h, the MoE balance loss or None)."""
-    h = h + mix(p["attn"], rmsnorm(p["attn_norm"], h, cfg.norm_eps))
+    ``mix(mixer_params, hn)`` is the mode's attention or Mamba; ``constrain``
+    at the reference's points.  → (h, the MoE balance loss or None)."""
+    c = constrain
+    hn = c("attn_in", c("attn_in_sharded", rmsnorm(p["attn_norm"], h, cfg.norm_eps)))
+    h = c("residual", h + c("attn_out", mix(p["attn"], hn)))
     kind = cfg.ffn_kind(i)
     if kind == "none":
         return h, None
-    hn = rmsnorm(p["ffn_norm"], h, cfg.norm_eps)
+    hn = c("attn_in", c("attn_in_sharded", rmsnorm(p["ffn_norm"], h, cfg.norm_eps)))
     if kind == "moe":
         f, aux = moe.apply(p["ffn"], cfg, hn, impl=moe_impl)
-        return h + f, aux
-    return h + mlp(p["ffn"], hn), None
+        return c("residual", h + c("ffn_out", f)), aux
+    return c("residual", h + c("ffn_out", mlp(p["ffn"], hn, c))), None
 
 
 def _check_paged(cfg) -> None:
@@ -237,16 +257,17 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     return {"index": 0, "blocks": blocks}
 
 
-def _mamba_mixer(cfg, mode: str, state):
+def _mamba_mixer(cfg, mode: str, state, constrain=_NOOP):
     """A Mamba layer's ``mix(params, hn)``: prefill writes the final
     ``(conv, ssm)`` state into ``state``'s views, decode advances it in
     place."""
     if mode == "train":
-        return lambda pm, hn: mamba.apply_full(pm, cfg, hn)
+        return lambda pm, hn: mamba.apply_full(pm, cfg, hn, constrain=constrain)
 
     def run(pm, hn):
         if mode == "prefill":
-            out, (conv, ssm) = mamba.apply_full(pm, cfg, hn, return_state=True)
+            out, (conv, ssm) = mamba.apply_full(pm, cfg, hn, return_state=True,
+                                                constrain=constrain)
         else:
             out, new = mamba.apply_decode(pm, cfg, hn, state)
             conv, ssm = new["conv"], new["ssm"]
@@ -256,21 +277,24 @@ def _mamba_mixer(cfg, mode: str, state):
     return run
 
 
-def _contiguous_attention(cfg, buffers, mode: str, positions, cache, index):
+def _contiguous_attention(cfg, buffers, mode: str, positions, cache, index, constrain=_NOOP):
     """One attention layer's ``attend(attn_params, hn)`` in a contiguous
     mode ("train", "prefill" or "decode"): EliteKV or baseline attention, as
     the reference's ``_run_layer`` dispatches."""
+    c = constrain
     if cfg.elitekv.enabled:
         if mode == "train":
-            return lambda pa, hn: elite_attention.apply_full(pa, cfg, buffers, hn, positions)
+            return lambda pa, hn: elite_attention.apply_full(pa, cfg, buffers, hn, positions,
+                                                             constrain=c)
         if mode == "prefill":
             return lambda pa, hn: elite_attention.apply_prefill(pa, cfg, buffers, hn,
-                                                                positions, cache)
+                                                                positions, cache, constrain=c)
         return lambda pa, hn: elite_attention.apply_decode(pa, cfg, buffers, hn, index, cache)
     if mode == "train":
-        return lambda pa, hn: attention.apply_full(pa, cfg, hn, positions)
+        return lambda pa, hn: attention.apply_full(pa, cfg, hn, positions, constrain=c)
     if mode == "prefill":
-        return lambda pa, hn: attention.apply_prefill(pa, cfg, hn, positions, cache)
+        return lambda pa, hn: attention.apply_prefill(pa, cfg, hn, positions, cache,
+                                                      constrain=c)
     return lambda pa, hn: attention.apply_decode(pa, cfg, hn, index, cache)
 
 
@@ -293,31 +317,35 @@ def _remat(cfg):
 
 
 def _forward_contiguous(params, buffers, cfg, batch, mode: str, cache=None,
-                        captures=None, return_hidden=False, moe_impl="ragged"):
-    """→ (logits or final hidden states, summed MoE balance loss or None)."""
-    h = (_embed_step if mode == "decode" else _embed_inputs)(params, cfg, batch)
+                        captures=None, return_hidden=False, moe_impl="ragged",
+                        constrain=None):
+    """→ (logits or final hidden states, summed MoE balance loss or None).
+    ``constrain`` (train and prefill): the sharding hook."""
+    c = constrain or _NOOP
+    h = (_embed_step(params, cfg, batch) if mode == "decode"
+         else _embed_inputs(params, cfg, batch, c))
     # decode takes its position from the cache index
-    positions = (None if mode == "decode"
-                 else torch.arange(h.shape[1], device=params_device(params)))
+    positions = (None if mode == "decode" else replicated_like(
+        h, torch.arange(h.shape[1], device=params_device(params))))
     index = cache["index"] if cache is not None else 0
     wrap = _remat(cfg) if mode == "train" and captures is None else None
     aux_sum = None
     for i, (p, b) in enumerate(zip(params["layers"], buffers["layers"])):
         layer_cache = None if cache is None else _layer_pages(cache["blocks"], cfg, i)
         if cfg.layer_kind(i) == "ssm":
-            mix = _mamba_mixer(cfg, mode, layer_cache)
+            mix = _mamba_mixer(cfg, mode, layer_cache, c)
         else:
-            mix = _contiguous_attention(cfg, b, mode, positions, layer_cache, index)
+            mix = _contiguous_attention(cfg, b, mode, positions, layer_cache, index, c)
             if captures is not None:
                 mix = _capturing(mix, captures, i)
-        h, aux = (_run_layer(p, cfg, i, h, mix, moe_impl) if wrap is None
-                  else wrap(_run_layer, p, cfg, i, h, mix, moe_impl))
+        h, aux = (_run_layer(p, cfg, i, h, mix, moe_impl, c) if wrap is None
+                  else wrap(_run_layer, p, cfg, i, h, mix, moe_impl, c))
         if aux is not None:
             aux_sum = aux if aux_sum is None else aux_sum + aux
     if captures is not None:
         return None, None
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return (h if return_hidden else _logits(params, cfg, h)), aux_sum
+    return (h if return_hidden else _logits(params, cfg, h, c)), aux_sum
 
 
 def _capturing(attend, captures: dict, i: int):
@@ -329,7 +357,7 @@ def _capturing(attend, captures: dict, i: int):
 
 
 def apply_train(params, buffers, cfg, batch, return_hidden: bool = False,
-                moe_impl: str = "ragged", return_aux: bool = False):
+                moe_impl: str = "ragged", return_aux: bool = False, constrain=None):
     """Whole-sequence forward, no cache: ``batch`` (tokens [B,S], with a
     vision model's patches before them, or an audio model's frames) →
     logits [B,nv+S,Vp] f32 over every position, patches included (the final
@@ -338,25 +366,23 @@ def apply_train(params, buffers, cfg, batch, return_hidden: bool = False,
     layers, a f32 scalar, 0 without any), as the reference's
     ``apply_train`` returns.  Differentiable: on the card the rotation's
     backward is its kernel's transpose mode; layers recompute in the
-    backward per ``cfg.remat``."""
+    backward per ``cfg.remat``.  ``constrain``: the sharding hook."""
     out, aux = _forward_contiguous(params, buffers, cfg, _as_batch(batch), "train",
-                                   return_hidden=return_hidden, moe_impl=moe_impl)
+                                   return_hidden=return_hidden, moe_impl=moe_impl,
+                                   constrain=constrain)
     if not return_aux:
         return out
-    return out, (torch.zeros((), dtype=torch.float32, device=out.device) if aux is None
-                 else aux)
+    return out, (replicated_like(out, torch.zeros((), dtype=torch.float32, device=out.device))
+                 if aux is None else aux)
 
 
-def _chunk_nll(params, cfg, h, labels, mask):
+def _chunk_nll(params, cfg, h, labels, mask, constrain=_NOOP):
     """(Σ masked nll, Σ mask) of one sequence chunk's hidden states."""
-    logits = _logits(params, cfg, h).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return torch.sum((logz - gold) * mask), torch.sum(mask)
+    return torch.sum(nll(_logits(params, cfg, h, constrain), labels) * mask), torch.sum(mask)
 
 
 def loss_fn(params, buffers, cfg, batch, moe_impl: str = "ragged",
-            aux_weight: float = 0.01):
+            aux_weight: float = 0.01, constrain=None):
     """Training loss of ``batch`` {"tokens" [B,S] (a vision model's
     "patch_embeds" [B,nv,d] before them, or an audio model's "frames"
     [B,S,d] instead), "labels" [B,S] int64, optional "loss_mask" [B,S]
@@ -366,28 +392,32 @@ def loss_fn(params, buffers, cfg, batch, moe_impl: str = "ragged",
     layers dispatch by ``moe_impl``.  Where
     ``cfg.loss_chunk`` divides S and no patches lead, the CE goes chunk by
     chunk of the sequence, each chunk's logits recomputed in the backward
-    under grad, so the whole [B,S,V] logits never exist.  → (loss, {"ce",
-    "aux"})."""
+    under grad, so the whole [B,S,V] logits never exist.  ``constrain``:
+    the sharding hook (a sharded stream is gathered once, as ``attn_in``,
+    before the chunks are cut).  → (loss, {"ce", "aux"})."""
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     nv = _n_patches(cfg, batch)
     ck = cfg.loss_chunk
+    c = constrain or _NOOP
     if ck and labels.shape[1] % ck == 0 and nv == 0:
         h, aux = apply_train(params, buffers, cfg, batch, return_hidden=True,
-                             moe_impl=moe_impl, return_aux=True)
+                             moe_impl=moe_impl, return_aux=True, constrain=constrain)
+        if is_dtensor(h):
+            h = c("attn_in", h)
         if mask is None:
-            mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
-        nll = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+            mask = torch.ones_like(labels, dtype=torch.float32)
+        nll = cnt = replicated_like(h, torch.zeros((), dtype=torch.float32, device=h.device))
         remat = torch.is_grad_enabled()
         for i in range(0, labels.shape[1], ck):
-            args = (params, cfg, h[:, i:i + ck], labels[:, i:i + ck], mask[:, i:i + ck])
+            args = (params, cfg, h[:, i:i + ck], labels[:, i:i + ck], mask[:, i:i + ck], c)
             n_c, c_c = (checkpoint(_chunk_nll, *args, use_reentrant=False) if remat
                         else _chunk_nll(*args))
             nll, cnt = nll + n_c, cnt + c_c
         ce = nll / torch.clamp(cnt, min=1.0)
     else:
         logits, aux = apply_train(params, buffers, cfg, batch, moe_impl=moe_impl,
-                                  return_aux=True)
+                                  return_aux=True, constrain=constrain)
         ce = cross_entropy(logits[:, nv:], labels, mask)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
@@ -407,15 +437,17 @@ def capture_attn_inputs(params, buffers, cfg, batch, moe_impl: str = "ragged"):
     return captures
 
 
-def apply_prefill(params, buffers, cfg, batch, cache, moe_impl: str = "ragged"):
+def apply_prefill(params, buffers, cfg, batch, cache, moe_impl: str = "ragged",
+                  constrain=None):
     """Prefill prompts (``batch``: tokens [B,S], a vision model's patches
     before them, or an audio model's frames) from position 0: writes cache
     rows [0, nv+S) of every attention layer and every Mamba layer's final
     state in place and sets ``cache["index"] = nv+S``; MoE layers dispatch
-    by ``moe_impl``.  → logits [B,nv+S,Vp] f32."""
+    by ``moe_impl``.  ``constrain``: the sharding hook; a placed cache keeps
+    its placements.  → logits [B,nv+S,Vp] f32."""
     batch = _as_batch(batch)
     logits, _ = _forward_contiguous(params, buffers, cfg, batch, "prefill", cache,
-                                    moe_impl=moe_impl)
+                                    moe_impl=moe_impl, constrain=constrain)
     cache["index"] = logits.shape[1]
     return logits
 

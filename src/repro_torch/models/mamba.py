@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import is_dtensor, matmul, settled
 from repro_torch.models.layers import dense_init
 
 
@@ -66,9 +67,30 @@ def init(cfg, generator: torch.Generator, device) -> Dict[str, torch.Tensor]:
     return params
 
 
+def _channelwise(fn, xs, *per_channel):
+    """``fn(xs, *per_channel)`` of a ``DTensor`` xs [B,S,di] and weights
+    whose last dim is di, run on each rank's lanes and channels
+    (``local_map``): the weights cut to xs's channel shards, their
+    gradients ``Partial`` over the mesh dims that shard the lanes.  → its
+    output placed as xs."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    w_pl = [[Shard(t.dim() - 1) if p == Shard(2) else Replicate() for p in xs.placements]
+            for t in per_channel]
+    w_grad = [[Partial() if p == Shard(0) else q for p, q in zip(xs.placements, pl)]
+              for pl in w_pl]
+    f = local_map(fn, out_placements=list(xs.placements),
+                  in_placements=(list(xs.placements), *w_pl),
+                  in_grad_placements=(list(xs.placements), *w_grad),
+                  device_mesh=xs.device_mesh, redistribute_inputs=True)
+    return f(xs, *per_channel)
+
+
 def _conv_causal(xs: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d, unrolled over the K taps.  xs [B,S,di],
-    w [K,di]."""
+    w [K,di] (per rank's lanes and channels on ``DTensor``s)."""
+    if is_dtensor(xs):
+        return _channelwise(_conv_causal, xs, w, b)
     K, S = w.shape[0], xs.shape[1]
     pad = F.pad(xs, (0, 0, K - 1, 0))
     out = torch.zeros_like(xs)
@@ -82,9 +104,10 @@ def _ssm_params(params, cfg, xs):
     A = -exp(A_log) [di,N] f32."""
     dt_ = xs.dtype
     dtr, N = _dt_rank(cfg), cfg.ssm_state
-    proj = xs @ params["x_proj"].to(dt_)                       # [B,S,dtr+2N]
+    # a Partial sum over the channel shards on DTensors: reduced once here
+    proj = settled(matmul(xs, params["x_proj"].to(dt_)))              # [B,S,dtr+2N]
     dt_low, Bm, Cm = torch.split(proj, [dtr, N, N], dim=-1)
-    dt = F.softplus(dt_low @ params["dt_w"].to(dt_) + params["dt_b"].to(dt_))
+    dt = F.softplus(matmul(dt_low, params["dt_w"].to(dt_)) + params["dt_b"].to(dt_))
     A = -torch.exp(params["A_log"].float())
     return dt, Bm, Cm, A
 
@@ -141,23 +164,63 @@ def ssm_scan(dt, xs, Bm, Cm, A, D, h0=None, chunk: int = 128, unroll: bool = Fal
     return torch.cat(ys, dim=1)[:, :S], h
 
 
-def apply_full(params, cfg, x, return_state: bool = False):
+def _local_scan(dt, xs, Bm, Cm, A, D, chunk: int, unroll: bool):
+    """``ssm_scan`` on ``DTensor``s: the recurrence runs per lane and
+    channel, so each rank scans its own lanes and channels (``local_map``,
+    the reference's GSPMD keeps it sharded too).  B and C, replicated over
+    the channel shards, get ``Partial`` gradients there; A and D over the
+    lane shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    lane = [Shard(0) if p == Shard(0) else Replicate() for p in xs.placements]
+    chan = [Shard(0) if p == Shard(2) else Replicate() for p in xs.placements]
+    state = [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2) else Replicate()
+             for p in xs.placements]
+    lane_grad = [Partial() if p == Shard(2) else q for p, q in zip(xs.placements, lane)]
+    chan_grad = [Partial() if p == Shard(0) else q for p, q in zip(xs.placements, chan)]
+    xp = list(xs.placements)
+    fn = local_map(lambda *a: ssm_scan(*a, chunk=chunk, unroll=unroll),
+                   out_placements=(xp, state),
+                   in_placements=(xp, xp, lane, lane, chan, chan),
+                   in_grad_placements=(xp, xp, lane_grad, lane_grad, chan_grad, chan_grad),
+                   device_mesh=xs.device_mesh, redistribute_inputs=True)
+    return fn(dt, xs, Bm, Cm, A, D)
+
+
+def apply_full(params, cfg, x, return_state: bool = False, constrain=lambda n, t: t):
     """x [B,S,d] → y [B,S,d]; with ``return_state`` also (conv_state
     [B,K-1,di], ssm_state [B,di,N] f32) for a prefill: the last K-1 conv
     inputs (zero rows before the sequence when S < K-1) and the final
-    state."""
+    state.  The two halves of the input projection are constrained as
+    ``ssm_h``."""
     dt_ = x.dtype
-    xs, z = torch.chunk(x @ params["in_proj"].to(dt_), 2, dim=-1)
+    w = params["in_proj"].to(dt_)
+    if is_dtensor(x):
+        # the halves of a channel-sharded projection, each placed as the whole
+        # (a gather of the weight, where chunking the output would gather it)
+        di = w.shape[1] // 2
+        xs, z = (matmul(x, w[:, i:i + di].redistribute(w.device_mesh, w.placements))
+                 for i in (0, di))
+    else:
+        xs, z = torch.chunk(x @ w, 2, dim=-1)
+    xs, z = constrain("ssm_h", xs), constrain("ssm_h", z)
     xs_act = F.silu(_conv_causal(xs, params["conv_w"].to(dt_), params["conv_b"]))
     dt, Bm, Cm, A = _ssm_params(params, cfg, xs_act)
-    y, h_fin = ssm_scan(dt, xs_act, Bm, Cm, A, params["D"], chunk=cfg.ssm_chunk,
-                        unroll=cfg.ssm_unroll)
-    out = (y * F.silu(z)) @ params["out_proj"].to(dt_)
+    scan = _local_scan if is_dtensor(xs_act) else ssm_scan
+    y, h_fin = scan(dt, xs_act, Bm, Cm, A, params["D"], chunk=cfg.ssm_chunk,
+                    unroll=cfg.ssm_unroll)
+    out = matmul(y * F.silu(z), params["out_proj"].to(dt_))
     if not return_state:
         return out
-    K = cfg.ssm_conv
-    conv_state = F.pad(xs, (0, 0, K - 1, 0))[:, xs.shape[1]:] if K > 1 else xs[:, :0]
-    return out, (conv_state, h_fin)
+    return out, (_conv_state(xs, cfg.ssm_conv), h_fin)
+
+
+def _conv_state(xs, K: int):
+    """The last K-1 conv inputs of xs [B,S,di] (zero rows before the
+    sequence when S < K-1): a prefill's conv state."""
+    if is_dtensor(xs):
+        return _channelwise(lambda x: _conv_state(x, K), xs)
+    return F.pad(xs, (0, 0, K - 1, 0))[:, xs.shape[1]:] if K > 1 else xs[:, :0]
 
 
 def init_state(cfg, batch: int, device, dtype=torch.float32) -> Dict[str, torch.Tensor]:

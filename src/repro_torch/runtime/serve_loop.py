@@ -113,9 +113,13 @@ from repro_torch.runtime import prng
 PHASES = ("prefill", "decode", "draft", "verify", "sample", "accept", "swap", "other")
 
 
-def make_prefill_step(cfg: ModelConfig, moe_impl: str = "ragged"):
+def make_prefill_step(cfg: ModelConfig, moe_impl: str = "ragged", constrain=None):
+    """→ ``prefill_step(params, buffers, batch, cache) -> logits``, filling
+    ``cache`` in place; ``constrain`` is ``lm.apply_prefill``'s sharding
+    hook (placed params, batch and cache make it the sharded step)."""
     def prefill_step(params, buffers, tokens, cache):
-        return lm.apply_prefill(params, buffers, cfg, tokens, cache, moe_impl=moe_impl)
+        return lm.apply_prefill(params, buffers, cfg, tokens, cache, moe_impl=moe_impl,
+                                constrain=constrain)
 
     return prefill_step
 

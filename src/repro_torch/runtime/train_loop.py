@@ -55,14 +55,17 @@ def _trainable(params):
     return map_tree(lambda p: p.detach().requires_grad_(True), params)
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig):
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, constrain=None):
     """→ ``train_step(params, buffers, opt_state, batch)`` →
     (params, opt_state, metrics).  Inputs are left as they are; the new
     params do not require grad.  ``batch`` is ``lm.loss_fn``'s (tokens and
     labels; a vision model's ``patch_embeds`` or an audio model's
     ``frames`` pass through as they are); each of its tensors splits along
     its first axis into ``tc.grad_accum`` microbatches, whose gradients add
-    up in the leaves' ``.grad`` and are then averaged."""
+    up in the leaves' ``.grad`` and are then averaged.  ``constrain`` is
+    ``lm.loss_fn``'s sharding hook: with params, optimizer state and batch
+    placed as ``DTensor``s (``distributed/sharding.py``) the step is the
+    sharded step, its gradients and moments placed as their parameters."""
     sched = tc.schedule or (lambda s: torch.tensor(tc.lr, dtype=torch.float32))
     n = tc.grad_accum
 
@@ -74,7 +77,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         for mb in mbs:
             with torch.enable_grad():
                 loss, metrics = lm.loss_fn(params, buffers, cfg, mb, moe_impl=tc.moe_impl,
-                                           aux_weight=tc.aux_weight)
+                                           aux_weight=tc.aux_weight, constrain=constrain)
                 loss.backward()
             lsum = lsum + loss.detach()
         grads = map_tree(lambda p: p.grad / n if n > 1 else p.grad, params)

@@ -20,7 +20,9 @@ version, also at the MoE and hybrid training shapes.  Training gradients
 on the card against the CPU's, and the ragged MoE's against the dense
 oracle's: 1e-4 of each leaf's largest (f32 matmuls summed in another
 order).  The attention kernels have no backward and must raise when asked
-for one.
+for one.  The sharded steps' ``local_map`` wrappers of the rotation and
+``flash_prefill`` launch the same kernels on a shard's local tensors and
+are held to the plain versions' pieces at the same tolerances.
 """
 import numpy as np
 import pytest
@@ -1413,3 +1415,56 @@ def test_tp_parity_and_routed_tp2_dp2_on_card(cuda):
                 for t in (1, 2))
     assert two["tokens"] == one["tokens"] and sum(two["report"]["routed"]) == \
         sharded_check.N_REQUESTS
+
+
+@pytest.mark.parametrize("nh,nkv", [(8, 2), (4, 1), (8, 8)])
+def test_sharded_kernel_wrappers_on_card_match_plain(nh, nkv, cuda, monkeypatch):
+    """``rope_elite_qk`` (with its backward) and ``flash_prefill`` on
+    ``DTensor``s with CUDA local tensors, at each shard's coordinate of a
+    1 × 4 mesh of a fake group: each launches its kernel (counted) and
+    equals the plain version's piece; kv heads that do not divide the
+    shards are replicated and sliced to the shard's."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch.mesh import fake_group, make_debug_mesh
+    tp, B, S, dh, r = 4, 2, 48, 64, 8
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(B, S, nh, dh, generator=g, device=cuda)
+    k = torch.randn(B, S, nkv, dh, generator=g, device=cuda)
+    v = torch.randn(B, S, nkv, dh, generator=g, device=cuda)
+    freqs = torch.rand(nkv, r, generator=g, device=cuda)
+    pos = torch.arange(S, device=cuda)
+    G = nh // nkv
+    qe, ke = q[..., :2 * r].contiguous(), k[..., :2 * r].contiguous()
+    offs = torch.zeros(B, dtype=torch.int32, device=cuda)
+    lens = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    want_o = ref.flash_prefill_ref(q, k, v, G, dh ** -0.5, offs, lens)
+    with fake_group(tp, "cuda"):
+        mesh = make_debug_mesh((1, tp), device_type="cuda")
+        rep, heads = [Replicate(), Replicate()], [Replicate(), Shard(2)]
+        kv_pl = heads if nkv % tp == 0 else rep
+        for c in range(tp):
+            monkeypatch.setattr(DeviceMesh, "get_coordinate", lambda self, c=c: [0, c])
+            piece = lambda t, pl: t.chunk(tp, 2)[c].contiguous() if pl == heads else t
+            dt = lambda t, pl: DTensor.from_local(piece(t, pl), mesh, pl, run_check=False,
+                                                  shape=t.shape, stride=t.stride())
+            qp, kp = qe.clone().requires_grad_(True), ke.clone().requires_grad_(True)
+            want_q, want_k = ref.rope_elite_qk_ref(qp, kp, pos, freqs, G, 1)
+            wq, wk = torch.randn_like(want_q), torch.randn_like(want_k)
+            ((want_q * wq).sum() + (want_k * wk).sum()).backward()
+            qd = dt(qe, heads).requires_grad_(True)
+            kd = dt(ke, kv_pl).requires_grad_(True)
+            ops.reset_launches()
+            got_q, got_k = ops.rope_elite_qk(qd, kd, dt(pos, rep), dt(freqs, rep), G, 1)
+            ((got_q.to_local() * piece(wq, heads)).sum()
+             + (got_k.to_local() * piece(wk, kv_pl)).sum()).backward()
+            torch.testing.assert_close(got_q.to_local(), piece(want_q, heads), **ROPE_TOL)
+            torch.testing.assert_close(got_k.to_local(), piece(want_k, kv_pl), **ROPE_TOL)
+            torch.testing.assert_close(qd.grad.to_local(), piece(qp.grad, heads), **ROPE_TOL)
+            torch.testing.assert_close(kd.grad.to_local(), piece(kp.grad, kv_pl), **ROPE_TOL)
+            with torch.no_grad():
+                o = ops.flash_prefill(dt(q, heads), dt(k, kv_pl), dt(v, kv_pl), G,
+                                      dh ** -0.5, dt(offs, rep), dt(lens, rep))
+            torch.testing.assert_close(o.to_local(), piece(want_o, heads), **TOL)
+            n = ops.launches()
+            assert (n["rope_elite"], n["rope_elite_backward"], n["flash_prefill"]) == (1, 1, 1)

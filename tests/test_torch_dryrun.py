@@ -457,6 +457,24 @@ def test_production_flops_extrapolate_a_full_trace():
     assert rec["kernels"]["elite_decode"]["calls"] == 2 * full["kernels"]["elite_decode"]["calls"]
 
 
+@pytest.mark.parametrize("arch,shape", [("tinyllama_1_1b", "train_4k"),
+                                        ("falcon_mamba_7b", "train_4k"),
+                                        ("falcon_mamba_7b", "prefill_32k")])
+def test_sharded_trace_extrapolates_a_full_depth_trace(arch, shape):
+    """At tp > 1 a sharded trace may be extrapolated from three and four
+    layer periods (``depth="periods"``): on six layers at 16 x 16 it
+    equals the full-depth trace in every count, byte and FLOP."""
+    kw = dict(batch=32, seq_len=64, overrides={"num_layers": 6})
+    full = dryrun.lower_cell(arch, shape, depth="full", **kw)
+    ext = dryrun.lower_cell(arch, shape, depth="periods", **kw)
+    for key in ("flops_per_device", "operator_flops_per_device", "kernels", "collectives",
+                "collective_bytes_per_device"):
+        assert ext[key] == full[key], key
+    for key in ("temp_bytes", "peak_estimate_bytes", "output_bytes", "step_input_bytes"):
+        assert ext["memory"][key] == full["memory"][key], key
+    assert full["memory"]["temp_bytes"] > 0 and full["collectives"]
+
+
 def test_dryrun_cli_and_diagnose_report(tmp_path, capsys):
     assert dryrun.main(["--arch", "tinyllama_1_1b", "--shape", "decode_32k", "--out",
                         str(tmp_path)]) == 0
@@ -470,7 +488,7 @@ def test_dryrun_cli_and_diagnose_report(tmp_path, capsys):
                    "--batch", "2", "--seq-len", "64"])
     out = capsys.readouterr().out
     for part in ("peak/device:", "resident/device:", "flops/device:",
-                 "collectives: none (item 15)", "largest live tensors at the peak"):
+                 "collectives: none (one device)", "largest live tensors at the peak"):
         assert part in out, part
     with pytest.raises(SystemExit):
         diagnose.main(["--arch", "tinyllama_1_1b"])
