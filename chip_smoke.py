@@ -175,6 +175,20 @@ non-zero:
       ``tools/check_trace.py`` (``build/obs/tp_cli.*``).  Printed beside
       p's tp 1: tok/s, TTFT p50/p95, the decode step's p50 and the pool's
       bytes per token per device.
+   s. the sharded steps (runs after r): TinyLlama-1.1B at full width and
+      depth on the 16 x 16 mesh as rank 0 of a fake group of 256 (no data
+      moves), placed by ``distributed/sharding.py``'s rules: S1
+      ``train_4k``, S2 ``prefill_32k`` and S3 ``decode_32k`` (8 lanes a
+      device, the cache sequence over "model": 2,048 of 32,768 rows a
+      device), each held to the dry run's per-device peak (S3 within 0.1
+      GiB), launches and ``CommDebugMode``'s counts, outputs finite; the
+      kernels' ``local_map`` wrappers at S1's and S2's shard shapes against
+      their plain versions; and one cache of S3's shard widths over all
+      32,768 rows on the card cut into 16 sequence pieces, each attended by
+      ``elite_decode`` with its log-sum-exp and merged (``ref.merge_lse``),
+      against one unsharded call within TOL, each piece's log-sum-exp
+      against the plain version and its output bitwise that of the call
+      without it.
    i. conversion (the paper's §3): the baseline TinyLlama-1.1B of f,
       4 x 512 random calibration tokens, ``capture_attn_inputs`` and a
       greedy RoPElite search at r = 8 per layer (``rope_elite`` 22 times in
@@ -4336,11 +4350,13 @@ def predict_sharded(shape: str, room: float):
 
 
 def sharded_cell_on_card(label: str, rec: dict, cell, t_pred: float, want: dict, dev,
-                         card: str) -> dict:
+                         card: str, peak_tol=None) -> dict:
     """Run the step the dry run traced for ``rec`` (TinyLlama-1.1B at full
     width and depth, sharded on the 16 x 16 mesh) on the card as rank 0 of
     a fake group of 256, the launch counts set to 0 just before it, and
-    hold the measured peak, launches and collectives to the prediction."""
+    hold the measured peak (within ``peak_tol`` bytes where given, else
+    max(PEAK_REL, PEAK_FLOOR)), launches and collectives to the
+    prediction."""
     import torch
     from torch.distributed.tensor.debug import CommDebugMode
     from repro_torch.distributed import sharding as shd
@@ -4382,7 +4398,8 @@ def sharded_cell_on_card(label: str, rec: dict, cell, t_pred: float, want: dict,
     build.free_scratch(dev)
     measured = peak - held
     pred = mem["peak_estimate_bytes"]
-    diff, allowed = abs(pred - measured), max(PEAK_REL * measured, PEAK_FLOOR)
+    diff = abs(pred - measured)
+    allowed = peak_tol if peak_tol is not None else max(PEAK_REL * measured, PEAK_FLOOR)
     calls = {k: v["calls"] for k, v in rec["kernels"].items()}
     want_counts = {k: v["count"] for k, v in rec["collectives"].items() if v["count"]}
     print(f"[{card}] 3s {label} tinyllama_1_1b {shape} B {batch} x {cell.shape.seq_len} "
@@ -4415,8 +4432,9 @@ def sharded_cell_on_card(label: str, rec: dict, cell, t_pred: float, want: dict,
                 measured=measured, held=held, placed=placed, raw_peak=peak,
                 temp=mem["temp_bytes"], resident=mem["argument_bytes"],
                 flops=rec["flops_per_device"], step_s=step_s, diff=diff,
-                collectives=rec["collectives"],
-                collective_bytes=rec["collective_bytes_per_device"], trace_s=t_pred)
+                collectives=rec["collectives"], launches=launches,
+                collective_bytes=rec["collective_bytes_per_device"], trace_s=t_pred,
+                elitekv=rec["elitekv"])
 
 
 def sharded_kernel_parity(dev, card: str, b1: int, b2: int) -> dict:
@@ -4557,26 +4575,127 @@ def host_ms(fn, iters: int = 10) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+#: 3s's merge check: each lane's length over the whole 32,768-row cache (a
+#: full lane, lanes ending inside a piece and on a piece boundary, short
+#: lanes whose later pieces hold none of their rows, an empty lane)
+MERGE_LENGTHS = (32768, 30001, 17000, 9000, 2048, 2047, 1, 0)
+#: S3's |predicted - measured| peak allowed
+S3_PEAK_TOL = 0.1 * 2**30
+
+
+def decode_merge_check(dev, card: str, s3: dict, n_pieces: int = 16) -> dict:
+    """``elite_decode`` with its log-sum-exp at S3's shard widths (8
+    lanes, 32/4 heads of TinyLlama-1.1B, the dry run's EliteKV dims) over
+    one seeded cache of all 32,768 rows on the card, cut into ``n_pieces``
+    sequence pieces as the model axis cuts S3's cache: the pieces' (o,
+    lse) merged by ``ref.merge_lse`` against one call over the whole
+    cache within TOL; each piece's o and lse against the plain version
+    (-inf on both sides where the piece holds none of a lane's rows), and
+    o bitwise the call's without the log-sum-exp.  Then the kernel at rank
+    0's piece as S3 launched it (every row valid), timed beside its plain
+    version, its bound and SDPA over prebuilt operands (row 3s)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import elite_decode as ed
+    from repro_torch.kernels.elite_decode import contig_decode_cost
+    cfg = get_config("tinyllama_1_1b")
+    r2, dc = 2 * s3["elitekv"]["elite_r"], s3["elitekv"]["d_ckv"]
+    nh, nkv, S = cfg.n_heads, cfg.n_kv_heads, s3["seq"]
+    G, sc, B, P = nh // nkv, cfg.head_dim ** -0.5, len(MERGE_LENGTHS), S // n_pieces
+    g = torch.Generator(device=dev).manual_seed(34)
+    f = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    q_e, q_lat, k_e, c = f(B, nh, r2), f(B, nh, dc), f(B, S, nkv, r2), f(B, S, dc)
+    lens = torch.tensor(MERGE_LENGTHS, dtype=torch.int32, device=dev)
+    whole = ed.elite_decode(q_e, q_lat, k_e, c, c, lens, G, sc)
+    os_, lses = [], []
+    o_err = lse_err = 0.0
+    empty = 0
+    for i in range(n_pieces):
+        k_i, c_i = k_e[:, i * P:(i + 1) * P].contiguous(), c[:, i * P:(i + 1) * P].contiguous()
+        mine = (lens - i * P).clamp(0, P).to(torch.int32)
+        o_i, l_i = ed.elite_decode(q_e, q_lat, k_i, c_i, c_i, mine, G, sc, return_lse=True)
+        bare = ed.elite_decode(q_e, q_lat, k_i, c_i, c_i, mine, G, sc)
+        po, pl = ref.elite_decode_ref(q_e, q_lat, k_i, c_i, c_i, mine, G, sc, return_lse=True)
+        torch.cuda.synchronize(dev)
+        if not torch.equal(o_i, bare):
+            raise AssertionError(f"3s merge: piece {i}'s o moved with return_lse")
+        seen = torch.isfinite(pl)
+        if not torch.equal(seen, torch.isfinite(l_i)) or bool((l_i[~seen] != -torch.inf).any()):
+            raise AssertionError(f"3s merge: piece {i}'s lse is not -inf exactly where the "
+                                 f"plain version's is")
+        empty += int((~seen[:, 0]).sum())
+        o_err = max(o_err, max_err(o_i, po))
+        if seen.any():
+            lse_err = max(lse_err, float((l_i - pl)[seen].abs().max()))
+        os_.append(o_i)
+        lses.append(l_i)
+    merge_err = max_err(ref.merge_lse(os_, lses), whole)
+    check(f"3s elite_decode o of each of {n_pieces} pieces (return_lse) vs plain", o_err, card)
+    check(f"3s elite_decode lse of each of {n_pieces} pieces vs plain", lse_err, card)
+    check(f"3s merge_lse of {n_pieces} pieces of {S} rows ({empty} lane-pieces empty) vs one "
+          f"unsharded call", merge_err, card)
+    if float(whole[-1].abs().max()) != 0.0:
+        raise AssertionError("3s merge: the empty lane did not give zeros")
+    # rank 0's piece as S3 launched it: every lane's rows all valid
+    full = torch.full((B,), P, dtype=torch.int32, device=dev)
+    k0, c0 = k_e[:, :P].contiguous(), c[:, :P].contiguous()
+    a = (q_e, q_lat, k0, c0, c0, full, G, sc)
+    del k_e, c
+    flush = torch.empty(64 * 2**20, dtype=torch.int8, device=dev)
+    evict = flush.zero_
+    nb, fl = contig_decode_cost(a, lse=True)
+    t_bound, by = bound(nb, fl)
+    row = dict(name="elite_decode_lse", route="cuda",
+               source="src/repro_torch/kernels/csrc/elite_decode_paged.cu",
+               replaces=TPU_LINES["elite_decode"], launches=s3["launches"]["elite_decode"],
+               max_abs_err=max(o_err, lse_err, merge_err),
+               ms=time_ms(lambda: ed.elite_decode(*a, return_lse=True), flush=evict),
+               plain_ms=time_ms(lambda: ref.elite_decode_ref(*a, return_lse=True),
+                                flush=evict),
+               bound_ms=t_bound, bound_by=by, library_ms=time_ms(contig_sdpa_call(a),
+                                                                 flush=evict))
+    bare_ms = time_ms(lambda: ed.elite_decode(*a), flush=evict)
+    del flush
+    print(f"[{card}] 3s row 3s elite_decode with return_lse at S3's shard: q_e "
+          f"{tuple(q_e.shape)}, q_lat {tuple(q_lat.shape)}, k_e {tuple(k0.shape)}, c "
+          f"{tuple(c0.shape)} ({B * P} rows): {row['ms']:.4f} ms ({bare_ms:.4f} ms without the "
+          f"lse), plain {row['plain_ms']:.4f} ms, bound {t_bound:.5f} ms ({by}: {nb} B, {fl} "
+          f"flop), SDPA {row['library_ms']:.4f} ms; launches {row['launches']} per S3 step",
+          flush=True)
+    return dict(row=row, o_err=o_err, lse_err=lse_err, merge_err=merge_err, bare_ms=bare_ms,
+                empty=empty)
+
+
 def sharded_steps(dev, card: str) -> dict:
-    """Phase 3s: the sharded train and prefill steps of TinyLlama-1.1B at
-    full width and depth on the 16 x 16 mesh, as rank 0 of a fake group of
-    256 on the card (S1 train_4k, S2 prefill_32k), held to the dry run's
-    prediction, and the two kernels' ``local_map`` wrappers at the shard
-    shapes held to their plain versions."""
+    """Phase 3s: the sharded train, prefill and decode steps of
+    TinyLlama-1.1B at full width and depth on the 16 x 16 mesh, as rank 0
+    of a fake group of 256 on the card (S1 train_4k, S2 prefill_32k, S3
+    decode_32k with the cache sequence over "model"), held to the dry run's
+    prediction; the two kernels' ``local_map`` wrappers at the shard shapes
+    held to their plain versions; and the decode kernel's log-sum-exp merge
+    of 16 sequence pieces held to one call (``decode_merge_check``)."""
     import torch
     t_phase = time.perf_counter()
     _free_card()
     total = torch.cuda.get_device_properties(dev).total_memory
     room = PREFILL_FILL * total - torch.cuda.memory_allocated(dev)
     cells = []
-    for label, shape, want in (("S1", "train_4k", {"rope_elite": 44, "rope_elite_backward": 22}),
-                               ("S2", "prefill_32k", {"flash_prefill": 22, "rope_elite": 22})):
+    for label, shape, want, tol in (
+            ("S1", "train_4k", {"rope_elite": 44, "rope_elite_backward": 22}, None),
+            ("S2", "prefill_32k", {"flash_prefill": 22, "rope_elite": 22}, None),
+            ("S3", "decode_32k", {"elite_decode": NUM_LAYERS, "rope_elite": NUM_LAYERS},
+             S3_PEAK_TOL)):
         rec, cell, t_pred = predict_sharded(shape, room)
-        cells.append(sharded_cell_on_card(label, rec, cell, t_pred, want, dev, card))
+        cells.append(sharded_cell_on_card(label, rec, cell, t_pred, want, dev, card,
+                                          peak_tol=tol))
     parity = sharded_kernel_parity(dev, card, cells[0]["batch"] // 16, cells[1]["batch"] // 16)
+    merge = decode_merge_check(dev, card, cells[2])
+    _free_card()
     wall = time.perf_counter() - t_phase
-    print(f"[{card}] phase 3s (the sharded train and prefill steps) {wall:.1f} s", flush=True)
-    return dict(cells=cells, parity=parity, wall=wall)
+    print(f"[{card}] phase 3s (the sharded train, prefill and decode steps) {wall:.1f} s",
+          flush=True)
+    return dict(cells=cells, parity=parity, merge=merge, wall=wall)
 
 
 def main() -> int:
@@ -4899,8 +5018,9 @@ def main() -> int:
     # r. tensor-parallel serving: 3p's runs through Scheduler(mesh=) at tp 2
     # and 4 and Router(meshes=) at tp 2 x dp 2, bitwise equal to 3p's
     tp3r = tp_serving(params, buffers, cfg, dev, card, dp3p.pop("handoff"))
-    # s. the sharded train and prefill steps on the 16 x 16 mesh as rank 0 of
-    # a fake group of 256, held to the dry run's per-device prediction
+    # s. the sharded train, prefill and decode steps on the 16 x 16 mesh as
+    # rank 0 of a fake group of 256, held to the dry run's per-device
+    # prediction, and the decode kernel's log-sum-exp merge of 16 pieces
     sh3s = sharded_steps(dev, card)
 
     # i. conversion of the baseline TinyLlama-1.1B, and the converted model
@@ -5454,6 +5574,7 @@ def main() -> int:
           f"{sh3s['wall']:.1f} s; "
           f"the whole script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    rows.append(sh3s["merge"]["row"])
     if not (isinstance(rows, list) and rows and all(isinstance(r, dict) for r in rows)):
         raise AssertionError(f"the kernel rows are {rows!r}")
     print(card)

@@ -87,7 +87,8 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.cache import BLOCK_SUMMARY_SUFFIXES, HEAD_SPLIT, first, put_rows
-from repro_torch.distributed.sharding import einsum, matmul, replicated_like
+from repro_torch.distributed.sharding import (einsum, is_dtensor, local_range, matmul,
+                                              replicated_like)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gather_pages
 from repro_torch.models.attention import _attend
@@ -209,14 +210,39 @@ def _cache_latents(cache):
 
 
 def _write_cache(cache, rows, k_e, c_k, c_v) -> None:
-    """Write the streams of rows ``rows`` (a slice or an index of the
-    position axis) into the cache in place."""
-    cache["k_e"][:, rows] = k_e
-    if "c" in cache:
-        cache["c"][:, rows] = c_k
-    else:
-        cache["c_k"][:, rows] = c_k
-        cache["c_v"][:, rows] = c_v
+    """Write the streams of rows ``rows`` (a slice, or one index:
+    ``_put_row``) of the position axis into the cache in place."""
+    streams = ((("k_e", k_e), ("c", c_k)) if "c" in cache
+               else (("k_e", k_e), ("c_k", c_k), ("c_v", c_v)))
+    for name, v in streams:
+        if isinstance(rows, int):
+            _put_row(cache[name], rows, v)
+        else:
+            cache[name][:, rows] = v
+
+
+def _put_row(leaf, index: int, row) -> None:
+    """``leaf[:, index] = row`` in place.  On a ``DTensor`` cache leaf each
+    rank writes into its own piece, and only where that piece holds row
+    ``index`` (over a mesh dim that shards the sequence, one rank of each
+    group), with ``row`` placed as the leaf's other dims (``local_map``):
+    nothing of the cache moves, where an indexed assignment on a
+    sequence-sharded ``DTensor`` could gather it."""
+    if not is_dtensor(leaf):
+        leaf[:, index] = row
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    start, n = local_range(leaf, 1)
+    row_pl = [Replicate() if p == Shard(1) else Shard(p.dim - 1)
+              if isinstance(p, Shard) and p.dim > 1 else p for p in leaf.placements]
+
+    def local(leaf_l, row_l):
+        if start <= index < start + n:
+            leaf_l[:, index - start] = row_l
+
+    local_map(local, out_placements=None, in_placements=(leaf.placements, row_pl),
+              device_mesh=leaf.device_mesh, redistribute_inputs=True)(leaf, row)
 
 
 def apply_prefill(params, cfg, buffers, x, positions, cache,
@@ -233,23 +259,32 @@ def apply_prefill(params, cfg, buffers, x, positions, cache,
     return einsum("bshe,hed->bsd", o, params["wo"].to(x.dtype))
 
 
-def apply_decode(params, cfg, buffers, x, index: int, cache) -> torch.Tensor:
+def apply_decode(params, cfg, buffers, x, index: int, cache, constrain=_NOOP) -> torch.Tensor:
     """Absorbed decode over the contiguous cache: x [B,1,d], the token at
     position ``index`` of every lane.  Writes cache row ``index`` in place,
     then attends rows [0, index] through the compressed cache only.
+    ``constrain``: the reference's ``attn_q`` on the rotated ``q_e`` and on
+    ``q_lat``.  On a placed cache (``DTensor``s, the sequence possibly
+    sharded) the row goes to the rank that holds it (``_put_row``) and the
+    attention merges the sequence's pieces (``ops.elite_decode``).
     → out [B,1,d]."""
     dt = x.dtype
-    B = x.shape[0]
-    nh = cfg.n_heads
-    pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
+    B, dev = x.shape[0], x.device
+    if is_dtensor(x):      # one position for every lane: the [S] form of the rotation
+        pos = replicated_like(x, torch.full((1,), index, dtype=torch.int32, device=dev))
+        lengths = replicated_like(x, torch.full((B,), index + 1, dtype=torch.int32,
+                                                device=dev))
+    else:
+        pos = torch.full((B, 1), index, dtype=torch.int32, device=dev)
+        lengths = pos[:, 0] + 1
     q_e, q_ne, k_e, c_k, c_v = _project(params, cfg, buffers, x, pos)
-    q_lat = _absorbed_query(params, cfg, q_ne, dt)
+    q_e = constrain("attn_q", q_e)
+    q_lat = constrain("attn_q", _absorbed_query(params, cfg, q_ne, dt))
     _write_cache(cache, index, k_e[:, 0], c_k[:, 0], c_v[:, 0])
     C_k, C_v = _cache_latents(cache)
-    o = ops.elite_decode(q_e.reshape(B, nh, -1).contiguous(),
-                         q_lat.reshape(B, nh, -1).contiguous(), cache["k_e"], C_k, C_v,
-                         pos[:, 0] + 1, cfg.q_group, cfg.head_dim ** -0.5)
-    return _absorbed_out(params, cfg, o.reshape(B, 1, nh, C_v.shape[-1]), dt)
+    o = ops.elite_decode(q_e[:, 0].contiguous(), q_lat[:, 0].contiguous(), cache["k_e"],
+                         C_k, C_v, lengths, cfg.q_group, cfg.head_dim ** -0.5)
+    return _absorbed_out(params, cfg, o[:, None], dt)
 
 
 # ---------------------------------------------------------------------------
@@ -431,11 +466,41 @@ def apply_prefill_paged(params, cfg, buffers, x, positions, pages, writes: Write
     return torch.einsum("bshe,hed->bsd", o, params["wo"].to(dt))
 
 
+def _q_heads(per_kv, q_group: int, wo):
+    """``rope.expand_kv_to_q``: [nkv, ...] → [nh, ...], query head h with kv
+    head ``h // q_group``'s rows.  On a ``DTensor`` each rank takes its own
+    query heads' rows from its kv heads (sharded with them, or replicated)
+    without communication, placed with the heads sharded as ``wo``'s (the
+    query heads' weight)."""
+    if not is_dtensor(per_kv):
+        return rope_lib.expand_kv_to_q(per_kv, q_group)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = per_kv.device_mesh
+    hd = [i for i, p in enumerate(wo.placements) if p == Shard(0)]
+    out_pl = [Shard(0) if i in hd else Replicate() for i in range(mesh.ndim)]
+    in_pl = [p if (i in hd and p == Shard(0)) else Replicate()
+             for i, p in enumerate(per_kv.placements)]
+    nh = per_kv.shape[0] * q_group
+
+    def local(w):
+        if not hd:
+            return rope_lib.expand_kv_to_q(w, q_group)
+        hq = nh // mesh.size(hd[0])
+        q0 = mesh.get_coordinate()[hd[0]] * hq
+        first_kv = q0 // q_group if in_pl[hd[0]] == Shard(0) else 0
+        idx = torch.arange(q0, q0 + hq, device=w.device) // q_group - first_kv
+        return w.index_select(0, idx)
+
+    return local_map(local, out_placements=out_pl, in_placements=(in_pl,), device_mesh=mesh,
+                     redistribute_inputs=True)(per_kv)
+
+
 def _absorbed_query(params, cfg, q_ne, dt):
     """The bk-absorbed latent queries q_lat [B,S,nh,dc] of the linear
     queries q_ne [B,S,nh,d_nope]."""
-    bk_q = rope_lib.expand_kv_to_q(params["bk"].permute(1, 0, 2), cfg.q_group)  # [nh,dc,dn]
-    return torch.einsum("bshn,hcn->bshc", q_ne, bk_q.to(dt))
+    bk_q = _q_heads(params["bk"].permute(1, 0, 2), cfg.q_group, params["wo"])  # [nh,dc,dn]
+    return einsum("bshn,hcn->bshc", q_ne, bk_q.to(dt))
 
 
 def _scatter_new(pages, k_e, c_k, c_v, writes: Writes) -> None:
@@ -448,9 +513,9 @@ def _scatter_new(pages, k_e, c_k, c_v, writes: Writes) -> None:
 
 def _absorbed_out(params, cfg, o, dt):
     """Latent attention output o [B,S,nh,dc] → o·bv·wo [B,S,d]."""
-    bv_q = rope_lib.expand_kv_to_q(params["bv"].permute(1, 0, 2), cfg.q_group)  # [nh,dc,dh]
-    o_heads = torch.einsum("bqhc,hcd->bqhd", o.to(dt), bv_q.to(dt))
-    return torch.einsum("bshe,hed->bsd", o_heads, params["wo"].to(dt))
+    bv_q = _q_heads(params["bv"].permute(1, 0, 2), cfg.q_group, params["wo"])  # [nh,dc,dh]
+    o_heads = einsum("bqhc,hcd->bqhd", o.to(dt), bv_q.to(dt))
+    return einsum("bshe,hed->bsd", o_heads, params["wo"].to(dt))
 
 
 def apply_decode_paged(params, cfg, buffers, x, pages, writes: Writes,

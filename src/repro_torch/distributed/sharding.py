@@ -376,7 +376,7 @@ def einsum(eq: str, x, w):
             else:
                 wpl[i], b = Replicate(), None             # gather the weight here
         if a is None and b is not None:
-            if b in out:                                  # w shards an output letter
+            if b not in lx:                               # w shards an output letter
                 opl.append(Shard(out.index(b)))
                 xg[i] = Partial()
                 continue
@@ -406,6 +406,22 @@ def matmul(x, w):
         return x @ w
     lead = "abcdefghijklm"[:x.dim() - 1]
     return einsum(f"{lead}y,yz->{lead}z", x, w)
+
+
+def local_range(x, dim: int) -> Tuple[int, int]:
+    """(first global index, length) of this rank's piece of the ``DTensor``
+    ``x`` along ``dim``: each mesh dim that shards it cuts the piece left by
+    the dims before it into ``torch.chunk`` pieces, in mesh order (as
+    ``local_shard`` cuts)."""
+    from torch.distributed.tensor import Shard
+    coord = x.device_mesh.get_coordinate()
+    start, n = 0, x.shape[dim]
+    for i, p in enumerate(x.placements):
+        if p == Shard(dim):
+            per = -(-n // x.device_mesh.size(i))
+            lo = min(coord[i] * per, n)
+            start, n = start + lo, max(0, min(per, n - lo))
+    return start, n
 
 
 def replicated_like(x, t):

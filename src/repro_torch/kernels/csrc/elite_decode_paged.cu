@@ -91,6 +91,13 @@
 //     in flight together.  No second launch; repeated calls give identical
 //     bits.  Counters and partials are per-device scratch of the wrapper;
 //     calls are ordered by their stream (one stream at a time).
+//   * An optional log-sum-exp (the contiguous entry's lse pointer; nullptr
+//     in every other entry).  The same combine writes each row's natural
+//     log of sum_t e^(s[r, t]), M + log(sum_i l_i w_i), or -inf for a lane
+//     with no visited row: what a caller needs to merge pieces of one
+//     cache attended apart (the sequence-sharded decode, kernels/ops.py),
+//     as the reference's softmax reduces across shards under GSPMD.  It
+//     reads what the merge already holds and changes no other output.
 // A row's arithmetic -- its dot product order, its softmax butterfly, its
 // accumulation -- depends on neither R, gh nor nw, and each identity's two
 // sides share the plan, so a verify window of one token at
@@ -100,6 +107,7 @@
 // An empty lane writes exact zeros.  r2 and dc must be multiples of 4 and
 // bs <= 32; the wrapper checks.
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -310,7 +318,7 @@ template <typename T, typename Walk>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
     const float* __restrict__ q_e, const float* __restrict__ q_lat, Pages<T> pg,
     Walk walk, const int* __restrict__ q_off, float* __restrict__ out,
-    float* __restrict__ partials, int* __restrict__ counters, int nw, int wc, int nkv,
+    float* __restrict__ lse, float* __restrict__ partials, int* __restrict__ counters, int nw, int wc, int nkv,
     int G, int r2, int dc, float scale, int gh, int tps, int stages, bool shared_cv) {
   // blockIdx.y = window part * head groups + head group
   const int s_idx = blockIdx.x, b = blockIdx.z;
@@ -519,6 +527,11 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       if (l > 0.f) lsum = fmaf(l, w, lsum);
     }
     den[r] = fmaxf(lsum, 1e-30f);
+    if (lse) {                            // sum_t e^(s_t) = e^M * lsum
+      const int w = r / RG, hh = r - w * RG;
+      lse[((long)b * nw + w0 + w) * nh + grp * RG + hh] =
+          lsum > 0.f ? M + logf(lsum) : -INFINITY;
+    }
   }
   __syncthreads();
   for (int i = tid; i < R * DC4; i += kThreads) {
@@ -557,7 +570,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
 // counters B * units zeros, units = ceil(nw / wc) * (nkv / gh).
 template <typename T, typename Walk>
 int launch(const float* q_e, const float* q_lat, Pages<T> pg, Walk walk, const int* q_off,
-           float* out, float* partials, int* counters, int B, int nw, int nkv, int G,
+           float* out, float* lse, float* partials, int* counters, int B, int nw, int nkv, int G,
            int r2, int dc, float scale, int gh, int splits, int tps, int stages, int wc,
            void* stream) {
   if (gh < 1 || nkv % gh || r2 % 4 || dc % 4 || walk.bs < 1 || walk.bs > 32 ||
@@ -577,7 +590,7 @@ int launch(const float* q_e, const float* q_lat, Pages<T> pg, Walk walk, const i
   }
   const int parts = (nw + wc - 1) / wc;
   kernel<<<dim3(splits, parts * (nkv / gh), B), kThreads, bytes, (cudaStream_t)stream>>>(
-      q_e, q_lat, pg, walk, q_off, out, partials, counters, nw, wc, nkv, G, r2, dc, scale,
+      q_e, q_lat, pg, walk, q_off, out, lse, partials, counters, nw, wc, nkv, G, r2, dc, scale,
       gh, tps, stages, shared_cv);
   return (int)cudaGetLastError();
 }
@@ -630,14 +643,18 @@ extern "C" int elite_decode_preload(void) {
 }
 
 // The contiguous cache: k_e [B, S, nkv, r2], c_k / c_v [B, S, dc], lengths
-// [B]; rows staged in tiles of bs.
+// [B]; rows staged in tiles of bs.  lse [B, nh] f32 or nullptr: where set,
+// each row's natural log-sum-exp of its scaled scores over the visited rows
+// (-inf for a lane with none), so that pieces of one cache attended apart
+// can be merged (kernels/ref.py: merge_lse); out does not change with it.
 extern "C" int elite_decode(const float* q_e, const float* q_lat, const float* k_e,
                             const float* c_k, const float* c_v, const int* lengths,
-                            float* out, float* partials, int* counters, int B, int S,
-                            int nkv, int G, int r2, int dc, int bs, int gh, int splits,
-                            int tps, int stages, int wc, float scale, void* stream) {
+                            float* out, float* lse, float* partials, int* counters, int B,
+                            int S, int nkv, int G, int r2, int dc, int bs, int gh,
+                            int splits, int tps, int stages, int wc, float scale,
+                            void* stream) {
   return launch(q_e, q_lat, Pages<float>{k_e, c_k, c_v, nullptr, nullptr, nullptr},
-                ContigWalk{lengths, S, bs}, nullptr, out, partials, counters, B, 1, nkv,
+                ContigWalk{lengths, S, bs}, nullptr, out, lse, partials, counters, B, 1, nkv,
                 G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }
 
@@ -648,7 +665,7 @@ extern "C" int elite_decode_paged(const float* q_e, const float* q_lat, const fl
                                   int r2, int dc, int bs, int mb, int gh, int splits,
                                   int tps, int stages, int wc, float scale, void* stream) {
   return launch(q_e, q_lat, Pages<float>{k_e, c_k, c_v, nullptr, nullptr, nullptr},
-                ChainWalk{block_tables, lengths, mb, bs}, nullptr, out, partials,
+                ChainWalk{block_tables, lengths, mb, bs}, nullptr, out, nullptr, partials,
                 counters, B, 1, nkv, G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }
 
@@ -662,7 +679,7 @@ extern "C" int elite_decode_paged_q8(const float* q_e, const float* q_lat,
                                      int gh, int splits, int tps, int stages, int wc,
                                      float scale, void* stream) {
   return launch(q_e, q_lat, Pages<int8_t>{k_e, c_k, c_v, k_s, ck_s, cv_s},
-                ChainWalk{block_tables, lengths, mb, bs}, nullptr, out, partials,
+                ChainWalk{block_tables, lengths, mb, bs}, nullptr, out, nullptr, partials,
                 counters, B, 1, nkv, G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }
 
@@ -675,7 +692,7 @@ extern "C" int elite_decode_sparse_paged(const float* q_e, const float* q_lat,
                                          int splits, int tps, int stages, int wc,
                                          float scale, void* stream) {
   return launch(q_e, q_lat, Pages<float>{k_e, c_k, c_v, nullptr, nullptr, nullptr},
-                SelWalk{sel_tables, sel_counts, W, bs}, nullptr, out, partials, counters,
+                SelWalk{sel_tables, sel_counts, W, bs}, nullptr, out, nullptr, partials, counters,
                 B, 1, nkv, G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }
 
@@ -686,7 +703,7 @@ extern "C" int elite_decode_sparse_paged_q8(
     int* counters, int B, int nkv, int G, int r2, int dc, int bs, int W, int gh,
     int splits, int tps, int stages, int wc, float scale, void* stream) {
   return launch(q_e, q_lat, Pages<int8_t>{k_e, c_k, c_v, k_s, ck_s, cv_s},
-                SelWalk{sel_tables, sel_counts, W, bs}, nullptr, out, partials, counters,
+                SelWalk{sel_tables, sel_counts, W, bs}, nullptr, out, nullptr, partials, counters,
                 B, 1, nkv, G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }
 
@@ -698,7 +715,7 @@ extern "C" int elite_verify_paged(const float* q_e, const float* q_lat, const fl
                                   int dc, int bs, int mb, int gh, int splits, int tps,
                                   int stages, int wc, float scale, void* stream) {
   return launch(q_e, q_lat, Pages<float>{k_e, c_k, c_v, nullptr, nullptr, nullptr},
-                ChainWalk{block_tables, lengths, mb, bs}, q_offsets, out, partials,
+                ChainWalk{block_tables, lengths, mb, bs}, q_offsets, out, nullptr, partials,
                 counters, B, W, nkv, G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }
 
@@ -709,6 +726,6 @@ extern "C" int elite_verify_paged_q8(
     float* partials, int* counters, int B, int W, int nkv, int G, int r2, int dc, int bs,
     int mb, int gh, int splits, int tps, int stages, int wc, float scale, void* stream) {
   return launch(q_e, q_lat, Pages<int8_t>{k_e, c_k, c_v, k_s, ck_s, cv_s},
-                ChainWalk{block_tables, lengths, mb, bs}, q_offsets, out, partials,
+                ChainWalk{block_tables, lengths, mb, bs}, q_offsets, out, nullptr, partials,
                 counters, B, W, nkv, G, r2, dc, scale, gh, splits, tps, stages, wc, stream);
 }

@@ -11,7 +11,9 @@ walking the pool in place, so nothing is gathered contiguously:
 
 * ``elite_decode``                 a contiguous ``[B, S, ...]`` cache up to
   ``lengths``, read in tiles of ``CONTIG_TILE`` rows, as pages whose table
-  is the identity (no table is built);
+  is the identity (no table is built); with ``return_lse`` it also writes
+  each row's log-sum-exp, which merges pieces of a sequence-sharded cache
+  (``kernels/ops.py``, ``ref.merge_lse``);
 * ``elite_decode_paged``           f32 pages, the chain ``block_tables``
   up to ``lengths``;
 * ``elite_decode_paged_q8``        int8 pages dequantized by their per-slot
@@ -337,11 +339,12 @@ def _launch(symbol: str, q_e, q_lat, pages, scales, table, rows, q_group: int,
 
 def _call(symbol: str, ptrs, ints, scale: float, p: Plan, R: int, dc: int) -> None:
     """Launch entry ``symbol`` by the plan ``p`` (``R`` query rows in a
-    CTA's part of the window) with the tensors ``ptrs``, the scratch, the
-    ints ``ints`` and the plan on the current stream."""
+    CTA's part of the window) with the tensors ``ptrs`` (None passes a null
+    pointer), the scratch, the ints ``ints`` and the plan on the current
+    stream."""
     dev = ptrs[0].device
     for t in ptrs:
-        if t.data_ptr() % 4:
+        if t is not None and t.data_ptr() % 4:
             raise ValueError(f"{symbol}: a {t.dtype} argument is not 4-byte aligned")
     B = ints[0]
     units = B * p.groups * p.parts
@@ -353,18 +356,22 @@ def _call(symbol: str, ptrs, ints, scale: float, p: Plan, R: int, dc: int) -> No
         argtypes = [ctypes.c_void_p] * (len(ptrs) + 2) + [ctypes.c_int] * (len(ints) + 5) + [
             ctypes.c_float, ctypes.c_void_p]
         fn = _ENTRIES[symbol] = build.load(symbol, argtypes, source=_SOURCE)
-    build.launch(symbol, fn, (*(t.data_ptr() for t in ptrs), partials.data_ptr(),
+    build.launch(symbol, fn, (*(None if t is None else t.data_ptr() for t in ptrs),
+                              partials.data_ptr(),
                               cnt.data_ptr(), *ints, p.heads, p.splits,
                               p.tiles_per_split, p.stages, p.part, scale), ptrs[0])
 
 
 def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
-                 scale: float) -> torch.Tensor:
+                 scale: float, return_lse: bool = False):
     """q_e [B,nh,2r], q_lat [B,nh,dc], k_e [B,S,nkv,2r], c_k/c_v [B,S,dc]
     (the same tensor under J-LRD), all f32; lengths [B] int32; every tensor
     contiguous on one CUDA device.  Lane b attends its rows ``< lengths[b]``
-    (all S for a longer length).  → o [B,nh,dc] f32; length-0 lanes give
-    zeros.  On meta tensors, the meta version (module docstring)."""
+    (all S for a longer length; none for a length <= 0).  → o [B,nh,dc]
+    f32; length-0 lanes give zeros.  ``return_lse`` → (o, lse [B,nh] f32),
+    each row's natural log-sum-exp of its scaled scores (-inf for a lane
+    with no row), written by the same launch; o's bits do not change with
+    it.  On meta tensors, the meta version (module docstring)."""
     dev = q_e.device
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"elite_decode kernel needs CUDA (or meta) tensors, got {dev}")
@@ -384,14 +391,15 @@ def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
              False, -(-S // CONTIG_TILE), sm_count(dev), smem_optin_limit(dev),
              "elite_decode")
     out = torch.empty((B, nh, dc), dtype=f32, device=dev)
-    _call("elite_decode", (q_e, q_lat, k_e, c_k, c_v, lengths, out),
+    lse = torch.empty((B, nh), dtype=f32, device=dev) if return_lse else None
+    _call("elite_decode", (q_e, q_lat, k_e, c_k, c_v, lengths, out, lse),
           (B, S, nkv, q_group, r2, dc, CONTIG_TILE), scale, p, q_group * p.heads, dc)
     if dev.type == "meta":
         build.meta_call("elite_decode", *contig_decode_cost(
-            (q_e, q_lat, k_e, c_k, c_v, lengths), rows=B * S))
+            (q_e, q_lat, k_e, c_k, c_v, lengths), rows=B * S, lse=return_lse))
     else:
         elite_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def elite_decode_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
@@ -545,16 +553,18 @@ def decode_cost(name: str, a):
     return nbytes, flops
 
 
-def contig_decode_cost(a, rows=None):
+def contig_decode_cost(a, rows=None, lse: bool = False):
     """(bytes, flops) of ``elite_decode`` on its argument tuple (q_e, q_lat,
-    k_e, c_k, c_v, lengths, ...): q_e, q_lat and the output once, each
-    lane's rows below its length once (``rows`` of them in all, read from
-    ``lengths`` unless given); the flops of every scored row."""
+    k_e, c_k, c_v, lengths, ...): q_e, q_lat and the output once (and the
+    [B, nh] log-sum-exp with ``lse``), each lane's rows below its length
+    once (``rows`` of them in all, read from ``lengths`` unless given); the
+    flops of every scored row."""
     q_e, q_lat, k_e, c_k, c_v, lengths = a[:6]
     B, nh, r2 = q_e.shape
     S, nkv, dc = k_e.shape[1], k_e.shape[2], c_k.shape[-1]
     if rows is None:
         rows = int(lengths.clamp(0, S).sum())
     lat = 1 if shares(c_k, c_v) else 2
-    nbytes = 4 * (q_e.numel() + 2 * q_lat.numel() + B) + rows * 4 * (nkv * r2 + lat * dc)
+    nbytes = (4 * (q_e.numel() + 2 * q_lat.numel() + B + (B * nh if lse else 0))
+              + rows * 4 * (nkv * r2 + lat * dc))
     return nbytes, rows * nh * (2 * (r2 + dc) + 2 * dc)

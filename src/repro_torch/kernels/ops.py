@@ -45,8 +45,9 @@ ranges; the plain versions ignore it), and the shards' outputs copied to
 the mesh's first device and concatenated, the reference's ``all_gather``.
 They launch no kernel of their own.
 
-Sharded steps.  ``rope_elite_qk`` and ``flash_prefill`` take ``DTensor``s
-(the sharded train and prefill steps, ``distributed/sharding.py``) through
+Sharded steps.  ``rope_elite_qk``, ``flash_prefill`` and ``elite_decode``
+take ``DTensor``s (the sharded train, prefill and decode steps,
+``distributed/sharding.py``) through
 ``torch.distributed.tensor.experimental.local_map``, the counterpart of the
 reference's ``shard_map`` around a Pallas call: each rank runs the entry
 above on its local tensors (so a CUDA local tensor launches the kernel, a
@@ -61,6 +62,10 @@ reads one frequency row per ``q_per_row`` query heads and per
 ``k_per_row`` key heads, rotates the shard's query heads beside all the
 key heads as one tensor of per-head rows (``rope_elite``'s one-tensor
 launch, its backward likewise) where no such row split exists.
+``elite_decode`` over a cache whose sequence is sharded (the decode plan's
+``seq_over_tp``, or the data axes at batch 1) attends each rank's rows
+with the kernel's log-sum-exp and merges the pieces with two all-reduces
+per sharding mesh dim (``_sharded_elite_decode``, ``ref.merge_lse``).
 
 ``set_kernel_tracer`` (the reference's, ``kernels/ops.py``) arms spans on
 the ``kernel`` track of a tracer, one per call, named after the entry
@@ -77,7 +82,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.distributed.sharding import is_dtensor, local_range, settled
 from repro_torch.kernels import build
 from repro_torch.kernels import elite_decode as _ed
 from repro_torch.kernels import flash_prefill as _fp
@@ -198,13 +203,19 @@ def reset_launches() -> None:
 
 
 def elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
-                 scale: float) -> torch.Tensor:
-    """Absorbed decode over a contiguous cache; see ``ref.elite_decode_ref``."""
+                 scale: float, return_lse: bool = False):
+    """Absorbed decode over a contiguous cache; see ``ref.elite_decode_ref``
+    (``return_lse`` → (o, each row's log-sum-exp))."""
+    if is_dtensor(q_e):
+        if return_lse:
+            raise ValueError("elite_decode on DTensors merges its shards: no lse out")
+        return _sharded_elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group, scale)
     args = (q_e, q_lat, k_e, c_k, c_v, lengths, q_group, scale)
     if _kernel_side(q_e):
         _no_backward("elite_decode", *args)
-        return _ed.elite_decode(*args)
-    return _plain("elite_decode", ref.elite_decode_ref, *args)
+        return _ed.elite_decode(*args, return_lse=return_lse)
+    return _plain("elite_decode", lambda *a: ref.elite_decode_ref(*a, return_lse=return_lse),
+                  *args)
 
 
 def elite_decode_paged(q_e, q_lat, k_e_pages, c_k_pages, c_v_pages,
@@ -514,6 +525,103 @@ def _sharded_flash_prefill(q, k, v, q_group: int, scale: float, q_offsets, kv_le
     return fn(q, k, v, q_offsets, kv_lens)
 
 
+def _all_reduce(t, op: str, mesh, dim: int):
+    """``t`` reduced by ``op`` ("max", "sum") over mesh dim ``dim`` (a
+    functional collective, waited on)."""
+    from torch.distributed import _functional_collectives as funcol
+    out = funcol.all_reduce(t, op, (mesh, dim))
+    return out.wait() if hasattr(out, "wait") else out
+
+
+def _sharded_elite_decode(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int, scale: float):
+    """``elite_decode`` on ``DTensor``s: q_e/q_lat [B, nh, *] with lanes
+    and heads sharded, the cache [B, S, ...] with lanes, sequence (``k_e``
+    and the latents alike) or ``k_e``'s kv heads sharded.
+
+    Over the mesh dims that shard the cache sequence, each rank gathers the
+    query (``[q_e | q_lat]`` in one gather), attends its own rows ``[s0,
+    s0 + S_l)`` with local lengths ``clamp(len - s0, 0, S_l)`` through the
+    kernel with its log-sum-exp, and merges with the other pieces by two
+    all-reduces per such dim: the max of the lse, then the sum of ``[o·w |
+    w]`` with ``w = ref.merge_weights(lse, max)``, ``o = Σ o·w / max(Σ w,
+    1e-30)`` (``ref.merge_lse``'s sums).  No collective moves the cache.
+    Over a dim that shards ``k_e``'s kv heads the query heads shard with
+    them; over one that replicates ``k_e``, query heads stay sharded and
+    read the kv heads ``h // q_group`` sliced from the replicated ones with
+    the shard's own group, as ``_sharded_flash_prefill``; there a latent
+    whose d_c the rules shard (the cache without ``seq_over_tp``) is
+    gathered, as the kernel reads whole latent rows.  → o [B, nh, dc]
+    placed as the query after the gather."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k_e.device_mesh
+    q = settled(torch.cat([q_e, q_lat], dim=-1))
+    _check_placements("elite_decode q", q, (Shard(0), Shard(1)))
+    _check_placements("elite_decode k_e", k_e, (Shard(0), Shard(1), Shard(2)))
+    if list(c_v.placements) != list(c_k.placements):
+        raise ValueError(f"elite_decode: latents placed {c_k.placements}, {c_v.placements}")
+    k_pl, q_pl, c_pl = list(k_e.placements), list(q.placements), []
+    for i, (kp, cp) in enumerate(zip(k_pl, c_k.placements)):
+        lane_or_seq = kp in (Shard(0), Shard(1))
+        if (cp != kp) if lane_or_seq else cp not in (Replicate(), Shard(2)):
+            raise ValueError(f"elite_decode: latents placed {c_k.placements} beside k_e "
+                             f"{k_e.placements}")
+        c_pl.append(kp if lane_or_seq else Replicate())
+        if kp == Shard(1):
+            q_pl[i] = Replicate()          # gather the query over the sequence's dims
+        elif kp == Shard(0):
+            q_pl[i] = Shard(0)
+        elif kp == Shard(2):
+            q_pl[i] = Shard(1)             # query heads with their kv heads
+        elif q_pl[i] == Shard(0):
+            k_pl[i] = c_pl[i] = Shard(0)   # cut the replicated cache to the lanes
+    seq = [i for i, p in enumerate(k_pl) if p == Shard(1)]
+    if not is_dtensor(lengths):            # a whole [B] on every rank
+        lengths = DTensor.from_local(lengths, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+    l_pl = [Shard(0) if p == Shard(0) else Replicate() for p in q_pl]
+    hdims = [i for i, p in enumerate(q_pl) if p == Shard(1)]
+    nh, nkv, r2 = q.shape[1], k_e.shape[2], q_e.shape[-1]
+    lo = n_kv = None
+    group = q_group
+    if hdims and k_pl[hdims[0]] != Shard(2):   # replicated kv heads: the shard's own
+        hq = nh // mesh.size(hdims[0])
+        q0 = mesh.get_coordinate()[hdims[0]] * hq
+        lo = q0 // q_group
+        n_kv = -(-(q0 + hq) // q_group) - lo
+        group = hq // n_kv
+        if group * n_kv != hq or (hq >= q_group and q0 % q_group):
+            raise ValueError(f"elite_decode: query heads [{q0}, {q0 + hq}) do not map "
+                             f"onto whole kv heads of group {q_group}")
+    s0 = local_range(k_e, 1)[0]
+    shared = c_v is c_k
+
+    def local(q_l, k_l, ck_l, *rest):
+        cv_l, len_l = (ck_l, rest[0]) if shared else rest
+        qe_l, ql_l = q_l[..., :r2].contiguous(), q_l[..., r2:].contiguous()
+        if lo is not None:
+            k_l = k_l[:, :, lo:lo + n_kv].contiguous()
+        if not seq:
+            return elite_decode(qe_l, ql_l, k_l, ck_l, cv_l, len_l, group, scale)
+        mine = (len_l - s0).clamp(0, k_l.shape[1]).to(torch.int32)
+        o, lse = elite_decode(qe_l, ql_l, k_l, ck_l, cv_l, mine, group, scale,
+                              return_lse=True)
+        top = lse
+        for i in seq:
+            top = _all_reduce(top, "max", mesh, i)
+        w = ref.merge_weights(lse, top)[..., None]
+        sums = torch.cat([o * w, w], dim=-1)
+        for i in seq:
+            sums = _all_reduce(sums, "sum", mesh, i)
+        return sums[..., :-1] / sums[..., -1:].clamp(min=1e-30)
+
+    args = (q, k_e, c_k) + (() if shared else (c_v,)) + (lengths,)
+    pls = (q_pl, k_pl, c_pl) + (() if shared else (c_pl,)) + (l_pl,)
+    fn = local_map(local, out_placements=q_pl, in_placements=pls, device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(*args)
+
+
 def _rows(first: int, n: int, per_row: int):
     """The frequency row of each of ``n`` heads from global head ``first``."""
     return [(first + j) // per_row for j in range(n)]
@@ -527,6 +635,7 @@ def _sharded_rope_qk(q, k, positions, freqs, q_per_row: int, k_per_row: int):
     one-tensor launch together, one row per head."""
     from torch.distributed.tensor import Shard
     from torch.distributed.tensor.experimental import local_map
+    q, k = settled(q), settled(k)          # a pending sum (a batch-1 FSDP product)
     for name, x in (("q", q), ("k", k)):
         _check_placements(f"rope_elite_qk {name}", x, (Shard(0), Shard(2)))
     _, q0 = _head_split(q)

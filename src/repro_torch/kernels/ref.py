@@ -22,9 +22,10 @@ NEG_INF = -1e30
 
 
 def _decode_masked(q_e, q_lat, k_e, c_k, c_v, valid, q_group: int,
-                   scale: float) -> torch.Tensor:
+                   scale: float, return_lse: bool = False):
     """Decode-attention core with an explicit key-validity mask
-    ``valid [B, 1, S]``."""
+    ``valid [B, 1, S]``; ``return_lse`` also gives each row's log-sum-exp
+    of its valid scaled scores [B, nh] (-inf for a row with none)."""
     B, nh, r2 = q_e.shape
     S, nkv = k_e.shape[1], k_e.shape[2]
     s_e = _per_head(q_e.reshape(B, nkv, q_group, r2), k_e.permute(0, 2, 3, 1))
@@ -33,8 +34,13 @@ def _decode_masked(q_e, q_lat, k_e, c_k, c_v, valid, q_group: int,
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     # rows with no visible key (empty serving slots) attend to nothing
-    p = torch.where(valid.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
-    return _per_head(p.to(c_v.dtype).reshape(B, nkv, q_group, S), c_v).reshape(B, nh, -1)
+    seen = valid.any(dim=-1, keepdim=True)
+    p = torch.where(seen, p, torch.zeros_like(p))
+    o = _per_head(p.to(c_v.dtype).reshape(B, nkv, q_group, S), c_v).reshape(B, nh, -1)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1)
+    return o, torch.where(seen[..., 0], lse, torch.full_like(lse, -torch.inf))
 
 
 def _per_head(x, y):
@@ -58,15 +64,39 @@ def _per_head(x, y):
 
 
 def elite_decode_ref(q_e, q_lat, k_e, c_k, c_v, lengths, q_group: int,
-                     scale: float) -> torch.Tensor:
+                     scale: float, return_lse: bool = False):
     """Absorbed EliteKV decode attention over a contiguous cache.
 
     q_e [B,nh,2r], q_lat [B,nh,dc], k_e [B,S,nkv,2r], c_k/c_v [B,S,dc],
-    lengths [B] int32 → [B,nh,dc].
+    lengths [B] int32 → [B,nh,dc]; ``return_lse`` → (that, lse [B,nh]):
+    each row's natural log-sum-exp of its scaled scores over rows
+    ``< lengths``, -inf for a lane with none.
     """
     S = k_e.shape[1]
     valid = torch.arange(S, device=k_e.device)[None, None, :] < lengths[:, None, None]
-    return _decode_masked(q_e, q_lat, k_e, c_k, c_v, valid, q_group, scale)
+    return _decode_masked(q_e, q_lat, k_e, c_k, c_v, valid, q_group, scale, return_lse)
+
+
+def merge_weights(lse, top):
+    """A piece's weight in the merge: ``e^(lse - top)``, ``top`` the largest
+    lse over the pieces, and 0 where the piece's lse is -inf (so a row no
+    piece saw weighs 0 everywhere)."""
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(lse - top)
+    return torch.where(torch.isfinite(lse), w, torch.zeros_like(w))
+
+
+def merge_lse(os, lses) -> torch.Tensor:
+    """Merge decode outputs of pieces of one cache, each attended apart
+    with its log-sum-exp (``elite_decode(..., return_lse=True)`` on a
+    slice of the rows): ``o = sum_p o_p w_p / max(sum_p w_p, 1e-30)`` with
+    ``merge_weights``' ``w_p``.  ``os`` [P or a list of P] of [B, nh, dc],
+    ``lses`` of [B, nh] → [B, nh, dc]; rows no piece saw give 0.  The
+    sequence-sharded decode (``kernels/ops.py``) computes the same sums
+    with two all-reduces."""
+    os, lses = torch.stack(list(os)), torch.stack(list(lses))
+    w = merge_weights(lses, lses.max(dim=0).values)[..., None]
+    return (os * w).sum(dim=0) / w.sum(dim=0).clamp(min=1e-30)
 
 
 def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor,

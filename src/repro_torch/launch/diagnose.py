@@ -10,11 +10,13 @@ A cell's per-device memory and FLOPs (``launch/dryrun.py``'s record):
 prints the peak, temp and resident bytes per device, the FLOPs per device,
 the kernels' calls, bytes and FLOPs, and the largest tensors live at the
 peak with their shapes, dtypes and the operators that made them.  On the
-production meshes (``--multi-pod`` for 2 × 16 × 16) the train and prefill
-steps of a stack without MoE layers are traced sharded (rank 0 of a fake
-group), and the report adds each collective kind's count and bytes per
-device; decode (ROADMAP item 15c.2) and MoE (item 15d) cells keep a
-``null`` peak and temp, with the reason, and an even split of the FLOPs.
+production meshes (``--multi-pod`` for 2 × 16 × 16) the train, prefill
+and decode steps of a stack without MoE layers are traced sharded (rank 0
+of a fake group; a decode step on the cache placed by the decode plan,
+its sequence over "model"), and the report adds each collective kind's
+count and bytes per device; MoE cells (ROADMAP item 15d) and the
+baseline's decode without EliteKV (item 15c.3) keep a ``null`` peak and
+temp, with the reason, and an even split of the FLOPs.
 ``--one-card`` takes a 1 × 1 mesh, whose step is traced and sends
 nothing.  The dry run imports PyTorch; ``trace-summary`` uses the
 standard library only.
@@ -191,8 +193,11 @@ def cell_report(argv):
         print(f"{args.arch} {args.shape}: skipped ({res['reason']})")
         return res
     mem = res["memory"]
+    seq_tp = res.get("decode_seq_tp")
     print(f"{res['arch']} {res['shape']} on {res['mesh']} ({res['chips']} chips): "
-          f"{res['step']}, batch {res['global_batch']} x {res['seq_len']}")
+          f"{res['step']}, batch {res['global_batch']} x {res['seq_len']}"
+          + ("" if seq_tp is None else
+             f", cache sequence {'over' if seq_tp else 'whole on'} the model axis"))
     print(f"peak/device: {_gib(mem['peak_estimate_bytes'])}  (temp "
           f"{_gib(mem['temp_bytes'])}, resident {_gib(mem['argument_bytes'])})"
           + (f"  [{mem['reason']}]" if mem.get("reason") else

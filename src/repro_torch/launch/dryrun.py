@@ -22,8 +22,8 @@ device="meta")``, ``configs.input_specs``), and a cell records:
   peak are kept with the op that made each.  FLOPs are ``FlopCounterMode``'s
   count over the plain operators plus the kernels' meta versions' own
   (``kernels/build.py::META_CALLS``, which also gives their bytes);
-* where ``tp > 1`` (every production mesh), for the train and prefill steps
-  of a stack without MoE layers: the sharded step itself, traced as rank 0
+* where ``tp > 1`` (every production mesh), for the train, prefill and
+  decode steps of a stack without MoE layers: the sharded step itself, traced as rank 0
   of a ``fake_group`` of the mesh's size (``launch/mesh.py``: collectives
   move no data) on meta ``DTensor``s placed by the rules, with
   ``make_constrain``'s constraints — the counterpart of the reference's
@@ -36,11 +36,17 @@ device="meta")``, ``configs.input_specs``), and a cell records:
   (replicated work on every device; ``flops_split`` is null), and
   ``collectives`` gives each kind (the reference's names) its count, from
   ``CommDebugMode``, and its bytes per device from the result shapes, as
-  the reference's ``parse_collectives`` reads them;
-* where ``tp > 1`` otherwise — decode (the cache sequence sharded over
-  "model" needs ``elite_decode``'s partial softmax merged across shards,
-  ROADMAP item 15c.2) and MoE stacks (expert parallelism, ``moe_impl="ep"``,
-  item 15d) — the record keeps the resident bytes and
+  the reference's ``parse_collectives`` reads them.  A decode cell takes
+  the reference's decode plan: FSDP only where the bf16 weights do not
+  fit the TP shards (``decode_fsdp_default``; ``--decode-fsdp`` keeps
+  it), and the cache sequence over "model" (``decode_seq_tp``, the cache
+  and the hook placed with ``seq_over_tp``; ``--no-decode-seq-tp`` keeps
+  it whole there), where ``elite_decode`` merges the sequence's pieces
+  by their log-sum-exp;
+* where ``tp > 1`` otherwise — MoE stacks (expert parallelism,
+  ``moe_impl="ep"``, ROADMAP item 15d) and the baseline's decode without
+  EliteKV (``flash_prefill``'s decode body has no log-sum-exp to merge
+  yet, item 15c.3) — the record keeps the resident bytes and
   ``flops_per_device`` as the whole step's FLOPs split evenly over the
   chips (counted on meta at the per-replica batch ``global_batch / n_dp``
   and multiplied by ``n_dp``: every counted FLOP is per sample); ``temp_bytes`` and the peak
@@ -61,9 +67,8 @@ take the ``ragged`` dispatch with the even group sizes of ``models/moe.py``
 on meta (the reference uses ``moe_impl="ep"``); XLA's lowering knobs
 (``scan_layers``, ``attn_chunk_unroll``, ``ssm_unroll``, ``scan_unroll``)
 have no meaning for an eager program and are not set.  Of the reference's
-flags, ``--no-seq-parallel`` is ported; ``--param-dtype`` raises (the
-port's weights are f32), and so do ``--decode-fsdp`` and
-``--no-decode-seq-tp``, the decode plan's switches (item 15c.2).
+flags, ``--no-seq-parallel``, ``--decode-fsdp`` and ``--no-decode-seq-tp``
+are ported; ``--param-dtype`` raises (the port's weights are f32).
 
 Records land in ``build/dryrun/<mesh>/<arch>__<shape>[__variant].json``:
 
@@ -107,9 +112,9 @@ BLOCK = 512
 #: device memory of the target card, the H100 SXM5 80 GB (NVIDIA H100 Tensor
 #: Core GPU Architecture whitepaper)
 TARGET_MEMORY = 80 * 10**9
-DECODE_REASON = ("decode at tp > 1 shards the cache sequence over the model axis, which "
-                 "needs elite_decode's partial softmax merged across shards: ROADMAP item "
-                 "15c.2")
+BASELINE_DECODE_REASON = ("the baseline's decode at tp > 1 (no EliteKV) needs "
+                          "flash_prefill's decode body to return its log-sum-exp, merged "
+                          "across the cache's shards: ROADMAP item 15c.3")
 MOE_REASON = ('MoE layers at tp > 1 take expert parallelism (moe_impl="ep"): ROADMAP '
               'item 15d')
 #: the reference's collective kinds, by the port's collective operators' names
@@ -340,7 +345,7 @@ def build_cfg(arch: str, shape: ShapeConfig, plan: shd.MeshPlan, elitekv: bool =
     return cfg
 
 
-def decode_fsdp(arch: str, plan: shd.MeshPlan) -> bool:
+def decode_fsdp_default(arch: str, plan: shd.MeshPlan) -> bool:
     """The reference's decode plan keeps FSDP only where the bf16 weights
     do not fit the TP shards (~8 GB a device); the 100B+ MoE stacks keep it."""
     return get_config(arch).param_count() * 2 / plan.tp > 8e9
@@ -348,12 +353,15 @@ def decode_fsdp(arch: str, plan: shd.MeshPlan) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class Cell:
-    """One step of a cell on one device: ``shape`` at the device's batch."""
+    """One step of a cell on one device: ``shape`` at the device's batch.
+    ``seq_over_tp``: the decode plan shards the cache sequence over "model"
+    (placement and constraints of a sharded decode step)."""
     cfg: ModelConfig
     shape: ShapeConfig
     moment_dtype: str = "float32"
     opt_chunk: int = 0
     optimizer: bool = True
+    seq_over_tp: bool = False
 
     @property
     def kind(self) -> str:
@@ -418,7 +426,8 @@ def run_step(cell: Cell, state: Dict, constrain=None):
         if cell.kind == "prefill":
             return serve_loop.make_prefill_step(cfg, constrain=constrain)(
                 p, b, batch, state["cache"])
-        return serve_loop.make_decode_step(cfg)(p, b, batch, state["cache"])
+        return serve_loop.make_decode_step(cfg, constrain=constrain)(
+            p, b, batch, state["cache"])
 
 
 def sharded_plan(plan: shd.MeshPlan, device_type: str = "cuda") -> shd.MeshPlan:
@@ -443,7 +452,8 @@ def place_state(cell: Cell, plan: shd.MeshPlan, state: Dict, device=None,
         sh["opt_state"] = shd.opt_shardings(state["opt_state"], state["params"], cfg, plan,
                                             cell.moment_dtype)
     if "cache" in state:
-        sh["cache"] = shd.cache_shardings(state["cache"], cfg, plan, shape.global_batch)
+        sh["cache"] = shd.cache_shardings(state["cache"], cfg, plan, shape.global_batch,
+                                          seq_over_tp=cell.seq_over_tp)
     return {k: shd.distribute(v, sh[k], device=device, seed=seed + i,
                               zeros=k in ("opt_state", "cache"))
             for i, (k, v) in enumerate(state.items())}
@@ -456,7 +466,9 @@ def local_bytes(tree) -> int:
 
 
 def sharding_constrain(cell: Cell, plan: shd.MeshPlan):
-    return shd.make_constrain(plan, cell.cfg, cell.shape.seq_len, cell.shape.global_batch)
+    """The cell's activation hook (the decode plan's for a decode cell)."""
+    return shd.make_constrain(plan, cell.cfg, cell.shape.seq_len, cell.shape.global_batch,
+                              decode=cell.kind == "decode", seq_over_tp=cell.seq_over_tp)
 
 
 def trace_sharded(cell: Cell, plan: shd.MeshPlan, top: int = 12,
@@ -590,7 +602,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
                overrides=None, mesh_axes: Optional[Dict[str, int]] = None,
                batch: Optional[int] = None, seq_len: Optional[int] = None,
                optimizer: bool = True, top: int = 12, return_cell: bool = False,
-               seq_parallel: bool = True, depth: Optional[str] = None):
+               seq_parallel: bool = True, depth: Optional[str] = None,
+               decode_fsdp: Optional[bool] = None, decode_seq_tp: bool = True):
     """The record of one cell: ``shape_name``'s step of ``arch`` on the
     production mesh (``multi_pod``), or on the mesh ``mesh_axes`` ({axis:
     size}, e.g. ``{"data": 1, "model": 1}`` for one card).  ``batch`` and
@@ -600,7 +613,12 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
     the ``Cell`` the sharded step runs at the global batch; None where none
     was traced), so that the same step can be run on a card.
     ``seq_parallel`` False keeps the residual stream whole over "model"
-    (the reference's ``--no-seq-parallel``).  ``depth`` (the sharded
+    (the reference's ``--no-seq-parallel``).  ``decode_fsdp`` (a decode
+    cell): keep FSDP's weight gathers, None as ``decode_fsdp_default``
+    says (the reference's ``--decode-fsdp`` sets it); ``decode_seq_tp``
+    False keeps the decode cache's sequence whole over "model", its kv
+    heads sharded there where they divide (``--no-decode-seq-tp``).
+    ``depth`` (the sharded
     trace): "full" traces every layer; "periods" traces three and four
     layer periods and extrapolates (``_extrapolated``); None takes "periods" for
     a stack with Mamba layers, whose chunked scan makes a full-depth trace
@@ -611,8 +629,12 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
                                 seq_len=seq_len or shape.seq_len)
     axes = dict(mesh_axes) if mesh_axes else production_mesh_axes(multi_pod=multi_pod)
     plan = shd.plan_for_mesh(axes, seq_parallel=seq_parallel)
-    if shape.kind == "decode" and not decode_fsdp(arch, plan):
+    decode = shape.kind == "decode"
+    if decode and decode_fsdp is None:
+        decode_fsdp = decode_fsdp_default(arch, plan)
+    if decode and not decode_fsdp:
         plan = shd.plan_for_mesh(axes, fsdp=False, seq_parallel=seq_parallel)
+    seq_over_tp = decode and decode_seq_tp
     cfg = build_cfg(arch, shape, plan, elitekv=elitekv, cache_ratio=cache_ratio,
                     overrides=overrides)
     if loss_chunk:
@@ -624,9 +646,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
         return (rec, None) if return_cell else rec
     md = moment_dtype or ("int8" if cfg.param_count() > 5e10 else "float32")
     train = shape.kind == "train"
-    cell = Cell(cfg, shape, md if train else "float32", opt_chunk, optimizer)
+    cell = Cell(cfg, shape, md if train else "float32", opt_chunk, optimizer, seq_over_tp)
     state = cell_state(cell, "meta")
-    res = resident(cfg, shape, plan, state, md, seq_over_tp=shape.kind == "decode")
+    res = resident(cfg, shape, plan, state, md, seq_over_tp=seq_over_tp)
     del state
     resident_bytes = sum(v["bytes"] for v in res.values())
     chips = plan.chips
@@ -654,6 +676,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
     }
     if train:
         record["moment_dtype"] = md if optimizer else None
+    if decode:
+        record["decode_seq_tp"] = seq_over_tp
+    baseline_decode = decode and cfg.n_attn_layers > 0 and not cfg.elitekv.enabled
     traced = None
     if plan.tp == 1 and shape.global_batch % plan.n_dp == 0:
         local = dataclasses.replace(shape, global_batch=shape.global_batch // plan.n_dp)
@@ -672,7 +697,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
             record["notes"].append("the traced step is the one-device step at the "
                                    "per-device batch, holding whole parameters and "
                                    "optimizer state (no FSDP without item 15)")
-    elif plan.tp > 1 and shape.kind != "decode" and not cfg.n_experts:
+    elif plan.tp > 1 and not cfg.n_experts and not baseline_decode:
         traced = cell
         P, n_super = cfg.block_period, cfg.num_layers // cfg.block_period
         depth = depth or ("periods" if cfg.n_attn_layers < cfg.num_layers else "full")
@@ -698,8 +723,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
             f"the sharded step traced as rank 0 of a fake group of {chips} ranks (no data "
             "moves): per-device local bytes, FLOPs and collectives")
     else:
-        why = (DECODE_REASON if shape.kind == "decode" and plan.tp > 1 else
-               MOE_REASON if plan.tp > 1 else
+        why = (MOE_REASON if plan.tp > 1 and cfg.n_experts else
+               BASELINE_DECODE_REASON if plan.tp > 1 else
                "the batch does not divide the data axes: context parallelism is item 15")
         # FLOPs are linear in the batch: the whole step is n_dp replicas' steps
         reps = plan.n_dp if shape.global_batch % plan.n_dp == 0 else 1
@@ -743,10 +768,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out: str, variant: str = ""
     return res
 
 
-_NOT_PORTED = {"param_dtype": "--param-dtype (the port's weights are f32)",
-               "decode_fsdp": "--decode-fsdp (the decode plan's switches are item 15c.2)",
-               "no_decode_seq_tp": "--no-decode-seq-tp (the decode plan's switches are "
-                                   "item 15c.2)"}
+_NOT_PORTED = {"param_dtype": "--param-dtype (the port's weights are f32)"}
 
 
 def main(argv=None):
@@ -764,15 +786,21 @@ def main(argv=None):
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--no-seq-parallel", action="store_true",
                     help="keep the residual stream whole over the model axis")
-    for flag in ("--param-dtype", "--decode-fsdp", "--no-decode-seq-tp"):
-        ap.add_argument(flag, nargs="?", const=True, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--decode-fsdp", action="store_true",
+                    help="keep FSDP's weight gathers at decode (the default drops them "
+                         "where the bf16 weights fit the TP shards)")
+    ap.add_argument("--no-decode-seq-tp", action="store_true",
+                    help="keep the decode cache's sequence whole over the model axis")
+    ap.add_argument("--param-dtype", nargs="?", const=True, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     for key, what in _NOT_PORTED.items():
         if getattr(args, key) is not None:
             ap.error(f"{what}: not ported")
     kw = dict(elitekv=not args.no_elitekv, cache_ratio=args.cache_ratio,
               moment_dtype=args.moment_dtype or None, opt_chunk=args.opt_chunk,
-              loss_chunk=args.loss_chunk, seq_parallel=not args.no_seq_parallel)
+              loss_chunk=args.loss_chunk, seq_parallel=not args.no_seq_parallel,
+              decode_fsdp=args.decode_fsdp or None, decode_seq_tp=not args.no_decode_seq_tp)
     if args.all:
         archs = [a for a in ARCH_IDS if not a.startswith("llama2_13b")]
         for mp in (False, True):

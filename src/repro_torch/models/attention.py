@@ -145,8 +145,14 @@ def apply_prefill(params, cfg, x, positions, cache, constrain=_NOOP) -> torch.Te
 
 def apply_decode(params, cfg, x, index: int, cache) -> torch.Tensor:
     """x [B,1,d], the token at position ``index`` of every lane; writes
-    cache row ``index`` in place and attends rows ``[0, index]``.
-    → out [B,1,d]."""
+    cache row ``index`` in place and attends rows ``[0, index]``.  A placed
+    cache whose sequence is sharded raises ``ValueError``: merging the
+    pieces needs ``flash_prefill``'s decode body to give its log-sum-exp
+    (ROADMAP item 15c.3).  → out [B,1,d]."""
+    if is_dtensor(cache["k"]) and any(p.is_shard(1) for p in cache["k"].placements):
+        raise ValueError("the baseline's decode over a sequence-sharded cache needs "
+                         "flash_prefill's decode body to return its log-sum-exp and a merge "
+                         "across the shards: ROADMAP item 15c.3")
     dt = x.dtype
     B = x.shape[0]
     pos = torch.full((B, 1), index, dtype=torch.int32, device=x.device)

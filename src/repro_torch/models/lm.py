@@ -55,7 +55,8 @@ Under grad the training forward recomputes its layers in the backward as
 of a layer): "full" keeps only each layer's input, "dots" also the matmul
 outputs (a selective checkpoint), "none" keeps everything.
 
-Sharded steps.  ``apply_train``, ``loss_fn`` and ``apply_prefill`` take the
+Sharded steps.  ``apply_train``, ``loss_fn``, ``apply_prefill`` and
+``apply_decode`` take the
 reference's ``constrain(name, x)`` hook (``distributed.sharding.
 make_constrain``), called at its points with its names: ``embed`` on the
 embedded inputs, ``attn_in_sharded`` then ``attn_in`` on each sublayer's
@@ -78,7 +79,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.core import elite_attention, lrd
 from repro_torch.core.cache import first
-from repro_torch.distributed.sharding import is_dtensor, matmul, replicated_like
+from repro_torch.distributed.sharding import is_dtensor, matmul, replicated_like, settled
 from repro_torch.models import attention, mamba, moe
 from repro_torch.models.layers import (cross_entropy, dense_init, embed, mlp, mlp_init, nll,
                                        rmsnorm, rmsnorm_init, unembed)
@@ -269,7 +270,7 @@ def _mamba_mixer(cfg, mode: str, state, constrain=_NOOP):
             out, (conv, ssm) = mamba.apply_full(pm, cfg, hn, return_state=True,
                                                 constrain=constrain)
         else:
-            out, new = mamba.apply_decode(pm, cfg, hn, state)
+            out, new = mamba.apply_decode(pm, cfg, hn, state, constrain=constrain)
             conv, ssm = new["conv"], new["ssm"]
         state["conv"].copy_(conv)
         state["ssm"].copy_(ssm)
@@ -289,7 +290,8 @@ def _contiguous_attention(cfg, buffers, mode: str, positions, cache, index, cons
         if mode == "prefill":
             return lambda pa, hn: elite_attention.apply_prefill(pa, cfg, buffers, hn,
                                                                 positions, cache, constrain=c)
-        return lambda pa, hn: elite_attention.apply_decode(pa, cfg, buffers, hn, index, cache)
+        return lambda pa, hn: elite_attention.apply_decode(pa, cfg, buffers, hn, index, cache,
+                                                           constrain=c)
     if mode == "train":
         return lambda pa, hn: attention.apply_full(pa, cfg, hn, positions, constrain=c)
     if mode == "prefill":
@@ -320,9 +322,10 @@ def _forward_contiguous(params, buffers, cfg, batch, mode: str, cache=None,
                         captures=None, return_hidden=False, moe_impl="ragged",
                         constrain=None):
     """→ (logits or final hidden states, summed MoE balance loss or None).
-    ``constrain`` (train and prefill): the sharding hook."""
+    ``constrain``: the sharding hook."""
     c = constrain or _NOOP
-    h = (_embed_step(params, cfg, batch) if mode == "decode"
+    # a decode step's lookup (vocabulary-parallel on a placed table) summed once
+    h = (settled(_embed_step(params, cfg, batch)) if mode == "decode"
          else _embed_inputs(params, cfg, batch, c))
     # decode takes its position from the cache index
     positions = (None if mode == "decode" else replicated_like(
@@ -452,13 +455,17 @@ def apply_prefill(params, buffers, cfg, batch, cache, moe_impl: str = "ragged",
     return logits
 
 
-def apply_decode(params, buffers, cfg, batch, cache, moe_impl: str = "ragged"):
+def apply_decode(params, buffers, cfg, batch, cache, moe_impl: str = "ragged",
+                 constrain=None):
     """One token (or an audio model's frame) per lane, tokens [B,1] (frames
-    [B,1,d]) at position ``cache["index"]``: writes that cache row of every
-    attention layer and advances every Mamba state in place, and advances
-    the index.  → logits [B,1,Vp] f32."""
+    [B,1,d]) at position ``cache["index"]`` (a host int): writes that cache
+    row of every attention layer and advances every Mamba state in place,
+    and advances the index.  ``constrain``: the sharding hook (the decode
+    plan's, ``make_constrain(decode=True)``); a placed cache keeps its
+    placements, its sequence possibly sharded (the rank holding the row
+    writes it).  → logits [B,1,Vp] f32."""
     logits, _ = _forward_contiguous(params, buffers, cfg, _as_batch(batch), "decode", cache,
-                                    moe_impl=moe_impl)
+                                    moe_impl=moe_impl, constrain=constrain)
     cache["index"] += 1
     return logits
 

@@ -194,16 +194,7 @@ def apply_full(params, cfg, x, return_state: bool = False, constrain=lambda n, t
     state.  The two halves of the input projection are constrained as
     ``ssm_h``."""
     dt_ = x.dtype
-    w = params["in_proj"].to(dt_)
-    if is_dtensor(x):
-        # the halves of a channel-sharded projection, each placed as the whole
-        # (a gather of the weight, where chunking the output would gather it)
-        di = w.shape[1] // 2
-        xs, z = (matmul(x, w[:, i:i + di].redistribute(w.device_mesh, w.placements))
-                 for i in (0, di))
-    else:
-        xs, z = torch.chunk(x @ w, 2, dim=-1)
-    xs, z = constrain("ssm_h", xs), constrain("ssm_h", z)
+    xs, z = (constrain("ssm_h", t) for t in _in_halves(params, x))
     xs_act = F.silu(_conv_causal(xs, params["conv_w"].to(dt_), params["conv_b"]))
     dt, Bm, Cm, A = _ssm_params(params, cfg, xs_act)
     scan = _local_scan if is_dtensor(xs_act) else ssm_scan
@@ -230,20 +221,75 @@ def init_state(cfg, batch: int, device, dtype=torch.float32) -> Dict[str, torch.
             "ssm": torch.zeros((batch, di, N), dtype=torch.float32, device=device)}
 
 
-def apply_decode(params, cfg, x, state) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token recurrent step, x [B,1,d] → (y [B,1,d], new state)."""
-    dt_ = x.dtype
-    xs, z = torch.chunk(x @ params["in_proj"].to(dt_), 2, dim=-1)     # [B,1,di]
-    window = torch.cat([state["conv"].to(dt_), xs], dim=1)            # [B,K,di]
-    xc = torch.einsum("bkd,kd->bd", window, params["conv_w"].to(dt_)) + params["conv_b"].to(dt_)
-    xc = F.silu(xc)[:, None, :]                                       # [B,1,di]
-    dt, Bm, Cm, A = _ssm_params(params, cfg, xc)
+def _in_halves(params, x):
+    """The input projection's two halves (xs, z) [B,S,di] of x [B,S,d].  On
+    ``DTensor``s the smaller of two gathers: with fewer rows than the weight
+    (a decode step) the channel-sharded product is gathered and chunked;
+    else each half is a planned product of its own, placed as the whole (a
+    gather of the weight, where chunking the output would gather it)."""
+    w = params["in_proj"].to(x.dtype)
+    if not is_dtensor(x):
+        return torch.chunk(x @ w, 2, dim=-1)
+    if x.numel() // x.shape[-1] < w.shape[0]:
+        from torch.distributed.tensor import Replicate, Shard
+        y = matmul(x, w)
+        y = y.redistribute(y.device_mesh, [Replicate() if p == Shard(y.dim() - 1) else p
+                                           for p in y.placements])
+        return torch.chunk(y, 2, dim=-1)
+    di = w.shape[1] // 2
+    return tuple(matmul(x, w[:, i:i + di].redistribute(w.device_mesh, w.placements))
+                 for i in (0, di))
+
+
+def _conv_step(window, w, b):
+    """The conv's output at the newest position, [B,1,di], of the window
+    [B,K,di] (per rank's lanes and channels on ``DTensor``s)."""
+    if is_dtensor(window):
+        return _channelwise(_conv_step, window, w, b)
+    return (torch.einsum("bkd,kd->bd", window, w) + b.to(window.dtype))[:, None, :]
+
+
+def _recur(xc, dt, Bm, Cm, h, A, D):
+    """One step of the recurrence from the state h [B,di,N] f32: → (y
+    [B,1,di] f32 before the gate, the new state)."""
     dt32 = dt[:, 0].float()                                           # [B,di]
     dA = torch.exp(dt32[..., None] * A[None])                         # [B,di,N]
     dBx = (dt32 * xc[:, 0].float())[..., None] * Bm[:, 0].float()[:, None, :]
-    h = dA * state["ssm"] + dBx
+    h = dA * h + dBx
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())
-    y = y + params["D"].float()[None] * xc[:, 0].float()
-    y = (y.to(dt_) * F.silu(z[:, 0]))[:, None, :]
-    out = y @ params["out_proj"].to(dt_)
+    return (y + D.float()[None] * xc[:, 0].float())[:, None, :], h
+
+
+def _local_recur(xc, dt, Bm, Cm, h, A, D):
+    """``_recur`` on ``DTensor``s: per lane and channel, each rank on its
+    own (``local_map``, as ``_local_scan``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    xp = list(xc.placements)
+    lane = [Shard(0) if p == Shard(0) else Replicate() for p in xp]
+    chan = [Shard(0) if p == Shard(2) else Replicate() for p in xp]
+    state = [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2) else Replicate()
+             for p in xp]
+    fn = local_map(_recur, out_placements=(xp, state),
+                   in_placements=(xp, xp, lane, lane, state, chan, chan),
+                   device_mesh=xc.device_mesh, redistribute_inputs=True)
+    return fn(xc, dt, Bm, Cm, h, A, D)
+
+
+def apply_decode(params, cfg, x, state,
+                 constrain=lambda n, t: t) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token recurrent step, x [B,1,d] → (y [B,1,d], new state).  The
+    two halves of the input projection are constrained as ``ssm_h``; on
+    ``DTensor``s the conv window and the recurrence run per lane and channel
+    on each rank's shard of the state (channels over "model", as
+    ``cache_pspecs`` places them)."""
+    dt_ = x.dtype
+    xs, z = (constrain("ssm_h", t) for t in _in_halves(params, x))   # [B,1,di]
+    window = torch.cat([state["conv"].to(dt_), xs], dim=1)            # [B,K,di]
+    xc = F.silu(_conv_step(window, params["conv_w"].to(dt_), params["conv_b"]))  # [B,1,di]
+    dt, Bm, Cm, A = _ssm_params(params, cfg, xc)
+    recur = _local_recur if is_dtensor(xc) else _recur
+    y, h = recur(xc, dt, Bm, Cm, state["ssm"], A, params["D"])
+    y = y.to(dt_) * F.silu(z)
+    out = matmul(y, params["out_proj"].to(dt_))
     return out, {"conv": window[:, 1:, :].to(state["conv"].dtype), "ssm": h}

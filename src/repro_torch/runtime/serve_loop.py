@@ -101,6 +101,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cache import (BlockManager, OutOfBlocks, PagedKVPool,
                                     SwappedSeq, measured_cache_bytes)
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import lm, moe
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
@@ -124,12 +125,21 @@ def make_prefill_step(cfg: ModelConfig, moe_impl: str = "ragged", constrain=None
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, moe_impl: str = "ragged"):
+def make_decode_step(cfg: ModelConfig, moe_impl: str = "ragged", constrain=None):
     """→ ``decode_step(params, buffers, tokens, cache) -> (next [B] int64,
-    logits)``: the greedy next token stays on the device."""
+    logits)``: the greedy next token stays on the device.  ``constrain`` is
+    ``lm.apply_decode``'s sharding hook (placed params, tokens and cache
+    make it the sharded step; the argmax over vocabulary-sharded logits
+    gathers them, as the reference's does under GSPMD)."""
     def decode_step(params, buffers, tokens, cache):
-        logits = lm.apply_decode(params, buffers, cfg, tokens, cache, moe_impl=moe_impl)
-        return logits[:, -1].argmax(dim=-1), logits
+        logits = lm.apply_decode(params, buffers, cfg, tokens, cache, moe_impl=moe_impl,
+                                 constrain=constrain)
+        last = logits[:, -1]
+        if is_dtensor(last):               # the vocabulary gathered, lanes kept sharded
+            from torch.distributed.tensor import Replicate, Shard
+            last = last.redistribute(last.device_mesh, [
+                p if p == Shard(0) else Replicate() for p in last.placements])
+        return last.argmax(dim=-1), logits
 
     return decode_step
 

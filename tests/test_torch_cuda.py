@@ -22,7 +22,11 @@ oracle's: 1e-4 of each leaf's largest (f32 matmuls summed in another
 order).  The attention kernels have no backward and must raise when asked
 for one.  The sharded steps' ``local_map`` wrappers of the rotation and
 ``flash_prefill`` launch the same kernels on a shard's local tensors and
-are held to the plain versions' pieces at the same tolerances.
+are held to the plain versions' pieces at the same tolerances.  The
+contiguous decode's log-sum-exp (``return_lse``) is held to the plain
+version's at 5e-5 and leaves o's bits as they are; pieces of one cache
+attended apart and merged by ``ref.merge_lse`` (as the sequence-sharded
+decode merges them) give the one call within 5e-5.
 """
 import numpy as np
 import pytest
@@ -1468,3 +1472,106 @@ def test_sharded_kernel_wrappers_on_card_match_plain(nh, nkv, cuda, monkeypatch)
             torch.testing.assert_close(o.to_local(), piece(want_o, heads), **TOL)
             n = ops.launches()
             assert (n["rope_elite"], n["rope_elite_backward"], n["flash_prefill"]) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("separate", [False, True], ids=["jlrd", "slrd"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_contiguous_decode_lse_matches_plain(width, separate, cuda):
+    """``return_lse``: the kernel's log-sum-exp against the plain version's
+    (-inf exactly where a lane has no row), and o bitwise the call's
+    without it."""
+    nh, nkv, r2, dc, dh = WIDTHS[width]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    S = 1152
+    lengths = [0, 1, 13, 17, S - 5, S, S + 9]
+    B = len(lengths)
+    f = lambda *s: torch.randn(s, generator=g, device=cuda)
+    q_e, q_lat, k_e, c_k = f(B, nh, r2), f(B, nh, dc), f(B, S, nkv, r2), f(B, S, dc)
+    c_v = f(B, S, dc) if separate else c_k
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    args = (q_e, q_lat, k_e, c_k, c_v, lens, nh // nkv, dh ** -0.5)
+    before = ops.launches()["elite_decode"]
+    o, lse = ops.elite_decode(*args, return_lse=True)
+    bare = ops.elite_decode(*args)
+    want_o, want_lse = ref.elite_decode_ref(*args, return_lse=True)
+    torch.cuda.synchronize()
+    assert ops.launches()["elite_decode"] == before + 2
+    assert torch.equal(o, bare)
+    torch.testing.assert_close(o, want_o, **TOL)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(want_lse))
+    assert bool(torch.isneginf(lse[0]).all()) and bool(torch.isfinite(lse[1:]).all())
+    torch.testing.assert_close(lse[1:], want_lse[1:], **TOL)
+
+
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_decode_pieces_merged_match_one_call(width, cuda):
+    """One cache cut into sequence pieces (some past a lane's length),
+    each attended by the kernel with its log-sum-exp and merged by
+    ``ref.merge_lse``: the kernel's call over the whole cache."""
+    nh, nkv, r2, dc, dh = WIDTHS[width]
+    g = torch.Generator(device=cuda).manual_seed(8)
+    S, P = 2048, 256
+    lengths = [0, 1, 255, 256, 700, 1500, S]
+    B = len(lengths)
+    f = lambda *s: torch.randn(s, generator=g, device=cuda)
+    q_e, q_lat, k_e, c = f(B, nh, r2), f(B, nh, dc), f(B, S, nkv, r2), f(B, S, dc)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    G, sc = nh // nkv, dh ** -0.5
+    whole = ops.elite_decode(q_e, q_lat, k_e, c, c, lens, G, sc)
+    os_, lses = [], []
+    for lo in range(0, S, P):
+        k_i, c_i = k_e[:, lo:lo + P].contiguous(), c[:, lo:lo + P].contiguous()
+        mine = (lens - lo).clamp(0, P).to(torch.int32)
+        o, lse = ops.elite_decode(q_e, q_lat, k_i, c_i, c_i, mine, G, sc, return_lse=True)
+        os_.append(o)
+        lses.append(lse)
+    torch.testing.assert_close(ref.merge_lse(os_, lses), whole, **TOL)
+
+
+@pytest.mark.parametrize("lanes", [4, 1], ids=["seq_over_model", "seq_over_data"])
+def test_sequence_sharded_decode_wrapper_on_card(lanes, cuda, monkeypatch):
+    """``ops.elite_decode`` on ``DTensor``s with CUDA local tensors and the
+    cache sequence sharded, at each coordinate of a 2 × 2 mesh of a fake
+    group: one launch each, the all-reduces handed the piece's lse and
+    ``[o·w | w]``, and the pieces merged by ``ref.merge_lse`` equal to the
+    unsharded plain call."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import fake_group, make_debug_mesh
+    nh, nkv, r2, dc, S = 32, 4, 16, 64, 512
+    g = torch.Generator(device=cuda).manual_seed(9)
+    f = lambda *s: torch.randn(s, generator=g, device=cuda)
+    q_e, q_lat, k_e, c = f(lanes, nh, r2), f(lanes, nh, dc), f(lanes, S, nkv, r2), f(lanes, S, dc)
+    lens = torch.tensor([512, 300, 256, 5][:lanes] if lanes > 1 else [300],
+                        dtype=torch.int32, device=cuda)
+    G, sc = nh // nkv, 64 ** -0.5
+    want = ref.elite_decode_ref(q_e, q_lat, k_e, c, c, lens, G, sc)
+    if lanes > 1:
+        q_pl, c_pl, seq_dim = [Shard(0), Replicate()], [Shard(0), Shard(1)], 1
+    else:
+        q_pl, c_pl, seq_dim = [Replicate(), Shard(1)], [Shard(1), Replicate()], 0
+    pieces = {}
+    with fake_group(4, "cuda"):
+        mesh = make_debug_mesh((2, 2), device_type="cuda")
+
+        def piece(t, pl):
+            local = shd.local_shard(t, shd.Sharding(mesh, tuple(pl)))
+            return DTensor.from_local(local, mesh, pl, run_check=False, shape=t.shape,
+                                      stride=t.stride())
+        for coord in [(d, m) for d in range(2) for m in range(2)]:
+            monkeypatch.setattr(DeviceMesh, "get_coordinate", lambda self, c=coord: list(c))
+            sent = []
+            monkeypatch.setattr(ops, "_all_reduce", lambda t, op, mesh, dim: sent.append(
+                (op, dim, t)) or t)
+            ops.reset_launches()
+            ops.elite_decode(piece(q_e, q_pl), piece(q_lat, q_pl), piece(k_e, c_pl),
+                             *[piece(c, c_pl)] * 2, piece(lens, [q_pl[0], Replicate()]), G, sc)
+            torch.cuda.synchronize()
+            assert ops.launches()["elite_decode"] == 1
+            assert [(op, dim) for op, dim, _ in sent] == [("max", seq_dim), ("sum", seq_dim)]
+            pieces.setdefault(coord[1 - seq_dim], []).append((sent[1][2][..., :-1],
+                                                              sent[0][2]))
+    for other, got in pieces.items():
+        part = want.chunk(2, 0)[other] if lanes > 1 else want.chunk(2, 1)[other]
+        torch.testing.assert_close(ref.merge_lse(*zip(*got)), part, **TOL)

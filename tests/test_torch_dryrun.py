@@ -238,7 +238,7 @@ def test_resident_elements_match_reference(arch, mesh):
     for name, shape in SHAPES.items():
         decode = shape.kind == "decode"
         plan = shd.plan_for_mesh(axes)
-        fsdp = dryrun.decode_fsdp(arch, plan) if decode else True
+        fsdp = dryrun.decode_fsdp_default(arch, plan) if decode else True
         assert fsdp == (not decode or jax_get_config(arch).param_count() * 2 / plan.tp > 8e9)
         plan, jplan = shd.plan_for_mesh(axes, fsdp=fsdp), _jax_plan(axes, fsdp=fsdp)
         cfg = dryrun.build_cfg(arch, shape, plan)
@@ -434,9 +434,11 @@ def test_lower_cell_one_card_and_production_records():
     assert mem["step_input_bytes"] == mem["argument_bytes"]
     assert one["kernels"]["elite_decode"]["calls"] == 2
     prod = dryrun.lower_cell("tinyllama_1_1b", "decode_32k", overrides={"num_layers": 2})
-    assert prod["mesh"] == "16x16" and prod["fsdp"] is False
-    assert prod["memory"]["temp_bytes"] is None and "item 15" in prod["memory"]["reason"]
-    assert prod["flops_split"].startswith("even")
+    assert prod["mesh"] == "16x16" and prod["fsdp"] is False and prod["decode_seq_tp"]
+    pm = prod["memory"]        # traced sharded: the cache sequence over "model"
+    assert pm["temp_bytes"] > 0 and "reason" not in pm
+    assert pm["peak_estimate_bytes"] == pm["step_input_bytes"] + pm["temp_bytes"]
+    assert prod["flops_split"] is None and prod["collective_bytes_per_device"] > 0
     skipped = dryrun.lower_cell("tinyllama_1_1b", "long_500k")
     assert skipped["skipped"] and "long_500k" in skipped["reason"]
 
@@ -459,7 +461,8 @@ def test_production_flops_extrapolate_a_full_trace():
 
 @pytest.mark.parametrize("arch,shape", [("tinyllama_1_1b", "train_4k"),
                                         ("falcon_mamba_7b", "train_4k"),
-                                        ("falcon_mamba_7b", "prefill_32k")])
+                                        ("falcon_mamba_7b", "prefill_32k"),
+                                        ("falcon_mamba_7b", "decode_32k")])
 def test_sharded_trace_extrapolates_a_full_depth_trace(arch, shape):
     """At tp > 1 a sharded trace may be extrapolated from three and four
     layer periods (``depth="periods"``): on six layers at 16 x 16 it
@@ -480,6 +483,16 @@ def test_dryrun_cli_and_diagnose_report(tmp_path, capsys):
                         str(tmp_path)]) == 0
     rec = json.loads((tmp_path / "16x16" / "tinyllama_1_1b__decode_32k.json").read_text())
     assert rec["kind"] == "decode" and rec["resident"]["cache"]["bytes"] > 0
+    assert rec["memory"]["temp_bytes"] > 0 and "all-reduce" in rec["collectives"]
+    # the decode plan's switches: FSDP kept; the cache sequence whole over "model"
+    for flag, key, want in (("--decode-fsdp", "fsdp", True),
+                            ("--no-decode-seq-tp", "decode_seq_tp", False)):
+        out = tmp_path / flag.strip("-")
+        assert dryrun.main(["--arch", "tinyllama_1_1b", "--shape", "decode_32k", flag,
+                            "--out", str(out)]) == 0
+        got = json.loads((out / "16x16" / "tinyllama_1_1b__decode_32k.json").read_text())
+        assert got[key] is want and got["memory"]["temp_bytes"] > 0, flag
+        assert got["resident"] != rec["resident"], flag
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", "tinyllama_1_1b", "--shape", "train_4k", "--param-dtype",
                      "bfloat16"])
@@ -572,6 +585,23 @@ def test_kernel_meta_versions_give_the_plain_shapes(seed):
     assert q.grad.shape == q.shape and k.grad.shape == k.shape
     assert {n: c["calls"] for n, c in build.META_CALLS.items()} == {
         "rope_elite": 1, "rope_elite_backward": 1}
+
+
+def test_elite_decode_meta_with_lse_counts_its_output():
+    """``return_lse`` on meta tensors: (o, lse) of the plain version's
+    shapes, and the call's bytes count the [B, nh] f32 log-sum-exp."""
+    B, S, nkv, G, r2, dc = 2, 40, 2, 4, 8, 16
+    cpu, meta = zip(*[_pair(s, 70 + i) for i, s in enumerate(
+        [(B, nkv * G, r2), (B, nkv * G, dc), (B, S, nkv, r2), (B, S, dc)])])
+    lens_cpu = torch.tensor([S, 7], dtype=torch.int32)
+    lens_meta = torch.empty((B,), dtype=torch.int32, device=META)
+    got, want = _run_both(lambda *a: ops.elite_decode(*a, return_lse=True),
+                          (*cpu, cpu[3], lens_cpu, G, 0.1), (*meta, meta[3], lens_meta, G, 0.1))
+    _same_meta(got, want)
+    args = (*cpu, cpu[3], lens_cpu)
+    nbytes, flops = ed.contig_decode_cost(args, rows=B * S, lse=True)
+    assert build.META_CALLS["elite_decode"] == {"calls": 1, "bytes": nbytes, "flops": flops}
+    assert nbytes == ed.contig_decode_cost(args, rows=B * S)[0] + 4 * B * nkv * G
 
 
 def test_elite_decode_meta_allocates_the_launchers_scratch():

@@ -22,15 +22,31 @@ throughout, the same math summed in another order across shards:
   turn to the other sign;
 * the prefill step's logits and cache: within 1e-5 of the largest.
 
-Rank 0's ``CommDebugMode`` counts of the sharded train and prefill steps
-equal a fake-group trace of the same cells (``launch/dryrun.py``'s
-``trace_sharded`` on a "cpu" mesh, whose routes gloo takes).  The rest
-runs in this process inside ``fake_group``, which always tears its group
-down: local shapes against ``shard_shape``, ``make_constrain`` on plain
-tensors, ``make_debug_mesh`` on one process, the two kernels' ``local_map``
-wrappers at every shard's coordinate (a shard's kv heads sliced from
-replicated ones), and the dry run's records at 16 × 16.
+The same spawn runs the decode plan's step (``make_decode_step(cfg,
+constrain=)`` on params, tokens and cache placed by the dry run's decode
+cell: no FSDP, the cache sequence over "model", ``seq_over_tp``): EliteKV
+TinyLlama at B 4 × S 32, 14 tokens prefilled by the one-process port and 4
+steps whose index crosses the two model shards' boundary at 16 (a shard
+with no valid row), the same at B 1 (the sequence over "data", the
+``long_500k`` rule), and Falcon-Mamba (channels over "model").  Each
+step's logits and the cache after it: within 1e-5 of the largest of the
+one-process port's, and the logits within rel 1e-4 (of the largest) of the
+JAX ``lm.apply_decode`` on the same weights; greedy tokens equal wherever
+the one-process top-2 margin is at least 1e-4.
+
+Rank 0's ``CommDebugMode`` counts of the sharded train, prefill and decode
+steps equal a fake-group trace of the same cells (``launch/dryrun.py``'s
+``trace_sharded`` on a "cpu" mesh, whose routes gloo takes); a decode
+trace at twice the cache length sends the same bytes.  The rest runs in
+this process inside ``fake_group``, which always tears its group down:
+local shapes against ``shard_shape``, ``make_constrain`` on plain tensors,
+``make_debug_mesh`` on one process, the kernels' ``local_map`` wrappers at
+every shard's coordinate (a shard's kv heads sliced from replicated ones;
+a sequence-sharded decode cache's pieces merged by ``ref.merge_lse``), the
+plain decode's log-sum-exp against float64 and its merge over every cut
+of the sequence, and the dry run's records at 16 × 16.
 """
+import copy
 import os
 import socket
 import subprocess
@@ -46,6 +62,7 @@ import torch
 import torch.distributed as dist
 
 from repro.configs import get_config as jax_get_config
+from repro.kernels import elite_decode as jax_ed
 from repro.models import lm as jax_lm
 
 from repro_torch import interop
@@ -65,6 +82,9 @@ B, S = 4, 32
 LR = 1e-3
 CASES = {"elitekv": ("tinyllama_1_1b", True), "baseline": ("tinyllama_1_1b", False),
          "mamba": ("falcon_mamba_7b", False)}
+#: the decode cases: (the train case whose weights they take, lanes)
+DECODE = {"elitekv": ("elitekv", 4), "elitekv_b1": ("elitekv", 1), "mamba": ("mamba", 4)}
+PREFILLED, STEPS = 14, 4          # decode indices 14 .. 17 cross the shards' boundary at 16
 
 
 def _cfgs(case):
@@ -104,8 +124,9 @@ WORKER = textwrap.dedent("""
         mesh = make_debug_mesh((2, 2), device_type="cpu")
         plan = shd.plan_for_mesh(mesh)
         full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+        inp = torch.load(src, weights_only=False)
         out = {}
-        for case, c in torch.load(src, weights_only=False).items():
+        for case, c in inp["train"].items():
             cfg, tc = c["cfg"], c["tc"]
             B, S = c["batch"]["tokens"].shape
             train = ShapeConfig("train", S, B, "train")
@@ -149,8 +170,38 @@ WORKER = textwrap.dedent("""
                 "prefill_counts": dryrun.comm_counts(cdm),
                 "sharded": {k: any(x.is_shard() for x in v.placements) for k, v in items(p)},
             }
+        # the decode plan: no FSDP, the cache sequence over model (or data at B 1)
+        dplan = shd.plan_for_mesh(mesh, fsdp=False)
+        dec = {}
+        for case, c in inp["decode"].items():
+            cfg, toks = c["cfg"], c["tokens"]
+            cell = dryrun.Cell(cfg, ShapeConfig("decode", S, toks.shape[0], "decode"),
+                               seq_over_tp=True)
+            placed = dryrun.place_state(cell, dplan, {
+                "params": c["params"], "buffers": c["buffers"],
+                "batch": {"tokens": toks[:, :1]}, "cache": c["cache"]})
+            before = {k: v.placements for k, v in items(placed["cache"]["blocks"])}
+            step = serve_loop.make_decode_step(cfg, constrain=dryrun.sharding_constrain(
+                cell, dplan))
+            rec = {"logits": [], "next": [], "cache": [], "counts": []}
+            for t in range(toks.shape[1]):
+                tok = shd.distribute({"tokens": toks[:, t:t + 1]}, shd.input_shardings(
+                    {"tokens": None}, cfg, cell.shape, dplan))
+                with torch.no_grad(), CommDebugMode() as cdm:
+                    nxt, logits = step(placed["params"], placed["buffers"], tok,
+                                       placed["cache"])
+                rec["counts"].append(dryrun.comm_counts(cdm))
+                rec["logits"].append(full(logits))
+                rec["next"].append(full(nxt))
+                rec["cache"].append({k: full(v) for k, v in items(placed["cache"]["blocks"])})
+            rec["index"] = placed["cache"]["index"]
+            rec["placements"] = {k: [x.dim if x.is_shard() else None for x in v]
+                                 for k, v in before.items()}
+            rec["cache_kept"] = all(v.placements == before[k]
+                                    for k, v in items(placed["cache"]["blocks"]))
+            dec[case] = rec
         if rank == 0:
-            torch.save(out, dst)
+            torch.save({"train": out, "decode": dec}, dst)
     finally:
         dist.destroy_process_group()
 """)
@@ -193,6 +244,60 @@ def _fake_trace_counts(cfg):
     return out
 
 
+def _decode_traces(cfg, lanes):
+    """The fake-group traces' collectives ({kind: {"count", "bytes"}}) of
+    the decode plan's step at ``lanes`` × S and × 2S on a "cpu" 2 × 2 mesh."""
+    plan = shd.plan_for_mesh({"data": 2, "model": 2}, fsdp=False)
+    return [dryrun.trace_sharded(dryrun.Cell(cfg, ShapeConfig("decode", n, lanes, "decode"),
+                                             seq_over_tp=True), plan,
+                                 device_type="cpu")["collectives"] for n in (S, 2 * S)]
+
+
+def _decode_inputs(models):
+    """Per decode case: its config, weights, the cache with PREFILLED
+    tokens prefilled by the one-process port, and STEPS decode tokens."""
+    out = {}
+    for case, (base, lanes) in DECODE.items():
+        _, cfg, _, _, tp, tb, _ = models[base]
+        toks = torch.from_numpy(np.random.default_rng(9).integers(
+            0, cfg.vocab_size, (lanes, PREFILLED + STEPS)))
+        cache = lm.init_cache(cfg, lanes, S, device="cpu")
+        with torch.no_grad():
+            lm.apply_prefill(tp, tb, cfg, {"tokens": toks[:, :PREFILLED]}, cache)
+        out[case] = {"cfg": cfg, "params": tp, "buffers": tb, "cache": cache,
+                     "tokens": toks[:, PREFILLED:], "prompt": toks[:, :PREFILLED]}
+    return out
+
+
+def _one_process_decode(c):
+    """The one-process port's decode steps on a copy of the case's cache:
+    per step (logits, next, the cache's leaves after it)."""
+    cache = copy.deepcopy(c["cache"])
+    step = serve_loop.make_decode_step(c["cfg"])
+    rows = []
+    for t in range(c["tokens"].shape[1]):
+        with torch.no_grad():
+            nxt, logits = step(c["params"], c["buffers"], c["tokens"][:, t:t + 1], cache)
+        rows.append((logits, nxt, {k: v.clone() for k, v in items(cache["blocks"])}))
+    return rows
+
+
+def _jax_decode(models, case, c):
+    """The JAX ``lm.apply_decode``'s logits per step, its cache prefilled
+    with the same prompt."""
+    jcfg, _, jp, jb = models[DECODE[case][0]][:4]
+    lanes = c["tokens"].shape[0]
+    jcache = jax_lm.init_cache(jcfg, lanes, S, dtype=jnp.float32)
+    as_j = lambda t: jnp.asarray(t.numpy().astype(np.int32))
+    _, jcache = jax_lm.apply_prefill(jp, jb, jcfg, {"tokens": as_j(c["prompt"])}, jcache)
+    out = []
+    for t in range(c["tokens"].shape[1]):
+        logits, jcache = jax_lm.apply_decode(jp, jb, jcfg,
+                                             {"tokens": as_j(c["tokens"][:, t:t + 1])}, jcache)
+        out.append(torch.from_numpy(np.array(logits)))
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(models, tmp_path_factory):
     """Per case: "sharded", rank 0's results of the four gloo processes;
@@ -200,9 +305,11 @@ def runs(models, tmp_path_factory):
     The last two are computed here while the processes run."""
     tmp = tmp_path_factory.mktemp("sharded")
     src, dst = tmp / "in.pt", tmp / "out.pt"
-    torch.save({case: {"cfg": cfg, "tc": _train_config(), "params": tp, "buffers": tb,
-                       "batch": _torch_batch(batch)}
-                for case, (_, cfg, _, _, tp, tb, batch) in models.items()}, src)
+    dec = _decode_inputs(models)
+    torch.save({"train": {case: {"cfg": cfg, "tc": _train_config(), "params": tp,
+                                 "buffers": tb, "batch": _torch_batch(batch)}
+                          for case, (_, cfg, _, _, tp, tb, batch) in models.items()},
+                "decode": dec}, src)
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     logs = [tmp / f"rank{r}.log" for r in range(4)]
@@ -215,7 +322,11 @@ def runs(models, tmp_path_factory):
     try:
         out = {"one": {case: _one_process(cfg, tp, tb, _torch_batch(batch))
                        for case, (_, cfg, _, _, tp, tb, batch) in models.items()},
-               "traces": {case: _fake_trace_counts(m[1]) for case, m in models.items()}}
+               "traces": {case: _fake_trace_counts(m[1]) for case, m in models.items()},
+               "one_decode": {case: _one_process_decode(c) for case, c in dec.items()},
+               "jax_decode": {case: _jax_decode(models, case, c) for case, c in dec.items()},
+               "decode_traces": {case: _decode_traces(c["cfg"], c["tokens"].shape[0])
+                                 for case, c in dec.items()}}
         for p in procs:
             p.wait(timeout=240)
     finally:
@@ -226,7 +337,8 @@ def runs(models, tmp_path_factory):
     bad = [(p.returncode, log.read_text()[-3000:]) for p, log in zip(procs, logs)
            if p.returncode != 0]
     assert not bad, bad
-    out["sharded"] = torch.load(dst, weights_only=False)
+    got = torch.load(dst, weights_only=False)
+    out["sharded"], out["decode"] = got["train"], got["decode"]
     return out
 
 
@@ -311,6 +423,38 @@ def test_rank0_collectives_equal_the_fake_group_trace(case, runs):
         assert runs["sharded"][case][f"{kind}_counts"] == counts, (kind, counts)
         assert own == counts
     assert runs["sharded"][case]["train_counts"].get("all-gather", 0) > 0
+
+
+@pytest.mark.parametrize("case", list(DECODE))
+def test_sharded_decode_matches_one_process_and_jax(case, runs):
+    got, one, jax_rows = runs["decode"][case], runs["one_decode"][case], runs["jax_decode"][case]
+    assert got["cache_kept"] and got["index"] == PREFILLED + STEPS
+    for t, (logits, nxt, cache) in enumerate(one):
+        ok, err = _close(got["logits"][t], logits)
+        assert ok, (t, err)
+        ok, err = _close(got["logits"][t], jax_rows[t], 1e-4)
+        assert ok, (t, "jax", err)
+        top2 = logits[:, -1].topk(2, dim=-1).values
+        sure = top2[:, 0] - top2[:, 1] >= 1e-4
+        assert torch.equal(got["next"][t][sure], nxt[sure]), t
+        assert set(got["cache"][t]) == set(cache)
+        for k, v in cache.items():
+            ok, err = _close(got["cache"][t][k], v)
+            assert ok, (t, k, err)
+    if case.startswith("elitekv"):      # [L, B, S, ...]: the sequence sharded
+        seq_axis = "model" if DECODE[case][1] > 1 else "data"
+        pl = got["placements"]["p0/k_e"]
+        assert pl[("data", "model").index(seq_axis)] == 2, pl
+
+
+@pytest.mark.parametrize("case", list(DECODE))
+def test_sharded_decode_collectives_equal_the_fake_trace_and_do_not_grow_with_S(case, runs):
+    at_s, at_2s = runs["decode_traces"][case]
+    want = {k: v["count"] for k, v in at_s.items() if v["count"]}
+    assert all(counts == want for counts in runs["decode"][case]["counts"]), want
+    assert at_s == at_2s                  # counts and bytes: nothing sends the cache
+    if case.startswith("elitekv"):        # per layer at least the merge's max and sum
+        assert want["all-reduce"] >= 2 * 2 and want["all-gather"] >= 1
 
 
 # ---------------------------------------------------------------------------
@@ -461,6 +605,150 @@ def test_kernel_wrappers_at_every_shard(nh, nkv, monkeypatch):
             assert sum(ops.launches().values()) == 0      # plain versions on the CPU
 
 
+def _piece(t, placements, mesh):
+    """This rank's piece of ``t`` as a ``DTensor`` placed by ``placements``."""
+    from torch.distributed.tensor import DTensor
+    local = shd.local_shard(t, shd.Sharding(mesh, tuple(placements)))
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+@pytest.mark.parametrize("lanes", [4, 1], ids=["seq_over_model", "seq_over_data"])
+def test_sequence_sharded_decode_wrapper_at_every_shard(lanes, monkeypatch):
+    """``ops.elite_decode`` on ``DTensor``s whose cache sequence is sharded
+    (over "model" of a 2 × 2 mesh at B 4; over "data" at B 1, the query
+    heads over "model" reading replicated kv heads) at each rank's
+    coordinate: each rank attends its own rows with local lengths (a lane
+    ending on the pieces' boundary, lanes with no row in a piece) and hands
+    the two all-reduces its lse and ``[o·w | w]``; merged over the
+    sequence's ranks by ``ref.merge_lse`` they give the unsharded plain
+    call (rel 1e-6 of the largest)."""
+    from torch.distributed.tensor import Replicate, Shard
+    nh, nkv, r2, dc, Sq = 4, 2, 8, 16, 32
+    g = torch.Generator().manual_seed(1)
+    q_e, q_lat = torch.randn(lanes, nh, r2, generator=g), torch.randn(lanes, nh, dc, generator=g)
+    k_e, c = torch.randn(lanes, Sq, nkv, r2, generator=g), torch.randn(lanes, Sq, dc, generator=g)
+    lens = torch.tensor([32, 20, 16, 5][:lanes] if lanes > 1 else [20], dtype=torch.int32)
+    G, scale = nh // nkv, 0.3
+    want = ref.elite_decode_ref(q_e, q_lat, k_e, c, c, lens, G, scale)
+    if lanes > 1:     # lanes over data, the sequence over model (the query whole
+        # there: a fake group's gather would move no data)
+        q_pl, c_pl, seq_dim = [Shard(0), Replicate()], [Shard(0), Shard(1)], 1
+    else:             # the sequence over data, query heads over model
+        q_pl, c_pl, seq_dim = [Replicate(), Shard(1)], [Shard(1), Replicate()], 0
+    pieces = {}
+    with fake_group(4, "cpu"):
+        mesh = make_debug_mesh((2, 2), device_type="cpu")
+        for coord in [(d, m) for d in range(2) for m in range(2)]:
+            _at_coordinate(monkeypatch, coord)
+            sent = []
+            monkeypatch.setattr(ops, "_all_reduce", lambda t, op, mesh, dim: sent.append(
+                (op, dim, t)) or t)
+            ops.reset_launches()
+            o = ops.elite_decode(_piece(q_e, q_pl, mesh), _piece(q_lat, q_pl, mesh),
+                                 _piece(k_e, c_pl, mesh), *[_piece(c, c_pl, mesh)] * 2,
+                                 _piece(lens, [q_pl[0], Replicate()], mesh), G, scale)
+            assert [(op, dim) for op, dim, _ in sent] == [("max", seq_dim), ("sum", seq_dim)]
+            assert sum(ops.launches().values()) == 0          # plain versions on the CPU
+            lse, sums = sent[0][2], sent[1][2]
+            w = sums[..., -1]
+            assert torch.equal(w, torch.isfinite(lse).float())  # its own max: 1 or 0
+            other = coord[1 - seq_dim]                # the coordinate the pieces share
+            pieces.setdefault(other, []).append((sums[..., :-1], lse))
+            assert o.placements == tuple(p if i != seq_dim else Replicate()
+                                         for i, p in enumerate(q_pl))
+    for other, got in pieces.items():
+        merged = ref.merge_lse(*zip(*got))
+        part = (want.chunk(2, 0)[other] if lanes > 1 else want.chunk(2, 1)[other])
+        ok, err = _close(merged, part, 1e-6)
+        assert ok, (other, err)
+
+
+@pytest.mark.parametrize("nkv,G,separate", [(2, 1, False), (1, 4, False), (2, 4, True)])
+def test_decode_lse_matches_float64_and_pallas(nkv, G, separate):
+    """The plain decode's ``return_lse``: o as without it, bitwise, and as
+    the Pallas ``elite_decode`` in interpret mode; lse within 1e-6 of a
+    float64 log-sum-exp of the masked scaled scores, -inf for a lane with no
+    row."""
+    rng = np.random.default_rng(3)
+    Sq, r2, dc, scale = 24, 8, 32, 0.3
+    lengths = np.asarray([0, 1, 5, Sq - 3, Sq, 9, Sq + 4], np.int32)
+    B, nh = len(lengths), nkv * G
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    q_e, q_lat, k_e, c_k = f(B, nh, r2), f(B, nh, dc), f(B, Sq, nkv, r2), f(B, Sq, dc)
+    c_v = f(B, Sq, dc) if separate else c_k
+    t = lambda a: torch.from_numpy(a)
+    args = (t(q_e), t(q_lat), t(k_e), t(c_k), t(c_v) if separate else t(c_k), t(lengths),
+            G, scale)
+    o, lse = ops.elite_decode(*args, return_lse=True)
+    assert torch.equal(o, ops.elite_decode(*args))
+    want = np.asarray(jax_ed.elite_decode(
+        *(jnp.asarray(a) for a in (q_e, q_lat, k_e, c_k, c_v, lengths)), G, scale,
+        block_s=Sq, interpret=True))
+    np.testing.assert_allclose(o.numpy(), want, atol=1e-5, rtol=1e-5)
+    kv = np.repeat(np.arange(nkv), G)
+    s64 = (np.einsum("bhr,bshr->bhs", q_e.astype(np.float64), k_e[:, :, kv].astype(np.float64))
+           + np.einsum("bhc,bsc->bhs", q_lat.astype(np.float64), c_k.astype(np.float64)))
+    s64 = np.where(np.arange(Sq)[None, None] < lengths[:, None, None], s64 * scale, -np.inf)
+    top = s64.max(-1, keepdims=True)
+    with np.errstate(invalid="ignore"):
+        lse64 = (top + np.log(np.exp(s64 - top).sum(-1, keepdims=True)))[..., 0]
+    lse64 = np.where(lengths[:, None] > 0, lse64, -np.inf)
+    np.testing.assert_allclose(lse.numpy(), lse64, atol=1e-6, rtol=0)
+    assert np.isneginf(lse.numpy()[0]).all()
+
+
+@pytest.mark.parametrize("separate", [False, True], ids=["jlrd", "slrd"])
+def test_merge_lse_over_every_cut_matches_unsharded(separate):
+    """``ref.merge_lse`` of the plain decode over every cut of S into two
+    and three pieces (empty pieces included: a cut past a lane's length, a
+    lane with no row) against the unsharded call, rel 1e-6 of the largest."""
+    g = torch.Generator().manual_seed(4)
+    nh, nkv, r2, dc, Sq = 8, 2, 8, 16, 12
+    f = lambda *shape: torch.randn(shape, generator=g)
+    lens = torch.tensor([0, 1, 5, 7, 12, 15], dtype=torch.int32)
+    B = len(lens)
+    q_e, q_lat, k_e, c_k = f(B, nh, r2), f(B, nh, dc), f(B, Sq, nkv, r2), f(B, Sq, dc)
+    c_v = f(B, Sq, dc) if separate else c_k
+    G, scale = nh // nkv, 0.4
+    want = ref.elite_decode_ref(q_e, q_lat, k_e, c_k, c_v, lens, G, scale)
+    cuts = [(a,) for a in range(Sq + 1)] + [(a, b) for a in range(Sq + 1)
+                                            for b in range(a, Sq + 1)]
+    for cut in cuts:
+        bounds = (0,) + cut + (Sq,)
+        os_, lses = [], []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            if hi == lo:
+                os_.append(torch.zeros(B, nh, dc))
+                lses.append(torch.full((B, nh), -torch.inf))
+                continue
+            mine = (lens - lo).clamp(0, hi - lo).to(torch.int32)
+            o, lse = ref.elite_decode_ref(q_e, q_lat, k_e[:, lo:hi], c_k[:, lo:hi],
+                                          c_v[:, lo:hi], mine, G, scale, return_lse=True)
+            os_.append(o)
+            lses.append(lse)
+        ok, err = _close(ref.merge_lse(os_, lses), want, 1e-6)
+        assert ok, (cut, err)
+    assert float(ref.merge_lse(os_, lses)[0].abs().max()) == 0.0     # no row: zeros
+
+
+def test_baseline_decode_on_a_sequence_sharded_cache_raises():
+    from repro_torch.models import attention
+    cfg = get_config("tinyllama_1_1b").reduced(num_layers=2, vocab_size=256, n_heads=4,
+                                               n_kv_heads=2)
+    cell = dryrun.Cell(cfg, ShapeConfig("decode", S, B, "decode"), seq_over_tp=True)
+    with fake_group(4, "cpu"):
+        plan = dryrun.sharded_plan(shd.plan_for_mesh({"data": 2, "model": 2}, fsdp=False),
+                                   "cpu")
+        placed = dryrun.place_state(cell, plan, dryrun.cell_state(cell, "meta"))
+        layer = {k: v[0] for k, v in placed["cache"]["blocks"]["p0"].items()}
+        x = shd.distribute({"x": torch.empty(B, 1, cfg.d_model, device="meta")},
+                           {"x": shd.Sharding(plan.mesh, shd.placements(("data",), plan))})
+        with pytest.raises(ValueError, match="15c.3"):
+            attention.apply_decode(placed["params"]["layers"][0]["attn"], cfg, x["x"], S - 1,
+                                   layer)
+
+
 def _records(shape_name):
     return dryrun.lower_cell("tinyllama_1_1b", shape_name, batch=32, seq_len=64,
                              overrides={"num_layers": 2})
@@ -483,15 +771,41 @@ def test_reduced_production_records_trace_the_sharded_step(shape_name):
     assert rec["largest_at_peak"]
 
 
+@pytest.mark.parametrize("seq_tp", [True, False], ids=["seq_over_tp", "no_decode_seq_tp"])
+def test_decode_record_traces_the_sharded_step(seq_tp):
+    """The 16 × 16 decode cell (2 layers) traced sharded: temp, peak and
+    collectives; with the cache sequence over "model" the query gather and
+    the merge's two all-reduces per layer, and no collective that grows
+    with the cache: the same bytes at twice the length."""
+    recs = [dryrun.lower_cell("tinyllama_1_1b", "decode_32k", seq_len=n,
+                              overrides={"num_layers": 2}, decode_seq_tp=seq_tp)
+            for n in (4096, 8192)]
+    dec = recs[0]
+    mem = dec["memory"]
+    assert dec["decode_seq_tp"] is seq_tp and not dec["fsdp"] and dec["flops_split"] is None
+    assert mem["temp_bytes"] > 0 and mem["peak_estimate_bytes"] >= mem["argument_bytes"]
+    assert dec["collective_bytes_per_device"] > 0 and "all-reduce" in dec["collectives"]
+    assert {k: v["calls"] for k, v in dec["kernels"].items()} == {"elite_decode": 2,
+                                                                   "rope_elite": 2}
+    if seq_tp:     # embed, and per layer attn_out, ffn_out and the merge's max and sum
+        assert dec["collectives"]["all-reduce"]["count"] == 1 + 4 * 2
+        assert recs[1]["collectives"] == dec["collectives"]
+    else:          # the latent (d_c over model) gathered: it grows with the cache
+        assert recs[1]["collective_bytes_per_device"] > dec["collective_bytes_per_device"]
+
+
 def test_moe_and_decode_records_stay_null_with_their_reasons():
-    dec = dryrun.lower_cell("tinyllama_1_1b", "decode_32k", overrides={"num_layers": 2})
+    dec = dryrun.lower_cell("tinyllama_1_1b", "decode_32k", overrides={"num_layers": 2},
+                            elitekv=False)
     assert dec["memory"]["peak_estimate_bytes"] is None
-    assert "15c.2" in dec["memory"]["reason"] and "item 15" in dec["memory"]["reason"]
+    assert "15c.3" in dec["memory"]["reason"] and "item 15" in dec["memory"]["reason"]
     assert dec["collectives"] == {} and dec["collective_bytes_per_device"] is None
     moe = dryrun.lower_cell("qwen3_moe_235b", "train_4k", batch=32, seq_len=64,
                             overrides={"num_layers": 1})
     assert moe["memory"]["temp_bytes"] is None
     assert "15d" in moe["memory"]["reason"] and "item 15" in moe["memory"]["reason"]
+    moe_dec = dryrun.lower_cell("qwen3_moe_235b", "decode_32k", overrides={"num_layers": 1})
+    assert moe_dec["memory"]["temp_bytes"] is None and "15d" in moe_dec["memory"]["reason"]
 
 
 def test_no_process_group_is_left():
